@@ -1,0 +1,52 @@
+// Shared helpers for the port's hand-written Hopper kernels.
+//
+// Every kernel takes its element type as a template parameter and is
+// instantiated for float (dtype code 0) and __nv_bfloat16 (dtype code 1);
+// arithmetic is always in float.  Each C entry point returns
+// cudaGetLastError() right after its launch so the Python wrapper can
+// raise on a refused launch (too many threads, too much shared memory).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define PTT_DTYPE_F32 0
+#define PTT_DTYPE_BF16 1
+
+namespace ptt {
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch casts
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of `v` over the whole block, returned to every thread.  `red` is a
+// 32-float shared scratch; blockDim.x must be a multiple of 32.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  v = warp_sum(v);
+  __syncthreads();  // a previous call may still be reading `red`
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  v = lane < nwarps ? red[lane] : 0.f;
+  return warp_sum(v);
+}
+
+}  // namespace ptt

@@ -1,0 +1,261 @@
+// Matmul with a fused bias + activation epilogue: out = act(x @ w + b).
+//
+// Replaces: paddle_tpu/ops/pallas_fused.py `_me_fwd_kernel` (:266, called
+// at :315), the Pallas matmul-epilogue forward that keeps the bias add and
+// the activation out of device memory and optionally saves the
+// pre-activation z for the backward.
+//
+// x is [M, K], w is [K, N] (Paddle's [in, out] layout), b is [N]; all
+// three share one type.  z is written only when its pointer is not null:
+// serving runs without gradients and passes none.
+//
+// What bounds it on the H100: operations, by a hair.  At the main path's
+// fc1 shape (M = 368 tokens, K = 2048, N = 8192, bf16) the product is
+// 12.35 GFLOP against 41 MB of traffic (the 33.5 MB weight dominates),
+// about 301 flops per byte: just above the ~295 at which the tensor
+// cores, not the memory, become the limit.  Both bounds are ~12.4 us.
+//
+// Design, kept simple and right first (TMA and wgmma come later):
+//  * bf16: one block of four warps per 64x64 output tile.  The block
+//    stages a 64x32 slice of x and a 32x64 slice of w in shared memory
+//    with 16-byte copies, and each warp multiplies its 32x32 quarter on the tensor cores with
+//    WMMA 16x16x16 bf16 fragments, accumulating in f32.  Shared rows are
+//    padded (40, 72, 68 elements) to spread banks while keeping every
+//    fragment pointer 32-byte aligned.
+//  * f32: the tensor cores would round the operands to TF32, so the f32
+//    path multiplies on the CUDA cores: 256 threads per 64x64 tile, each
+//    accumulating a 4x4 micro-tile in registers from 16-deep shared
+//    slices, with fmaf in f32.
+//  * epilogue, both: the accumulator plus the bias goes through the
+//    activation in f32 (the formulas and constants of the TPU kernel's
+//    `_act_f32`, pallas_fused.py:55) and is cast once to the output type.
+// Edges in M, N and K are zero-filled on load and masked on store, so any
+// shape is legal.
+#include <mma.h>
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kActNone = 0;
+constexpr int kActRelu = 1;
+constexpr int kActGelu = 2;
+constexpr int kActGeluTanh = 3;
+constexpr int kActSilu = 4;
+
+__device__ __forceinline__ float apply_act(float z, int act) {
+  switch (act) {
+    case kActRelu:
+      return fmaxf(z, 0.f);
+    case kActGelu:
+      return 0.5f * z * (1.f + erff(z / 1.4142135623730951f));
+    case kActGeluTanh: {
+      const float t =
+          tanhf(0.7978845608028654f * (z + 0.044715f * z * z * z));
+      return 0.5f * z * (1.f + t);
+    }
+    case kActSilu:
+      return z * (1.f / (1.f + expf(-z)));
+    default:
+      return z;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_epilogue(float acc, const T* b, T* out,
+                                               T* z, int gm, int gn, int N,
+                                               int act) {
+  const float zf = acc + ptt::to_float(b[gn]);
+  const size_t idx = static_cast<size_t>(gm) * N + gn;
+  if (z != nullptr) z[idx] = ptt::from_float<T>(zf);
+  out[idx] = ptt::from_float<T>(apply_act(zf, act));
+}
+
+// ---- bf16: WMMA tensor-core tiles ---------------------------------------
+constexpr int kBM = 64, kBN = 64, kBK = 32;
+
+// Stage rows x cols of a row-major bf16 matrix (leading dimension
+// `ld_src`, `rows_total` x `cols_total`) at (row0, col0) into shared
+// memory, eight values (16 bytes) per copy where they are in bounds and
+// `vec` says the rows are 16-byte aligned; element by element, with zero
+// fill, at the ragged edge.
+template <int kRows, int kCols>
+__device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
+                                           int ld_dst,
+                                           const bf16* __restrict__ src,
+                                           int ld_src, int row0, int col0,
+                                           int rows_total, int cols_total,
+                                           bool vec) {
+  constexpr int kChunks = kCols / 8;
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int e = threadIdx.x; e < kRows * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = (e % kChunks) * 8;
+    const int gr = row0 + r, gc = col0 + c;
+    bf16* d = dst + r * ld_dst + c;
+    const bf16* s = src + static_cast<size_t>(gr) * ld_src + gc;
+    if (vec && gr < rows_total && gc + 8 <= cols_total) {
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        d[j] = (gr < rows_total && gc + j < cols_total) ? s[j] : zero;
+    }
+  }
+}
+constexpr int kALd = kBK + 8;  // 80-byte rows
+constexpr int kBLd = kBN + 8;  // 144-byte rows
+constexpr int kCLd = kBN + 4;  // 272-byte rows
+
+__global__ void __launch_bounds__(128)
+    me_fwd_wmma_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     const bf16* __restrict__ b, bf16* __restrict__ out,
+                     bf16* __restrict__ z, int M, int K, int N, int act) {
+  using namespace nvcuda;
+  __shared__ __align__(128) bf16 As[kBM * kALd];
+  __shared__ __align__(128) bf16 Bs[kBK * kBLd];
+  __shared__ __align__(128) float Cs[kBM * kCLd];
+
+  const int m0 = blockIdx.y * kBM;
+  const int n0 = blockIdx.x * kBN;
+  const int warp = threadIdx.x >> 5;
+  const int wm = (warp >> 1) * 32;  // this warp's 32x32 quarter
+  const int wn = (warp & 1) * 32;
+  // 16-byte copies need 16-byte aligned rows
+  const bool x_vec = K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool w_vec = N % 8 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < K; k0 += kBK) {
+    stage_tile<kBM, kBK>(As, kALd, x, K, m0, k0, M, K, x_vec);
+    stage_tile<kBK, kBN>(Bs, kBLd, w, N, k0, n0, K, N, w_vec);
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * kALd + kk, kALd);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        wmma::load_matrix_sync(fb[j], Bs + kk * kBLd + wn + 16 * j, kBLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kCLd + wn + 16 * j,
+                              acc[i][j], kCLd, wmma::mem_row_major);
+  __syncthreads();
+  for (int e = threadIdx.x; e < kBM * kBN; e += blockDim.x) {
+    const int r = e / kBN, c = e % kBN;
+    const int gm = m0 + r, gn = n0 + c;
+    if (gm < M && gn < N)
+      store_epilogue<bf16>(Cs[r * kCLd + c], b, out, z, gm, gn, N, act);
+  }
+}
+
+// ---- f32: CUDA-core register tiles --------------------------------------
+constexpr int kFM = 64, kFN = 64, kFK = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    me_fwd_fma(const T* __restrict__ x, const T* __restrict__ w,
+               const T* __restrict__ b, T* __restrict__ out,
+               T* __restrict__ z, int M, int K, int N, int act) {
+  __shared__ float As[kFK][kFM + 4];  // As[k][m]
+  __shared__ float Bs[kFK][kFN + 4];  // Bs[k][n]
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * kFM;
+  const int n0 = blockIdx.x * kFN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kFK) {
+    for (int e = threadIdx.x; e < kFM * kFK; e += blockDim.x) {
+      const int r = e / kFK, c = e % kFK;  // x tile: row r, depth c
+      const int gm = m0 + r, gk = k0 + c;
+      As[c][r] = (gm < M && gk < K)
+                     ? ptt::to_float(x[static_cast<size_t>(gm) * K + gk])
+                     : 0.f;
+      const int kr = e / kFN, nc = e % kFN;  // w tile: depth kr, col nc
+      const int gk2 = k0 + kr, gn = n0 + nc;
+      Bs[kr][nc] = (gk2 < K && gn < N)
+                       ? ptt::to_float(w[static_cast<size_t>(gk2) * N + gn])
+                       : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFK; ++kk) {
+      float a[4], bb[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bb[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gm = m0 + ty * 4 + i, gn = n0 + tx * 4 + j;
+      if (gm < M && gn < N) store_epilogue<T>(acc[i][j], b, out, z, gm, gn, N, act);
+    }
+}
+
+}  // namespace
+
+extern "C" int ptt_matmul_epilogue_fwd(const void* x, const void* w,
+                                       const void* b, void* out, void* z,
+                                       int M, int K, int N, int act,
+                                       int dtype, int device,
+                                       void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (act < kActNone || act > kActSilu)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == PTT_DTYPE_BF16) {
+    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+    me_fwd_wmma_bf16<<<grid, 128, 0, s>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+        static_cast<const bf16*>(b), static_cast<bf16*>(out),
+        static_cast<bf16*>(z), M, K, N, act);
+  } else if (dtype == PTT_DTYPE_F32) {
+    const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM);
+    me_fwd_fma<float><<<grid, 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(b), static_cast<float*>(out),
+        static_cast<float*>(z), M, K, N, act);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,103 @@
+"""The paged cache as the model sees it: K/V scatter + ragged attention.
+
+Port of ``paddle_tpu/inference/serving/attention.py``: ``RaggedCacheView``,
+``RaggedLayerCache``, ``kv_cache_scatter`` and ``ragged_attention``.  The
+view holds one step's driving tensors (slot mapping, block tables,
+context lengths, positions, segment descriptors), all on the pool's
+device; ``models/gpt.py`` finds it by its ``attend`` and
+``position_ids`` attributes.  Each layer scatters its fresh K/V into the
+pool in place, then runs ragged paged attention over every segment, so
+prefill chunks and decode rows share one kernel launch.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...ops.ragged import ragged_paged_attention
+
+__all__ = ["kv_cache_scatter", "ragged_attention", "RaggedCacheView",
+           "RaggedLayerCache"]
+
+
+def kv_cache_scatter(k_pool, v_pool, k_new, v_new, blk, off):
+    """Write this step's K/V ``[..., H, D]`` (one row per token) into the
+    pools ``[nb, H, bs, D]`` at block ``blk`` / offset ``off`` (int64
+    ``[tokens]``), in place.  Pad tokens all go to slot 0, the pad block:
+    their racing writes are harmless because block 0 is never read
+    unmasked.  The reference's functional ``.at[].set`` was never a
+    Pallas kernel; this is PyTorch's indexed write."""
+    H, D = k_pool.shape[1], k_pool.shape[3]
+    k_pool[blk, :, off] = k_new.reshape(-1, H, D).to(k_pool.dtype)
+    v_pool[blk, :, off] = v_new.reshape(-1, H, D).to(v_pool.dtype)
+
+
+def ragged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                     seq_ids, q_starts, q_valids, block_q, scale=None):
+    """Mixed prefill + decode attention for q ``[1, T, H, D]``."""
+    out = ragged_paged_attention(q[0].contiguous(), k_pool, v_pool,
+                                 block_tables, context_lens, seq_ids,
+                                 q_starts, q_valids, block_q=block_q,
+                                 scale=scale)
+    return out[None]
+
+
+class RaggedLayerCache:
+    """One layer's view of the ragged step: what GPTAttention receives
+    as ``cache``."""
+
+    __slots__ = ("_view", "_layer")
+
+    def __init__(self, view, layer):
+        self._view = view
+        self._layer = layer
+
+    def attend(self, q, k, v):
+        """Scatter this step's K/V into the pool, then attend.  q/k/v:
+        ``[1, T, H, D]``; returns ``[1, T, H, D]``."""
+        view = self._view
+        k_pool, v_pool = view.cache.layer_pools(self._layer)
+        kv_cache_scatter(k_pool, v_pool, k, v, view.slot_block,
+                         view.slot_offset)
+        return ragged_attention(q, k_pool, v_pool, view.block_tables,
+                                view.context_lens, view.seq_ids,
+                                view.q_starts, view.q_valids,
+                                view.block_q)
+
+
+class RaggedCacheView:
+    """Adapts a PagedKVCache to the model for the unified ragged step.
+
+    `set_inputs` stages one step's driving tensors; every layer of the
+    forward pass reads them.
+    """
+
+    def __init__(self, cache, block_q):
+        self.cache = cache
+        self.block_q = int(block_q)
+        self.slot_block = None     # [T] int64 pool block of each token
+        self.slot_offset = None    # [T] int64 offset inside that block
+        self.block_tables = None   # [S, W] int32
+        self.context_lens = None   # [S] int32
+        self.position_ids = None   # [1, T] absolute positions
+        self.seq_ids = None        # [T // block_q] int32 (S = null)
+        self.q_starts = None       # [T // block_q] int32
+        self.q_valids = None       # [T // block_q] int32
+        self._layers = [RaggedLayerCache(self, i)
+                        for i in range(cache.num_layers)]
+
+    def __getitem__(self, layer):
+        return self._layers[layer]
+
+    def set_inputs(self, slot_mapping, block_tables, context_lens,
+                   position_ids, seq_ids, q_starts, q_valids):
+        """Stage this step's driving tensors (on the pool's device)."""
+        slots = slot_mapping.long()
+        bs = self.cache.block_size
+        self.slot_block = torch.div(slots, bs, rounding_mode="floor")
+        self.slot_offset = slots % bs
+        self.block_tables = block_tables
+        self.context_lens = context_lens
+        self.position_ids = position_ids
+        self.seq_ids = seq_ids
+        self.q_starts = q_starts
+        self.q_valids = q_valids

@@ -1,0 +1,170 @@
+"""GPT decoder-only LM (the GPT-3 1.3B class of the reference).
+
+Port of ``paddle_tpu/models/gpt.py``.  Parameter names and shapes match
+the reference's ``state_dict`` (``gpt.wte.weight``,
+``gpt.h.{i}.attn.qkv_proj.weight`` ``[hidden, 3*hidden]``, ...), so
+``convert.load_reference_state`` carries its weights over unchanged.
+
+The serving path is ported: with a paged cache view (anything with an
+``attend`` method, see ``inference/serving/attention.py``) each layer
+scatters its K/V into the pool and runs ragged paged attention, and the
+per-row positions come from the view.  ``fc1`` runs through the
+matmul-epilogue kernel with ``gelu_tanh``; the three layer norms through
+the layer-norm kernel.  The dense ``cache=None`` attention is the flash
+kernel's path, which is not ported yet: it runs the plain composite on
+CPU tensors and raises on CUDA tensors.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .. import nn as pnn
+from ..core import resolve_device, to_torch_dtype
+from ..nn import functional as F
+
+__all__ = ["GPTConfig", "GPT_1P3B", "GPTAttention", "GPTMLP", "GPTBlock",
+           "GPTModel", "GPTForCausalLM"]
+
+
+@dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 0      # 0 -> 4*hidden
+    max_position_embeddings: int = 1024
+    hidden_dropout_prob: float = 0.0
+    use_recompute: bool = False
+    tie_word_embeddings: bool = True
+    use_scan_layers: bool = False
+
+    def __post_init__(self):
+        if not self.intermediate_size:
+            self.intermediate_size = 4 * self.hidden_size
+
+
+#: 1.3B preset (GPT-3 XL shape), the reference's `GPT_1P3B`
+GPT_1P3B = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=24,
+                num_attention_heads=16, max_position_embeddings=2048)
+
+
+class GPTAttention(nn.Module):
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        self.qkv_proj = pnn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                   **kw)
+        self.out_proj = pnn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
+
+    def forward(self, x, cache=None):
+        b, s, h = x.shape
+        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
+                                       self.head_dim)
+        q, k, v = qkv.unbind(dim=2)               # each [b, s, nh, hd]
+        if cache is not None and hasattr(cache, "attend"):
+            attn = cache.attend(q, k, v)
+        elif cache is not None:
+            raise NotImplementedError(
+                "the dense (concatenated) KV cache is not ported yet; "
+                "serve through the paged cache")
+        else:
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        return self.out_proj(attn.reshape(b, s, h))
+
+
+class GPTMLP(nn.Module):
+    def __init__(self, cfg, **kw):
+        super().__init__()
+        self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
+        self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
+
+    def forward(self, x):
+        # fc1's bias + gelu fold into the matmul-epilogue kernel
+        h = F.linear_act(x, self.fc1.weight, self.fc1.bias, act="gelu_tanh")
+        return self.fc2(h)
+
+
+class GPTBlock(nn.Module):
+    def __init__(self, cfg, *, device, dtype, generator):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.ln_1 = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
+        self.attn = GPTAttention(cfg, **kw)
+        self.ln_2 = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
+        self.mlp = GPTMLP(cfg, **kw)
+        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob)
+
+    def forward(self, x, cache=None):
+        x = x + self.dropout(self.attn(self.ln_1(x), cache))
+        return x + self.dropout(self.mlp(self.ln_2(x)))
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg, *, device, dtype, generator):
+        super().__init__()
+        if cfg.use_recompute or cfg.use_scan_layers:
+            raise NotImplementedError(
+                "use_recompute / use_scan_layers (training) not ported yet")
+        if not cfg.tie_word_embeddings:
+            raise NotImplementedError(
+                "an untied LM head is not ported yet")
+        self.config = cfg
+        kw = dict(device=device, dtype=dtype, generator=generator)
+        self.wte = pnn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
+        self.wpe = pnn.Embedding(cfg.max_position_embeddings,
+                                 cfg.hidden_size, **kw)
+        self.h = pnn.LayerList([GPTBlock(cfg, **kw)
+                                for _ in range(cfg.num_hidden_layers)])
+        self.ln_f = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
+
+    def forward(self, input_ids, cache=None):
+        b, s = input_ids.shape
+        pos = getattr(cache, "position_ids", None)
+        if pos is None:
+            if cache is not None:
+                raise NotImplementedError(
+                    "the dense (concatenated) KV cache is not ported yet")
+            pos = torch.arange(s, device=input_ids.device)
+        x = self.wte(input_ids) + self.wpe(pos)
+        for i, blk in enumerate(self.h):
+            x = blk(x, None if cache is None else cache[i])
+        return self.ln_f(x)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with its LM head tied to the token embedding.
+
+    ``device=None`` places it on the CUDA device and raises when there
+    is none; ``device="cpu"`` runs the plain versions of the kernels.
+    The initial weights are drawn from ``torch.Generator(device)``
+    seeded with ``seed``.
+    """
+
+    def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = to_torch_dtype(dtype)
+        gen = torch.Generator(device=device).manual_seed(int(seed))
+        self.config = cfg
+        self.gpt = GPTModel(cfg, device=device, dtype=dtype, generator=gen)
+        self.eval()
+
+    @property
+    def device(self):
+        return self.gpt.wte.weight.device
+
+    @property
+    def dtype(self):
+        return self.gpt.wte.weight.dtype
+
+    def logits(self, hidden):
+        """The tied LM head: ``hidden @ wte.weight^T``."""
+        return torch.matmul(hidden, self.gpt.wte.weight.t())
+
+    def forward(self, input_ids, cache=None):
+        return self.logits(self.gpt(input_ids, cache))

@@ -1,0 +1,91 @@
+"""The layers GPT is built from, as ``torch.nn.Module``s.
+
+Port of ``paddle_tpu/nn/layer/{common,norm,layers}.py``: ``Linear``,
+``Embedding``, ``LayerNorm``, ``Dropout`` and ``LayerList``.  Parameter
+names and shapes match the reference's ``state_dict`` (``Linear.weight``
+is ``[in, out]``), and so do the default initialisers: Xavier-normal
+Linear weights with zero biases, N(0, 1) embeddings, LayerNorm ones and
+zeros.  Every layer takes its ``device``, ``dtype`` and the
+``torch.Generator`` its initial values are drawn from.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from . import functional as F
+
+__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList"]
+
+LayerList = nn.ModuleList
+
+
+def _param(shape, device, dtype):
+    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
+
+
+class Linear(nn.Module):
+    """``y = x @ weight + bias`` with ``weight`` ``[in, out]``."""
+
+    def __init__(self, in_features, out_features, bias=True, *, device,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = _param((in_features, out_features), device, dtype)
+        self.bias = _param((out_features,), device, dtype) if bias else None
+        with torch.no_grad():
+            std = math.sqrt(2.0 / (in_features + out_features))
+            self.weight.normal_(0.0, std, generator=generator)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return f"in={self.in_features}, out={self.out_features}"
+
+
+class Embedding(nn.Module):
+    def __init__(self, num_embeddings, embedding_dim, *, device,
+                 dtype=torch.float32, generator=None):
+        super().__init__()
+        self.weight = _param((num_embeddings, embedding_dim), device, dtype)
+        with torch.no_grad():
+            self.weight.normal_(0.0, 1.0, generator=generator)
+
+    def forward(self, x):
+        return F.embedding(x, self.weight)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, normalized_shape, epsilon=1e-5, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(self.normalized_shape,
+                                              device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(self.normalized_shape,
+                                             device=device, dtype=dtype))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight,
+                            self.bias, self.epsilon)
+
+
+class Dropout(nn.Module):
+    """Dropout with probability ``p`` in training; the identity in eval
+    mode, which is how serving runs."""
+
+    def __init__(self, p=0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x):
+        return F.dropout(x, self.p, training=self.training)

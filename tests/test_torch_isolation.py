@@ -1,0 +1,95 @@
+"""The port stands alone: no JAX, no paddle_tpu, and no silent CPU runs.
+
+``paddle_tpu_torch`` imports torch and numpy only.  A fresh interpreter
+that imports every one of its modules must find neither ``jax`` nor
+``paddle_tpu`` in ``sys.modules``, and no source file of the package may
+import either.  Its entry points default to the CUDA device: on a host
+without one they raise instead of running on the CPU.
+"""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.inference.serving import PagedKVCache
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "paddle_tpu_torch"
+TINY = pt.GPTConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
+                    num_attention_heads=2, max_position_embeddings=32)
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield ".".join(parts)
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    mods = list(_modules())
+    assert "paddle_tpu_torch.inference.serving.engine" in mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax'"
+            " or m.startswith('jax.') or m == 'paddle_tpu'"
+            " or m.startswith('paddle_tpu.'))\n"
+            "print(repr(bad))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+(jax|paddle_tpu)\b(?!_torch)"
+    r"|from\s+(jax|paddle_tpu)\b(?!_torch))", re.M)
+
+
+def test_sources_import_no_jax_and_no_reference():
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        for m in _FORBIDDEN.finditer(path.read_text()):
+            offenders.append(f"{path.relative_to(ROOT)}: {m.group(0)}")
+    assert not offenders, offenders
+    assert _FORBIDDEN.search("import jax.numpy as jnp")
+    assert _FORBIDDEN.search("from paddle_tpu.ops import pallas_kernels")
+    assert not _FORBIDDEN.search("from paddle_tpu_torch import ops")
+
+
+def test_entry_points_default_to_cuda_and_refuse_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.GPTForCausalLM(TINY)
+    model = pt.GPTForCausalLM(TINY, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.GenerationEngine(model, num_blocks=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedKVCache(1, 2, 8, num_blocks=8)
+    with pytest.raises(RuntimeError):
+        pt.GPTForCausalLM(TINY, device="cuda:0")
+    with pytest.raises(RuntimeError, match="unsupported device"):
+        pt.GenerationEngine(model, num_blocks=8, device="meta")
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
+    x = torch.randn(4, 8)
+    out, mu, rstd = pt.ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
+    assert out.device.type == "cpu" and mu.shape == (4,)
+    before = (pt.ops.fused_layer_norm.launches,
+              pt.ops.fused_linear_act.launches,
+              pt.ops.ragged_paged_attention.launches)
+    pt.ops.fused_linear_act(x, torch.ones(8, 3), torch.zeros(3), "relu")
+    after = (pt.ops.fused_layer_norm.launches,
+             pt.ops.fused_linear_act.launches,
+             pt.ops.ragged_paged_attention.launches)
+    assert after == before, "a CPU call is not a kernel launch"
