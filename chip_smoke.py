@@ -55,6 +55,13 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 #: another order.
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
 
+#: ragged attention in bf16 is also held to the plain version run in f32
+#: on the same values, which keeps the probabilities in f32 as the kernel
+#: does: max |kernel - plain| <= 2^-8 * RMS(plain) + 2^-7 * |plain|, one
+#: bf16 ulp of the output's rounding.  A dropped KV block moves the output
+#: by several percent of its RMS, far past this limit.
+RAGGED_BF16_F32P_TOL = (2.0 ** -8, 2.0 ** -7)
+
 
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -106,9 +113,10 @@ def bound(nbytes, ops, dtype_name):
                                  else "operations")
 
 
-def compare(got, want, dtype_name):
+def compare(got, want, dtype_name, atol=None, rtol=None):
     import torch
-    atol, rtol = TOL[dtype_name]
+    if atol is None:
+        atol, rtol = TOL[dtype_name]
     g, w = got.float(), want.float()
     if not bool(torch.isfinite(g).all()):
         return float("inf"), float("inf"), False
@@ -156,14 +164,21 @@ def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen):
     ref = ops.linear_act_ref(x, w, b, "gelu_tanh")
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
+    # the library call: one cuBLASLt GEMM with a bias + tanh-GELU epilogue
+    # (its CUDA fallback also applies gelu(approximate="tanh")); timed and
+    # compared here only, the port never calls it
+    def library():
+        return torch._addmm_activation(b, x, w, use_gelu=True)
+    lib_err = compare(library(), ref, dtype_name)[0]
     isz = x.element_size()
     nbytes = (rows * K + K * N + N + rows * N) * isz
     bms, by = bound(nbytes, 2 * rows * K * N + 12 * rows * N, dtype_name)
     return dict(
         err=err, rel=rel, ok=ok, shape=f"x[{rows},{K}] w[{K},{N}]",
+        note=f"library vs plain max abs err {lib_err:.3e}",
         ms=time_ms(lambda: ops.fused_linear_act(x, w, b, "gelu_tanh")),
         plain_ms=time_ms(lambda: ops.linear_act_ref(x, w, b, "gelu_tanh")),
-        library_ms=None, bound_ms=bms, bound_by=by)
+        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
 def check_ragged(ops, block_q, dtype, dtype_name, gen):
@@ -196,6 +211,18 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen):
     ref = ops.ragged_attention_ref(*args, block_q=block_q)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
+    note = ""
+    if dtype == torch.bfloat16:
+        ref32 = ops.ragged_attention_ref(q.float(), kp.float(), vp.float(),
+                                         *ints, block_q=block_q)
+        k_rms, k_rel = RAGGED_BF16_F32P_TOL
+        rms = float(ref32.pow(2).mean().sqrt())
+        err32, _, ok32 = compare(out, ref32, dtype_name, k_rms * rms, k_rel)
+        ok = ok and ok32
+        note = (f"vs plain with f32 probabilities max abs err {err32:.3e} "
+                f"(tolerance {k_rms * rms:.3e} + {k_rel:g}*|plain|, "
+                f"RMS {rms:.3e})")
+        del ref32
     # work this data needs: visible (row, key) pairs, KV blocks touched
     pairs, touched = 0, set()
     for i in range(nqb):
@@ -210,7 +237,7 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen):
               + 4 * (tables.size + len(ctxs) + 3 * nqb))
     bms, by = bound(nbytes, 4 * D * H * pairs, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok,
+        err=err, rel=rel, ok=ok, note=note,
         shape=f"q[{q.shape[0]},{H},{D}] pool[{nb},{H},{bs},{D}] W={W}",
         ms=time_ms(lambda: ops.ragged_paged_attention(*args,
                                                       block_q=block_q)),
@@ -255,7 +282,8 @@ def phase_kernels(ops, budgets):
                 f"{atol:g} + {rtol:g}*|plain|) kernel {r['ms']:.4f} ms, "
                 f"plain {r['plain_ms']:.4f} ms, library "
                 f"{'n/a' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-                f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+                f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+                + (f"; {r['note']}" if r.get("note") else ""))
             if not r["ok"]:
                 fail(f"{name} {dtype_name}: kernel disagrees with its "
                      f"plain version (max abs err {r['err']:.3e})")
@@ -503,6 +531,7 @@ def main():
             max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], dtype="bfloat16", shape=r["shape"],
+            note=r.get("note", ""),
             f32=dict(max_abs_err=f["err"], ms=f["ms"],
                      plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
                      bound_by=f["bound_by"], library_ms=f["library_ms"],

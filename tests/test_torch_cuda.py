@@ -8,7 +8,10 @@ imports torch and the port only, so it runs where JAX is not installed:
 
 Small shapes with ragged edges; the main path's shapes are covered by
 ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums in another
-order), bf16 2e-2 abs + rel (about two bf16 ulps at unit scale).
+order), bf16 2e-2 abs + rel (about two bf16 ulps at unit scale).  bf16
+ragged attention is also held to the plain version run in f32, which
+keeps the probabilities in f32 as the kernel does, within one bf16 ulp
+(rtol 2^-7) plus 2^-8 of the output's RMS.
 """
 import numpy as np
 import pytest
@@ -88,6 +91,15 @@ def test_ragged_attention_kernel(gen, dtype, qlens, ctxs, pad):
     out = ops.ragged_paged_attention(q, k, v, *ints, block_q=block_q)
     want = ops.ragged_attention_ref(q, k, v, *ints, block_q=block_q)
     _close(out, want, dtype)
+    if dtype == torch.bfloat16:
+        # the plain version in f32 on the same values keeps the
+        # probabilities in f32 as the kernel does: one bf16 ulp of the
+        # output, plus 2^-8 of its RMS for values near zero
+        want32 = ops.ragged_attention_ref(q.float(), k.float(), v.float(),
+                                          *ints, block_q=block_q)
+        rms = float(want32.pow(2).mean().sqrt())
+        torch.testing.assert_close(out.float(), want32, atol=2 ** -8 * rms,
+                                   rtol=2 ** -7)
     if pad:
         assert float(out[-pad * block_q:].abs().sum()) == 0.0
 
