@@ -10,17 +10,18 @@ phase fails.  Phases:
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed);
-2. kernels: each kernel of the serving path against its plain PyTorch
-   version on the card, at the main path's shapes, in bf16 and in f32,
-   with errors against stated tolerances and CUDA-event times of the
-   kernel, the plain version and (where one PyTorch call computes the
-   same function) the library call, beside the least time the card
-   could take (``bound_ms``);
+2. kernels: each kernel against its plain PyTorch version on the card,
+   at the shapes the serving and the training drives give it, in bf16
+   and in f32, with errors against stated tolerances and CUDA-event
+   times of the kernel, the plain version and (where one PyTorch call
+   computes the same function) the library call, beside the least time
+   the card could take (``bound_ms``);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
-   16 greedy tokens each, must give identical tokens, and every kernel's
-   launch count must advance on the card;
+   16 greedy tokens each, must give identical tokens, and each serving
+   kernel must launch its launches per step times the steps on the card
+   (the backward kernels none);
 4. serving: GPT_1P3B (24 layers) in bf16 with random weights from a
    seed, ``max_batch=8``, chunk 256: 16 requests sharing a 512-token
    prefix plus a 4-64 token tail, 64 greedy tokens each (the
@@ -28,9 +29,25 @@ phase fails.  Phases:
    launch count is set to 0 just before and read just after; each must
    equal its launches per step times the steps.  A second, profiled
    burst (8 of the prompts, 16 tokens) then splits device time by
-   kernel and gives the device's idle share (``torch.profiler``).
+   kernel and gives the device's idle share (``torch.profiler``);
+5. training parity: GPT at full width cut to 2 layers, f32, no AMP,
+   ``use_flash_attention=False``, weights from a numpy seed, B=2, S=128:
+   3 AdamW steps on the card (kernels) and on the CPU (plain versions)
+   on the same ids; the losses, every gradient of step 1 and every
+   parameter after step 3 must agree within stated tolerances, and
+   every kernel of the training path must launch on the card;
+6. training: GPT_1P3B (24 layers) with f32 master weights under
+   ``amp.auto_cast(bf16, O1)``, ``use_flash_attention=False``, AdamW(1e-4,
+   weight decay 0.01, global-norm clip 1.0), B=4, S=1024, one fixed
+   batch from a numpy seed (bench.py's ``bench_gpt`` recipe): 2 warm-up
+   steps, then 5 timed steps whose losses must be finite and fall; step
+   ms, tokens/s, MFU (bench.py's 6N + 12LSH flops per token against the
+   989 TFLOP/s bf16 peak) and peak memory; launches counted from 0 must
+   equal launches per step times the steps; one profiled step splits
+   device time by kernel group and gives the idle share.
 
-The last two lines are one JSON object of kernel results and the card's
+Before the last line come one JSON object (every kernel's results, the
+serving, training-parity and training summaries) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -54,6 +71,17 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 #: probabilities to bf16, the kernel keeps f32).  f32: sums taken in
 #: another order.
 TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
+
+#: column sums (dgamma, dbeta, db) over thousands of rows, taken in
+#: another order: atol = SUM_TOL * the largest column's sum of |terms|
+#: (f32: 1e-5 of it, ~80 f32 ulps, the rounding a few-thousand-term sum
+#: may gather; bf16: 2^-8 of it, one bf16 rounding), rtol as in TOL.
+SUM_TOL = {"bfloat16": 2.0 ** -8, "float32": 1e-5}
+
+#: the training drive's shapes (B=4, S=1024, GPT_1P3B): 4096 token rows,
+#: hidden 2048, fc1 width 8192, 4092 = 4 x 1023 logit rows after the
+#: criterion's shift, vocab 50304
+TRAIN_ROWS, HIDDEN, FFN, XENT_ROWS, VOCAB = 4096, 2048, 8192, 4092, 50304
 
 #: ragged attention in bf16 is also held to the plain version run in f32
 #: on the same values, which keeps the probabilities in f32 as the kernel
@@ -131,7 +159,7 @@ def compare(got, want, dtype_name, atol=None, rtol=None):
 # ---------------------------------------------------------------------
 def check_layer_norm(ops, rows, dtype, dtype_name, gen):
     import torch
-    n = 2048
+    n = HIDDEN
     x = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
     b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
@@ -155,7 +183,7 @@ def check_layer_norm(ops, rows, dtype, dtype_name, gen):
 
 def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen):
     import torch
-    K, N = 2048, 8192
+    K, N = HIDDEN, FFN
     x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
     w = (torch.randn(K, N, device="cuda", generator=gen)
          / K ** 0.5).to(dtype)
@@ -246,48 +274,235 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen):
         library_ms=None, bound_ms=bms, bound_by=by)
 
 
+def compare_sum(got, want, abs_sum, dtype_name):
+    """A column sum against its plain version: atol scaled to the sum of
+    |terms| of the largest column (`SUM_TOL`), rtol as in `TOL`."""
+    atol = SUM_TOL[dtype_name] * float(abs_sum.max())
+    err, _, ok = compare(got, want, dtype_name, atol, TOL[dtype_name][1])
+    return err, ok, atol
+
+
+def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
+    """The training drive's layer-norm backward: x, do [4096, 2048]."""
+    import torch
+    n = HIDDEN
+    x = (torch.randn(rows, n, device="cuda", generator=gen)
+         + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    _, mu, rstd = ops.layer_norm_ref(x, g, b)
+    args = (x, g, mu, rstd, do)
+    dx, dg, db = ops.fused_layer_norm_bwd(*args)
+    dx_r, dg_r, db_r = ops.layer_norm_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(dx, dx_r, dtype_name)
+    xhat = (x.float() - mu[:, None]) * rstd[:, None]
+    dg_err, dg_ok, dg_tol = compare_sum(
+        dg, dg_r, (do.float() * xhat).abs().sum(0), dtype_name)
+    db_err, db_ok, db_tol = compare_sum(db, db_r, do.float().abs().sum(0),
+                                        dtype_name)
+    del xhat
+    isz = x.element_size()
+    nbytes = 3 * rows * n * isz + 3 * n * isz + 2 * rows * 4
+    bms, by = bound(nbytes, 13 * rows * n, dtype_name)
+    mean, rs = mu[:, None].contiguous(), rstd[:, None].contiguous()
+
+    def library():
+        return torch.ops.aten.native_layer_norm_backward(
+            do, x, [n], mean, rs, g, b, [True, True, True])
+    return dict(
+        err=max(err, dg_err, db_err), rel=rel, ok=ok and dg_ok and db_ok,
+        shape=f"x[{rows},{n}]",
+        note=(f"dx max abs err {err:.3e}; dgamma {dg_err:.3e} (atol "
+              f"{dg_tol:.3e}), dbeta {db_err:.3e} (atol {db_tol:.3e})"),
+        ms=time_ms(lambda: ops.fused_layer_norm_bwd(*args)),
+        plain_ms=time_ms(lambda: ops.layer_norm_bwd_ref(*args)),
+        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
+
+
+def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen):
+    """The training drive's fc1 epilogue backward: z, g [4096, 8192],
+    gelu_tanh."""
+    import torch
+    N = FFN
+    z = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
+    g = (0.1 * torch.randn(rows, N, device="cuda", generator=gen)).to(dtype)
+    dz, db = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+    dz_r, db_r = ops.linear_act_bwd_ref(z, g, "gelu_tanh")
+    torch.cuda.synchronize()
+    err, rel, ok = compare(dz, dz_r, dtype_name)
+    db_err, db_ok, db_tol = compare_sum(db, db_r, dz_r.float().abs().sum(0),
+                                        dtype_name)
+    isz = z.element_size()
+    nbytes = 3 * rows * N * isz + N * isz
+    bms, by = bound(nbytes, 20 * rows * N, dtype_name)
+    return dict(
+        err=max(err, db_err), rel=rel, ok=ok and db_ok,
+        shape=f"z[{rows},{N}] gelu_tanh",
+        note=(f"dz max abs err {err:.3e}; db {db_err:.3e} (atol "
+              f"{db_tol:.3e}); the library call computes dz only"),
+        ms=time_ms(lambda: ops.fused_linear_act_bwd(z, g, "gelu_tanh")),
+        plain_ms=time_ms(lambda: ops.linear_act_bwd_ref(z, g, "gelu_tanh")),
+        library_ms=time_ms(lambda: torch.ops.aten.gelu_backward(
+            g, z, approximate="tanh")),
+        bound_ms=bms, bound_by=by)
+
+
+def _xent_inputs(rows, dtype, gen):
+    import torch
+    x = (2 * torch.randn(rows, VOCAB, device="cuda",
+                         generator=gen)).to(dtype)
+    labels = torch.randint(0, VOCAB, (rows,), device="cuda", generator=gen)
+    labels[::97] = -1                     # a few ignored rows
+    return x, labels
+
+
+def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen):
+    """The training drive's loss: logits [4092, 50304]."""
+    import torch
+    x, labels = _xent_inputs(rows, dtype, gen)
+    loss, lse = ops.softmax_xent_fwd(x, labels)
+    loss_r, lse_r = ops.softmax_xent_fwd_ref(x, labels)
+    torch.cuda.synchronize()
+    # loss and lse are f32 whatever the logits' type: f32 tolerance
+    err, rel, ok = compare(loss, loss_r, "float32")
+    lse_err, _, lse_ok = compare(lse, lse_r, "float32")
+    isz = x.element_size()
+    nbytes = rows * VOCAB * isz + rows * 8 + 2 * rows * 4
+    bms, by = bound(nbytes, 4 * rows * VOCAB, dtype_name)
+    return dict(
+        err=max(err, lse_err), rel=rel, ok=ok and lse_ok,
+        shape=f"logits[{rows},{VOCAB}]",
+        note=f"loss max abs err {err:.3e}, lse {lse_err:.3e}",
+        ms=time_ms(lambda: ops.softmax_xent_fwd(x, labels)),
+        plain_ms=time_ms(lambda: ops.softmax_xent_fwd_ref(x, labels)),
+        library_ms=time_ms(lambda: torch.nn.functional.cross_entropy(
+            x, labels, reduction="none", ignore_index=-1)),
+        bound_ms=bms, bound_by=by)
+
+
+def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen):
+    """The training drive's loss gradient: logits [4092, 50304], g the
+    mean's 1/valid-count per row."""
+    import torch
+    x, labels = _xent_inputs(rows, dtype, gen)
+    _, lse = ops.softmax_xent_fwd_ref(x, labels)
+    g = torch.full((rows,), 1.0 / rows, device="cuda")
+    dx = ops.softmax_xent_bwd(x, labels, lse, g)
+    dx_r = ops.softmax_xent_bwd_ref(x, labels, lse, g)
+    torch.cuda.synchronize()
+    # dx is ~1/rows in size: hold it to TOL scaled by the gradient's 1/rows
+    atol, rtol = TOL[dtype_name]
+    err, rel, ok = compare(dx, dx_r, dtype_name, atol / rows, rtol)
+    isz = x.element_size()
+    nbytes = 2 * rows * VOCAB * isz + rows * (8 + 4 + 4)
+    bms, by = bound(nbytes, 4 * rows * VOCAB, dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok, shape=f"logits[{rows},{VOCAB}]",
+        note=(f"tolerance {atol / rows:.3e} + {rtol:g}*|plain|; no single "
+              f"PyTorch call computes this backward alone"),
+        ms=time_ms(lambda: ops.softmax_xent_bwd(x, labels, lse, g)),
+        plain_ms=time_ms(lambda: ops.softmax_xent_bwd_ref(x, labels, lse,
+                                                          g)),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+#: every kernel: its source, the TPU kernel it replaces, and its launches
+#: per step of each drive as (per layer, per step once); a kernel a drive
+#: does not run launches 0 times there
 KERNEL_INFO = {
     "ragged_attention": dict(
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas_ragged.py:115",
-        per_layer=1),
+        serve=(1, 0)),
     "layer_norm": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
-        per_layer=2, per_step_extra=1),
+        serve=(2, 1), train=(2, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
-        per_layer=1),
+        serve=(1, 0), train=(1, 0)),
+    "layer_norm_bwd": dict(
+        source="paddle_tpu_torch/csrc/layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:536",
+        train=(2, 1)),
+    "matmul_epilogue_bwd": dict(
+        source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas_fused.py:278",
+        train=(1, 0)),
+    "softmax_xent_fwd": dict(
+        source="paddle_tpu_torch/csrc/softmax_xent.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:759",
+        train=(0, 1)),
+    "softmax_xent_bwd": dict(
+        source="paddle_tpu_torch/csrc/softmax_xent.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:802",
+        train=(0, 1)),
 }
 
 
+def per_step(drive, layers):
+    """Launches per step of every kernel in one drive ("serve"/"train")."""
+    return {name: info[drive][0] * layers + info[drive][1]
+            if drive in info else 0 for name, info in KERNEL_INFO.items()}
+
+
+def check_counts(phase, counts, steps, layers, drive):
+    want = per_step(drive, layers)
+    say(f"  launches {counts}; per step {want}")
+    for name, n in counts.items():
+        if want[name] and n == 0:
+            fail(f"{phase}: kernel {name} was never launched")
+        if n != want[name] * steps:
+            fail(f"{phase}: {name} launched {n} times in {steps} steps, "
+                 f"expected {want[name]} per step")
+
+
+def report(name, dtype_name, r):
+    atol, rtol = TOL[dtype_name]
+    lib = "n/a" if r["library_ms"] is None else "%.4f ms" % r["library_ms"]
+    say(f"  {name:19s} {dtype_name:8s} {r['shape']}: max abs err "
+        f"{r['err']:.3e} (max rel {r['rel']:.3e}; tolerance {atol:g} + "
+        f"{rtol:g}*|plain|) kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, library {lib}, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+        + (f"; {r['note']}" if r.get("note") else ""))
+    if not r["ok"]:
+        fail(f"{name} {dtype_name}: kernel disagrees with its plain "
+             f"version (max abs err {r['err']:.3e})")
+
+
 def phase_kernels(ops, budgets):
+    """Every kernel at the serving drive's shapes (keys (name, dtype)) and
+    at the training drive's (keys (name, dtype, "train"))."""
     import torch
-    checks = {"ragged_attention": check_ragged,
-              "layer_norm": check_layer_norm,
-              "matmul_epilogue": check_matmul_epilogue}
+    serve = {"ragged_attention": check_ragged,
+             "layer_norm": check_layer_norm,
+             "matmul_epilogue": check_matmul_epilogue}
+    train = {"layer_norm": (check_layer_norm, TRAIN_ROWS),
+             "matmul_epilogue": (check_matmul_epilogue, TRAIN_ROWS),
+             "layer_norm_bwd": (check_layer_norm_bwd, TRAIN_ROWS),
+             "matmul_epilogue_bwd": (check_matmul_epilogue_bwd, TRAIN_ROWS),
+             "softmax_xent_fwd": (check_softmax_xent_fwd, XENT_ROWS),
+             "softmax_xent_bwd": (check_softmax_xent_bwd, XENT_ROWS)}
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
-        for name, check in checks.items():
+        for name, check in serve.items():
             arg = block_q if name == "ragged_attention" \
                 else budgets[dtype_name]
             r = check(ops, arg, dtype, dtype_name, gen)
-            atol, rtol = TOL[dtype_name]
-            say(f"  {name:16s} {dtype_name:8s} {r['shape']}: max abs err "
-                f"{r['err']:.3e} (max rel {r['rel']:.3e}; tolerance "
-                f"{atol:g} + {rtol:g}*|plain|) kernel {r['ms']:.4f} ms, "
-                f"plain {r['plain_ms']:.4f} ms, library "
-                f"{'n/a' if r['library_ms'] is None else '%.4f ms' % r['library_ms']}"
-                f", bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
-                + (f"; {r['note']}" if r.get("note") else ""))
-            if not r["ok"]:
-                fail(f"{name} {dtype_name}: kernel disagrees with its "
-                     f"plain version (max abs err {r['err']:.3e})")
+            report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        for name, (check, rows) in train.items():
+            r = check(ops, rows, dtype, dtype_name, gen)
+            report(name, dtype_name, r)
+            results[(name, dtype_name, "train")] = r
+            torch.cuda.empty_cache()
     return results
 
 
@@ -348,7 +563,7 @@ def phase_parity(pt, ops):
         outs[device] = eng.generate(prompts, max_new_tokens=16)
         if device == "cuda":
             torch.cuda.synchronize()
-            counts = launches(ops)
+            counts, steps = launches(ops), eng.stats()["steps"]
         say(f"  {device}: {eng.stats()['steps']} steps in "
             f"{time.perf_counter() - t0:.2f} s, prefix hit rate "
             f"{eng.stats()['prefix_hit_rate']:.3f}")
@@ -360,9 +575,8 @@ def phase_parity(pt, ops):
     if not all(len(o) == len(p) + 16 for o, p in zip(outs["cuda"], prompts)):
         fail("parity: a request did not return 16 tokens")
     say(f"  greedy tokens identical on CUDA and CPU for {len(prompts)} "
-        f"requests x 16 tokens; CUDA launches {counts}")
-    if not all(counts.values()):
-        fail(f"parity: a kernel was not launched on the card: {counts}")
+        f"requests x 16 tokens")
+    check_counts("parity", counts, steps, cfg.num_hidden_layers, "serve")
 
 
 # ---------------------------------------------------------------------
@@ -407,54 +621,62 @@ def phase_serving(pt, ops):
     ttft = sorted((r.t_first_token - r.t_submit) * 1e3 for r in reqs)
     hit = (eng.cache._hit_tokens - hit0) / max(
         1, eng.cache._lookup_tokens - look0)
-    per_step = {name: info["per_layer"] * cfg.num_hidden_layers
-                + info.get("per_step_extra", 0)
-                for name, info in KERNEL_INFO.items()}
     say(f"  {len(prompts)} requests, {tokens} tokens in {elapsed:.3f} s: "
         f"{tokens / elapsed:.1f} tokens/s, median TTFT "
         f"{ttft[len(ttft) // 2]:.1f} ms, prefix hit rate {hit:.3f}, "
         f"{steps} steps ({elapsed / steps * 1e3:.2f} ms/step), "
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    say(f"  launches {counts}; per step {per_step}")
-    for name, n in counts.items():
-        if n == 0:
-            fail(f"serving: kernel {name} was never launched")
-        if n != per_step[name] * steps:
-            fail(f"serving: {name} launched {n} times in {steps} steps, "
-                 f"expected {per_step[name]} per step")
+    check_counts("serving", counts, steps, cfg.num_hidden_layers, "serve")
     summary = dict(tokens_per_s=tokens / elapsed,
                    median_ttft_ms=ttft[len(ttft) // 2],
                    prefix_hit_rate=hit, steps=steps, elapsed_s=elapsed)
-    summary["profile"] = profile_burst(eng, prompts[:8])
+    steps0 = eng.stats()["steps"]
+    prof = profile_device(lambda: eng.generate(prompts[:8],
+                                               max_new_tokens=16))
+    summary["profile"] = split_profile(prof, eng.stats()["steps"] - steps0,
+                                       "burst")
     return counts, summary
 
 
-#: device-time groups of the profile, by kernel-name substring
+#: device-time groups of the profile, by kernel-name substring (first
+#: match wins); column_sum is the second pass of both backward kernels'
+#: column sums
 _PROFILE_GROUPS = (("ragged_attention", "ragged_attn_kernel"),
                    ("layer_norm", "layer_norm_fwd_kernel"),
+                   ("layer_norm_bwd", "layer_norm_bwd_kernel"),
                    ("matmul_epilogue", "me_fwd_"),
+                   ("matmul_epilogue_bwd", "me_bwd_kernel"),
+                   ("column_sum", "column_sum_kernel"),
+                   ("softmax_xent_fwd", "xent_fwd_kernel"),
+                   ("softmax_xent_bwd", "xent_bwd_kernel"),
                    ("cublas_gemm", ("gemm", "xmma", "nvjet", "cutlass",
-                                    "cublas")))
+                                    "cublas")),
+                   ("softmax", ("softmax", "SoftMax")))
 
 
-def profile_burst(eng, prompts):
-    """Device time by kernel group and the device's idle share over a
-    profiled burst (8 of the drive's prompts, 16 tokens each, their
-    prefixes cached).  The profiler's own overhead inflates the wall
-    time, so the idle share is an upper bound."""
+def profile_device(fn):
+    """Run ``fn`` under ``torch.profiler`` (CPU + CUDA) and synchronise;
+    returns ``(profile, wall ms)``."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    steps0 = eng.stats()["steps"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate(prompts, max_new_tokens=16)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = eng.stats()["steps"] - steps0
+    return prof, wall_ms
+
+
+def split_profile(prof_wall, steps, what):
+    """Device time by kernel group and the device's idle share over a
+    profiled window of ``steps`` steps.  The profiler's own overhead
+    inflates the wall time, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    prof, wall_ms = prof_wall
     groups = {name: 0.0 for name, _ in _PROFILE_GROUPS}
     groups["other"] = 0.0
+    others = []
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
@@ -469,17 +691,238 @@ def profile_burst(eng, prompts):
                 break
         else:
             groups["other"] += us / 1e3
+            others.append((us / 1e3, name))
     busy_ms = sum(groups.values())
     if busy_ms == 0:
         say("  profile: the profiler saw no device time (not measured)")
         return None
     out = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
                device_idle_share=max(0.0, 1 - busy_ms / wall_ms),
-               device_ms_per_step={k: v / steps for k, v in groups.items()})
-    say(f"  profile over {steps} steps: wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms (idle share {out['device_idle_share']:.3f}); "
+               device_ms_per_step={k: v / steps for k, v in groups.items()},
+               top_other_ms_per_step=[
+                   (name[:80], ms / steps) for ms, name in
+                   sorted(others, reverse=True)[:8]])
+    say(f"  profiled {what}, {steps} steps: wall {wall_ms:.1f} ms, device "
+        f"busy {busy_ms:.1f} ms (idle share "
+        f"{out['device_idle_share']:.3f}); "
         f"device ms/step " + ", ".join(
             f"{k} {v / steps:.3f}" for k, v in groups.items()))
+    say("  largest kernels in other (ms/step): " + "; ".join(
+        f"{name} {ms:.3f}" for name, ms in out["top_other_ms_per_step"]))
+    return out
+
+
+# ---------------------------------------------------------------------
+# phase 5: training parity, CUDA vs CPU at full width, 2 layers, f32
+# ---------------------------------------------------------------------
+#: CUDA (kernels, cuBLAS) vs CPU (plain versions, CPU GEMMs), both f32
+#: with TF32 off, sums taken in other orders.  loss: relative.  grads:
+#: each gradient's max |CUDA - CPU| against its largest |value| (a GEMM's
+#: rounding is relative to its sum of |terms|, not to a small result).
+#: params after 3 AdamW steps: atol + rtol * |p|, ROADMAP's f32 gate.
+PARITY_LR = 1e-4
+PARITY_TOL = dict(loss=1e-5, grad=1e-4, param=(1e-4, 1e-4))
+
+
+def train_parity_run(pt, ops, cfg, params, ids, labels, device, steps=3):
+    """Losses, step-1 gradients and final parameters of ``steps`` AdamW
+    steps on ``device``, and the launch counts of the run."""
+    import torch
+    model = pt.GPTForCausalLM(cfg, device=device, dtype=torch.float32)
+    pt.load_reference_state(model, params)
+    opt = pt.optimizer.AdamW(
+        learning_rate=PARITY_LR, weight_decay=0.01,
+        parameters=model.parameters(),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    crit = pt.GPTPretrainingCriterion()
+    x, y = (torch.from_numpy(a).to(device) for a in (ids, labels))
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    losses, grads = [], None
+    for step in range(steps):
+        loss = crit(model(x), y)
+        loss.backward()
+        losses.append(float(loss.detach()))
+        if step == 0:
+            grads = {n: p.grad.detach().cpu().clone()
+                     for n, p in model.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = launches(ops)
+    say(f"  {device}: {steps} steps in {time.perf_counter() - t0:.2f} s, "
+        f"losses {losses}")
+    final = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    return losses, grads, final, counts
+
+
+def phase_train_parity(pt, ops):
+    import numpy as np
+    import torch
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2,
+                              use_flash_attention=False))
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100                       # the criterion's ignore index
+    probe = pt.GPTForCausalLM(cfg, device="cpu")
+    params = numpy_weights(probe, SEED + 2)
+    del probe
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = train_parity_run(pt, ops, cfg, params, ids, labels,
+                                        device)
+        torch.cuda.empty_cache()
+    (l_gpu, g_gpu, p_gpu, counts), (l_cpu, g_cpu, p_cpu, _) = \
+        runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    grad_err, grad_at = max(
+        (float((g_gpu[n] - g_cpu[n]).abs().max())
+         / max(float(g_cpu[n].abs().max()), 1e-30), n) for n in g_cpu)
+    atol, rtol = PARITY_TOL["param"]
+    worst, worst_at = 0.0, ""
+    for n in p_cpu:
+        d = (p_gpu[n] - p_cpu[n]).abs()
+        excess = float((d - rtol * p_cpu[n].abs()).max())
+        if excess > worst:
+            worst, worst_at = excess, n
+    say(f"  loss max rel err {loss_err:.3e} (tolerance "
+        f"{PARITY_TOL['loss']:g}); step-1 grads max err / max |grad| "
+        f"{grad_err:.3e} at {grad_at} (tolerance {PARITY_TOL['grad']:g}); "
+        f"params after 3 steps max (|err| - {rtol:g}*|p|) {worst:.3e} at "
+        f"{worst_at or '-'} (tolerance {atol:g})")
+    if loss_err > PARITY_TOL["loss"]:
+        fail(f"training parity: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
+    if grad_err > PARITY_TOL["grad"]:
+        fail(f"training parity: gradient of {grad_at} differs by "
+             f"{grad_err:.3e} of its largest value")
+    if worst > atol:
+        fail(f"training parity: parameter {worst_at} differs after 3 "
+             f"steps by {worst:.3e} past {rtol:g}*|p|")
+    check_counts("training parity", counts, 3, cfg.num_hidden_layers,
+                 "train")
+    return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
+                param_max_excess=worst, losses_cuda=l_gpu,
+                losses_cpu=l_cpu)
+
+
+# ---------------------------------------------------------------------
+# phase 6: the training drive
+# ---------------------------------------------------------------------
+TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 2, 5
+PEAK_BF16 = PEAK_OPS_PER_S["bfloat16"]
+
+
+def phase_training(pt, ops):
+    import numpy as np
+    import torch
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, use_flash_attention=False))
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    crit = pt.GPTPretrainingCriterion()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_B, TRAIN_S))).cuda()
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss = crit(model(ids), ids)       # bench_gpt feeds ids as labels
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = launches(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    step_ms = elapsed / TRAIN_STEPS * 1e3
+    tokens_per_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / elapsed
+    flops_per_token = 6 * n_params + 12 * L * TRAIN_S * H
+    mfu = flops_per_token * tokens_per_s / PEAK_BF16
+    say(f"  {n_params / 1e6:.1f}M params, B={TRAIN_B} S={TRAIN_S}: warm-up "
+        f"{TRAIN_WARMUP} steps {warm_s:.2f} s; {TRAIN_STEPS} steps in "
+        f"{elapsed:.3f} s: {step_ms:.2f} ms/step, {tokens_per_s:.1f} "
+        f"tokens/s, MFU {mfu:.4f} (6N + 12LSH = {flops_per_token:.4e} "
+        f"flop/token vs {PEAK_BF16:.3g} flop/s), peak memory "
+        f"{peak_gib:.2f} GiB; losses {losses}")
+    if not all(np.isfinite(losses)):
+        fail(f"training: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"training: the loss did not fall on a repeated batch: "
+             f"{losses}")
+    check_counts("training", counts, TRAIN_STEPS, L, "train")
+    summary = dict(n_params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+                   steps=TRAIN_STEPS, step_ms=step_ms,
+                   tokens_per_s=tokens_per_s, mfu=mfu,
+                   peak_memory_gib=peak_gib, losses=losses)
+    summary["profile"] = split_profile(profile_device(step), 1,
+                                       "training step")
+    return counts, summary
+
+
+def free_device_memory():
+    """Collect the last phase's objects (the engine and its cache hold
+    reference cycles) and return their device memory, so the next phase's
+    peak memory is its own."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_entry(r):
+    return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                library_ms=r["library_ms"], shape=r["shape"],
+                note=r.get("note", ""))
+
+
+#: the dtype each kernel runs in on its main path (serving: bf16; the
+#: training drive under O1: layer norm and cross-entropy in f32 (black
+#: list), the fc1 epilogue in bf16 (white list))
+MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
+              "matmul_epilogue": "bfloat16", "layer_norm_bwd": "float32",
+              "matmul_epilogue_bwd": "bfloat16",
+              "softmax_xent_fwd": "float32", "softmax_xent_bwd": "float32"}
+TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
+
+
+def kernels_line(results, serve_counts, train_counts):
+    """One entry per kernel: its main path's dtype and shapes (the
+    serving drive's for the three serving kernels), the other dtype, and
+    for the forward kernels the training drive's shapes too."""
+    out = []
+    for name, info in KERNEL_INFO.items():
+        main = MAIN_DTYPE[name]
+        other = "float32" if main == "bfloat16" else "bfloat16"
+        key = (name,) if "serve" in info else (name, "train")
+        entry = dict(name=name, route="cuda", source=info["source"],
+                     replaces=info["replaces"],
+                     launches=(serve_counts if "serve" in info
+                               else train_counts)[name],
+                     launches_train=train_counts[name], dtype=main,
+                     **kernel_entry(results[(key[0], main) + key[1:]]))
+        entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
+        if name in TRAIN_DTYPE:
+            entry["train"] = dict(
+                dtype=TRAIN_DTYPE[name],
+                **kernel_entry(results[(name, TRAIN_DTYPE[name], "train")]))
+        out.append(entry)
     return out
 
 
@@ -519,24 +962,21 @@ def main():
     phase_parity(pt, ops)
 
     say("[4] serving: GPT_1P3B bf16, 16 requests x 64 tokens")
-    counts, serving = phase_serving(pt, ops)
+    serve_counts, serving = phase_serving(pt, ops)
+    free_device_memory()
 
-    kernels = []
-    for name, info in KERNEL_INFO.items():
-        r = results[(name, "bfloat16")]
-        f = results[(name, "float32")]
-        kernels.append(dict(
-            name=name, route="cuda", source=info["source"],
-            replaces=info["replaces"], launches=counts[name],
-            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], dtype="bfloat16", shape=r["shape"],
-            note=r.get("note", ""),
-            f32=dict(max_abs_err=f["err"], ms=f["ms"],
-                     plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
-                     bound_by=f["bound_by"], library_ms=f["library_ms"],
-                     shape=f["shape"])))
-    say(json.dumps({"kernels": kernels, "serving": serving}))
+    say("[5] training parity: full width, 2 layers, f32, 3 AdamW steps, "
+        "CUDA vs CPU")
+    parity = phase_train_parity(pt, ops)
+    free_device_memory()
+
+    say("[6] training: GPT_1P3B, bf16 O1, AdamW, B=4 S=1024")
+    train_counts, training = phase_training(pt, ops)
+
+    say(json.dumps({"kernels": kernels_line(results, serve_counts,
+                                            train_counts),
+                    "serving": serving, "training_parity": parity,
+                    "training": training}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,28 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package ``paddle_tpu`` stays the reference; this package serves
-the same GPT model on an NVIDIA H100 through kernels written by hand in
+and trains the same GPT model on an NVIDIA H100 through kernels written by hand in
 CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch version that
 the CPU runs.  It imports torch and numpy, never JAX and never
 ``paddle_tpu``.  Entry points run on the CUDA device unless the caller
 passes ``device="cpu"``.
 
-Ported so far: the serving path (``models.gpt`` through
-``inference.serving.GenerationEngine``) and its three kernels, ragged
-paged attention, layer norm and the matmul epilogue (see ``ops``).
+Ported so far (see ``ops`` for the kernels):
+
+* serving: ``models.gpt`` through ``inference.serving.GenerationEngine``,
+  with ragged paged attention, layer norm and the matmul epilogue;
+* training: ``GPTPretrainingCriterion``, ``amp.auto_cast`` (bf16, O1),
+  ``optimizer.{SGD, Adam, AdamW}`` and ``nn.ClipGradByGlobalNorm``, with
+  the backward kernels of layer norm and the matmul epilogue and the
+  softmax cross-entropy kernels, forward and backward.  Dense attention
+  trains through the composite (``use_flash_attention=False``).
 """
+from . import amp, nn, optimizer
 from .convert import load_reference_state
-from .models.gpt import GPT_1P3B, GPTConfig, GPTForCausalLM
+from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
+                         GPTPretrainingCriterion)
 from .inference.serving import GenerationEngine
 
-__all__ = ["load_reference_state", "GPT_1P3B", "GPTConfig",
-           "GPTForCausalLM", "GenerationEngine"]
+__all__ = ["amp", "nn", "optimizer", "load_reference_state", "GPT_1P3B",
+           "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
+           "GenerationEngine"]

@@ -49,4 +49,20 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(v);
 }
 
+// out[c] = sum over p < nparts of partial[p * n + c], summed in order of p
+// and cast to T: the second pass of a column sum whose first pass left one
+// f32 row of partial sums per block.  The order is fixed, so the result is
+// the same on every run (float atomics would not be).  One thread per
+// column; neighbouring threads read neighbouring addresses.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    column_sum_kernel(const float* __restrict__ partial, T* __restrict__ out,
+                      int nparts, int n) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= n) return;
+  float s = 0.f;
+  for (int p = 0; p < nparts; ++p) s += partial[static_cast<size_t>(p) * n + c];
+  out[c] = from_float<T>(s);
+}
+
 }  // namespace ptt

@@ -230,7 +230,107 @@ __global__ void __launch_bounds__(256)
     }
 }
 
+// ---- backward of the epilogue --------------------------------------------
+// Replaces: paddle_tpu/ops/pallas_fused.py `_me_bwd_kernel` (:278, called
+// at :345 by `_matmul_epilogue_2d_bwd`): dz = g * act'(z) from the saved
+// pre-activation z, written in z's type, and db = the column sums of the
+// f32 dz (before that cast).  dx = dz @ w^T and dw = x^T @ dz stay plain
+// GEMMs outside the kernel, as the reference leaves them to XLA.
+//
+// What bounds it on the H100: bytes (z and g read, dz written; ~20 flops
+// per element for the GELUs).
+//
+// Design: the TPU grid walks row blocks of one column block in order and
+// accumulates db into a revisited block; here block (bx, by) owns 256
+// columns and the by-th chunk of `rows_per_chunk` rows.  Each thread walks
+// its one column down the chunk, so a warp reads 32 neighbouring values
+// per row, and keeps its column's db partial in a register; the chunk's
+// partials land in row `by` of `partial` [nchunks, N], and
+// `column_sum_kernel` adds them in a fixed order (no float atomics).
+__device__ __forceinline__ float act_grad(float z, int act) {
+  // the reference's `_act_grad_f32` (pallas_fused.py:70-87), op for op
+  switch (act) {
+    case kActRelu:
+      return z > 0.f ? 1.f : 0.f;
+    case kActGelu: {
+      const float phi = 0.3989422804014327f * expf(-0.5f * z * z);
+      return 0.5f * (1.f + erff(z / 1.4142135623730951f)) + z * phi;
+    }
+    case kActGeluTanh: {
+      const float u = 0.7978845608028654f * (z + 0.044715f * z * z * z);
+      const float t = tanhf(u);
+      const float du = 0.7978845608028654f * (1.f + 3.f * 0.044715f * z * z);
+      return 0.5f * (1.f + t) + 0.5f * z * (1.f - t * t) * du;
+    }
+    case kActSilu: {
+      const float s = 1.f / (1.f + expf(-z));
+      return s * (1.f + z * (1.f - s));
+    }
+    default:
+      return 1.f;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    me_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
+                  T* __restrict__ dz, float* __restrict__ partial, int M,
+                  int N, int rows_per_chunk, int act) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= N) return;
+  const int r0 = blockIdx.y * rows_per_chunk;
+  const int r1 = min(M, r0 + rows_per_chunk);
+  float db = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const size_t idx = static_cast<size_t>(r) * N + col;
+    const float d = ptt::to_float(g[idx]) * act_grad(ptt::to_float(z[idx]), act);
+    dz[idx] = ptt::from_float<T>(d);
+    db += d;
+  }
+  partial[static_cast<size_t>(blockIdx.y) * N + col] = db;
+}
+
+template <typename T>
+cudaError_t me_bwd(const void* z, const void* g, void* dz, void* db,
+                   void* partial, int M, int N, int nchunks, int act,
+                   cudaStream_t s) {
+  const int rows_per_chunk = (M + nchunks - 1) / nchunks;
+  const dim3 grid((N + 255) / 256, nchunks);
+  float* part = static_cast<float*>(partial);
+  me_bwd_kernel<T><<<grid, 256, 0, s>>>(
+      static_cast<const T*>(z), static_cast<const T*>(g), static_cast<T*>(dz),
+      part, M, N, rows_per_chunk, act);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  ptt::column_sum_kernel<T><<<(N + 255) / 256, 256, 0, s>>>(
+      part, static_cast<T*>(db), nchunks, N);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// dz has z's shape and type; db is [N] of z's type; partial is f32 scratch
+// of nchunks * N floats, 1 <= nchunks <= M.
+extern "C" int ptt_matmul_epilogue_bwd(const void* z, const void* g, void* dz,
+                                       void* db, void* partial, int M, int N,
+                                       int nchunks, int act, int dtype,
+                                       int device, void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  if (act < kActNone || act > kActSilu || nchunks < 1 || nchunks > M ||
+      nchunks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == PTT_DTYPE_BF16) {
+    e = me_bwd<bf16>(z, g, dz, db, partial, M, N, nchunks, act, s);
+  } else if (dtype == PTT_DTYPE_F32) {
+    e = me_bwd<float>(z, g, dz, db, partial, M, N, nchunks, act, s);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
+}
 
 extern "C" int ptt_matmul_epilogue_fwd(const void* x, const void* w,
                                        const void* b, void* out, void* z,

@@ -10,12 +10,11 @@ segments (``ops/ragged.py``), through the model, then the sampler.
     prefill at its first uncached block, and each landed chunk commits
     its full blocks back to the index;
   * **sampling**: greedy argmax, or temperature -> top-k -> top-p and a
-    draw.  Each draw uses a ``torch.Generator`` seeded from the request's
-    ``(seed, absolute position)``, so a request draws the same tokens
-    under any packing, chunking or preemption.  The reference keys JAX's
-    threefry ``fold_in(PRNGKey(seed), position)`` instead, which is not
-    reproduced: seeded sampling matches the reference in distribution
-    only, greedy decoding token for token;
+    draw.  Each draw is the reference's: ``categorical(fold_in(
+    PRNGKey(seed), position), logp)`` on JAX's threefry stream, ported
+    bit for bit in ``core/random.py``, so a request draws the same tokens
+    under any packing, chunking or preemption, and the same tokens as the
+    reference engine;
   * **no host stall**: decode inputs come from the previous step's
     device-side tokens with no host read, and results drain
     ``pipeline_depth - 1`` steps behind dispatch (default depth 2).
@@ -38,7 +37,7 @@ import time
 import numpy as np
 import torch
 
-from ...core import resolve_device, to_torch_dtype
+from ...core import random, resolve_device, to_torch_dtype
 from ...ops.ragged import ragged_q_block
 from .attention import RaggedCacheView
 from .kv_cache import PagedKVCache
@@ -89,21 +88,15 @@ def _nucleus_mask(probs, top_p):
     return keep | (top_p[:, None] >= 1.0)
 
 
-def _draw_uniform(seed, position):
-    """One uniform in [0, 1) from a generator seeded by (seed, position)."""
-    g = torch.Generator().manual_seed(((int(seed) & 0xFFFFFFFF) << 32)
-                                      | (int(position) & 0xFFFFFFFF))
-    return float(torch.rand((), generator=g))
-
-
 def sample_next(z, seeds, positions, do_sample, top_k, top_p, temperature):
     """Next token for each row of ``z`` ``[B, V]`` (f32 logits), int64.
 
     Greedy rows take the argmax.  Sampling rows (``do_sample`` and
     temperature > 0) apply temperature -> top-k -> top-p, the
-    reference's filter order, and draw by inverse CDF with a uniform
-    from the row's ``(seed, position)`` generator.  The controls are
-    host numpy arrays of length B."""
+    reference's filter order, and draw ``argmax(logp + gumbel)`` with
+    the key ``fold_in(PRNGKey(seed), position)`` of JAX's threefry, as
+    the reference's ``_filter_and_draw`` (engine.py:92-127) does.  The
+    controls are host numpy arrays of length B."""
     greedy = z.argmax(dim=-1)
     use = np.asarray(do_sample, bool) & (np.asarray(temperature) > 0)
     if not use.any():
@@ -120,13 +113,11 @@ def sample_next(z, seeds, positions, do_sample, top_k, top_p, temperature):
     p = p / p.sum(dim=-1, keepdim=True)
     tp = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
     p = torch.where(_nucleus_mask(p, tp), p, 0.0)
-    u = np.array([_draw_uniform(s, pos) if on else 0.0
-                  for s, pos, on in zip(seeds, positions, use)],
-                 np.float32)
-    cdf = p.cumsum(dim=-1)
-    target = torch.as_tensor(u, device=dev) * cdf[:, -1]
-    # the first token whose cumulative mass exceeds the target
-    sampled = (cdf <= target[:, None]).sum(dim=-1).clamp(max=V - 1)
+    logp = torch.log(torch.clamp_min(p, 1e-30))
+    key = random.fold_in(
+        random.prng_key(np.asarray(seeds, np.int64), device=dev),
+        torch.as_tensor(np.asarray(positions, np.int64), device=dev))
+    sampled = random.categorical(key, logp)
     return torch.where(torch.as_tensor(use, device=dev), sampled, greedy)
 
 

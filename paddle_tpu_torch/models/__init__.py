@@ -1,4 +1,6 @@
 """Models of the port: GPT."""
-from .gpt import GPT_1P3B, GPTConfig, GPTForCausalLM, GPTModel
+from .gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM, GPTModel,
+                  GPTPretrainingCriterion)
 
-__all__ = ["GPT_1P3B", "GPTConfig", "GPTForCausalLM", "GPTModel"]
+__all__ = ["GPT_1P3B", "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTPretrainingCriterion"]

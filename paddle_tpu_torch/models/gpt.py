@@ -5,14 +5,23 @@ the reference's ``state_dict`` (``gpt.wte.weight``,
 ``gpt.h.{i}.attn.qkv_proj.weight`` ``[hidden, 3*hidden]``, ...), so
 ``convert.load_reference_state`` carries its weights over unchanged.
 
-The serving path is ported: with a paged cache view (anything with an
-``attend`` method, see ``inference/serving/attention.py``) each layer
-scatters its K/V into the pool and runs ragged paged attention, and the
-per-row positions come from the view.  ``fc1`` runs through the
-matmul-epilogue kernel with ``gelu_tanh``; the three layer norms through
-the layer-norm kernel.  The dense ``cache=None`` attention is the flash
-kernel's path, which is not ported yet: it runs the plain composite on
-CPU tensors and raises on CUDA tensors.
+Serving: with a paged cache view (anything with an ``attend`` method,
+see ``inference/serving/attention.py``) each layer scatters its K/V into
+the pool and runs ragged paged attention, and the per-row positions come
+from the view.
+
+Training: ``cache=None`` runs dense causal attention.  With
+``use_flash_attention=False`` (the reference's ``sdp_kernel(
+enable_flash=False)``) that is the composite ``_sdpa_ref`` on any
+device; with ``True`` it is the flash kernel's path, which is not ported
+yet and raises on CUDA tensors.  ``GPTPretrainingCriterion`` is the
+shifted next-token loss through the softmax cross-entropy kernels.
+
+``fc1`` runs through the matmul-epilogue kernels with ``gelu_tanh``, the
+three layer norms through the layer-norm kernels, forward and backward.
+A model starts in training mode, as the reference's ``Layer`` does (the
+serving engine switches it to eval); dropout masks come from the
+model's own ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -26,7 +35,7 @@ from ..core import resolve_device, to_torch_dtype
 from ..nn import functional as F
 
 __all__ = ["GPTConfig", "GPT_1P3B", "GPTAttention", "GPTMLP", "GPTBlock",
-           "GPTModel", "GPTForCausalLM"]
+           "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion"]
 
 
 @dataclass
@@ -38,6 +47,7 @@ class GPTConfig:
     intermediate_size: int = 0      # 0 -> 4*hidden
     max_position_embeddings: int = 1024
     hidden_dropout_prob: float = 0.0
+    use_flash_attention: bool = True
     use_recompute: bool = False
     tie_word_embeddings: bool = True
     use_scan_layers: bool = False
@@ -57,6 +67,7 @@ class GPTAttention(nn.Module):
         super().__init__()
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        self.use_flash = cfg.use_flash_attention
         self.qkv_proj = pnn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
                                    **kw)
         self.out_proj = pnn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
@@ -73,7 +84,8 @@ class GPTAttention(nn.Module):
                 "the dense (concatenated) KV cache is not ported yet; "
                 "serve through the paged cache")
         else:
-            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            attn = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, use_flash=self.use_flash)
         return self.out_proj(attn.reshape(b, s, h))
 
 
@@ -97,7 +109,8 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
         self.mlp = GPTMLP(cfg, **kw)
-        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob)
+        self.dropout = pnn.Dropout(cfg.hidden_dropout_prob,
+                                   generator=generator)
 
     def forward(self, x, cache=None):
         x = x + self.dropout(self.attn(self.ln_1(x), cache))
@@ -109,7 +122,7 @@ class GPTModel(nn.Module):
         super().__init__()
         if cfg.use_recompute or cfg.use_scan_layers:
             raise NotImplementedError(
-                "use_recompute / use_scan_layers (training) not ported yet")
+                "use_recompute / use_scan_layers not ported yet")
         if not cfg.tie_word_embeddings:
             raise NotImplementedError(
                 "an untied LM head is not ported yet")
@@ -141,8 +154,11 @@ class GPTForCausalLM(nn.Module):
 
     ``device=None`` places it on the CUDA device and raises when there
     is none; ``device="cpu"`` runs the plain versions of the kernels.
-    The initial weights are drawn from ``torch.Generator(device)``
-    seeded with ``seed``.
+    The initial weights, and then the dropout masks, are drawn from
+    ``torch.Generator(device)`` seeded with ``seed``.  Every parameter
+    carries its structured name (``gpt.h.0.ln_1.bias``) as
+    ``.param_name`` (a tensor's ``.name`` is torch's own), which the
+    optimizers pass to ``apply_decay_param_fun``.
     """
 
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
@@ -152,7 +168,8 @@ class GPTForCausalLM(nn.Module):
         gen = torch.Generator(device=device).manual_seed(int(seed))
         self.config = cfg
         self.gpt = GPTModel(cfg, device=device, dtype=dtype, generator=gen)
-        self.eval()
+        for name, p in self.named_parameters():
+            p.param_name = name
 
     @property
     def device(self):
@@ -164,7 +181,18 @@ class GPTForCausalLM(nn.Module):
 
     def logits(self, hidden):
         """The tied LM head: ``hidden @ wte.weight^T``."""
-        return torch.matmul(hidden, self.gpt.wte.weight.t())
+        return F.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
 
     def forward(self, input_ids, cache=None):
         return self.logits(self.gpt(input_ids, cache))
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted next-token LM loss (``ignore_index=-100`` for padding), the
+    reference's ``GPTPretrainingCriterion`` (gpt.py:230-237)."""
+
+    def forward(self, logits, labels):
+        v = logits.shape[-1]
+        logits = logits[:, :-1, :].reshape(-1, v)
+        labels = labels[:, 1:].reshape(-1)
+        return F.cross_entropy(logits, labels, reduction="mean")

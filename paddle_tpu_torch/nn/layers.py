@@ -80,12 +80,15 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Dropout with probability ``p`` in training; the identity in eval
-    mode, which is how serving runs."""
+    """Dropout with probability ``p`` in training, its masks drawn from
+    ``generator``; the identity in eval mode, which is how serving
+    runs."""
 
-    def __init__(self, p=0.5):
+    def __init__(self, p=0.5, generator=None):
         super().__init__()
         self.p = p
+        self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training)
+        return F.dropout(x, self.p, training=self.training,
+                         generator=self.generator)

@@ -1,32 +1,52 @@
 """The port's kernels: hand-written CUDA for Hopper, each with a plain
 PyTorch version beside it.
 
-=====================  ======================================  =========================
-wrapper                CUDA source                             replaces (TPU kernel)
-=====================  ======================================  =========================
-fused_layer_norm       csrc/layer_norm.cu                      pallas_kernels.py:522
-fused_linear_act       csrc/matmul_epilogue.cu                 pallas_fused.py:266
-ragged_paged_attention csrc/ragged_attention.cu                pallas_ragged.py:115/189
-=====================  ======================================  =========================
+======================  ========================  =========================
+wrapper                 CUDA source               replaces (TPU kernel)
+======================  ========================  =========================
+ragged_paged_attention  csrc/ragged_attention.cu  pallas_ragged.py:115/189
+fused_layer_norm        csrc/layer_norm.cu        pallas_kernels.py:522
+fused_linear_act        csrc/matmul_epilogue.cu   pallas_fused.py:266
+fused_layer_norm_bwd    csrc/layer_norm.cu        pallas_kernels.py:536
+fused_linear_act_bwd    csrc/matmul_epilogue.cu   pallas_fused.py:278
+softmax_xent_fwd        csrc/softmax_xent.cu      pallas_kernels.py:759
+softmax_xent_bwd        csrc/softmax_xent.cu      pallas_kernels.py:802
+======================  ========================  =========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
+`layer_norm`, `linear_act` and `fused_softmax_cross_entropy` are the
+differentiable entry points: ``torch.autograd.Function``s whose
+backward is the backward kernel.
 """
-from .layer_norm import fused_layer_norm, layer_norm_ref
+from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
+                         layer_norm, layer_norm_bwd_ref, layer_norm_ref)
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
-                              linear_act_ref)
+                              fused_linear_act_bwd, linear_act,
+                              linear_act_bwd_ref, linear_act_ref)
 from .ragged import (ragged_attention_ref, ragged_paged_attention,
                      ragged_q_block, ragged_segments)
+from .softmax_xent import (fused_softmax_cross_entropy, softmax_xent_bwd,
+                           softmax_xent_bwd_ref, softmax_xent_fwd,
+                           softmax_xent_fwd_ref)
 
-__all__ = ["fused_layer_norm", "layer_norm_ref", "ACTIVATIONS",
-           "fused_linear_act", "linear_act_ref", "ragged_attention_ref",
+__all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
+           "layer_norm_bwd_ref", "layer_norm_ref", "ACTIVATIONS",
+           "fused_linear_act", "fused_linear_act_bwd", "linear_act",
+           "linear_act_bwd_ref", "linear_act_ref", "ragged_attention_ref",
            "ragged_paged_attention", "ragged_q_block", "ragged_segments",
-           "KERNELS"]
+           "fused_softmax_cross_entropy", "softmax_xent_bwd",
+           "softmax_xent_bwd_ref", "softmax_xent_fwd",
+           "softmax_xent_fwd_ref", "KERNELS"]
 
-#: every kernel wrapper of the serving path, by kernel name
+#: every kernel wrapper of the serving and training paths, by kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
     "matmul_epilogue": fused_linear_act,
+    "layer_norm_bwd": fused_layer_norm_bwd,
+    "matmul_epilogue_bwd": fused_linear_act_bwd,
+    "softmax_xent_fwd": softmax_xent_fwd,
+    "softmax_xent_bwd": softmax_xent_bwd,
 }

@@ -41,8 +41,14 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ptt_layer_norm_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I,
                             _P), _I),
+    "ptt_layer_norm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _P), _I),
     "ptt_matmul_epilogue_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _P), _I),
+    "ptt_matmul_epilogue_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _P), _I),
+    "ptt_softmax_xent_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "ptt_softmax_xent_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ptt_ragged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
                                  _I),

@@ -1,10 +1,13 @@
-"""Layer norm forward: the hand-written CUDA kernel and its plain version.
+"""Layer norm, forward and backward: the hand-written CUDA kernels and their
+plain versions.
 
 Port of ``paddle_tpu/ops/pallas_kernels.py`` ``fused_layer_norm`` (:639),
-whose Pallas body ``_ln_fwd_kernel`` (:522) becomes
-``paddle_tpu_torch/csrc/layer_norm.cu``.  Both return the normalised
-rows in the input's type plus the f32 statistics ``mu`` and ``rstd``
-(one per row) that the training slice's backward will reuse.
+whose Pallas bodies ``_ln_fwd_kernel`` (:522) and ``_ln_bwd_kernel``
+(:536) become ``paddle_tpu_torch/csrc/layer_norm.cu``.  The forward
+returns the normalised rows in the input's type plus the f32 statistics
+``mu`` and ``rstd`` (one per row); the backward reuses them.
+`layer_norm` is the differentiable entry point: a
+``torch.autograd.Function`` whose backward is the backward kernel.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.
@@ -15,7 +18,12 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["layer_norm_ref", "fused_layer_norm"]
+__all__ = ["layer_norm_ref", "fused_layer_norm", "layer_norm_bwd_ref",
+           "fused_layer_norm_bwd", "layer_norm"]
+
+#: row blocks of the backward's first pass (each leaves one f32 row of
+#: dgamma/dbeta partial sums for the second pass)
+_BWD_BLOCKS = 512
 
 
 def layer_norm_ref(x, gamma, beta, eps=1e-5):
@@ -33,6 +41,15 @@ def layer_norm_ref(x, gamma, beta, eps=1e-5):
             rstd.squeeze(-1))
 
 
+def _check_vec(name, t, n, x):
+    if t.device != x.device or t.dtype != x.dtype \
+            or tuple(t.shape) != (n,) or not t.is_contiguous():
+        raise ValueError(
+            f"layer norm: {name} must be a contiguous [{n}] {x.dtype} "
+            f"tensor on {x.device}, got {tuple(t.shape)} {t.dtype} on "
+            f"{t.device}")
+
+
 def fused_layer_norm(x, gamma, beta, eps=1e-5):
     """Layer norm over the last dim of ``x`` with ``gamma``/``beta``
     ``[N]``: ``(out, mu, rstd)`` as in `layer_norm_ref`."""
@@ -42,13 +59,8 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
         raise RuntimeError(f"layer norm: no kernel for device {x.device}")
     n = x.shape[-1]
     code = cuda_lib.dtype_code(x.dtype)
-    for name, t in (("gamma", gamma), ("beta", beta)):
-        if t.device != x.device or t.dtype != x.dtype \
-                or tuple(t.shape) != (n,) or not t.is_contiguous():
-            raise ValueError(
-                f"layer norm: {name} must be a contiguous [{n}] "
-                f"{x.dtype} tensor on {x.device}, got {tuple(t.shape)} "
-                f"{t.dtype} on {t.device}")
+    _check_vec("gamma", gamma, n, x)
+    _check_vec("beta", beta, n, x)
     if not x.is_contiguous():
         raise ValueError("layer norm: x must be contiguous")
     rows = x.numel() // n if n else 0
@@ -67,5 +79,90 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
     return out, mu, rstd
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+def layer_norm_bwd_ref(x, gamma, mu, rstd, dout):
+    """Plain backward of `layer_norm_ref` from its saved f32 ``mu`` /
+    ``rstd``, the TPU kernel's arithmetic in f32: ``(dx, dgamma,
+    dbeta)`` with dx in ``x``'s type and dgamma/dbeta in ``gamma``'s."""
+    n = x.shape[-1]
+    xf = x.reshape(-1, n).float()
+    do = dout.reshape(-1, n).float()
+    xhat = (xf - mu[:, None]) * rstd[:, None]
+    dxhat = do * gamma.float()
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (dxhat - m1 - xhat * m2) * rstd[:, None]
+    dgamma = (do * xhat).sum(dim=0)
+    dbeta = do.sum(dim=0)
+    return (dx.to(x.dtype).reshape(x.shape), dgamma.to(gamma.dtype),
+            dbeta.to(gamma.dtype))
+
+
+def fused_layer_norm_bwd(x, gamma, mu, rstd, dout):
+    """``(dx, dgamma, dbeta)`` as in `layer_norm_bwd_ref`, through the
+    backward kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return layer_norm_bwd_ref(x, gamma, mu, rstd, dout)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"layer norm bwd: no kernel for device {x.device}")
+    n = x.shape[-1]
+    code = cuda_lib.dtype_code(x.dtype)
+    _check_vec("gamma", gamma, n, x)
+    rows = x.numel() // n if n else 0
+    if dout.shape != x.shape or dout.dtype != x.dtype \
+            or dout.device != x.device:
+        raise ValueError(f"layer norm bwd: dout must match x "
+                         f"{tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dout.shape)} {dout.dtype}")
+    for name, t in (("mu", mu), ("rstd", rstd)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (rows,) \
+                or t.device != x.device:
+            raise ValueError(f"layer norm bwd: {name} must be f32 "
+                             f"[{rows}] on {x.device}")
+    for name, t in (("x", x), ("dout", dout), ("mu", mu), ("rstd", rstd)):
+        if not t.is_contiguous():
+            raise ValueError(f"layer norm bwd: {name} must be contiguous")
+    dx = torch.empty_like(x)
+    dgamma = torch.zeros(n, dtype=gamma.dtype, device=x.device)
+    dbeta = torch.zeros(n, dtype=gamma.dtype, device=x.device)
+    if rows and n:
+        nblk = min(rows, _BWD_BLOCKS)
+        partial = torch.empty(2, nblk, n, dtype=torch.float32,
+                              device=x.device)
+        rc = cuda_lib.library().ptt_layer_norm_bwd(
+            x.data_ptr(), gamma.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
+            dout.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
+            dbeta.data_ptr(), partial.data_ptr(), rows, n, nblk, code,
+            x.device.index, cuda_lib.stream_handle(x.device))
+        cuda_lib.check(rc, "layer_norm_bwd")
+        fused_layer_norm_bwd.launches += 1
+    return dx, dgamma, dbeta
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        out, mu, rstd = fused_layer_norm(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mu, rstd)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, gamma, mu, rstd = ctx.saved_tensors
+        dx, dgamma, dbeta = fused_layer_norm_bwd(x, gamma, mu, rstd,
+                                                 dout.contiguous())
+        return dx, dgamma, dbeta, None
+
+
+def layer_norm(x, gamma, beta, eps=1e-5):
+    """Differentiable layer norm over the last dim: the forward kernel,
+    and the backward kernel for the gradient.  Without autograd (no
+    input needs a gradient, or grad mode off) it is one forward call."""
+    if torch.is_grad_enabled() and (x.requires_grad or gamma.requires_grad
+                                    or beta.requires_grad):
+        return _LayerNorm.apply(x, gamma, beta, float(eps))
+    return fused_layer_norm(x, gamma, beta, eps)[0]
+
+
+#: kernel launches since the last reset (chip_smoke.py reads them)
 fused_layer_norm.launches = 0
+fused_layer_norm_bwd.launches = 0

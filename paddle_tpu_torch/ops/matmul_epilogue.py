@@ -1,11 +1,15 @@
 """Matmul with a fused bias + activation epilogue: ``act(x @ w + b)``.
 
 Port of ``paddle_tpu/ops/pallas_fused.py`` ``fused_linear_act`` (:379),
-whose forward body ``_me_fwd_kernel`` (:266) becomes
-``paddle_tpu_torch/csrc/matmul_epilogue.cu``.  The product runs inside
-that kernel (WMMA tensor-core tiles for bf16, CUDA-core f32 tiles for
-f32); no library GEMM stands in for it.  ``w`` keeps Paddle's ``[in,
-out]`` layout.
+whose bodies ``_me_fwd_kernel`` (:266) and ``_me_bwd_kernel`` (:278)
+become ``paddle_tpu_torch/csrc/matmul_epilogue.cu``.  The forward's
+product runs inside that kernel (WMMA tensor-core tiles for bf16,
+CUDA-core f32 tiles for f32); no library GEMM stands in for it.  The
+backward kernel computes ``dz = g * act'(z)`` and the bias gradient;
+``dx = dz @ w^T`` and ``dw = x^T @ dz`` are plain ``torch.matmul``, as
+the reference leaves them to XLA (pallas_fused.py:363-370).  ``w`` keeps
+Paddle's ``[in, out]`` layout.  `linear_act` is the differentiable entry
+point.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.
@@ -18,13 +22,16 @@ import torch
 
 from . import cuda_lib
 
-__all__ = ["ACTIVATIONS", "act_f32", "linear_act_ref", "fused_linear_act"]
+__all__ = ["ACTIVATIONS", "act_f32", "act_grad_f32", "linear_act_ref",
+           "fused_linear_act", "linear_act_bwd_ref", "fused_linear_act_bwd",
+           "linear_act"]
 
 #: the reference's activation names (pallas_fused.py:47), in the order of
 #: the kernel's activation codes
 ACTIVATIONS = ("none", "relu", "gelu", "gelu_tanh", "silu")
 
 _SQRT_2 = 2.0 ** 0.5
+_INV_SQRT_2PI = 0.3989422804014327     # 1/sqrt(2*pi)
 _GELU_C = 0.7978845608028654           # sqrt(2/pi)
 _GELU_A = 0.044715
 
@@ -42,6 +49,26 @@ def act_f32(z, act):
         return 0.5 * z * (1.0 + t)
     if act == "silu":
         return z * torch.sigmoid(z)
+    raise ValueError(f"act must be one of {ACTIVATIONS}, got {act!r}")
+
+
+def act_grad_f32(z, act):
+    """The reference's ``_act_grad_f32`` (pallas_fused.py:70) on f32 ``z``."""
+    if act == "none":
+        return torch.ones_like(z)
+    if act == "relu":
+        return (z > 0.0).to(z.dtype)
+    if act == "gelu":
+        phi = _INV_SQRT_2PI * torch.exp(-0.5 * z * z)
+        return 0.5 * (1.0 + torch.erf(z / _SQRT_2)) + z * phi
+    if act == "gelu_tanh":
+        u = _GELU_C * (z + _GELU_A * z * z * z)
+        t = torch.tanh(u)
+        du = _GELU_C * (1.0 + 3.0 * _GELU_A * z * z)
+        return 0.5 * (1.0 + t) + 0.5 * z * (1.0 - t * t) * du
+    if act == "silu":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
     raise ValueError(f"act must be one of {ACTIVATIONS}, got {act!r}")
 
 
@@ -99,5 +126,88 @@ def fused_linear_act(x, w, b, act="none", return_z=False):
     return (out, z) if return_z else out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+def linear_act_bwd_ref(z, g, act):
+    """Plain backward of the epilogue: ``dz = g * act'(z)`` in f32, written
+    in ``z``'s type, and ``db``, the column sums of the f32 ``dz``, in
+    ``z``'s type.  ``z`` and ``g`` are ``[..., N]``."""
+    _check_act(act)
+    n = z.shape[-1]
+    dz = g.reshape(-1, n).float() * act_grad_f32(z.reshape(-1, n).float(),
+                                                 act)
+    return dz.to(z.dtype).reshape(z.shape), dz.sum(dim=0).to(z.dtype)
+
+
+#: row chunks of the backward's first pass (each leaves one f32 row of
+#: bias-gradient partial sums for the second pass)
+_BWD_CHUNKS = 64
+
+
+def fused_linear_act_bwd(z, g, act):
+    """``(dz, db)`` as in `linear_act_bwd_ref`, through the backward
+    kernel for CUDA tensors."""
+    _check_act(act)
+    if z.device.type == "cpu":
+        return linear_act_bwd_ref(z, g, act)
+    if z.device.type != "cuda":
+        raise RuntimeError(f"matmul epilogue bwd: no kernel for device "
+                           f"{z.device}")
+    code = cuda_lib.dtype_code(z.dtype)
+    if g.shape != z.shape or g.dtype != z.dtype or g.device != z.device:
+        raise ValueError(f"matmul epilogue bwd: g must match z "
+                         f"{tuple(z.shape)} {z.dtype}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if not (z.is_contiguous() and g.is_contiguous()):
+        raise ValueError("matmul epilogue bwd: z and g must be contiguous")
+    N = z.shape[-1]
+    M = z.numel() // N if N else 0
+    dz = torch.empty_like(z)
+    db = torch.zeros(N, dtype=z.dtype, device=z.device)
+    if M and N:
+        nchunks = min(M, _BWD_CHUNKS)
+        partial = torch.empty(nchunks, N, dtype=torch.float32,
+                              device=z.device)
+        rc = cuda_lib.library().ptt_matmul_epilogue_bwd(
+            z.data_ptr(), g.data_ptr(), dz.data_ptr(), db.data_ptr(),
+            partial.data_ptr(), M, N, nchunks, ACTIVATIONS.index(act), code,
+            z.device.index, cuda_lib.stream_handle(z.device))
+        cuda_lib.check(rc, "matmul_epilogue_bwd")
+        fused_linear_act_bwd.launches += 1
+    return dz, db
+
+
+class _LinearAct(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, act):
+        out, z = fused_linear_act(x, w, b, act, return_z=True)
+        ctx.act = act
+        ctx.save_for_backward(x, w, z)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, z = ctx.saved_tensors
+        dz, db = fused_linear_act_bwd(z, g.contiguous(), ctx.act)
+        dz2 = dz.reshape(-1, dz.shape[-1])
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.matmul(dz, w.t())
+        if ctx.needs_input_grad[1]:
+            dw = torch.matmul(x.reshape(-1, x.shape[-1]).t(), dz2)
+        return dx, dw, db if ctx.needs_input_grad[2] else None, None
+
+
+def linear_act(x, w, b, act="none"):
+    """Differentiable ``act(x @ w + b)``: the forward kernel (saving the
+    pre-activation ``z``), and for the gradient the backward kernel plus
+    two plain GEMMs.  Without autograd it is one forward call that saves
+    nothing."""
+    _check_act(act)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad
+                                    or b.requires_grad):
+        return _LinearAct.apply(x, w, b, act)
+    return fused_linear_act(x, w, b, act)
+
+
+#: kernel launches since the last reset (chip_smoke.py reads them)
 fused_linear_act.launches = 0
+fused_linear_act_bwd.launches = 0

@@ -6,9 +6,13 @@ imports torch and the port only, so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
-Small shapes with ragged edges; the main path's shapes are covered by
-``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums in another
-order), bf16 2e-2 abs + rel (about two bf16 ulps at unit scale).  bf16
+Small shapes with ragged edges (rows not a multiple of a block, vocab
+50304 and odd vocabularies, all activations); the main path's shapes
+are covered by ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
+in another order), bf16 2e-2 abs + rel (about two bf16 ulps at unit
+scale); column sums (dgamma, dbeta, db) f32 1e-4·sqrt(rows) abs, bf16
+2e-2; cross-entropy loss and lse (f32 whatever the logits' type) 1e-4
+abs + 1e-5 rel.  bf16
 ragged attention is also held to the plain version run in f32, which
 keeps the probabilities in f32 as the kernel does, within one bf16 ulp
 (rtol 2^-7) plus 2^-8 of the output's RMS.
@@ -104,6 +108,65 @@ def test_ragged_attention_kernel(gen, dtype, qlens, ctxs, pad):
         assert float(out[-pad * block_q:].abs().sum()) == 0.0
 
 
+def _sum_tol(dtype, rows):
+    """Tolerance of a column sum over ``rows`` rows taken in another
+    order: f32 1e-4 per sqrt(rows) of accumulated rounding; bf16 one
+    rounding of the result (2e-2)."""
+    return 1e-4 * rows ** 0.5 if dtype == torch.float32 else 2e-2
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,n", [(37, 300), (1030, 2048), (3, 7000)])
+def test_layer_norm_bwd_kernel(gen, dtype, rows, n):
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen) + 1).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    b = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    _, mu, rstd = ops.fused_layer_norm(x, g, b)
+    n0 = ops.fused_layer_norm_bwd.launches
+    dx, dg, db = ops.fused_layer_norm_bwd(x, g, mu, rstd, do)
+    want = ops.layer_norm_bwd_ref(x, g, mu, rstd, do)
+    assert ops.fused_layer_norm_bwd.launches == n0 + 1
+    _close(dx, want[0], dtype)
+    tol = _sum_tol(dtype, rows)
+    for got, ref in ((dg, want[1]), (db, want[2])):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol,
+                                   rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ops.ACTIVATIONS)
+def test_matmul_epilogue_bwd_kernel(gen, dtype, act):
+    M, N = 70, 130
+    z = (2 * torch.randn(M, N, device="cuda", generator=gen)).to(dtype)
+    g = torch.randn(M, N, device="cuda", generator=gen).to(dtype)
+    dz, db = ops.fused_linear_act_bwd(z, g, act)
+    dz_ref, db_ref = ops.linear_act_bwd_ref(z, g, act)
+    _close(dz, dz_ref, dtype)
+    torch.testing.assert_close(db.float(), db_ref.float(),
+                               atol=_sum_tol(dtype, M), rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,V", [(33, 50304), (70, 1001), (5, 37)])
+def test_softmax_xent_kernels(gen, dtype, rows, V):
+    x = (3 * torch.randn(rows, V, device="cuda", generator=gen)).to(dtype)
+    labels = torch.randint(0, V, (rows,), device="cuda", generator=gen)
+    labels[::4] = -1                        # ignored rows
+    labels[1] = V + 3                       # past the vocab: picks nothing
+    loss, lse = ops.softmax_xent_fwd(x, labels)
+    loss_ref, lse_ref = ops.softmax_xent_fwd_ref(x, labels)
+    torch.testing.assert_close(loss, loss_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    assert float(loss[0]) == 0.0
+    g = torch.rand(rows, device="cuda", generator=gen) + 0.5
+    dx = ops.softmax_xent_bwd(x, labels, lse, g)
+    dx_ref = ops.softmax_xent_bwd_ref(x, labels, lse, g)
+    _close(dx, dx_ref, dtype)
+    assert float(dx[0].float().abs().sum()) == 0.0
+
+
 def test_wrappers_refuse_bad_inputs(gen):
     x = torch.randn(4, 8, device="cuda", generator=gen)
     with pytest.raises(TypeError):
@@ -114,3 +177,18 @@ def test_wrappers_refuse_bad_inputs(gen):
     with pytest.raises(ValueError):
         ops.fused_linear_act(x.t(), torch.ones(4, 3, device="cuda"),
                              torch.zeros(3, device="cuda"))  # not contiguous
+    with pytest.raises(ValueError):
+        ops.softmax_xent_fwd(x, torch.zeros(4, dtype=torch.int32,
+                                            device="cuda"))  # not int64
+    with pytest.raises(ValueError):
+        ops.fused_linear_act_bwd(x, x.t().contiguous(), "relu")  # shape
+
+
+def test_dense_flash_attention_raises_on_the_card(gen):
+    from paddle_tpu_torch.nn import functional as F
+    q = torch.randn(1, 8, 2, 16, device="cuda", generator=gen)
+    with pytest.raises(NotImplementedError):
+        F.scaled_dot_product_attention(q, q, q, is_causal=True)
+    out = F.scaled_dot_product_attention(q, q, q, is_causal=True,
+                                         use_flash=False)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())

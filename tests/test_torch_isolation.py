@@ -33,7 +33,9 @@ def _modules():
 
 def test_import_pulls_in_no_jax_and_no_reference():
     mods = list(_modules())
-    assert "paddle_tpu_torch.inference.serving.engine" in mods
+    for m in ("inference.serving.engine", "core.random", "amp",
+              "optimizer.optimizer", "nn.clip", "ops.softmax_xent"):
+        assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -85,11 +87,16 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.randn(4, 8)
     out, mu, rstd = pt.ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
     assert out.device.type == "cpu" and mu.shape == (4,)
-    before = (pt.ops.fused_layer_norm.launches,
-              pt.ops.fused_linear_act.launches,
-              pt.ops.ragged_paged_attention.launches)
+    before = {k: f.launches for k, f in pt.ops.KERNELS.items()}
     pt.ops.fused_linear_act(x, torch.ones(8, 3), torch.zeros(3), "relu")
-    after = (pt.ops.fused_layer_norm.launches,
-             pt.ops.fused_linear_act.launches,
-             pt.ops.ragged_paged_attention.launches)
+    pt.ops.fused_linear_act_bwd(x, x, "gelu")
+    pt.ops.softmax_xent_fwd(x, torch.zeros(4, dtype=torch.int64))
+    after = {k: f.launches for k, f in pt.ops.KERNELS.items()}
     assert after == before, "a CPU call is not a kernel launch"
+
+
+def test_dense_flash_attention_raises_off_the_cpu():
+    q = torch.zeros(1, 4, 2, 8, device="meta")
+    with pytest.raises(NotImplementedError, match="flash"):
+        pt.nn.functional.scaled_dot_product_attention(q, q, q,
+                                                      is_causal=True)

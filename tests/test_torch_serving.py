@@ -5,12 +5,15 @@ the reference GenerationEngine's tokens exactly, with the same driving
 arrays at every step (block tables, slot mappings, context lengths,
 positions and segment descriptors), on a shared-prefix burst whose pool
 is sized to force preemption.  The paged cache is held to the
-reference's allocator on a seeded random trace.  Seeded sampling is
-checked inside the port only: the port draws from ``torch.Generator``s
-keyed by (seed, position), the reference from JAX's threefry, so the two
-agree in distribution, not token for token.  Everything runs on the CPU
+reference's allocator on a seeded random trace.  Seeded sampling draws
+from the port's copy of JAX's threefry (``core/random.py``, partitionable
+mode, jax 0.9): its keys and random bits equal ``jax.random``'s bit for
+bit, and the port's engine samples the reference engine's tokens on a
+burst with temperature, top-k and top-p.  Everything runs on the CPU
 (the port's plain kernel versions, the reference's XLA composites).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -23,6 +26,7 @@ from paddle_tpu.models.gpt import GPTConfig as RefConfig
 from paddle_tpu.models.gpt import GPTForCausalLM as RefGPT
 
 import paddle_tpu_torch as pt
+from paddle_tpu_torch.core import random as trandom
 from paddle_tpu_torch.inference.serving import PagedKVCache, sample_next
 
 TINY = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
@@ -161,6 +165,58 @@ def _soft_port_model():
     with torch.no_grad():
         model.gpt.wte.weight.mul_(0.1)
     return model
+
+
+@pytest.mark.parametrize("seed", [0, 7, 123456789, 2 ** 32 - 1, -3])
+def test_threefry_keys_and_bits_match_jax(seed):
+    assert jax.config.jax_threefry_partitionable, \
+        "the port reproduces the partitionable threefry mode"
+    positions = [0, 1, 63, 1000, 2 ** 31 + 5]
+    key = trandom.fold_in(trandom.prng_key([seed] * len(positions)),
+                          torch.tensor(positions))
+    for row, pos in enumerate(positions):
+        want = jax.random.fold_in(jax.random.PRNGKey(np.uint32(seed % 2 ** 32)),
+                                  np.uint32(pos))
+        assert key[row].tolist() == np.asarray(want, np.int64).tolist()
+        for V in (1, 5, 256, 50304):
+            bits = np.asarray(jax.random.bits(want, (V,), jnp.uint32))
+            got = trandom.random_bits(key[row:row + 1], V)[0].numpy()
+            assert (got == bits.astype(np.int64)).all(), (pos, V)
+        logp = np.random.default_rng(row).standard_normal(300, np.float32)
+        assert int(trandom.categorical(
+            key[row:row + 1], torch.from_numpy(logp)[None])[0]) == int(
+            jax.random.categorical(want, jnp.asarray(logp)))
+        u = trandom.uniform(key[row:row + 1], 256)[0].numpy()
+        np.testing.assert_array_equal(
+            u, np.asarray(jax.random.uniform(
+                want, (256,), jnp.float32,
+                minval=np.finfo(np.float32).tiny, maxval=1.0)))
+
+
+def test_seeded_sampled_tokens_match_reference_engine(models):
+    ref, port = models
+    prompts = _burst(seed=9)
+    kw = dict(num_blocks=12, block_size=4, max_batch=3, max_model_len=64)
+    reqs = [dict(max_new_tokens=12, do_sample=True, top_k=k, top_p=p,
+                 temperature=t, seed=200 + i)
+            for i, (k, p, t) in enumerate([(20, 0.9, 0.8), (0, 1.0, 1.0),
+                                           (5, 1.0, 1.3), (0, 0.7, 0.9)])]
+    ref_eng = RefEngine(ref, **kw)
+    try:
+        ids = [ref_eng.add_request(p, **r) for p, r in zip(prompts, reqs)]
+        while ref_eng.has_unfinished():
+            ref_eng.step()
+        want = [ref_eng.result(i) for i in ids]
+    finally:
+        ref_eng.close()
+    eng = pt.GenerationEngine(port, device="cpu", **kw)
+    ids = [eng.add_request(p, **r) for p, r in zip(prompts, reqs)]
+    while eng.has_unfinished():
+        eng.step()
+    got = [eng.result(i) for i in ids]
+    assert got == want
+    greedy = eng.generate(prompts, max_new_tokens=12)
+    assert greedy != got, "sampling drew nothing but the argmax"
 
 
 def test_seeded_sampling_invariant_to_batch_and_preemption():
