@@ -11,10 +11,13 @@ phase fails.  Phases:
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed);
 2. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the serving and the training drives give it, in bf16
-   and in f32, with errors against stated tolerances and CUDA-event
-   times of the kernel, the plain version and (where one PyTorch call
-   computes the same function) the library call, beside the least time
+   at the shapes the serving and the training drives give it (flash
+   attention: the flash drive's B=8, S=1024, 16 heads of 128, causal; a
+   decode step's one query against 640 keys; and heads of 64 at the
+   0.35B width), in bf16 and in f32, with errors against stated
+   tolerances and CUDA-event times of the kernel, the plain version and
+   (where one PyTorch call computes the same function) the library call,
+   beside the least time
    the card could take (``bound_ms``);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
@@ -44,10 +47,21 @@ phase fails.  Phases:
    ms, tokens/s, MFU (bench.py's 6N + 12LSH flops per token against the
    989 TFLOP/s bf16 peak) and peak memory; launches counted from 0 must
    equal launches per step times the steps; one profiled step splits
-   device time by kernel group and gives the idle share.
+   device time by kernel group and gives the idle share;
+7. flash training parity: phase 5 with ``use_flash_attention=True,
+   use_recompute=True``; every flash kernel must launch on the card;
+8. flash training: phase 6 with ``use_flash_attention=True,
+   use_recompute=True`` at B=8 (bench.py's first size), launches counted
+   per step with every block's forward run twice (recompute);
+9. generate: ``model.generate`` with the dense KV cache, greedy.  Full
+   width cut to 2 layers, f32: 4 prompts of 37-120 tokens left-padded to
+   one batch, 16 new tokens, identical on the card and the CPU; then
+   GPT_1P3B in bf16, 4 prompts x 128 tokens, 64 new tokens: ms per
+   decode step.
 
 Before the last line come one JSON object (every kernel's results, the
-serving, training-parity and training summaries) and the card's
+serving, training-parity, training, flash training-parity, flash
+training and generate summaries) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -408,6 +422,133 @@ def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen):
         library_ms=None, bound_ms=bms, bound_by=by)
 
 
+#: flash attention shapes: (B, Sq, Sk, H, D, causal).  train: the flash
+#: drive's (B=8, S=1024, GPT_1P3B's 16 heads of 128); decode: one
+#: generate step of the 1.3B drive (4 rows, one query against 640 keys);
+#: train_d64: bench.py's 0.35B width (hidden 1024, 16 heads of 64)
+FLASH_SHAPES = {"train": (8, 1024, 1024, 16, 128, True),
+                "decode": (4, 1, 640, 16, 128, True),
+                "train_d64": (8, 1024, 1024, 16, 64, True)}
+
+
+def visible_pairs(sq, sk, causal):
+    """(row, key) pairs one (batch, head) attends: bottom-right causal."""
+    if not causal:
+        return sq * sk
+    off = sk - sq
+    return sum(min(sk, max(0, r + off + 1)) for r in range(sq))
+
+
+def _flash_library(q, k, v, g, causal, dtype):
+    """PyTorch's own fused attention on the same inputs ([B, H, S, D]
+    views), forward and backward: the flash kernel in bf16, the
+    memory-efficient one in f32 (flash takes no f32).  Timed here only;
+    the port never calls them.  Returns (fwd fn, bwd fn, out)."""
+    import torch
+    qt, kt, vt, gt = (t.transpose(1, 2) for t in (q, k, v, g))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    # torch aligns a causal mask top-left: for Sq < Sk only Sq = 1 (which
+    # sees every key) is the same function, and runs without the mask
+    lib_causal = causal and q.shape[1] == k.shape[1]
+    aten = torch.ops.aten
+    if dtype == torch.bfloat16:
+        def fwd():
+            return aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, lib_causal, False, scale=scale)
+        res = fwd()
+
+        def bwd():
+            return aten._scaled_dot_product_flash_attention_backward(
+                gt, qt, kt, vt, res[0], res[1], res[2], res[3], res[4],
+                res[5], 0.0, lib_causal, res[6], res[7], scale=scale)
+    else:
+        def fwd():
+            return aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, None, True, 0.0, lib_causal, scale=scale)
+        res = fwd()
+
+        def bwd():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                gt, qt, kt, vt, None, res[0], res[1], res[2], res[3], 0.0,
+                [True, True, True, False], lib_causal, scale=scale)
+    return fwd, bwd, res[0].transpose(1, 2)
+
+
+def check_flash(ops, shape_key, dtype, dtype_name, gen):
+    """The three flash kernels at one shape: q, k, v as the views
+    ``qkv.unbind(2)`` gives (the model's layout; S and Sk equal) or as
+    separate tensors.  dq and dk/dv take lse and delta from the plain
+    forward, as both versions must see the same inputs."""
+    import torch
+    B, Sq, Sk, H, D, causal = FLASH_SHAPES[shape_key]
+    if Sq == Sk:
+        qkv = torch.randn(B, Sq, 3, H, D, device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(B, s, H, D, device="cuda",
+                               generator=gen).to(dtype)
+                   for s in (Sq, Sk, Sk))
+    g = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
+    out, lse = ops.fused_flash_attention_fwd(q, k, v, causal)
+    out_r, lse_r = ops.flash_attention_ref(q, k, v, causal)
+    lse_s, delta = ops.flash_bwd_stats(out_r, g, lse_r)
+    bargs = (q, k, v, g, lse_s, delta, causal)
+    dq = ops.fused_flash_attention_bwd_dq(*bargs)
+    dk, dv = ops.fused_flash_attention_bwd_dkv(*bargs)
+    dq_r, dk_r, dv_r = ops.flash_attention_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(out, out_r, dtype_name)
+    lse_err, _, lse_ok = compare(lse, lse_r, "float32")
+    dq_err, dq_rel, dq_ok = compare(dq, dq_r, dtype_name)
+    errs = [compare(a, b, dtype_name) for a, b in ((dk, dk_r), (dv, dv_r))]
+    pairs = B * H * visible_pairs(Sq, Sk, causal)
+    isz = q.element_size()
+    qb, kb = B * Sq * H * D * isz, B * Sk * H * D * isz
+    stats = 4 * B * H * Sq
+    shape = (f"B={B} Sq={Sq} Sk={Sk} H={H} D={D} "
+             f"{'causal' if causal else 'full'}")
+    try:
+        lib_fwd, lib_bwd, lib_out = _flash_library(q, k, v, g, causal, dtype)
+        lib_note = (f"library vs plain max abs err "
+                    f"{compare(lib_out, out_r, dtype_name)[0]:.3e}")
+        lib_fwd_ms, lib_bwd_ms = time_ms(lib_fwd), time_ms(lib_bwd)
+    except (RuntimeError, TypeError) as exc:   # timing only: report why
+        lib_note = f"library call failed: {str(exc).splitlines()[0][:160]}"
+        lib_fwd_ms = lib_bwd_ms = None
+    bwd_note = "; the library call computes dq, dk and dv in one call"
+    # one plain backward computes dq, dk and dv: timed once for both
+    plain_bwd_ms = time_ms(lambda: ops.flash_attention_bwd_ref(*bargs),
+                           iters=5)
+    fwd_b = bound(2 * qb + 2 * kb + stats, 4 * D * pairs, dtype_name)
+    dq_b = bound(3 * qb + 2 * kb + 2 * stats, 6 * D * pairs, dtype_name)
+    dkv_b = bound(2 * qb + 4 * kb + 2 * stats, 8 * D * pairs, dtype_name)
+    return {
+        "flash_attention_fwd": dict(
+            err=max(err, lse_err), rel=rel, ok=ok and lse_ok, shape=shape,
+            note=f"out {err:.3e}, lse {lse_err:.3e}; {lib_note}",
+            ms=time_ms(lambda: ops.fused_flash_attention_fwd(q, k, v,
+                                                             causal)),
+            plain_ms=time_ms(lambda: ops.flash_attention_ref(q, k, v, causal),
+                             iters=5),
+            library_ms=lib_fwd_ms, bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+        "flash_attention_bwd_dq": dict(
+            err=dq_err, rel=dq_rel, ok=dq_ok, shape=shape,
+            note=lib_note + bwd_note,
+            ms=time_ms(lambda: ops.fused_flash_attention_bwd_dq(*bargs)),
+            plain_ms=plain_bwd_ms,
+            library_ms=lib_bwd_ms, bound_ms=dq_b[0], bound_by=dq_b[1]),
+        "flash_attention_bwd_dkv": dict(
+            err=max(e[0] for e in errs), rel=max(e[1] for e in errs),
+            ok=all(e[2] for e in errs), shape=shape,
+            note=(f"dk {errs[0][0]:.3e}, dv {errs[1][0]:.3e}; "
+                  + lib_note + bwd_note),
+            ms=time_ms(lambda: ops.fused_flash_attention_bwd_dkv(*bargs)),
+            plain_ms=plain_bwd_ms,
+            library_ms=lib_bwd_ms, bound_ms=dkv_b[0], bound_by=dkv_b[1]),
+    }
+
+
 #: every kernel: its source, the TPU kernel it replaces, and its launches
 #: per step of each drive as (per layer, per step once); a kernel a drive
 #: does not run launches 0 times there
@@ -419,32 +560,47 @@ KERNEL_INFO = {
     "layer_norm": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
-        serve=(2, 1), train=(2, 1)),
+        serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
-        serve=(1, 0), train=(1, 0)),
+        serve=(1, 0), train=(1, 0), train_flash=(2, 0), generate=(1, 0)),
     "layer_norm_bwd": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:536",
-        train=(2, 1)),
+        train=(2, 1), train_flash=(2, 1)),
     "matmul_epilogue_bwd": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:278",
-        train=(1, 0)),
+        train=(1, 0), train_flash=(1, 0)),
     "softmax_xent_fwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
-        train=(0, 1)),
+        train=(0, 1), train_flash=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
-        train=(0, 1)),
+        train=(0, 1), train_flash=(0, 1)),
+    # train_flash recomputes every block's forward inside the backward,
+    # so each forward kernel of a block launches twice per step
+    "flash_attention_fwd": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:78",
+        train_flash=(2, 0), generate=(1, 0)),
+    "flash_attention_bwd_dq": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:128",
+        train_flash=(1, 0)),
+    "flash_attention_bwd_dkv": dict(
+        source="paddle_tpu_torch/csrc/flash_attention.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:170",
+        train_flash=(1, 0)),
 }
 
 
 def per_step(drive, layers):
-    """Launches per step of every kernel in one drive ("serve"/"train")."""
+    """Launches per step of every kernel in one drive ("serve", "train",
+    "train_flash" or "generate", whose step is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -475,8 +631,9 @@ def report(name, dtype_name, r):
 
 
 def phase_kernels(ops, budgets):
-    """Every kernel at the serving drive's shapes (keys (name, dtype)) and
-    at the training drive's (keys (name, dtype, "train"))."""
+    """Every kernel at the serving drive's shapes (keys (name, dtype)), at
+    the training drive's (keys (name, dtype, "train")) and, for flash
+    attention, at each of `FLASH_SHAPES` (keys (name, dtype, shape))."""
     import torch
     serve = {"ragged_attention": check_ragged,
              "layer_norm": check_layer_norm,
@@ -502,6 +659,12 @@ def phase_kernels(ops, budgets):
             r = check(ops, rows, dtype, dtype_name, gen)
             report(name, dtype_name, r)
             results[(name, dtype_name, "train")] = r
+            torch.cuda.empty_cache()
+        for shape_key in FLASH_SHAPES:
+            for name, r in check_flash(ops, shape_key, dtype, dtype_name,
+                                       gen).items():
+                report(name, dtype_name, r)
+                results[(name, dtype_name, shape_key)] = r
             torch.cuda.empty_cache()
     return results
 
@@ -649,6 +812,9 @@ _PROFILE_GROUPS = (("ragged_attention", "ragged_attn_kernel"),
                    ("column_sum", "column_sum_kernel"),
                    ("softmax_xent_fwd", "xent_fwd_kernel"),
                    ("softmax_xent_bwd", "xent_bwd_kernel"),
+                   ("flash_attention_fwd", "flash_fwd_kernel"),
+                   ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
+                   ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
                    ("cublas_gemm", ("gemm", "xmma", "nvjet", "cutlass",
                                     "cublas")),
                    ("softmax", ("softmax", "SoftMax")))
@@ -757,11 +923,14 @@ def train_parity_run(pt, ops, cfg, params, ids, labels, device, steps=3):
     return losses, grads, final, counts
 
 
-def phase_train_parity(pt, ops):
+def phase_train_parity(pt, ops, flash=False):
+    """Phase 5 (the composite) or, with ``flash``, phase 7: the same run
+    with ``use_flash_attention=True, use_recompute=True``."""
     import numpy as np
     import torch
     cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2,
-                              use_flash_attention=False))
+                              use_flash_attention=flash,
+                              use_recompute=flash))
     rng = np.random.default_rng(SEED + 3)
     ids = rng.integers(0, cfg.vocab_size, (2, 128))
     labels = ids.copy()
@@ -801,7 +970,7 @@ def phase_train_parity(pt, ops):
         fail(f"training parity: parameter {worst_at} differs after 3 "
              f"steps by {worst:.3e} past {rtol:g}*|p|")
     check_counts("training parity", counts, 3, cfg.num_hidden_layers,
-                 "train")
+                 "train_flash" if flash else "train")
     return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
                 param_max_excess=worst, losses_cuda=l_gpu,
                 losses_cpu=l_cpu)
@@ -810,14 +979,21 @@ def phase_train_parity(pt, ops):
 # ---------------------------------------------------------------------
 # phase 6: the training drive
 # ---------------------------------------------------------------------
-TRAIN_B, TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 2, 5
+TRAIN_S, TRAIN_WARMUP, TRAIN_STEPS = 1024, 2, 5
+#: batch of the composite drive (phase 6) and of the flash + recompute
+#: drive (phase 8, bench.py:655's first size)
+TRAIN_B = {False: 4, True: 8}
 PEAK_BF16 = PEAK_OPS_PER_S["bfloat16"]
 
 
-def phase_training(pt, ops):
+def phase_training(pt, ops, flash=False):
+    """Phase 6 (the composite, B=4) or, with ``flash``, phase 8
+    (``use_flash_attention=True, use_recompute=True``, B=8)."""
     import numpy as np
     import torch
-    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, use_flash_attention=False))
+    B = TRAIN_B[flash]
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, use_flash_attention=flash,
+                              use_recompute=flash))
     L, H = cfg.num_hidden_layers, cfg.hidden_size
     model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
     n_params = sum(p.numel() for p in model.parameters())
@@ -827,7 +1003,7 @@ def phase_training(pt, ops):
     crit = pt.GPTPretrainingCriterion()
     rng = np.random.default_rng(SEED)
     ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
-                                        (TRAIN_B, TRAIN_S))).cuda()
+                                        (B, TRAIN_S))).cuda()
 
     def step():
         with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
@@ -851,10 +1027,10 @@ def phase_training(pt, ops):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     step_ms = elapsed / TRAIN_STEPS * 1e3
-    tokens_per_s = TRAIN_B * TRAIN_S * TRAIN_STEPS / elapsed
+    tokens_per_s = B * TRAIN_S * TRAIN_STEPS / elapsed
     flops_per_token = 6 * n_params + 12 * L * TRAIN_S * H
     mfu = flops_per_token * tokens_per_s / PEAK_BF16
-    say(f"  {n_params / 1e6:.1f}M params, B={TRAIN_B} S={TRAIN_S}: warm-up "
+    say(f"  {n_params / 1e6:.1f}M params, B={B} S={TRAIN_S}: warm-up "
         f"{TRAIN_WARMUP} steps {warm_s:.2f} s; {TRAIN_STEPS} steps in "
         f"{elapsed:.3f} s: {step_ms:.2f} ms/step, {tokens_per_s:.1f} "
         f"tokens/s, MFU {mfu:.4f} (6N + 12LSH = {flops_per_token:.4e} "
@@ -865,14 +1041,104 @@ def phase_training(pt, ops):
     if not losses[-1] < losses[0]:
         fail(f"training: the loss did not fall on a repeated batch: "
              f"{losses}")
-    check_counts("training", counts, TRAIN_STEPS, L, "train")
-    summary = dict(n_params=n_params, batch=TRAIN_B, seq=TRAIN_S,
+    check_counts("training", counts, TRAIN_STEPS, L,
+                 "train_flash" if flash else "train")
+    summary = dict(n_params=n_params, batch=B, seq=TRAIN_S,
                    steps=TRAIN_STEPS, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    peak_memory_gib=peak_gib, losses=losses)
     summary["profile"] = split_profile(profile_device(step), 1,
                                        "training step")
     return counts, summary
+
+
+# ---------------------------------------------------------------------
+# phase 9: dense-cache generate()
+# ---------------------------------------------------------------------
+GEN_PARITY_LENS = (37, 64, 95, 120)
+GEN_PARITY_NEW = 16
+GEN_B, GEN_PROMPT, GEN_NEW = 4, 128, 64
+
+
+def phase_generate(pt, ops):
+    """``model.generate`` with the dense KV cache: a prefill forward, then
+    one-token forwards whose attention is the flash kernel with one query
+    row against the whole prefix.  (a) Full width, 2 layers, f32, prompts
+    of uneven length left-padded (id 0) to one batch, 16 greedy tokens:
+    the card's tokens must equal the CPU's, and each kernel must launch
+    its launches per forward times the forwards.  (b) GPT_1P3B in bf16,
+    4 prompts x 128 tokens, 64 greedy tokens: ms per decode step."""
+    import numpy as np
+    import torch
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
+    rng = np.random.default_rng(SEED + 4)
+    width = max(GEN_PARITY_LENS)
+    ids = np.zeros((len(GEN_PARITY_LENS), width), np.int64)
+    for row, n in enumerate(GEN_PARITY_LENS):
+        ids[row, width - n:] = rng.integers(1, cfg.vocab_size, size=n)
+    probe = pt.GPTForCausalLM(cfg, device="cpu")
+    params = numpy_weights(probe, SEED + 2)
+    del probe
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = pt.GPTForCausalLM(cfg, device=device).eval()
+        pt.load_reference_state(model, params)
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        outs[device] = model.generate(torch.from_numpy(ids),
+                                      max_new_tokens=GEN_PARITY_NEW).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = launches(ops)
+        say(f"  {device}: {GEN_PARITY_NEW} tokens in "
+            f"{time.perf_counter() - t0:.2f} s")
+        del model
+        torch.cuda.empty_cache()
+    if outs["cuda"].shape != (len(GEN_PARITY_LENS), width + GEN_PARITY_NEW):
+        fail(f"generate: shape {tuple(outs['cuda'].shape)}")
+    if not torch.equal(outs["cuda"], outs["cpu"]):
+        fail(f"generate parity: CUDA tokens "
+             f"{outs['cuda'][:, width:].tolist()} != CPU tokens "
+             f"{outs['cpu'][:, width:].tolist()}")
+    say(f"  greedy tokens identical on CUDA and CPU for "
+        f"{len(GEN_PARITY_LENS)} prompts of {list(GEN_PARITY_LENS)} "
+        f"tokens x {GEN_PARITY_NEW}")
+    check_counts("generate parity", counts, GEN_PARITY_NEW,
+                 cfg.num_hidden_layers, "generate")
+
+    cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
+    prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                            (GEN_B, GEN_PROMPT)))
+
+    def run(new):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.generate(prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(2)                                  # first-use costs
+    _, prefill_s = run(1)
+    reset_launches(ops)
+    out, total_s = run(GEN_NEW)
+    counts = launches(ops)
+    new = out[:, GEN_PROMPT:]
+    if new.shape != (GEN_B, GEN_NEW) or not bool(
+            ((new >= 0) & (new < cfg.vocab_size)).all()):
+        fail(f"generate: new tokens of shape {tuple(new.shape)} or outside "
+             f"the vocabulary")
+    decode_ms = (total_s - prefill_s) / (GEN_NEW - 1) * 1e3
+    say(f"  GPT_1P3B bf16, {GEN_B} prompts x {GEN_PROMPT} tokens, "
+        f"{GEN_NEW} greedy tokens in {total_s:.3f} s: prefill "
+        f"{prefill_s * 1e3:.1f} ms, {decode_ms:.2f} ms per decode step, "
+        f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s")
+    check_counts("generate", counts, GEN_NEW, cfg.num_hidden_layers,
+                 "generate")
+    return counts, dict(batch=GEN_B, prompt=GEN_PROMPT, new_tokens=GEN_NEW,
+                        total_s=total_s, prefill_ms=prefill_s * 1e3,
+                        decode_ms_per_step=decode_ms,
+                        tokens_per_s=GEN_B * GEN_NEW / total_s)
 
 
 def free_device_memory():
@@ -894,34 +1160,52 @@ def kernel_entry(r):
 
 #: the dtype each kernel runs in on its main path (serving: bf16; the
 #: training drive under O1: layer norm and cross-entropy in f32 (black
-#: list), the fc1 epilogue in bf16 (white list))
+#: list), the fc1 epilogue and attention in bf16 (white list))
 MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "matmul_epilogue": "bfloat16", "layer_norm_bwd": "float32",
               "matmul_epilogue_bwd": "bfloat16",
-              "softmax_xent_fwd": "float32", "softmax_xent_bwd": "float32"}
+              "softmax_xent_fwd": "float32", "softmax_xent_bwd": "float32",
+              "flash_attention_fwd": "bfloat16",
+              "flash_attention_bwd_dq": "bfloat16",
+              "flash_attention_bwd_dkv": "bfloat16"}
 TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
 
 
-def kernels_line(results, serve_counts, train_counts):
+def kernels_line(results, counts):
     """One entry per kernel: its main path's dtype and shapes (the
-    serving drive's for the three serving kernels), the other dtype, and
-    for the forward kernels the training drive's shapes too."""
+    serving drive's for the three serving kernels, the flash drive's for
+    flash attention), the other dtype, the forward kernels at the
+    training drive's shapes too, and flash attention at its decode and
+    head_dim-64 shapes.  ``launches`` counts the main path's run (the
+    serving drive, the composite training drive, or for flash attention
+    the flash drive's timed steps); ``launches_<drive>`` every drive's."""
     out = []
     for name, info in KERNEL_INFO.items():
         main = MAIN_DTYPE[name]
         other = "float32" if main == "bfloat16" else "bfloat16"
+        flash = name.startswith("flash_attention")
         key = (name,) if "serve" in info else (name, "train")
+        drive = "serve" if "serve" in info else (
+            "train_flash" if flash else "train")
         entry = dict(name=name, route="cuda", source=info["source"],
                      replaces=info["replaces"],
-                     launches=(serve_counts if "serve" in info
-                               else train_counts)[name],
-                     launches_train=train_counts[name], dtype=main,
+                     launches=counts[drive][name], dtype=main,
                      **kernel_entry(results[(key[0], main) + key[1:]]))
+        for d, c in counts.items():
+            entry[f"launches_{d}"] = c[name]
+        entry["launches_per_step_train_flash"] = \
+            counts["train_flash"][name] // TRAIN_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
                 dtype=TRAIN_DTYPE[name],
                 **kernel_entry(results[(name, TRAIN_DTYPE[name], "train")]))
+        if flash:
+            for shape_key in FLASH_SHAPES:
+                if shape_key != "train":
+                    entry[shape_key] = {
+                        dt: kernel_entry(results[(name, dt, shape_key)])
+                        for dt in ("bfloat16", "float32")}
         out.append(entry)
     return out
 
@@ -972,11 +1256,30 @@ def main():
 
     say("[6] training: GPT_1P3B, bf16 O1, AdamW, B=4 S=1024")
     train_counts, training = phase_training(pt, ops)
+    free_device_memory()
 
-    say(json.dumps({"kernels": kernels_line(results, serve_counts,
-                                            train_counts),
+    say("[7] flash training parity: full width, 2 layers, f32, flash "
+        "attention + recompute, 3 AdamW steps, CUDA vs CPU")
+    flash_parity = phase_train_parity(pt, ops, flash=True)
+    free_device_memory()
+
+    say("[8] flash training: GPT_1P3B, bf16 O1, flash attention + "
+        "recompute, AdamW, B=8 S=1024")
+    flash_counts, training_flash = phase_training(pt, ops, flash=True)
+    free_device_memory()
+
+    say("[9] generate: dense KV cache, greedy; parity at full width, "
+        "2 layers, f32; GPT_1P3B bf16")
+    gen_counts, generate = phase_generate(pt, ops)
+
+    counts = dict(serve=serve_counts, train=train_counts,
+                  train_flash=flash_counts, generate=gen_counts)
+    say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
-                    "training": training}))
+                    "training": training,
+                    "training_flash_parity": flash_parity,
+                    "training_flash": training_flash,
+                    "generate": generate}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,15 +14,20 @@ Ported so far (see ``ops`` for the kernels):
 * training: ``GPTPretrainingCriterion``, ``amp.auto_cast`` (bf16, O1),
   ``optimizer.{SGD, Adam, AdamW}`` and ``nn.ClipGradByGlobalNorm``, with
   the backward kernels of layer norm and the matmul epilogue and the
-  softmax cross-entropy kernels, forward and backward.  Dense attention
-  trains through the composite (``use_flash_attention=False``).
+  softmax cross-entropy kernels, forward and backward;
+* flash attention: GPT's dense attention (``use_flash_attention=True``,
+  the default) through the flash-attention kernels, forward, dq and
+  dk/dv; ``use_recompute=True`` through ``distributed.fleet.recompute``;
+  and ``GPTForCausalLM.generate`` over the dense KV cache
+  (``models.generation``).
 """
-from . import amp, nn, optimizer
+from . import amp, distributed, nn, optimizer
 from .convert import load_reference_state
 from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion)
 from .inference.serving import GenerationEngine
 
-__all__ = ["amp", "nn", "optimizer", "load_reference_state", "GPT_1P3B",
+__all__ = ["amp", "distributed", "nn", "optimizer", "load_reference_state",
+           "GPT_1P3B",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "GenerationEngine"]

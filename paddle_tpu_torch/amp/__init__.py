@@ -23,7 +23,8 @@ import torch
 
 from ..core import to_torch_dtype
 
-__all__ = ["auto_cast", "decorate", "cast_inputs"]
+__all__ = ["auto_cast", "decorate", "cast_inputs", "current_state",
+           "restore_state"]
 
 #: the reference's O1 lists (ops/_generated.py AMP_WHITE_LIST and
 #: AMP_BLACK_LIST)
@@ -73,6 +74,26 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     _amp_stack.append(_AmpState(bool(enable) and level == "O1",
                                 to_torch_dtype(dtype), frozenset(white),
                                 frozenset(black)))
+    try:
+        yield
+    finally:
+        _amp_stack.pop()
+
+
+def current_state():
+    """The O1 state in force now (None outside any ``auto_cast``), for
+    `restore_state` to re-enter later: recompute captures it at the first
+    forward and replays the block's forward under it during backward,
+    which runs outside the ``auto_cast`` block."""
+    return _amp_stack[-1] if _amp_stack else None
+
+
+@contextlib.contextmanager
+def restore_state(state):
+    """Run the body under a state `current_state` returned (None: no
+    casting, whatever ``auto_cast`` is open around it)."""
+    _amp_stack.append(state if state is not None else _AmpState(
+        False, None, frozenset(), frozenset()))
     try:
         yield
     finally:

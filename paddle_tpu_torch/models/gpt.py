@@ -10,12 +10,15 @@ see ``inference/serving/attention.py``) each layer scatters its K/V into
 the pool and runs ragged paged attention, and the per-row positions come
 from the view.
 
-Training: ``cache=None`` runs dense causal attention.  With
-``use_flash_attention=False`` (the reference's ``sdp_kernel(
-enable_flash=False)``) that is the composite ``_sdpa_ref`` on any
-device; with ``True`` it is the flash kernel's path, which is not ported
-yet and raises on CUDA tensors.  ``GPTPretrainingCriterion`` is the
-shifted next-token loss through the softmax cross-entropy kernels.
+Dense attention (``cache=None``, or the dense KV cache: a list of
+per-layer ``(k, v)`` that ``use_cache=True`` returns extended, as
+``generate`` uses it) goes through ``F.scaled_dot_product_attention``
+inside ``sdp_kernel(enable_flash=use_flash_attention)``, as in the
+reference: with ``True`` (the default) the flash-attention kernels,
+with ``False`` the composite ``_sdpa_ref``.  ``use_recompute=True``
+wraps each block in ``distributed.fleet.recompute`` when there is no
+cache.  ``GPTPretrainingCriterion`` is the shifted next-token loss
+through the softmax cross-entropy kernels.
 
 ``fc1`` runs through the matmul-epilogue kernels with ``gelu_tanh``, the
 three layer norms through the layer-norm kernels, forward and backward.
@@ -32,7 +35,9 @@ from torch import nn
 
 from .. import nn as pnn
 from ..core import resolve_device, to_torch_dtype
+from ..distributed.fleet import recompute
 from ..nn import functional as F
+from .generation import GenerationMixin
 
 __all__ = ["GPTConfig", "GPT_1P3B", "GPTAttention", "GPTMLP", "GPTBlock",
            "GPTModel", "GPTForCausalLM", "GPTPretrainingCriterion"]
@@ -72,21 +77,25 @@ class GPTAttention(nn.Module):
                                    **kw)
         self.out_proj = pnn.Linear(cfg.hidden_size, cfg.hidden_size, **kw)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, use_cache=False):
         b, s, h = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(dim=2)               # each [b, s, nh, hd]
         if cache is not None and hasattr(cache, "attend"):
-            attn = cache.attend(q, k, v)
-        elif cache is not None:
-            raise NotImplementedError(
-                "the dense (concatenated) KV cache is not ported yet; "
-                "serve through the paged cache")
-        else:
-            attn = F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, use_flash=self.use_flash)
-        return self.out_proj(attn.reshape(b, s, h))
+            # the paged serving cache: the layer view scatters K/V into
+            # the pool and attends through the block tables
+            out = self.out_proj(cache.attend(q, k, v).reshape(b, s, h))
+            return (out, cache) if use_cache else out
+        if cache is not None:
+            # dense decode: extend K/V with the cached prefix; the causal
+            # mask is bottom-right aligned, so new rows see everything
+            k = torch.cat([cache[0], k], dim=1)
+            v = torch.cat([cache[1], v], dim=1)
+        with F.sdp_kernel(enable_flash=self.use_flash):
+            attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = self.out_proj(attn.reshape(b, s, h))
+        return (out, (k, v)) if use_cache else out
 
 
 class GPTMLP(nn.Module):
@@ -112,7 +121,11 @@ class GPTBlock(nn.Module):
         self.dropout = pnn.Dropout(cfg.hidden_dropout_prob,
                                    generator=generator)
 
-    def forward(self, x, cache=None):
+    def forward(self, x, cache=None, use_cache=False):
+        if use_cache:
+            a, new_cache = self.attn(self.ln_1(x), cache, True)
+            x = x + self.dropout(a)
+            return x + self.dropout(self.mlp(self.ln_2(x))), new_cache
         x = x + self.dropout(self.attn(self.ln_1(x), cache))
         return x + self.dropout(self.mlp(self.ln_2(x)))
 
@@ -120,9 +133,8 @@ class GPTBlock(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
-        if cfg.use_recompute or cfg.use_scan_layers:
-            raise NotImplementedError(
-                "use_recompute / use_scan_layers not ported yet")
+        if cfg.use_scan_layers:
+            raise NotImplementedError("use_scan_layers is not ported yet")
         if not cfg.tie_word_embeddings:
             raise NotImplementedError(
                 "an untied LM head is not ported yet")
@@ -135,21 +147,30 @@ class GPTModel(nn.Module):
                                 for _ in range(cfg.num_hidden_layers)])
         self.ln_f = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
 
-    def forward(self, input_ids, cache=None):
+    def forward(self, input_ids, cache=None, use_cache=False):
         b, s = input_ids.shape
         pos = getattr(cache, "position_ids", None)
         if pos is None:
-            if cache is not None:
-                raise NotImplementedError(
-                    "the dense (concatenated) KV cache is not ported yet")
-            pos = torch.arange(s, device=input_ids.device)
+            # the paged view supplies each row's positions; a dense cache
+            # continues from its length
+            past = 0 if cache is None else cache[0][0].shape[1]
+            pos = torch.arange(past, past + s, device=input_ids.device)
         x = self.wte(input_ids) + self.wpe(pos)
+        new_caches = []
         for i, blk in enumerate(self.h):
-            x = blk(x, None if cache is None else cache[i])
-        return self.ln_f(x)
+            layer_cache = None if cache is None else cache[i]
+            if use_cache:
+                x, c = blk(x, layer_cache, True)
+                new_caches.append(c)
+            elif self.config.use_recompute and layer_cache is None:
+                x = recompute(blk, x)
+            else:
+                x = blk(x, layer_cache)
+        x = self.ln_f(x)
+        return (x, new_caches) if use_cache else x
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(nn.Module, GenerationMixin):
     """GPT with its LM head tied to the token embedding.
 
     ``device=None`` places it on the CUDA device and raises when there
@@ -183,7 +204,13 @@ class GPTForCausalLM(nn.Module):
         """The tied LM head: ``hidden @ wte.weight^T``."""
         return F.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
 
-    def forward(self, input_ids, cache=None):
+    def forward(self, input_ids, cache=None, use_cache=False):
+        """Logits ``[b, s, vocab]``; with ``use_cache=True``, ``(logits,
+        new_cache)``, the dense cache a list of per-layer ``(k, v)``
+        ``[b, past + s, heads, head_dim]``."""
+        if use_cache:
+            hidden, new_cache = self.gpt(input_ids, cache, True)
+            return self.logits(hidden), new_cache
         return self.logits(self.gpt(input_ids, cache))
 
 

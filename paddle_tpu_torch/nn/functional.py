@@ -5,17 +5,21 @@ Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``nn/functional/norm.py`` (``layer_norm`` :22),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
 path), ``nn/functional/flash_attention.py``
-(``scaled_dot_product_attention`` with the composite ``_sdpa_ref``
-:27-54) and ``ops/_generated.py`` (``matmul`` :305).  Weights keep
-Paddle's ``[in, out]`` layout.  The reference routes ``layer_norm``,
-``linear_act`` and ``cross_entropy`` through its Pallas kernels; here
-they call the port's differentiable kernel entry points, which take the
-plain versions for CPU tensors and launch the CUDA kernels (forward and
-backward) for CUDA tensors.  Plain GEMMs and lookups stay PyTorch ops,
-as the reference left them to XLA.  Each functional the reference's AMP
-lists name casts its inputs by the O1 rule (``amp.cast_inputs``).
+(``scaled_dot_product_attention`` :85 with its routing, the composite
+``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
+and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
+``[in, out]`` layout.  The reference routes ``layer_norm``,
+``linear_act``, ``cross_entropy`` and dense attention through its
+Pallas kernels; here they call the port's differentiable kernel entry
+points, which take the plain versions for CPU tensors and launch the
+CUDA kernels (forward and backward) for CUDA tensors.  Plain GEMMs and
+lookups stay PyTorch ops, as the reference left them to XLA.  Each
+functional the reference's AMP lists name casts its inputs by the O1
+rule (``amp.cast_inputs``).
 """
 from __future__ import annotations
+
+import threading
 
 import torch
 
@@ -24,7 +28,8 @@ from .. import ops
 from ..ops.tiles import NEG_INF
 
 __all__ = ["linear", "linear_act", "matmul", "embedding", "layer_norm",
-           "dropout", "scaled_dot_product_attention", "cross_entropy"]
+           "dropout", "scaled_dot_product_attention", "flash_attention",
+           "sdp_kernel", "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -81,22 +86,25 @@ def dropout(x, p=0.5, training=True, generator=None):
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-def _sdpa_composite(q, k, v, is_causal):
+def _sdpa_composite(q, k, v, is_causal, bias=None):
     """The reference's ``_sdpa_ref`` (flash_attention.py:27-54), op for
     op, over ``[b, s, h, d]``: scores in f32 (the bf16 products are exact
-    in f32) scaled after the product; masked scores -1e30; an f32
-    softmax; the probabilities cast to the input type; rows with no
-    visible key zeroed; the PV product accumulated in f32 and cast."""
+    in f32) scaled after the product; the mask ``bias`` added; masked
+    scores -1e30; an f32 softmax; the probabilities cast to the input
+    type; rows with no visible key zeroed; the PV product accumulated in
+    f32 and cast."""
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = 1.0 / d ** 0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    if bias is not None:
+        scores = scores + bias.float()
     if is_causal:
         mask = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
         scores = scores.masked_fill(~mask, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    if is_causal:
+    if bias is not None or is_causal:
         visible = (scores > -1e29).any(dim=-1, keepdim=True)
         probs = torch.where(visible, probs, 0.0)
     # a bf16 product accumulates in f32 and rounds once, as the
@@ -105,22 +113,83 @@ def _sdpa_composite(q, k, v, is_causal):
     return out.transpose(1, 2).to(q.dtype)
 
 
-def scaled_dot_product_attention(q, k, v, is_causal=False,
-                                 use_flash=True):
-    """Dense attention over ``[b, s, h, d]``.
+_sdp_override = threading.local()
 
-    ``use_flash=False`` is the reference's ``sdp_kernel(
-    enable_flash=False)``: the composite ``_sdpa_ref`` on any device.
-    ``use_flash=True`` is the flash-attention kernel's path, which is not
-    ported yet: it runs the composite on CPU tensors and raises on CUDA
-    tensors."""
-    q, k, v = amp.cast_inputs("scaled_dot_product_attention", q, k, v)
-    if use_flash and q.device.type != "cpu":
+
+class sdp_kernel:
+    """Backend selection for dense attention, the reference's
+    ``sdp_kernel`` (flash_attention.py:216-242): ``enable_flash=False``
+    sends `scaled_dot_product_attention` to the composite even where the
+    flash kernel qualifies; ``True`` (the default) leaves the choice to
+    the routing rule.  ``enable_math`` and ``enable_mem_efficient`` are
+    accepted, as the reference accepts them: the composite is the math
+    path, and the flash kernel is the memory-efficient one."""
+
+    def __init__(self, enable_math=True, enable_flash=True,
+                 enable_mem_efficient=True):
+        self._enable_flash = bool(enable_flash)
+
+    def __enter__(self):
+        self._prev = getattr(_sdp_override, "enable_flash", None)
+        _sdp_override.enable_flash = self._enable_flash
+        return self
+
+    def __exit__(self, *exc):
+        _sdp_override.enable_flash = self._prev
+        return False
+
+
+def _flash_allowed():
+    return getattr(_sdp_override, "enable_flash", None) is not False
+
+
+#: the reference's cap on one (batch, head)'s K + V, with head_dim padded
+#: to 128 lanes: a TPU VMEM limit (its kernel stages all of K and V).  The
+#: CUDA kernel streams K/V tiles and needs no cap; it is kept so that a
+#: call routes here as it routes in the reference.
+_FLASH_KV_BYTES = 8 * 1024 * 1024
+
+
+def _use_flash(head_dim, seqlen_k, dtype):
+    """The reference's ``_use_pallas`` (flash_attention.py:57-82) without
+    its TPU probe: f32 or bf16, head_dim <= 256, K + V under 8 MB."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return False
+    kv_bytes = 2 * seqlen_k * max(head_dim, 128) * dtype.itemsize
+    return head_dim <= 256 and kv_bytes <= _FLASH_KV_BYTES
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Dense attention over ``[b, s, h, d]``, routed as the reference
+    routes it on its chip: with no mask and no dropout, f32 or bf16,
+    head_dim <= 256 and K + V under 8 MB, inside ``sdp_kernel(
+    enable_flash=True)`` (the default), it is the flash-attention kernel
+    (``ops.flash_attention``: the plain version on CPU tensors, the CUDA
+    kernels on the card); otherwise the composite ``_sdpa_ref``.
+    Attention dropout is not ported yet."""
+    drop = float(dropout_p) if training else 0.0
+    if drop > 0.0:
         raise NotImplementedError(
-            "dense flash attention (the flash-attention kernel) is not "
-            "ported yet; train with use_flash_attention=False or serve "
-            "through the paged cache")
-    return _sdpa_composite(q, k, v, is_causal)
+            "attention dropout (dropout_p > 0) is not ported yet")
+    query, key, value = amp.cast_inputs("scaled_dot_product_attention",
+                                        query, key, value)
+    if attn_mask is None and _flash_allowed() and _use_flash(
+            query.shape[-1], key.shape[1], query.dtype):
+        return ops.flash_attention(query, key, value, causal=is_causal)
+    return _sdpa_composite(query, key, value, is_causal, attn_mask)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """``paddle.nn.functional.flash_attention``: attention over
+    ``[b, s, h, d]`` through `scaled_dot_product_attention`; returns
+    ``(out, None)`` (no softmax is returned, as in the reference)."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training)
+    return out, None
 
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,

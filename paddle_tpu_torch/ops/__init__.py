@@ -1,25 +1,34 @@
 """The port's kernels: hand-written CUDA for Hopper, each with a plain
 PyTorch version beside it.
 
-======================  ========================  =========================
-wrapper                 CUDA source               replaces (TPU kernel)
-======================  ========================  =========================
-ragged_paged_attention  csrc/ragged_attention.cu  pallas_ragged.py:115/189
-fused_layer_norm        csrc/layer_norm.cu        pallas_kernels.py:522
-fused_linear_act        csrc/matmul_epilogue.cu   pallas_fused.py:266
-fused_layer_norm_bwd    csrc/layer_norm.cu        pallas_kernels.py:536
-fused_linear_act_bwd    csrc/matmul_epilogue.cu   pallas_fused.py:278
-softmax_xent_fwd        csrc/softmax_xent.cu      pallas_kernels.py:759
-softmax_xent_bwd        csrc/softmax_xent.cu      pallas_kernels.py:802
-======================  ========================  =========================
+=============================  ===================  ========================
+wrapper                        csrc/ source         replaces (TPU kernel)
+=============================  ===================  ========================
+ragged_paged_attention         ragged_attention.cu  pallas_ragged.py:115/189
+fused_layer_norm               layer_norm.cu        pallas_kernels.py:522
+fused_linear_act               matmul_epilogue.cu   pallas_fused.py:266
+fused_layer_norm_bwd           layer_norm.cu        pallas_kernels.py:536
+fused_linear_act_bwd           matmul_epilogue.cu   pallas_fused.py:278
+softmax_xent_fwd               softmax_xent.cu      pallas_kernels.py:759
+softmax_xent_bwd               softmax_xent.cu      pallas_kernels.py:802
+fused_flash_attention_fwd      flash_attention.cu   pallas_kernels.py:78
+fused_flash_attention_bwd_dq   flash_attention.cu   pallas_kernels.py:128
+fused_flash_attention_bwd_dkv  flash_attention.cu   pallas_kernels.py:170
+=============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
-`layer_norm`, `linear_act` and `fused_softmax_cross_entropy` are the
-differentiable entry points: ``torch.autograd.Function``s whose
-backward is the backward kernel.
+`layer_norm`, `linear_act`, `fused_softmax_cross_entropy` and
+`flash_attention` are the differentiable entry points:
+``torch.autograd.Function``s whose backward is the backward kernel (for
+flash attention, the dq and the dk/dv kernels).
 """
+from .flash_attention import (flash_attention, flash_attention_bwd_ref,
+                              flash_attention_ref, flash_bwd_stats,
+                              fused_flash_attention_bwd_dkv,
+                              fused_flash_attention_bwd_dq,
+                              fused_flash_attention_fwd)
 from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
                          layer_norm, layer_norm_bwd_ref, layer_norm_ref)
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
@@ -38,7 +47,11 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "ragged_paged_attention", "ragged_q_block", "ragged_segments",
            "fused_softmax_cross_entropy", "softmax_xent_bwd",
            "softmax_xent_bwd_ref", "softmax_xent_fwd",
-           "softmax_xent_fwd_ref", "KERNELS"]
+           "softmax_xent_fwd_ref", "flash_attention",
+           "flash_attention_bwd_ref", "flash_attention_ref",
+           "flash_bwd_stats", "fused_flash_attention_bwd_dkv",
+           "fused_flash_attention_bwd_dq", "fused_flash_attention_fwd",
+           "KERNELS"]
 
 #: every kernel wrapper of the serving and training paths, by kernel name
 KERNELS = {
@@ -49,4 +62,7 @@ KERNELS = {
     "matmul_epilogue_bwd": fused_linear_act_bwd,
     "softmax_xent_fwd": softmax_xent_fwd,
     "softmax_xent_bwd": softmax_xent_bwd,
+    "flash_attention_fwd": fused_flash_attention_fwd,
+    "flash_attention_bwd_dq": fused_flash_attention_bwd_dq,
+    "flash_attention_bwd_dkv": fused_flash_attention_bwd_dkv,
 }

@@ -36,6 +36,7 @@ _CFLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 #: C signature of every entry point: (argtypes, restype).  Each kernel
 #: entry ends with (dtype code, device index, stream).
 _SIGNATURES = {
@@ -52,6 +53,13 @@ _SIGNATURES = {
     "ptt_ragged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
                                  _I),
+    "ptt_flash_attention_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _LL, _F, _I, _I, _I, _P), _I),
+    "ptt_flash_attention_bwd_dq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _LL, _F, _I, _I, _I, _P), _I),
+    "ptt_flash_attention_bwd_dkv": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _I, _I, _I, _LL, _F, _I, _I, _I, _P),
+                                    _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
 }
 

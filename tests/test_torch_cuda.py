@@ -12,7 +12,9 @@ are covered by ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
 in another order), bf16 2e-2 abs + rel (about two bf16 ulps at unit
 scale); column sums (dgamma, dbeta, db) f32 1e-4·sqrt(rows) abs, bf16
 2e-2; cross-entropy loss and lse (f32 whatever the logits' type) 1e-4
-abs + 1e-5 rel.  bf16
+abs + 1e-5 rel; flash attention's lse 1e-4 abs + 1e-5 rel, and its
+output and gradients as any other value (both versions compute in f32
+on the same values and round once).  bf16
 ragged attention is also held to the plain version run in f32, which
 keeps the probabilities in f32 as the kernel does, within one bf16 ulp
 (rtol 2^-7) plus 2^-8 of the output's RMS.
@@ -184,11 +186,78 @@ def test_wrappers_refuse_bad_inputs(gen):
         ops.fused_linear_act_bwd(x, x.t().contiguous(), "relu")  # shape
 
 
+_FLASH_CASES = [(2, 100, 100, True), (2, 100, 100, False), (3, 1, 300, True),
+                (1, 70, 30, True), (1, 33, 150, False)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,Sq,Sk,causal", _FLASH_CASES)
+def test_flash_attention_kernels(gen, dtype, D, B, Sq, Sk, causal):
+    H = 3
+    q = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(B, Sk, H, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(B, Sk, H, D, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
+    n0 = [ops.KERNELS[n].launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")]
+    out, lse = ops.fused_flash_attention_fwd(q, k, v, causal)
+    want, lse_ref = ops.flash_attention_ref(q, k, v, causal)
+    _close(out, want, dtype)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    lse_s, delta = ops.flash_bwd_stats(want, g, lse_ref)
+    args = (q, k, v, g, lse_s, delta, causal)
+    dq = ops.fused_flash_attention_bwd_dq(*args)
+    dk, dv = ops.fused_flash_attention_bwd_dkv(*args)
+    for got, ref in zip((dq, dk, dv), ops.flash_attention_bwd_ref(*args)):
+        assert got.dtype == dtype
+        _close(got, ref, dtype)
+    if Sq > Sk and causal:        # rows that see no key: exact zeros
+        empty = Sq - Sk
+        assert float(out[:, :empty].abs().max()) == 0.0
+        assert float(dq[:, :empty].abs().max()) == 0.0
+        assert bool((lse[..., :empty] == -1e30).all())
+    assert [ops.KERNELS[n].launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")] == [c + 1 for c in n0]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_flash_attention_autograd_on_strided_views(gen, dtype):
+    qkv = torch.randn(2, 90, 3, 4, 64, device="cuda",
+                      generator=gen).to(dtype).requires_grad_()
+    q, k, v = qkv.unbind(2)
+    out = ops.flash_attention(q, k, v, causal=True)
+    g = torch.randn_like(out)
+    out.backward(g)
+    ref = qkv.detach().clone().requires_grad_()
+    rq, rk, rv = ref.unbind(2)
+    want, lse = ops.flash_attention_ref(rq, rk, rv, True)
+    lse_s, delta = ops.flash_bwd_stats(want, g, lse)
+    grads = ops.flash_attention_bwd_ref(rq.detach(), rk.detach(), rv.detach(),
+                                        g, lse_s, delta, True)
+    _close(out, want, dtype)
+    _close(qkv.grad, torch.stack(grads, dim=2), dtype)
+
+
 def test_dense_flash_attention_raises_on_the_card(gen):
+    # the functional routes to the flash kernels on the card (head_dim up
+    # to 256, as the reference routes it); the kernels refuse a head
+    # wider than the 128 they are built for, and there is no fallback
     from paddle_tpu_torch.nn import functional as F
     q = torch.randn(1, 8, 2, 16, device="cuda", generator=gen)
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, q, q, is_causal=True)
-    out = F.scaled_dot_product_attention(q, q, q, is_causal=True,
-                                         use_flash=False)
-    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    n0 = ops.fused_flash_attention_fwd.launches
+    out = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+    assert ops.fused_flash_attention_fwd.launches == n0 + 1
+    with F.sdp_kernel(enable_flash=False):
+        want = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+    _close(out, want, torch.float32)
+    wide = torch.randn(1, 8, 2, 160, device="cuda", generator=gen)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.fused_flash_attention_fwd(wide, wide, wide, True)
+    with pytest.raises(TypeError):
+        ops.fused_flash_attention_fwd(q.half(), q.half(), q.half(), True)
+    with pytest.raises(ValueError, match="head_dim"):
+        F.scaled_dot_product_attention(wide, wide, wide, is_causal=True)
+    assert ops.fused_flash_attention_fwd.launches == n0 + 1

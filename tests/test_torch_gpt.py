@@ -5,7 +5,9 @@ built from a seed; its parameters go to the port through
 ``convert.load_reference_state``.  Both models then take the same token
 ids through (a) the paged serving path, two ragged steps over their own
 paged caches (two prompts prefilled as chunks, then one decode row
-each), and (b) the dense no-cache path.  The reference runs its XLA
+each), (b) the dense no-cache path, and (c) the dense KV cache (a
+prefill, then one-token decode steps), with flash attention and with
+the composite.  The reference runs its XLA
 composites on the CPU (its Pallas gate is closed here), the port its
 plain kernel versions.  Tolerance: f32 logits within 1e-4 abs + 1e-4
 rel, the cross-framework f32 gate of ROADMAP.md.
@@ -119,6 +121,37 @@ def test_dense_path_logits_match_reference(models):
     with torch.no_grad():
         got = port(torch.from_numpy(ids)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("flash", [True, False],
+                         ids=["flash", "composite"])
+def test_dense_cache_logits_match_reference(flash):
+    """The dense KV cache: a 9-token prefill, then two one-token decode
+    steps whose single query row sees the whole cache (bottom-right
+    causal), through the port's flash path or its composite; the logits
+    and the returned caches against the reference's."""
+    cfg = dict(TINY, use_flash_attention=flash)
+    paddle.seed(12)
+    ref = RefGPT(RefConfig(**cfg))
+    ref.eval()
+    port = pt.GPTForCausalLM(pt.GPTConfig(**cfg), device="cpu").eval()
+    pt.load_reference_state(port, reference_params(ref))
+    ids = np.random.default_rng(8).integers(1, 256, size=(2, 11))
+    rc = pc = None
+    for lo, hi in ((0, 9), (9, 10), (10, 11)):
+        with paddle.no_grad():
+            rl, rc = ref(paddle.to_tensor(ids[:, lo:hi]), cache=rc,
+                         use_cache=True)
+        with torch.no_grad():
+            pl, pc = port(torch.from_numpy(ids[:, lo:hi]), cache=pc,
+                          use_cache=True)
+        np.testing.assert_allclose(pl.numpy(), np.asarray(rl.numpy()),
+                                   atol=ATOL, rtol=RTOL)
+    for got, want in zip(pc, rc):
+        for g, w in zip(got, want):
+            assert g.shape == (2, 11, 4, 16)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w.numpy()),
+                                       atol=ATOL, rtol=RTOL)
 
 
 def test_state_dict_names_and_shapes_match_reference(models):

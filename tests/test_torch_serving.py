@@ -286,5 +286,5 @@ def test_unported_options_raise(models):
     with pytest.raises(ValueError):
         eng.add_request(list(range(1, 70)))      # >= max_model_len
     with pytest.raises(NotImplementedError):
-        pt.GPTForCausalLM(pt.GPTConfig(**TINY, use_recompute=True),
+        pt.GPTForCausalLM(pt.GPTConfig(**TINY, use_scan_layers=True),
                           device="cpu")

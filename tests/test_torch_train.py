@@ -1,8 +1,9 @@
 """GPT training in the port vs the JAX reference, from the same weights.
 
 The reference's tiny GPT (vocab 256, hidden 64, 2 layers, 4 heads,
-``use_flash_attention=False``) is built from a seed and its weights go to
-the port through ``convert.load_reference_state``.  Both then train
+``use_flash_attention=False``, and with flash attention and recompute
+on) is built from a seed and its weights go to the port through
+``convert.load_reference_state``.  Both then train
 eagerly on the same ids and labels (made with numpy, one label set to
 the ignore index): ``GPTPretrainingCriterion``, ``loss.backward()``, an
 optimizer step with ``ClipGradByGlobalNorm(1.0)``, ``clear_grad()``.
@@ -41,10 +42,11 @@ TINY = dict(vocab_size=256, hidden_size=64, num_hidden_layers=2,
 ATOL = RTOL = 1e-4
 
 
-def _pair(seed=11):
+def _pair(seed=11, **over):
+    cfg = dict(TINY, **over)
     paddle.seed(seed)
-    ref = RefGPT(RefConfig(**TINY))
-    port = pt.GPTForCausalLM(pt.GPTConfig(**TINY), device="cpu")
+    ref = RefGPT(RefConfig(**cfg))
+    port = pt.GPTForCausalLM(pt.GPTConfig(**cfg), device="cpu")
     pt.load_reference_state(
         port, {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()})
     return ref, port
@@ -77,10 +79,10 @@ def _optimizers(ref, port, kind, **kw):
                      grad_clip=ClipGradByGlobalNorm(1.0), **port_kw))
 
 
-def _train(ref, port, ref_opt, port_opt, steps, amp=False):
+def _train(ref, port, ref_opt, port_opt, steps, amp=False, batch=None):
     """Run ``steps`` steps on both; return the losses and the gradients of
     the first step by structured name."""
-    ids, labels = _batch()
+    ids, labels = _batch() if batch is None else batch
     ref_crit, port_crit = RefCriterion(), pt.GPTPretrainingCriterion()
     losses, grads = [], None
     for step in range(steps):
@@ -117,8 +119,10 @@ def _assert_params_close(ref, port):
                                    atol=ATOL, rtol=RTOL, err_msg=name)
 
 
-def test_adamw_f32_loss_grads_and_params_match_reference():
-    ref, port = _pair()
+def _check_adamw_f32(**over):
+    """3 AdamW steps on both: each loss, every step-1 gradient and every
+    parameter after the steps within the f32 gate."""
+    ref, port = _pair(**over)
     ref_opt, port_opt = _optimizers(ref, port, "adamw", learning_rate=1e-4,
                                     weight_decay=0.01)
     losses, grads = _train(ref, port, ref_opt, port_opt, steps=3)
@@ -130,6 +134,20 @@ def test_adamw_f32_loss_grads_and_params_match_reference():
         np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL,
                                    err_msg=name)
     _assert_params_close(ref, port)
+
+
+def test_adamw_f32_loss_grads_and_params_match_reference():
+    _check_adamw_f32()
+
+
+@pytest.mark.parametrize("over", [
+    dict(use_flash_attention=True),
+    dict(use_flash_attention=True, use_recompute=True)],
+    ids=["flash", "flash_recompute"])
+def test_flash_training_matches_reference(over):
+    """The same 3 AdamW steps with flash attention, and with flash
+    attention and recompute, on both sides."""
+    _check_adamw_f32(**over)
 
 
 @pytest.mark.parametrize("kind,kw", [
@@ -225,6 +243,74 @@ def test_training_options_not_ported_raise():
         pt.nn.functional.cross_entropy(torch.zeros(2, 3),
                                        torch.zeros(2, 3), soft_label=True)
     with pytest.raises(NotImplementedError):
-        pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_recompute=True)),
+        pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_scan_layers=True)),
                           device="cpu")
+    pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_recompute=True)),
+                      device="cpu")
     assert port.training, "a model starts in training mode"
+
+
+def _grads_after_step(cfg, amp=False, seed=4):
+    """One forward inside ``auto_cast`` (if ``amp``) and a backward outside
+    it, as a training loop runs them; returns the loss, the gradients and
+    the output of a second forward (which draws the next dropout masks)."""
+    model = pt.GPTForCausalLM(pt.GPTConfig(**cfg), device="cpu", seed=seed)
+    ids, labels = (torch.from_numpy(a) for a in _batch())
+    crit = pt.GPTPretrainingCriterion()
+    if amp:
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss = crit(model(ids), labels)
+    else:
+        loss = crit(model(ids), labels)
+    loss.backward()
+    with torch.no_grad():
+        after = model(ids)
+    return (float(loss.detach()),
+            {n: p.grad.clone() for n, p in model.named_parameters()}, after)
+
+
+@pytest.mark.parametrize("what", ["bf16_o1", "dropout"])
+def test_recompute_replays_the_forward_exactly(what):
+    """Recompute replays each block's forward inside ``backward()``: under
+    bf16 O1 (the ``auto_cast`` block has closed by then, so the replay must
+    re-enter the forward's AMP state) and with dropout (the masks come from
+    the model's own generator, which the replay must rewind and then put
+    back).  Either way the gradients equal those without recompute, and
+    the draws after the step do too."""
+    cfg = dict(TINY, use_flash_attention=True)
+    if what == "dropout":
+        cfg["hidden_dropout_prob"] = 0.2
+    amp = what == "bf16_o1"
+    loss, grads, after = _grads_after_step(cfg, amp)
+    loss_r, grads_r, after_r = _grads_after_step(
+        dict(cfg, use_recompute=True), amp)
+    assert loss_r == loss
+    for name, g in grads.items():
+        assert torch.equal(grads_r[name], g), name
+    assert torch.equal(after_r, after)
+
+
+def test_flash_recompute_step_at_the_entry_shape_matches_reference():
+    """One AdamW step at ``__graft_entry__.entry()``'s shape (vocab 4096,
+    hidden 512, 4 layers, 8 heads, B=2, S=256), f32, flash attention and
+    recompute on both sides: the loss, every gradient and every parameter
+    after the step within the f32 gate."""
+    entry = dict(vocab_size=4096, hidden_size=512, num_hidden_layers=4,
+                 num_attention_heads=8, max_position_embeddings=512,
+                 use_flash_attention=True, use_recompute=True)
+    paddle.seed(13)
+    ref = RefGPT(RefConfig(**entry))
+    port = pt.GPTForCausalLM(pt.GPTConfig(**entry), device="cpu")
+    pt.load_reference_state(
+        port, {k: np.asarray(v.numpy()) for k, v in ref.state_dict().items()})
+    ids = np.random.default_rng(1).integers(0, 4096, (2, 256))
+    ref_opt, port_opt = _optimizers(ref, port, "adamw", learning_rate=1e-4,
+                                    weight_decay=0.01)
+    losses, grads = _train(ref, port, ref_opt, port_opt, steps=1,
+                           batch=(ids, ids))
+    (want, got), = losses
+    assert abs(got - want) <= ATOL + RTOL * abs(want)
+    for name, (want, got) in grads.items():
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL,
+                                   err_msg=name)
+    _assert_params_close(ref, port)
