@@ -10,15 +10,17 @@ phase fails.  Phases:
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed);
-2. kernels: each kernel against its plain PyTorch version on the card,
-   at the shapes the serving and the training drives give it (flash
-   attention: the flash drive's B=8, S=1024, 16 heads of 128, causal; a
-   decode step's one query against 640 keys; and heads of 64 at the
-   0.35B width), in bf16 and in f32, with errors against stated
-   tolerances and CUDA-event times of the kernel, the plain version and
-   (where one PyTorch call computes the same function) the library call,
-   beside the least time
-   the card could take (``bound_ms``);
+2. kernels: one untimed launch of every kernel first, then each kernel
+   against its plain PyTorch version on the card, at the shapes the
+   serving and the training drives give it (flash attention: the flash
+   drive's B=8, S=1024, 16 heads of 128, causal; a decode step's one
+   query against 640 keys; and heads of 64 at the 0.35B width; RMS norm:
+   the LLaMA training drive's 8192 rows of 1024, LLaMA-2 7B's prefill of
+   512 rows and decode step of 4 rows of 4096), in bf16 and in f32, with
+   errors against stated tolerances and CUDA-event times of the kernel,
+   the plain version and (where one PyTorch call computes the same
+   function) the library call, beside the least time the card could take
+   (``bound_ms``);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
@@ -57,11 +59,28 @@ phase fails.  Phases:
    width cut to 2 layers, f32: 4 prompts of 37-120 tokens left-padded to
    one batch, 16 new tokens, identical on the card and the CPU; then
    GPT_1P3B in bf16, 4 prompts x 128 tokens, 64 new tokens: ms per
-   decode step.
+   decode step;
+10. LLaMA training parity: bench.py's ``bench_llama`` width (hidden 1024,
+    16 heads, 8 kv heads, ffn 2816, vocab 32000) cut to 2 layers, f32,
+    ``use_recompute=True``, weights from a numpy seed, B=2, S=128: 3
+    AdamW steps on the card and on the CPU, held as in phases 5 and 7;
+    every kernel of the path (RMS norm forward and backward, the three
+    flash kernels, cross-entropy forward and backward) must launch;
+11. LLaMA training: ``bench_llama``'s recipe (bench.py:1071-1138) at 16
+    layers, f32 master weights under ``amp.auto_cast(bf16, O1)``,
+    ``AdamW(1e-4)``, the shifted cross-entropy, B=8, S=1024, one batch
+    from a numpy seed fed as ids and labels: 2 warm-up steps, then 5
+    timed steps (ms/step, tokens/s, MFU, peak memory, launches per step,
+    one profiled step);
+12. LLaMA generate: LLaMA-2 7B's width cut to 2 layers, f32, 4
+    left-padded prompts of 37-120 tokens, 16 greedy tokens identical on
+    the card and the CPU; then ``LLAMA_7B`` (32 layers) in bf16 with
+    random weights from a seed, 4 prompts x 128 tokens, 64 greedy
+    tokens: prefill ms, ms per decode step, tokens/s, peak memory.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
-training and generate summaries) and the card's
+training, generate and the three LLaMA summaries) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -422,6 +441,89 @@ def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen):
         library_ms=None, bound_ms=bms, bound_by=by)
 
 
+#: RMS norm shapes (rows, hidden).  train: the LLaMA training drive's 8 x
+#: 1024 token rows of hidden 1024 (f32 there: O1 black-lists rms_norm);
+#: prefill: LLaMA-2 7B's 4 prompts x 128 tokens of hidden 4096; decode:
+#: one decode step of those 4 rows
+RMS_SHAPES = {"train": (8192, 1024), "prefill": (512, 4096),
+              "decode": (4, 4096)}
+RMS_EPS = 1e-6
+
+
+def check_rms_norm(ops, shape_key, dtype, dtype_name, gen):
+    import torch
+    rows, n = RMS_SHAPES[shape_key]
+    x = (torch.randn(rows, n, device="cuda", generator=gen) + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    out, rstd = ops.fused_rms_norm(x, g, RMS_EPS)
+    ref, rstd_ref = ops.rms_norm_ref(x, g, RMS_EPS)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(out, ref, dtype_name)
+    rstd_err, _, rstd_ok = compare(rstd, rstd_ref, "float32")
+    isz = x.element_size()
+    nbytes = 2 * rows * n * isz + n * isz + rows * 4
+    bms, by = bound(nbytes, 4 * rows * n, dtype_name)
+    try:   # timing only: the port never calls it
+        lib = torch.nn.functional.rms_norm
+        lib(x, (n,), g, RMS_EPS)
+        library_ms = time_ms(lambda: lib(x, (n,), g, RMS_EPS))
+        lib_note = "library F.rms_norm"
+    except (AttributeError, RuntimeError) as exc:
+        library_ms = None
+        lib_note = f"library call failed: {str(exc).splitlines()[0][:160]}"
+    return dict(
+        err=max(err, rstd_err), rel=rel, ok=ok and rstd_ok,
+        shape=f"x[{rows},{n}]",
+        note=f"out {err:.3e}, rstd {rstd_err:.3e}; {lib_note}",
+        ms=time_ms(lambda: ops.fused_rms_norm(x, g, RMS_EPS)),
+        plain_ms=time_ms(lambda: ops.rms_norm_ref(x, g, RMS_EPS)),
+        library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def check_rms_norm_bwd(ops, shape_key, dtype, dtype_name, gen):
+    """dx and dgamma from the plain forward's rstd; dgamma held by the
+    column-sum rule (`compare_sum`)."""
+    import torch
+    rows, n = RMS_SHAPES[shape_key]
+    x = (torch.randn(rows, n, device="cuda", generator=gen) + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    _, rstd = ops.rms_norm_ref(x, g, RMS_EPS)
+    args = (x, g, rstd, do)
+    dx, dg = ops.fused_rms_norm_bwd(*args)
+    dx_r, dg_r = ops.rms_norm_bwd_ref(*args)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(dx, dx_r, dtype_name)
+    dg_err, dg_ok, dg_tol = compare_sum(
+        dg, dg_r, (do.float() * x.float() * rstd[:, None]).abs().sum(0),
+        dtype_name)
+    isz = x.element_size()
+    nbytes = 3 * rows * n * isz + 2 * n * isz + rows * 4
+    bms, by = bound(nbytes, 8 * rows * n, dtype_name)
+    try:   # timing only: ATen's fused backward, from its own forward's rstd
+        aten = torch.ops.aten
+        _, lib_rstd = aten._fused_rms_norm(x, [n], g, RMS_EPS)
+
+        def library():
+            return aten._fused_rms_norm_backward(do, x, [n], lib_rstd, g,
+                                                 [True, True])
+        lib_err = compare(library()[0], dx_r, dtype_name)[0]
+        library_ms = time_ms(library)
+        lib_note = (f"library aten._fused_rms_norm_backward, dx vs plain "
+                    f"{lib_err:.3e}")
+    except (AttributeError, RuntimeError, TypeError) as exc:
+        library_ms = None
+        lib_note = f"library call failed: {str(exc).splitlines()[0][:160]}"
+    return dict(
+        err=max(err, dg_err), rel=rel, ok=ok and dg_ok,
+        shape=f"x[{rows},{n}]",
+        note=(f"dx max abs err {err:.3e}; dgamma {dg_err:.3e} (atol "
+              f"{dg_tol:.3e}); {lib_note}"),
+        ms=time_ms(lambda: ops.fused_rms_norm_bwd(*args)),
+        plain_ms=time_ms(lambda: ops.rms_norm_bwd_ref(*args)),
+        library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
 #: flash attention shapes: (B, Sq, Sk, H, D, causal).  train: the flash
 #: drive's (B=8, S=1024, GPT_1P3B's 16 heads of 128); decode: one
 #: generate step of the 1.3B drive (4 rows, one query against 640 keys);
@@ -551,7 +653,12 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
 
 #: every kernel: its source, the TPU kernel it replaces, and its launches
 #: per step of each drive as (per layer, per step once); a kernel a drive
-#: does not run launches 0 times there
+#: does not run launches 0 times there.  ``main`` names the drive whose
+#: launches the kernels line reports, where it is not the serving drive
+#: or the composite training drive.  The LLaMA drives: llama_train (two
+#: RMS norms and one attention a layer, every layer's forward run twice
+#: by recompute, the final norm and the loss once) and llama_gen (one
+#: forward of generate())
 KERNEL_INFO = {
     "ragged_attention": dict(
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
@@ -576,31 +683,41 @@ KERNEL_INFO = {
     "softmax_xent_fwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
-        train=(0, 1), train_flash=(0, 1)),
+        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
-        train=(0, 1), train_flash=(0, 1)),
+        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:78",
-        train_flash=(2, 0), generate=(1, 0)),
+        main="train_flash", train_flash=(2, 0), generate=(1, 0),
+        llama_train=(2, 0), llama_gen=(1, 0)),
     "flash_attention_bwd_dq": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:128",
-        train_flash=(1, 0)),
+        main="train_flash", train_flash=(1, 0), llama_train=(1, 0)),
     "flash_attention_bwd_dkv": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:170",
-        train_flash=(1, 0)),
+        main="train_flash", train_flash=(1, 0), llama_train=(1, 0)),
+    "rms_norm": dict(
+        source="paddle_tpu_torch/csrc/rms_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:648",
+        main="llama_train", llama_train=(4, 1), llama_gen=(2, 1)),
+    "rms_norm_bwd": dict(
+        source="paddle_tpu_torch/csrc/rms_norm.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:658",
+        main="llama_train", llama_train=(2, 1)),
 }
 
 
 def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve", "train",
-    "train_flash" or "generate", whose step is one forward)."""
+    "train_flash", "llama_train", or "generate" and "llama_gen", whose
+    step is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -630,11 +747,55 @@ def report(name, dtype_name, r):
              f"version (max abs err {r['err']:.3e})")
 
 
+def warm_up(ops):
+    """One untimed launch of every kernel at a small shape, before the
+    first timing, so that no timed kernel pays for the card's first use
+    (the first kernel timed in one run read 2.7x slow).  Fails if a
+    kernel did not launch."""
+    import numpy as np
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen)
+    reset_launches(ops)
+    x, g, b = rand(64, 256), rand(256), rand(256)
+    _, mu, rstd = ops.fused_layer_norm(x, g, b)
+    ops.fused_layer_norm_bwd(x, g, mu, rstd, x)
+    ops.fused_linear_act(x, rand(256, 128), rand(128), "gelu_tanh")
+    ops.fused_linear_act_bwd(x, x, "gelu_tanh")
+    labels = torch.arange(64, device="cuda")
+    _, lse = ops.softmax_xent_fwd(x, labels)
+    ops.softmax_xent_bwd(x, labels, lse, torch.ones(64, device="cuda"))
+    _, rstd = ops.fused_rms_norm(x, g)
+    ops.fused_rms_norm_bwd(x, g, rstd, x)
+    q = rand(1, 64, 2, 64)
+    _, lse = ops.fused_flash_attention_fwd(q, q, q, True)
+    lse_s, delta = ops.flash_bwd_stats(q, q, lse)
+    ops.fused_flash_attention_bwd_dq(q, q, q, q, lse_s, delta, True)
+    ops.fused_flash_attention_bwd_dkv(q, q, q, q, lse_s, delta, True)
+    block_q = ops.ragged_q_block(torch.float32)
+    sid, qs, qv, _, _ = ops.ragged_segments([block_q], [block_q], block_q)
+    ints = [torch.from_numpy(a).cuda() for a in
+            (np.ones((1, 1), np.int32), np.asarray([block_q], np.int32),
+             sid, qs, qv)]
+    pool = rand(2, 2, 16, 64)
+    ops.ragged_paged_attention(rand(block_q, 2, 64), pool, pool, *ints,
+                               block_q=block_q)
+    torch.cuda.synchronize()
+    idle = [name for name, n in launches(ops).items() if n != 1]
+    if idle:
+        fail(f"warm-up: kernels {idle} did not launch exactly once")
+    reset_launches(ops)
+
+
 def phase_kernels(ops, budgets):
     """Every kernel at the serving drive's shapes (keys (name, dtype)), at
     the training drive's (keys (name, dtype, "train")) and, for flash
-    attention, at each of `FLASH_SHAPES` (keys (name, dtype, shape))."""
+    attention and RMS norm, at each of `FLASH_SHAPES` and `RMS_SHAPES`
+    (keys (name, dtype, shape))."""
     import torch
+    warm_up(ops)
     serve = {"ragged_attention": check_ragged,
              "layer_norm": check_layer_norm,
              "matmul_epilogue": check_matmul_epilogue}
@@ -666,6 +827,13 @@ def phase_kernels(ops, budgets):
                 report(name, dtype_name, r)
                 results[(name, dtype_name, shape_key)] = r
             torch.cuda.empty_cache()
+        for shape_key in RMS_SHAPES:
+            for name, check in (("rms_norm", check_rms_norm),
+                                ("rms_norm_bwd", check_rms_norm_bwd)):
+                r = check(ops, shape_key, dtype, dtype_name, gen)
+                report(name, dtype_name, r)
+                results[(name, dtype_name, shape_key)] = r
+            torch.cuda.empty_cache()
     return results
 
 
@@ -675,15 +843,17 @@ def phase_kernels(ops, budgets):
 def numpy_weights(model, seed):
     """Weights for every parameter, drawn with numpy: the reference's
     initialisers (Xavier-normal Linear weights, N(0, 1) embeddings) and
-    small random biases and layer-norm affines."""
+    small random biases and norm weights (1 + 0.1 N); the model's own
+    persistent buffers (LLaMA's rope tables) as they are."""
     import numpy as np
     rng = np.random.default_rng(seed)
     params = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        if name.endswith(("wte.weight", "wpe.weight")):
+        if name.endswith(("wte.weight", "wpe.weight", "embed_tokens.weight")):
             a = rng.standard_normal(shape, np.float32)
-        elif "ln_" in name and name.endswith("weight"):
+        elif ("ln_" in name and name.endswith("weight")) \
+                or name.endswith("norm.weight"):
             a = 1 + 0.1 * rng.standard_normal(shape, np.float32)
         elif len(shape) == 2:
             std = (2.0 / (shape[0] + shape[1])) ** 0.5
@@ -691,6 +861,9 @@ def numpy_weights(model, seed):
         else:
             a = 0.02 * rng.standard_normal(shape, np.float32)
         params[name] = a
+    for name, t in model.state_dict().items():
+        if name not in params:
+            params[name] = t.float().cpu().numpy()
     return params
 
 
@@ -815,6 +988,8 @@ _PROFILE_GROUPS = (("ragged_attention", "ragged_attn_kernel"),
                    ("flash_attention_fwd", "flash_fwd_kernel"),
                    ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
                    ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
+                   ("rms_norm", "rms_norm_fwd_kernel"),
+                   ("rms_norm_bwd", "rms_norm_bwd_kernel"),
                    ("cublas_gemm", ("gemm", "xmma", "nvjet", "cutlass",
                                     "cublas")),
                    ("softmax", ("softmax", "SoftMax")))
@@ -890,23 +1065,25 @@ PARITY_LR = 1e-4
 PARITY_TOL = dict(loss=1e-5, grad=1e-4, param=(1e-4, 1e-4))
 
 
-def train_parity_run(pt, ops, cfg, params, ids, labels, device, steps=3):
+def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
+                     device, clip=True, steps=3):
     """Losses, step-1 gradients and final parameters of ``steps`` AdamW
-    steps on ``device``, and the launch counts of the run."""
+    steps (global-norm clip 1.0 with ``clip``) of ``make_model(device)``
+    on ``device``, with ``loss_of(model, ids, labels)`` as the loss, and
+    the launch counts of the run."""
     import torch
-    model = pt.GPTForCausalLM(cfg, device=device, dtype=torch.float32)
+    model = make_model(device)
     pt.load_reference_state(model, params)
     opt = pt.optimizer.AdamW(
         learning_rate=PARITY_LR, weight_decay=0.01,
         parameters=model.parameters(),
-        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
-    crit = pt.GPTPretrainingCriterion()
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0) if clip else None)
     x, y = (torch.from_numpy(a).to(device) for a in (ids, labels))
     reset_launches(ops)
     t0 = time.perf_counter()
     losses, grads = [], None
     for step in range(steps):
-        loss = crit(model(x), y)
+        loss = loss_of(model, x, y)
         loss.backward()
         losses.append(float(loss.detach()))
         if step == 0:
@@ -926,22 +1103,34 @@ def train_parity_run(pt, ops, cfg, params, ids, labels, device, steps=3):
 def phase_train_parity(pt, ops, flash=False):
     """Phase 5 (the composite) or, with ``flash``, phase 7: the same run
     with ``use_flash_attention=True, use_recompute=True``."""
-    import numpy as np
-    import torch
     cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2,
                               use_flash_attention=flash,
                               use_recompute=flash))
+    crit = pt.GPTPretrainingCriterion()
+    return train_parity(
+        pt, ops, "training parity",
+        lambda device: pt.GPTForCausalLM(cfg, device=device),
+        lambda model, x, y: crit(model(x), y), cfg.vocab_size,
+        cfg.num_hidden_layers, "train_flash" if flash else "train")
+
+
+def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
+                 clip=True):
+    """3 AdamW steps of ``make_model`` on the card and on the CPU from the
+    same numpy weights and batch (B=2, S=128, a few labels at the ignore
+    index): losses, step-1 gradients and final parameters held to
+    `PARITY_TOL`, and each kernel's launches to ``drive``'s per step."""
+    import numpy as np
+    import torch
     rng = np.random.default_rng(SEED + 3)
-    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    ids = rng.integers(0, vocab, (2, 128))
     labels = ids.copy()
-    labels[0, :3] = -100                       # the criterion's ignore index
-    probe = pt.GPTForCausalLM(cfg, device="cpu")
-    params = numpy_weights(probe, SEED + 2)
-    del probe
+    labels[0, :3] = -100                       # the loss's ignore index
+    params = numpy_weights(make_model("cpu"), SEED + 2)
     runs = {}
     for device in ("cuda", "cpu"):
-        runs[device] = train_parity_run(pt, ops, cfg, params, ids, labels,
-                                        device)
+        runs[device] = train_parity_run(pt, ops, make_model, loss_of, params,
+                                        ids, labels, device, clip)
         torch.cuda.empty_cache()
     (l_gpu, g_gpu, p_gpu, counts), (l_cpu, g_cpu, p_cpu, _) = \
         runs["cuda"], runs["cpu"]
@@ -962,15 +1151,14 @@ def phase_train_parity(pt, ops, flash=False):
         f"params after 3 steps max (|err| - {rtol:g}*|p|) {worst:.3e} at "
         f"{worst_at or '-'} (tolerance {atol:g})")
     if loss_err > PARITY_TOL["loss"]:
-        fail(f"training parity: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
+        fail(f"{phase}: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
     if grad_err > PARITY_TOL["grad"]:
-        fail(f"training parity: gradient of {grad_at} differs by "
+        fail(f"{phase}: gradient of {grad_at} differs by "
              f"{grad_err:.3e} of its largest value")
     if worst > atol:
-        fail(f"training parity: parameter {worst_at} differs after 3 "
+        fail(f"{phase}: parameter {worst_at} differs after 3 "
              f"steps by {worst:.3e} past {rtol:g}*|p|")
-    check_counts("training parity", counts, 3, cfg.num_hidden_layers,
-                 "train_flash" if flash else "train")
+    check_counts(phase, counts, 3, layers, drive)
     return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
                 param_max_excess=worst, losses_cuda=l_gpu,
                 losses_cpu=l_cpu)
@@ -1013,6 +1201,19 @@ def phase_training(pt, ops, flash=False):
         opt.clear_grad()
         return loss.detach()
 
+    return drive_training(ops, step, n_params, B, L, H, "training",
+                          "train_flash" if flash else "train")
+
+
+def drive_training(ops, step, n_params, B, L, H, phase, drive):
+    """`TRAIN_WARMUP` untimed calls of ``step`` (one training step that
+    returns its loss), then `TRAIN_STEPS` timed ones at batch ``B`` of
+    `TRAIN_S` tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token
+    against the bf16 peak), peak memory; the losses must be finite and
+    fall, each kernel's launches must equal ``drive``'s per step; one
+    profiled step.  Returns (launch counts, summary)."""
+    import numpy as np
+    import torch
     t0 = time.perf_counter()
     losses = [step() for _ in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
@@ -1037,12 +1238,11 @@ def phase_training(pt, ops, flash=False):
         f"flop/token vs {PEAK_BF16:.3g} flop/s), peak memory "
         f"{peak_gib:.2f} GiB; losses {losses}")
     if not all(np.isfinite(losses)):
-        fail(f"training: a loss is not finite: {losses}")
+        fail(f"{phase}: a loss is not finite: {losses}")
     if not losses[-1] < losses[0]:
-        fail(f"training: the loss did not fall on a repeated batch: "
+        fail(f"{phase}: the loss did not fall on a repeated batch: "
              f"{losses}")
-    check_counts("training", counts, TRAIN_STEPS, L,
-                 "train_flash" if flash else "train")
+    check_counts(phase, counts, TRAIN_STEPS, L, drive)
     summary = dict(n_params=n_params, batch=B, seq=TRAIN_S,
                    steps=TRAIN_STEPS, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
@@ -1068,20 +1268,36 @@ def phase_generate(pt, ops):
     the card's tokens must equal the CPU's, and each kernel must launch
     its launches per forward times the forwards.  (b) GPT_1P3B in bf16,
     4 prompts x 128 tokens, 64 greedy tokens: ms per decode step."""
-    import numpy as np
     import torch
     cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
+    rng = generate_parity(
+        pt, ops, "generate parity",
+        lambda device: pt.GPTForCausalLM(cfg, device=device),
+        cfg.vocab_size, cfg.num_hidden_layers, "generate")
+    cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
+    return generate_drive(ops, model, rng, "GPT_1P3B", "generate",
+                          "generate")
+
+
+def generate_parity(pt, ops, phase, make_model, vocab, layers, drive):
+    """Greedy `generate()` of ``make_model(device)`` (eval mode, numpy
+    weights) on the card and on the CPU: `GEN_PARITY_LENS` prompts
+    left-padded (id 0) to one batch, `GEN_PARITY_NEW` new tokens, which
+    must be identical; each kernel must launch ``drive``'s launches per
+    forward times the forwards.  Returns the numpy generator the prompts
+    came from, for the drive's prompts."""
+    import numpy as np
+    import torch
     rng = np.random.default_rng(SEED + 4)
     width = max(GEN_PARITY_LENS)
     ids = np.zeros((len(GEN_PARITY_LENS), width), np.int64)
     for row, n in enumerate(GEN_PARITY_LENS):
-        ids[row, width - n:] = rng.integers(1, cfg.vocab_size, size=n)
-    probe = pt.GPTForCausalLM(cfg, device="cpu")
-    params = numpy_weights(probe, SEED + 2)
-    del probe
+        ids[row, width - n:] = rng.integers(1, vocab, size=n)
+    params = numpy_weights(make_model("cpu"), SEED + 2)
     outs = {}
     for device in ("cuda", "cpu"):
-        model = pt.GPTForCausalLM(cfg, device=device).eval()
+        model = make_model(device).eval()
         pt.load_reference_state(model, params)
         reset_launches(ops)
         t0 = time.perf_counter()
@@ -1095,19 +1311,26 @@ def phase_generate(pt, ops):
         del model
         torch.cuda.empty_cache()
     if outs["cuda"].shape != (len(GEN_PARITY_LENS), width + GEN_PARITY_NEW):
-        fail(f"generate: shape {tuple(outs['cuda'].shape)}")
+        fail(f"{phase}: shape {tuple(outs['cuda'].shape)}")
     if not torch.equal(outs["cuda"], outs["cpu"]):
-        fail(f"generate parity: CUDA tokens "
+        fail(f"{phase}: CUDA tokens "
              f"{outs['cuda'][:, width:].tolist()} != CPU tokens "
              f"{outs['cpu'][:, width:].tolist()}")
     say(f"  greedy tokens identical on CUDA and CPU for "
         f"{len(GEN_PARITY_LENS)} prompts of {list(GEN_PARITY_LENS)} "
         f"tokens x {GEN_PARITY_NEW}")
-    check_counts("generate parity", counts, GEN_PARITY_NEW,
-                 cfg.num_hidden_layers, "generate")
+    check_counts(phase, counts, GEN_PARITY_NEW, layers, drive)
+    return rng
 
-    cfg = pt.GPTConfig(**pt.GPT_1P3B)
-    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
+
+def generate_drive(ops, model, rng, what, phase, drive):
+    """Greedy `generate()` of ``model`` on the card, `GEN_B` prompts of
+    `GEN_PROMPT` tokens drawn from ``rng``, `GEN_NEW` new tokens: prefill
+    ms, ms per decode step, tokens/s and peak memory; each kernel must
+    launch ``drive``'s launches per forward times the forwards.  Returns
+    (launch counts, summary)."""
+    import torch
+    cfg = model.config
     prompts = torch.from_numpy(rng.integers(1, cfg.vocab_size,
                                             (GEN_B, GEN_PROMPT)))
 
@@ -1120,25 +1343,100 @@ def phase_generate(pt, ops):
 
     run(2)                                  # first-use costs
     _, prefill_s = run(1)
+    torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
     out, total_s = run(GEN_NEW)
     counts = launches(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     new = out[:, GEN_PROMPT:]
     if new.shape != (GEN_B, GEN_NEW) or not bool(
             ((new >= 0) & (new < cfg.vocab_size)).all()):
-        fail(f"generate: new tokens of shape {tuple(new.shape)} or outside "
+        fail(f"{phase}: new tokens of shape {tuple(new.shape)} or outside "
              f"the vocabulary")
     decode_ms = (total_s - prefill_s) / (GEN_NEW - 1) * 1e3
-    say(f"  GPT_1P3B bf16, {GEN_B} prompts x {GEN_PROMPT} tokens, "
+    say(f"  {what} bf16, {GEN_B} prompts x {GEN_PROMPT} tokens, "
         f"{GEN_NEW} greedy tokens in {total_s:.3f} s: prefill "
         f"{prefill_s * 1e3:.1f} ms, {decode_ms:.2f} ms per decode step, "
-        f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s")
-    check_counts("generate", counts, GEN_NEW, cfg.num_hidden_layers,
-                 "generate")
+        f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
+        f"{peak_gib:.2f} GiB")
+    check_counts(phase, counts, GEN_NEW, cfg.num_hidden_layers, drive)
     return counts, dict(batch=GEN_B, prompt=GEN_PROMPT, new_tokens=GEN_NEW,
                         total_s=total_s, prefill_ms=prefill_s * 1e3,
                         decode_ms_per_step=decode_ms,
-                        tokens_per_s=GEN_B * GEN_NEW / total_s)
+                        tokens_per_s=GEN_B * GEN_NEW / total_s,
+                        peak_memory_gib=peak_gib)
+
+
+# ---------------------------------------------------------------------
+# phases 10-12: LLaMA
+# ---------------------------------------------------------------------
+#: bench.py:1081-1086's single-chip LLaMA (bench_llama): GQA 16 heads over
+#: 8 kv heads of 64, SwiGLU width 2816, LLaMA-2's vocab
+LLAMA_TRAIN_CFG = dict(vocab_size=32000, hidden_size=1024,
+                       num_hidden_layers=16, num_attention_heads=16,
+                       num_key_value_heads=8, intermediate_size=2816,
+                       max_position_embeddings=1024, use_recompute=True)
+LLAMA_TRAIN_B = 8
+
+
+def phase_llama_train_parity(pt, ops):
+    """Phase 10: `LLAMA_TRAIN_CFG` cut to 2 layers, f32, recompute, 3
+    AdamW(1e-4) steps without a clip (the recipe has none), card vs CPU."""
+    cfg = pt.LlamaConfig(**dict(LLAMA_TRAIN_CFG, num_hidden_layers=2))
+    return train_parity(
+        pt, ops, "llama training parity",
+        lambda device: pt.LlamaForCausalLM(cfg, device=device),
+        lambda model, x, y: model(x, y)[0], cfg.vocab_size,
+        cfg.num_hidden_layers, "llama_train", clip=False)
+
+
+def phase_llama_training(pt, ops):
+    """Phase 11: bench_llama's recipe on the card, eager: 16 layers, f32
+    master weights under auto_cast(bf16, O1), AdamW(1e-4), the model's own
+    shifted cross-entropy, B=8, S=1024, one batch fed as ids and labels."""
+    import numpy as np
+    import torch
+    cfg = pt.LlamaConfig(**LLAMA_TRAIN_CFG)
+    model = pt.LlamaForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (LLAMA_TRAIN_B, TRAIN_S))).cuda()
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss, _ = model(ids, ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return drive_training(ops, step, n_params, LLAMA_TRAIN_B,
+                          cfg.num_hidden_layers, cfg.hidden_size,
+                          "llama training", "llama_train")
+
+
+def phase_llama_generate(pt, ops):
+    """Phase 12: greedy parity at LLaMA-2 7B's width cut to 2 layers (f32,
+    card vs CPU), then `LLAMA_7B` at full depth in bf16."""
+    import torch
+    cfg = pt.LlamaConfig(**dict(pt.LLAMA_7B, num_hidden_layers=2))
+    rng = generate_parity(
+        pt, ops, "llama generate parity",
+        lambda device: pt.LlamaForCausalLM(cfg, device=device),
+        cfg.vocab_size, cfg.num_hidden_layers, "llama_gen")
+    free_device_memory()
+    model = pt.LlamaForCausalLM(pt.LlamaConfig(**pt.LLAMA_7B),
+                                dtype=torch.bfloat16, seed=SEED).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  LLAMA_7B: {n_params / 1e9:.3f} B parameters, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB on the card")
+    counts, summary = generate_drive(ops, model, rng, "LLAMA_7B",
+                                     "llama generate", "llama_gen")
+    summary["n_params"] = n_params
+    return counts, summary
 
 
 def free_device_memory():
@@ -1159,53 +1457,55 @@ def kernel_entry(r):
 
 
 #: the dtype each kernel runs in on its main path (serving: bf16; the
-#: training drive under O1: layer norm and cross-entropy in f32 (black
-#: list), the fc1 epilogue and attention in bf16 (white list))
+#: training drives under O1: layer norm, RMS norm and cross-entropy in
+#: f32 (black list), the fc1 epilogue and attention in bf16 (white list))
 MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "matmul_epilogue": "bfloat16", "layer_norm_bwd": "float32",
               "matmul_epilogue_bwd": "bfloat16",
               "softmax_xent_fwd": "float32", "softmax_xent_bwd": "float32",
               "flash_attention_fwd": "bfloat16",
               "flash_attention_bwd_dq": "bfloat16",
-              "flash_attention_bwd_dkv": "bfloat16"}
+              "flash_attention_bwd_dkv": "bfloat16",
+              "rms_norm": "float32", "rms_norm_bwd": "float32"}
 TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
 
 
 def kernels_line(results, counts):
     """One entry per kernel: its main path's dtype and shapes (the
     serving drive's for the three serving kernels, the flash drive's for
-    flash attention), the other dtype, the forward kernels at the
-    training drive's shapes too, and flash attention at its decode and
-    head_dim-64 shapes.  ``launches`` counts the main path's run (the
-    serving drive, the composite training drive, or for flash attention
-    the flash drive's timed steps); ``launches_<drive>`` every drive's."""
+    flash attention, the LLaMA training drive's for RMS norm), the other
+    dtype, the forward kernels at the training drive's shapes too, flash
+    attention at its decode and head_dim-64 shapes and RMS norm at
+    LLaMA-2 7B's prefill and decode shapes.  ``launches`` counts the main
+    path's run (the serving drive, the composite training drive, or the
+    ``main`` drive of `KERNEL_INFO`: the flash drive's or the LLaMA
+    training drive's timed steps); ``launches_<drive>`` every drive's."""
     out = []
     for name, info in KERNEL_INFO.items():
         main = MAIN_DTYPE[name]
         other = "float32" if main == "bfloat16" else "bfloat16"
-        flash = name.startswith("flash_attention")
+        shapes = FLASH_SHAPES if name.startswith("flash_attention") \
+            else RMS_SHAPES if name.startswith("rms_norm") else {}
         key = (name,) if "serve" in info else (name, "train")
-        drive = "serve" if "serve" in info else (
-            "train_flash" if flash else "train")
+        drive = "serve" if "serve" in info else info.get("main", "train")
         entry = dict(name=name, route="cuda", source=info["source"],
                      replaces=info["replaces"],
                      launches=counts[drive][name], dtype=main,
                      **kernel_entry(results[(key[0], main) + key[1:]]))
         for d, c in counts.items():
             entry[f"launches_{d}"] = c[name]
-        entry["launches_per_step_train_flash"] = \
-            counts["train_flash"][name] // TRAIN_STEPS
+        for d in ("train_flash", "llama_train"):
+            entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
                 dtype=TRAIN_DTYPE[name],
                 **kernel_entry(results[(name, TRAIN_DTYPE[name], "train")]))
-        if flash:
-            for shape_key in FLASH_SHAPES:
-                if shape_key != "train":
-                    entry[shape_key] = {
-                        dt: kernel_entry(results[(name, dt, shape_key)])
-                        for dt in ("bfloat16", "float32")}
+        for shape_key in shapes:
+            if shape_key != "train":
+                entry[shape_key] = {
+                    dt: kernel_entry(results[(name, dt, shape_key)])
+                    for dt in ("bfloat16", "float32")}
         out.append(entry)
     return out
 
@@ -1271,15 +1571,35 @@ def main():
     say("[9] generate: dense KV cache, greedy; parity at full width, "
         "2 layers, f32; GPT_1P3B bf16")
     gen_counts, generate = phase_generate(pt, ops)
+    free_device_memory()
+
+    say("[10] LLaMA training parity: bench_llama width, 2 layers, f32, "
+        "GQA, recompute, 3 AdamW steps, CUDA vs CPU")
+    llama_parity = phase_llama_train_parity(pt, ops)
+    free_device_memory()
+
+    say("[11] LLaMA training: bench_llama recipe, 16 layers, bf16 O1, "
+        "recompute, AdamW, B=8 S=1024")
+    llama_train_counts, llama_training = phase_llama_training(pt, ops)
+    free_device_memory()
+
+    say("[12] LLaMA generate: parity at LLaMA-2 7B width, 2 layers, f32; "
+        "LLAMA_7B bf16")
+    llama_gen_counts, llama_generate = phase_llama_generate(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
-                  train_flash=flash_counts, generate=gen_counts)
+                  train_flash=flash_counts, generate=gen_counts,
+                  llama_train=llama_train_counts,
+                  llama_gen=llama_gen_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
                     "training_flash_parity": flash_parity,
                     "training_flash": training_flash,
-                    "generate": generate}))
+                    "generate": generate,
+                    "llama_training_parity": llama_parity,
+                    "llama_training": llama_training,
+                    "llama_generate": llama_generate}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

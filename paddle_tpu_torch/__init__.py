@@ -1,11 +1,11 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package ``paddle_tpu`` stays the reference; this package serves
-and trains the same GPT model on an NVIDIA H100 through kernels written by hand in
-CUDA C++ for Hopper (``csrc/``), each with a plain PyTorch version that
-the CPU runs.  It imports torch and numpy, never JAX and never
-``paddle_tpu``.  Entry points run on the CUDA device unless the caller
-passes ``device="cpu"``.
+and trains the same GPT and LLaMA models on an NVIDIA H100 through
+kernels written by hand in CUDA C++ for Hopper (``csrc/``), each with a
+plain PyTorch version that the CPU runs.  It imports torch and numpy,
+never JAX and never ``paddle_tpu``.  Entry points run on the CUDA device
+unless the caller passes ``device="cpu"``.
 
 Ported so far (see ``ops`` for the kernels):
 
@@ -19,15 +19,20 @@ Ported so far (see ``ops`` for the kernels):
   the default) through the flash-attention kernels, forward, dq and
   dk/dv; ``use_recompute=True`` through ``distributed.fleet.recompute``;
   and ``GPTForCausalLM.generate`` over the dense KV cache
-  (``models.generation``).
+  (``models.generation``);
+* LLaMA: ``models.llama`` (RMSNorm, rotary embeddings, grouped-query
+  attention, SwiGLU; the ``LLAMA_7B`` preset), trained with recompute
+  and served by ``LlamaForCausalLM.generate`` over the dense KV cache,
+  with the RMS-norm kernels forward and backward.
 """
 from . import amp, distributed, nn, optimizer
 from .convert import load_reference_state
 from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion)
+from .models.llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM
 from .inference.serving import GenerationEngine
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "load_reference_state",
            "GPT_1P3B",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "GenerationEngine"]
+           "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "GenerationEngine"]

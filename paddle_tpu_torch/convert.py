@@ -1,11 +1,13 @@
 """Carry the JAX model's weights over to the port.
 
-``load_reference_state`` takes the reference model's parameters as
+``load_reference_state`` takes the reference model's ``state_dict()`` as
 numpy arrays keyed by the reference's names (``gpt.wte.weight``,
-``gpt.h.0.attn.qkv_proj.weight``, ...; what ``{k: v.numpy() for k, v in
-model.state_dict().items()}`` gives on the JAX side) and copies them into
-the port's parameters of the same names.  The layouts are the same
-(Linear weights ``[in, out]``), so nothing is transposed.
+``llama.layers.0.self_attn.q_proj.weight``, ...; what ``{k: v.numpy()
+for k, v in model.state_dict().items()}`` gives on the JAX side) and
+copies them into the port's parameters and persistent buffers of the same
+names (LLaMA's rope tables ``llama.rope_cos``/``llama.rope_sin`` are
+such buffers).  The layouts are the same (Linear weights ``[in, out]``),
+so nothing is transposed.
 """
 from __future__ import annotations
 
@@ -16,10 +18,13 @@ __all__ = ["load_reference_state"]
 
 
 def load_reference_state(model, params):
-    """Copy ``params`` (name -> array) into ``model`` in place, cast to
-    each parameter's dtype on its device.  Shapes must match exactly;
-    a missing or an extra key raises ``KeyError``.  Returns ``model``."""
-    own = dict(model.named_parameters())
+    """Copy ``params`` (name -> array) into ``model``'s parameters and
+    persistent buffers in place, cast to each one's dtype on its device.
+    Buffers are copied, not checked: the rope tables the reference holds
+    (f32, or bf16 after its ``astype``) overwrite the port's own, which
+    are built from the same f64 numbers.  Shapes must match exactly; a
+    missing or an extra key raises ``KeyError``.  Returns ``model``."""
+    own = model.state_dict(keep_vars=True)
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
     if missing or extra:

@@ -1,7 +1,8 @@
-"""Layers, functionals and gradient clipping of the GPT path."""
+"""Layers, functionals and gradient clipping of the GPT and LLaMA paths."""
 from . import functional
 from .clip import ClipGradByGlobalNorm
-from .layers import Dropout, Embedding, LayerList, LayerNorm, Linear
+from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,
+                     RMSNorm)
 
 __all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
-           "LayerList", "LayerNorm", "Linear"]
+           "LayerList", "LayerNorm", "Linear", "RMSNorm"]

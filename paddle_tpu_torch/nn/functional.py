@@ -1,18 +1,21 @@
-"""The functionals GPT serving and training call, on ``torch.Tensor``.
+"""The functionals GPT and LLaMA serving and training call, on
+``torch.Tensor``.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``linear_act`` :54, ``embedding`` :523, ``dropout``),
-``nn/functional/norm.py`` (``layer_norm`` :22),
+``nn/functional/activation.py`` (``silu``),
+``nn/functional/norm.py`` (``layer_norm`` :22, ``rms_norm`` :103),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
 path), ``nn/functional/flash_attention.py``
 (``scaled_dot_product_attention`` :85 with its routing, the composite
 ``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
-``linear_act``, ``cross_entropy`` and dense attention through its
-Pallas kernels; here they call the port's differentiable kernel entry
-points, which take the plain versions for CPU tensors and launch the
-CUDA kernels (forward and backward) for CUDA tensors.  Plain GEMMs and
+``linear_act``, ``rms_norm`` (with a weight), ``cross_entropy`` and
+dense attention through its Pallas kernels; here they call the port's
+differentiable kernel entry points, which take the plain versions for
+CPU tensors and launch the CUDA kernels (forward and backward) for CUDA
+tensors.  Plain GEMMs and
 lookups stay PyTorch ops, as the reference left them to XLA.  Each
 functional the reference's AMP lists name casts its inputs by the O1
 rule (``amp.cast_inputs``).
@@ -28,8 +31,8 @@ from .. import ops
 from ..ops.tiles import NEG_INF
 
 __all__ = ["linear", "linear_act", "matmul", "embedding", "layer_norm",
-           "dropout", "scaled_dot_product_attention", "flash_attention",
-           "sdp_kernel", "cross_entropy"]
+           "rms_norm", "silu", "dropout", "scaled_dot_product_attention",
+           "flash_attention", "sdp_kernel", "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -72,6 +75,29 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
             "is not ported yet")
     x, weight, bias = amp.cast_inputs("layer_norm", x, weight, bias)
     return ops.layer_norm(x.contiguous(), weight, bias, epsilon)
+
+
+def rms_norm(x, weight=None, epsilon=1e-6):
+    """RMS norm over the last dim, routed as the reference routes it
+    (norm.py:103-121): with a ``weight``, the RMS-norm kernels forward and
+    backward (``ops.rms_norm``); without one, the reference's composite,
+    which it never sends to its kernel either: the mean of squares and
+    rsqrt in f32 for bf16/f16 input, the product rounded to the input's
+    type.  ``rms_norm`` is on the O1 black list, so under ``auto_cast``
+    it runs in f32."""
+    if weight is None:
+        (x,) = amp.cast_inputs("rms_norm", x)
+        xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+        ms = (xf * xf).mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
+    x, weight = amp.cast_inputs("rms_norm", x, weight)
+    return ops.rms_norm(x.contiguous(), weight, epsilon)
+
+
+def silu(x):
+    """``x * sigmoid(x)``; the reference leaves it to XLA, the port to
+    PyTorch."""
+    return torch.nn.functional.silu(x)
 
 
 def dropout(x, p=0.5, training=True, generator=None):

@@ -1,12 +1,13 @@
-"""The layers GPT is built from, as ``torch.nn.Module``s.
+"""The layers GPT and LLaMA are built from, as ``torch.nn.Module``s.
 
 Port of ``paddle_tpu/nn/layer/{common,norm,layers}.py``: ``Linear``,
-``Embedding``, ``LayerNorm``, ``Dropout`` and ``LayerList``.  Parameter
-names and shapes match the reference's ``state_dict`` (``Linear.weight``
-is ``[in, out]``), and so do the default initialisers: Xavier-normal
-Linear weights with zero biases, N(0, 1) embeddings, LayerNorm ones and
-zeros.  Every layer takes its ``device``, ``dtype`` and the
-``torch.Generator`` its initial values are drawn from.
+``Embedding``, ``LayerNorm``, ``RMSNorm``, ``Dropout`` and ``LayerList``.
+Parameter names and shapes match the reference's ``state_dict``
+(``Linear.weight`` is ``[in, out]``), and so do the default
+initialisers: Xavier-normal Linear weights with zero biases, N(0, 1)
+embeddings, LayerNorm ones and zeros, RMSNorm ones.  Every layer takes
+its ``device``, ``dtype`` and the ``torch.Generator`` its initial values
+are drawn from.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from torch import nn
 
 from . import functional as F
 
-__all__ = ["Linear", "Embedding", "LayerNorm", "Dropout", "LayerList"]
+__all__ = ["Linear", "Embedding", "LayerNorm", "RMSNorm", "Dropout",
+           "LayerList"]
 
 LayerList = nn.ModuleList
 
@@ -77,6 +79,21 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
                             self.bias, self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm over the last dim with a ``weight`` ``[hidden_size]``
+    starting at 1 (norm.py:53-63)."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, *, device,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
 
 
 class Dropout(nn.Module):

@@ -14,13 +14,15 @@ softmax_xent_bwd               softmax_xent.cu      pallas_kernels.py:802
 fused_flash_attention_fwd      flash_attention.cu   pallas_kernels.py:78
 fused_flash_attention_bwd_dq   flash_attention.cu   pallas_kernels.py:128
 fused_flash_attention_bwd_dkv  flash_attention.cu   pallas_kernels.py:170
+fused_rms_norm                 rms_norm.cu          pallas_kernels.py:648
+fused_rms_norm_bwd             rms_norm.cu          pallas_kernels.py:658
 =============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
-`layer_norm`, `linear_act`, `fused_softmax_cross_entropy` and
-`flash_attention` are the differentiable entry points:
+`layer_norm`, `rms_norm`, `linear_act`, `fused_softmax_cross_entropy`
+and `flash_attention` are the differentiable entry points:
 ``torch.autograd.Function``s whose backward is the backward kernel (for
 flash attention, the dq and the dk/dv kernels).
 """
@@ -34,6 +36,8 @@ from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
                               fused_linear_act_bwd, linear_act,
                               linear_act_bwd_ref, linear_act_ref)
+from .rms_norm import (fused_rms_norm, fused_rms_norm_bwd, rms_norm,
+                       rms_norm_bwd_ref, rms_norm_ref)
 from .ragged import (ragged_attention_ref, ragged_paged_attention,
                      ragged_q_block, ragged_segments)
 from .softmax_xent import (fused_softmax_cross_entropy, softmax_xent_bwd,
@@ -51,9 +55,11 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "flash_attention_bwd_ref", "flash_attention_ref",
            "flash_bwd_stats", "fused_flash_attention_bwd_dkv",
            "fused_flash_attention_bwd_dq", "fused_flash_attention_fwd",
-           "KERNELS"]
+           "fused_rms_norm", "fused_rms_norm_bwd", "rms_norm",
+           "rms_norm_bwd_ref", "rms_norm_ref", "KERNELS"]
 
-#: every kernel wrapper of the serving and training paths, by kernel name
+#: every kernel wrapper of the serving, training and LLaMA paths, by
+#: kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
@@ -65,4 +71,6 @@ KERNELS = {
     "flash_attention_fwd": fused_flash_attention_fwd,
     "flash_attention_bwd_dq": fused_flash_attention_bwd_dq,
     "flash_attention_bwd_dkv": fused_flash_attention_bwd_dkv,
+    "rms_norm": fused_rms_norm,
+    "rms_norm_bwd": fused_rms_norm_bwd,
 }

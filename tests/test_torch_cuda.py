@@ -7,8 +7,9 @@ imports torch and the port only, so it runs where JAX is not installed:
     python -m pytest --noconftest tests/test_torch_cuda.py -q -m cuda
 
 Small shapes with ragged edges (rows not a multiple of a block, vocab
-50304 and odd vocabularies, all activations); the main path's shapes
-are covered by ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
+50304 and odd vocabularies, all activations; RMS norm also at the LLaMA
+paths' shapes and on a misaligned view); the main path's shapes are
+covered by ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
 in another order), bf16 2e-2 abs + rel (about two bf16 ulps at unit
 scale); column sums (dgamma, dbeta, db) f32 1e-4·sqrt(rows) abs, bf16
 2e-2; cross-entropy loss and lse (f32 whatever the logits' type) 1e-4
@@ -137,6 +138,53 @@ def test_layer_norm_bwd_kernel(gen, dtype, rows, n):
                                    rtol=_TOL[dtype])
 
 
+#: RMS norm: LLaMA-2 7B's decode step and prefill, the LLaMA training
+#: drive's rows, and ragged widths (bf16 300 and 299 rows take one value
+#: a load, the others 16 bytes)
+_RMS_SHAPES = [(4, 4096), (512, 4096), (8192, 1024), (37, 300), (5, 299)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,n", _RMS_SHAPES)
+def test_rms_norm_kernels(gen, dtype, rows, n):
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen) + 1).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    n0 = (ops.fused_rms_norm.launches, ops.fused_rms_norm_bwd.launches)
+    out, rstd = ops.fused_rms_norm(x, g)
+    want, rstd_ref = ops.rms_norm_ref(x, g)
+    _close(out, want, dtype)
+    _close(rstd, rstd_ref, torch.float32)
+    dx, dg = ops.fused_rms_norm_bwd(x, g, rstd_ref, do)
+    dx_ref, dg_ref = ops.rms_norm_bwd_ref(x, g, rstd_ref, do)
+    assert (ops.fused_rms_norm.launches,
+            ops.fused_rms_norm_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    _close(dx, dx_ref, dtype)
+    assert dg.dtype == dtype
+    torch.testing.assert_close(dg.float(), dg_ref.float(),
+                               atol=_sum_tol(dtype, rows), rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_rms_norm_autograd_on_a_misaligned_view(gen, dtype):
+    """x starting one value past a 16-byte boundary takes the one-value
+    path; the differentiable entry point runs both kernels."""
+    rows, n = 33, 512
+    base = torch.randn(rows * n + 1, device="cuda", generator=gen).to(dtype)
+    x = base[1:].view(rows, n).requires_grad_()
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(
+        dtype).requires_grad_()
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    out = ops.rms_norm(x, g)
+    out.backward(do)
+    want, rstd = ops.rms_norm_ref(x.detach(), g.detach())
+    dx, dg = ops.rms_norm_bwd_ref(x.detach(), g.detach(), rstd, do)
+    _close(out, want, dtype)
+    _close(x.grad, dx, dtype)
+    torch.testing.assert_close(g.grad.float(), dg.float(),
+                               atol=_sum_tol(dtype, rows), rtol=_TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("act", ops.ACTIVATIONS)
 def test_matmul_epilogue_bwd_kernel(gen, dtype, act):
@@ -184,6 +232,12 @@ def test_wrappers_refuse_bad_inputs(gen):
                                             device="cuda"))  # not int64
     with pytest.raises(ValueError):
         ops.fused_linear_act_bwd(x, x.t().contiguous(), "relu")  # shape
+    with pytest.raises(ValueError):
+        ops.fused_rms_norm(x, torch.ones(8, device="cuda").to(
+            torch.bfloat16))                                   # gamma type
+    with pytest.raises(ValueError):
+        ops.fused_rms_norm_bwd(x, torch.ones(8, device="cuda"),
+                               torch.ones(3, device="cuda"), x)  # rstd rows
 
 
 _FLASH_CASES = [(2, 100, 100, True), (2, 100, 100, False), (3, 1, 300, True),

@@ -22,6 +22,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "paddle_tpu_torch"
 TINY = pt.GPTConfig(vocab_size=64, hidden_size=16, num_hidden_layers=1,
                     num_attention_heads=2, max_position_embeddings=32)
+TINY_LLAMA = pt.LlamaConfig(vocab_size=64, hidden_size=16,
+                            num_hidden_layers=1, num_attention_heads=2,
+                            num_key_value_heads=1, intermediate_size=32,
+                            max_position_embeddings=32)
 
 
 def _modules():
@@ -36,7 +40,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for m in ("inference.serving.engine", "core.random", "amp",
               "optimizer.optimizer", "nn.clip", "ops.softmax_xent",
               "ops.flash_attention", "distributed.fleet.recompute",
-              "models.generation"):
+              "models.generation", "models.llama", "ops.rms_norm"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -85,6 +89,20 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         pt.GenerationEngine(model, num_blocks=8, device="meta")
 
 
+def test_llama_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.LlamaForCausalLM(TINY_LLAMA)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.LlamaForCausalLM(TINY_LLAMA, device="gpu", dtype="bfloat16")
+    weight = pt.LlamaForCausalLM(TINY_LLAMA, device="cpu").lm_head.weight
+    assert weight.device.type == "cpu" and weight.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="rms norm"):
+        pt.ops.rms_norm(torch.zeros(2, 16, device="meta"),
+                        torch.ones(16, device="meta"))
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.randn(4, 8)
     out, mu, rstd = pt.ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
@@ -93,6 +111,8 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     pt.ops.fused_linear_act(x, torch.ones(8, 3), torch.zeros(3), "relu")
     pt.ops.fused_linear_act_bwd(x, x, "gelu")
     pt.ops.softmax_xent_fwd(x, torch.zeros(4, dtype=torch.int64))
+    xr = x.clone().requires_grad_()
+    pt.ops.rms_norm(xr, torch.ones(8)).sum().backward()
     q = torch.randn(1, 4, 2, 8, requires_grad=True)
     pt.ops.flash_attention(q, q, q, causal=True).sum().backward()
     after = {k: f.launches for k, f in pt.ops.KERNELS.items()}
