@@ -20,13 +20,17 @@ phase fails.  Phases:
    errors against stated tolerances and CUDA-event times of the kernel,
    the plain version and (where one PyTorch call computes the same
    function) the library call, beside the least time the card could take
-   (``bound_ms``);
+   (``bound_ms``); the int8 serving kernels at the serving drive's shapes
+   too (the int8 matmul epilogue at fc1's 368 x 2048 @ 2048 x 8192 with
+   gelu_tanh, int8 ragged attention at the mixed step with int8 pools);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
    16 greedy tokens each, must give identical tokens, and each serving
    kernel must launch its launches per step times the steps on the card
-   (the backward kernels none);
+   (the backward kernels none); then the same with
+   ``weight_dtype="int8", kv_cache_dtype="int8"``, where only the int8
+   epilogue and the int8 attention may launch (besides layer norm);
 4. serving: GPT_1P3B (24 layers) in bf16 with random weights from a
    seed, ``max_batch=8``, chunk 256: 16 requests sharing a 512-token
    prefix plus a 4-64 token tail, 64 greedy tokens each (the
@@ -76,11 +80,22 @@ phase fails.  Phases:
     left-padded prompts of 37-120 tokens, 16 greedy tokens identical on
     the card and the CPU; then ``LLAMA_7B`` (32 layers) in bf16 with
     random weights from a seed, 4 prompts x 128 tokens, 64 greedy
-    tokens: prefill ms, ms per decode step, tokens/s, peak memory.
+    tokens: prefill ms, ms per decode step, tokens/s, peak memory;
+13. int8 serving: phase 4's drive, unchanged but for the dtypes:
+    GPT_1P3B in bf16 with the same random weights, served by
+    ``GenerationEngine(..., weight_dtype="int8", kv_cache_dtype="int8")``
+    (the reference bench's int8 phase at the 1.3B width).  Gates: one
+    full-width prefill's logits with int8 weights against bf16 weights
+    (``logits_cosine`` >= 0.99), the int8 pool's bytes per block at most
+    1/1.8 of the bf16 pool's, launches counted as in phase 4.  Reports
+    tokens/s, ms/step, TTFT, weight memory and KV blocks against phase
+    4's, the greedy match ratio against phase 4's tokens, and one
+    profiled burst.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
-training, generate and the three LLaMA summaries) and the card's
+training, generate, the three LLaMA and the int8 serving summaries) and
+the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -146,6 +161,13 @@ def card_line():
 # ---------------------------------------------------------------------
 # timing and bounds
 # ---------------------------------------------------------------------
+#: GPU cycles (~0.5 ms) the stream sleeps before each timed call: longer
+#: than any wrapper's host time, so the host has enqueued the call before
+#: the stream reaches the start event, and the events time the kernels,
+#: not the host (a slow host otherwise shows in the short kernels' times)
+SLEEP_CYCLES = 1_000_000
+
+
 def time_ms(fn, iters=20, warmup=3):
     """Median CUDA-event time of ``fn`` in ms, with the 50 MB L2 flushed
     before every timed call (the serving path meets cold weights)."""
@@ -157,6 +179,7 @@ def time_ms(fn, iters=20, warmup=3):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         s.record()
         fn()
         e.record()
@@ -242,9 +265,71 @@ def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen):
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
-def check_ragged(ops, block_q, dtype, dtype_name, gen):
+def check_matmul_epilogue_int8(ops, rows, dtype, dtype_name, gen):
+    """The int8-weight epilogue at fc1's serving shape: x [rows, 2048] in
+    ``dtype``, per-channel int8 codes [2048, 8192] with f32 scales, a bias
+    in x's type, gelu_tanh."""
+    import torch
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    K, N = HIDDEN, FFN
+    x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
+    w_q, scale = quantize_weight_int8(
+        torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5, axis=1)
+    b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dtype)
+    args = (x, w_q, scale, b, "gelu_tanh")
+    out = ops.fused_linear_act_int8(*args)
+    ref = ops.linear_act_int8_ref(*args)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(out, ref, dtype_name)
+    # the library call: torch._weight_int8pack_mm computes x @ (w_q * s)^T
+    # from [N, K] codes, without the bias and the activation; timed here
+    # only, the port never calls it
+    w_nk, s_x = w_q.t().contiguous(), scale.to(dtype)
+
+    def library():
+        return torch._weight_int8pack_mm(x, w_nk, s_x)
+    try:
+        lib_err = compare(library(), torch.matmul(
+            x.float(), w_q.float() * scale), dtype_name)[0]
+        library_ms = time_ms(library)
+        note = (f"library: x @ (w_q*s)^T only, no bias or activation; its "
+                f"max abs err vs plain {lib_err:.3e}")
+    except (RuntimeError, NotImplementedError) as exc:
+        library_ms = None
+        note = (f"library: none, torch._weight_int8pack_mm refused these "
+                f"inputs ({str(exc).splitlines()[0][:120]})")
+    isz = x.element_size()
+    nbytes = rows * K * isz + K * N + 4 * N + N * isz + rows * N * isz
+    bms, by = bound(nbytes, 2 * rows * K * N + 12 * rows * N, dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok, note=note,
+        shape=f"x[{rows},{K}] w_q[{K},{N}] int8",
+        ms=time_ms(lambda: ops.fused_linear_act_int8(*args)),
+        plain_ms=time_ms(lambda: ops.linear_act_int8_ref(*args)),
+        library_ms=library_ms, bound_ms=bms, bound_by=by)
+
+
+def quantize_pool(pool):
+    """Per-slot int8 codes of a float pool [nb, H, bs, D] and their f32
+    scales [nb, bs, 1]: one abs-max over each slot's (H, D), as the
+    quantizing KV scatter makes them."""
+    import torch
+    f = pool.float()
+    amax = f.abs().amax(dim=(1, 3))
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    codes = torch.clamp(torch.round(f / scale[:, None, :, None]), -127, 127)
+    return codes.to(torch.int8), scale[..., None].contiguous()
+
+
+def check_ragged_int8(ops, block_q, dtype, dtype_name, gen):
+    """`check_ragged` over int8 pools with per-slot scales."""
+    return check_ragged(ops, block_q, dtype, dtype_name, gen, int8=True)
+
+
+def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False):
     """A mixed step of the serving drive: one 256-token prefill chunk
-    (positions 256..511) plus seven decode rows at contexts 520-622."""
+    (positions 256..511) plus seven decode rows at contexts 520-622.
+    With ``int8`` the pools hold per-slot int8 codes and scales."""
     import numpy as np
     import torch
     H, D, bs, W, S = 16, 128, 16, 128, 8
@@ -265,17 +350,21 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen):
                     generator=gen).to(dtype)
     kp = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
     vp = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
+    kw = dict(block_q=block_q)
+    if int8:
+        (kp, ks), (vp, vs) = quantize_pool(kp), quantize_pool(vp)
+        kw.update(k_scales=ks, v_scales=vs)
     ints = [torch.from_numpy(a).cuda() for a in
             (tables, np.asarray(ctxs, np.int32), sid, qs, qv)]
     args = (q, kp, vp, *ints)
-    out = ops.ragged_paged_attention(*args, block_q=block_q)
-    ref = ops.ragged_attention_ref(*args, block_q=block_q)
+    out = ops.ragged_paged_attention(*args, **kw)
+    ref = ops.ragged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
     note = ""
     if dtype == torch.bfloat16:
-        ref32 = ops.ragged_attention_ref(q.float(), kp.float(), vp.float(),
-                                         *ints, block_q=block_q)
+        pools32 = (kp, vp) if int8 else (kp.float(), vp.float())
+        ref32 = ops.ragged_attention_ref(q.float(), *pools32, *ints, **kw)
         k_rms, k_rel = RAGGED_BF16_F32P_TOL
         rms = float(ref32.pow(2).mean().sqrt())
         err32, _, ok32 = compare(out, ref32, dtype_name, k_rms * rms, k_rel)
@@ -294,16 +383,20 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen):
         pairs += sum(min(c, q0 + r + 1) for r in range(int(qv[i])))
         touched.update(tables[s, :-(-min(c, q0 + int(qv[i])) // bs)].tolist())
     isz = q.element_size()
-    nbytes = (2 * q.numel() * isz + 2 * len(touched) * H * bs * D * isz
+    # K/V at the pool's element size, plus one f32 scale per touched slot
+    # and side for int8 pools
+    nbytes = (2 * q.numel() * isz
+              + 2 * len(touched) * H * bs * D * kp.element_size()
+              + (2 * len(touched) * bs * 4 if int8 else 0)
               + 4 * (tables.size + len(ctxs) + 3 * nqb))
     bms, by = bound(nbytes, 4 * D * H * pairs, dtype_name)
     return dict(
         err=err, rel=rel, ok=ok, note=note,
-        shape=f"q[{q.shape[0]},{H},{D}] pool[{nb},{H},{bs},{D}] W={W}",
-        ms=time_ms(lambda: ops.ragged_paged_attention(*args,
-                                                      block_q=block_q)),
-        plain_ms=time_ms(lambda: ops.ragged_attention_ref(
-            *args, block_q=block_q), iters=5),
+        shape=(f"q[{q.shape[0]},{H},{D}] pool[{nb},{H},{bs},{D}] "
+               f"{dtype_name if not int8 else 'int8'} W={W}"),
+        ms=time_ms(lambda: ops.ragged_paged_attention(*args, **kw)),
+        plain_ms=time_ms(lambda: ops.ragged_attention_ref(*args, **kw),
+                         iters=5),
         library_ms=None, bound_ms=bms, bound_by=by)
 
 
@@ -653,7 +746,9 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
 
 #: every kernel: its source, the TPU kernel it replaces, and its launches
 #: per step of each drive as (per layer, per step once); a kernel a drive
-#: does not run launches 0 times there.  ``main`` names the drive whose
+#: does not run launches 0 times there.  serve_int8: the serving drive
+#: with int8 weights (qkv, out, fc1 with gelu_tanh, fc2: four int8
+#: epilogues a layer) and an int8 pool.  ``main`` names the drive whose
 #: launches the kernels line reports, where it is not the serving drive
 #: or the composite training drive.  The LLaMA drives: llama_train (two
 #: RMS norms and one attention a layer, every layer's forward run twice
@@ -667,7 +762,8 @@ KERNEL_INFO = {
     "layer_norm": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
-        serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1)),
+        serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1),
+        serve_int8=(2, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
@@ -711,13 +807,21 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:658",
         main="llama_train", llama_train=(2, 1)),
+    "ragged_attention_int8": dict(
+        source="paddle_tpu_torch/csrc/ragged_attention.cu",
+        replaces="paddle_tpu/ops/pallas_ragged.py:197",
+        main="serve_int8", serve_int8=(1, 0)),
+    "matmul_epilogue_int8": dict(
+        source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
+        replaces="paddle_tpu/ops/pallas_fused.py:406",
+        main="serve_int8", serve_int8=(4, 0)),
 }
 
 
 def per_step(drive, layers):
-    """Launches per step of every kernel in one drive ("serve", "train",
-    "train_flash", "llama_train", or "generate" and "llama_gen", whose
-    step is one forward)."""
+    """Launches per step of every kernel in one drive ("serve",
+    "serve_int8", "train", "train_flash", "llama_train", or "generate" and
+    "llama_gen", whose step is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -782,6 +886,14 @@ def warm_up(ops):
     pool = rand(2, 2, 16, 64)
     ops.ragged_paged_attention(rand(block_q, 2, 64), pool, pool, *ints,
                                block_q=block_q)
+    pool8, scales = quantize_pool(pool)
+    ops.ragged_paged_attention(rand(block_q, 2, 64), pool8, pool8, *ints,
+                               block_q=block_q, k_scales=scales,
+                               v_scales=scales)
+    ops.fused_linear_act_int8(x, torch.ones(256, 128, dtype=torch.int8,
+                                            device="cuda"),
+                              torch.ones(128, device="cuda"), rand(128),
+                              "gelu_tanh")
     torch.cuda.synchronize()
     idle = [name for name, n in launches(ops).items() if n != 1]
     if idle:
@@ -790,10 +902,11 @@ def warm_up(ops):
 
 
 def phase_kernels(ops, budgets):
-    """Every kernel at the serving drive's shapes (keys (name, dtype)), at
-    the training drive's (keys (name, dtype, "train")) and, for flash
-    attention and RMS norm, at each of `FLASH_SHAPES` and `RMS_SHAPES`
-    (keys (name, dtype, shape))."""
+    """Every kernel at the serving drive's shapes (keys (name, dtype); the
+    int8 serving kernels too, from a generator of their own so that the
+    other rows' inputs stay as they were), at the training drive's (keys
+    (name, dtype, "train")) and, for flash attention and RMS norm, at each
+    of `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape))."""
     import torch
     warm_up(ops)
     serve = {"ragged_attention": check_ragged,
@@ -805,8 +918,11 @@ def phase_kernels(ops, budgets):
              "matmul_epilogue_bwd": (check_matmul_epilogue_bwd, TRAIN_ROWS),
              "softmax_xent_fwd": (check_softmax_xent_fwd, XENT_ROWS),
              "softmax_xent_bwd": (check_softmax_xent_bwd, XENT_ROWS)}
+    serve_int8 = {"ragged_attention_int8": check_ragged_int8,
+                  "matmul_epilogue_int8": check_matmul_epilogue_int8}
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen8 = torch.Generator(device="cuda").manual_seed(SEED + 8)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -834,6 +950,17 @@ def phase_kernels(ops, budgets):
                 report(name, dtype_name, r)
                 results[(name, dtype_name, shape_key)] = r
             torch.cuda.empty_cache()
+        for name, check in serve_int8.items():
+            arg = block_q if name == "ragged_attention_int8" \
+                else budgets[dtype_name]
+            r = check(ops, arg, dtype, dtype_name, gen8)
+            twin = results[(name.removesuffix("_int8"), dtype_name)]
+            r["note"] = "; ".join(filter(None, (
+                r["note"], f"the float kernel at this shape "
+                           f"{twin['ms']:.4f} ms")))
+            report(name, dtype_name, r)
+            results[(name, dtype_name)] = r
+        torch.cuda.empty_cache()
     return results
 
 
@@ -876,9 +1003,15 @@ def launches(ops):
     return {name: fn.launches for name, fn in ops.KERNELS.items()}
 
 
-def phase_parity(pt, ops):
+def phase_parity(pt, ops, int8=False):
+    """The engine on the card and on the CPU, same weights and prompts:
+    identical greedy tokens.  With ``int8``: int8 weights and an int8 KV
+    pool on both sides; a token that differs is reported with the number
+    of KV codes that differ between the two pools (a code can flip on a
+    rounding boundary when f32 sums are taken in another order)."""
     import numpy as np
     import torch
+    phase = "int8 parity" if int8 else "parity"
     cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
     rng = np.random.default_rng(SEED + 1)
     shared = list(rng.integers(1, cfg.vocab_size, size=48))
@@ -886,7 +1019,9 @@ def phase_parity(pt, ops):
                for n in (5, 9, 12, 7)]
     kw = dict(max_batch=4, prefill_chunk=64, max_model_len=256,
               num_blocks=128)
-    outs = {}
+    if int8:
+        kw.update(weight_dtype="int8", kv_cache_dtype="int8")
+    outs, pools = {}, {}
     params = None
     for device in ("cuda", "cpu"):
         model = pt.GPTForCausalLM(cfg, device=device, dtype=torch.float32)
@@ -903,28 +1038,105 @@ def phase_parity(pt, ops):
         say(f"  {device}: {eng.stats()['steps']} steps in "
             f"{time.perf_counter() - t0:.2f} s, prefix hit rate "
             f"{eng.stats()['prefix_hit_rate']:.3f}")
+        if int8:
+            pools[device] = [t.cpu() for layer in range(
+                cfg.num_hidden_layers) for t in eng.cache.layer_pools(layer)]
         del eng, model
         torch.cuda.empty_cache()
+    if int8:
+        flips = sum(int((a != b).sum()) for a, b in zip(pools["cuda"],
+                                                      pools["cpu"]))
+        say(f"  KV codes that differ between card and CPU: {flips} of "
+            f"{sum(a.numel() for a in pools['cuda'])}")
     if outs["cuda"] != outs["cpu"]:
-        fail(f"parity: CUDA tokens {outs['cuda']} != CPU tokens "
+        fail(f"{phase}: CUDA tokens {outs['cuda']} != CPU tokens "
              f"{outs['cpu']}")
     if not all(len(o) == len(p) + 16 for o, p in zip(outs["cuda"], prompts)):
-        fail("parity: a request did not return 16 tokens")
+        fail(f"{phase}: a request did not return 16 tokens")
     say(f"  greedy tokens identical on CUDA and CPU for {len(prompts)} "
         f"requests x 16 tokens")
-    check_counts("parity", counts, steps, cfg.num_hidden_layers, "serve")
+    check_counts(phase, counts, steps, cfg.num_hidden_layers,
+                 "serve_int8" if int8 else "serve")
 
 
 # ---------------------------------------------------------------------
 # phase 4: the serving drive
 # ---------------------------------------------------------------------
-def phase_serving(pt, ops):
+def state_gib(model):
+    """GiB of the model's parameters and persistent buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in model.state_dict().values()) / 2 ** 30
+
+
+INT8_COSINE_MIN = 0.99      # the reference's weight-only gate
+INT8_BLOCK_RATIO_MIN = 1.8  # bytes per block, bf16 pool over int8 pool
+
+
+def int8_prefill_gate(pt, model, prompt):
+    """Convert ``model`` to int8 weights in place and gate the logits of
+    one full-width prefill of ``prompt`` against the bf16 weights':
+    ``logits_cosine`` >= `INT8_COSINE_MIN`."""
+    import torch
+    ids = torch.tensor([prompt], device="cuda")
+    with torch.no_grad():
+        want = model(ids).float()
+        report = pt.quantization.convert_to_int8(model)
+        free_device_memory()
+        got = model(ids).float()
+    cos = pt.quantization.logits_cosine(got, want)
+    say(f"  int8 weights: {len(report)} degenerate-channel findings; "
+        f"logits_cosine of a {len(prompt)}-token prefill vs bf16 weights "
+        f"{cos:.6f} (gate >= {INT8_COSINE_MIN})")
+    if not cos >= INT8_COSINE_MIN:
+        fail(f"int8 serving: logits_cosine {cos:.6f} < {INT8_COSINE_MIN}")
+    return cos
+
+
+def time_int8_gemms(ops, model, rows):
+    """The int8 epilogue at each of a serving step's four GEMMs (layer 0's
+    converted qkv, out, fc1 with gelu_tanh, fc2; x [rows, K] bf16) beside
+    what phase 4 runs there: the float epilogue kernel for fc1, a cuBLAS
+    GEMM plus the bias for the other three (weights dequantized to
+    bf16).  Times in ms, L2 flushed."""
+    import torch
+    blk = model.gpt.h[0]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    out = {}
+    for name, lin, act in (("qkv", blk.attn.qkv_proj, "none"),
+                           ("out", blk.attn.out_proj, "none"),
+                           ("fc1", blk.mlp.fc1, "gelu_tanh"),
+                           ("fc2", blk.mlp.fc2, "none")):
+        K, N = lin.weight_q.shape
+        x = torch.randn(rows, K, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w = (lin.weight_q.float() * lin.weight_scale).to(torch.bfloat16)
+        args = (x, lin.weight_q, lin.weight_scale, lin.bias, act)
+        t8 = time_ms(lambda: ops.fused_linear_act_int8(*args))
+        if name == "fc1":
+            tf = time_ms(lambda: ops.fused_linear_act(x, w, lin.bias, act))
+        else:
+            tf = time_ms(lambda: torch.matmul(x, w) + lin.bias)
+        out[name] = dict(shape=f"{rows}x{K}x{N}", int8_ms=t8,
+                         phase4_ms=tf)
+    say("  int8 epilogue per GEMM of a step (ms, L2 flushed) against what "
+        "phase 4 runs there (fc1: the float epilogue; qkv, out, fc2: cuBLAS "
+        "+ bias): " + "; ".join(f"{k} {v['shape']} {v['int8_ms']:.4f} vs "
+                                f"{v['phase4_ms']:.4f}"
+                                for k, v in out.items()))
+    return out
+
+
+def phase_serving(pt, ops, int8=False, base=None):
+    """GPT_1P3B in bf16 served by the engine (phase 4).  With ``int8``
+    (phase 13) the same weights and trace with int8 weights and an int8
+    KV pool, held against ``base``, phase 4's summary.  Returns (launch
+    counts, summary, the generated tokens of each request)."""
     import numpy as np
     import torch
+    phase = "int8 serving" if int8 else "serving"
     cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    torch.cuda.reset_peak_memory_stats()
     model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
-    eng = pt.GenerationEngine(model, max_batch=8, prefill_chunk=256,
-                              max_model_len=cfg.max_position_embeddings)
     rng = np.random.default_rng(SEED)
     shared = list(rng.integers(1, cfg.vocab_size, size=512))
     prompts = [shared + list(rng.integers(
@@ -932,6 +1144,18 @@ def phase_serving(pt, ops):
         for _ in range(16)]
     warm = [list(rng.integers(1, cfg.vocab_size, size=40))
             for _ in range(2)]
+    summary = dict(weight_gib_bf16=state_gib(model))
+    kw = {}
+    if int8:
+        summary["logits_cosine"] = int8_prefill_gate(pt, model, prompts[0])
+        kw = dict(weight_dtype="int8", kv_cache_dtype="int8")
+    eng = pt.GenerationEngine(model, max_batch=8, prefill_chunk=256,
+                              max_model_len=cfg.max_position_embeddings,
+                              **kw)
+    summary.update(weight_gib=state_gib(model),
+                   kv_blocks=eng.cache.num_blocks - 1,
+                   bytes_per_block=eng.cache.bytes_per_block,
+                   kv_dtype=eng.stats()["kv_dtype"])
     eng.generate(warm, max_new_tokens=4)        # first-use costs
     torch.cuda.synchronize()
     hit0, look0 = eng.cache._hit_tokens, eng.cache._lookup_tokens
@@ -948,41 +1172,82 @@ def phase_serving(pt, ops):
 
     reqs = [eng._results[i] for i in ids]
     if not all(len(r.generated) == 64 for r in reqs):
-        fail(f"serving: generated lengths "
+        fail(f"{phase}: generated lengths "
              f"{[len(r.generated) for r in reqs]}, expected 64 each")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
-        fail("serving: a token outside the vocabulary")
+        fail(f"{phase}: a token outside the vocabulary")
     steps = eng.stats()["steps"] - steps0
     tokens = eng.stats()["tokens_generated"] - toks0
     ttft = sorted((r.t_first_token - r.t_submit) * 1e3 for r in reqs)
     hit = (eng.cache._hit_tokens - hit0) / max(
         1, eng.cache._lookup_tokens - look0)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"  {len(prompts)} requests, {tokens} tokens in {elapsed:.3f} s: "
         f"{tokens / elapsed:.1f} tokens/s, median TTFT "
         f"{ttft[len(ttft) // 2]:.1f} ms, prefix hit rate {hit:.3f}, "
         f"{steps} steps ({elapsed / steps * 1e3:.2f} ms/step), "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    check_counts("serving", counts, steps, cfg.num_hidden_layers, "serve")
-    summary = dict(tokens_per_s=tokens / elapsed,
+        f"peak memory {peak:.2f} GiB")
+    say(f"  weights {summary['weight_gib']:.3f} GiB (bf16: "
+        f"{summary['weight_gib_bf16']:.3f}); {summary['kv_dtype']} KV pool "
+        f"of {summary['kv_blocks']} blocks x {summary['bytes_per_block']} "
+        f"bytes at hbm_fraction 0.3")
+    check_counts(phase, counts, steps, cfg.num_hidden_layers,
+                 "serve_int8" if int8 else "serve")
+    generated = [list(r.generated) for r in reqs]
+    summary.update(tokens_per_s=tokens / elapsed,
                    median_ttft_ms=ttft[len(ttft) // 2],
-                   prefix_hit_rate=hit, steps=steps, elapsed_s=elapsed)
+                   prefix_hit_rate=hit, steps=steps, elapsed_s=elapsed,
+                   ms_per_step=elapsed / steps * 1e3, peak_memory_gib=peak)
+    if int8:
+        ratio = base["bytes_per_block"] / summary["bytes_per_block"]
+        match = pt.quantization.greedy_match_ratio(base["generated"],
+                                                   generated)
+        summary.update(bytes_per_block_ratio=ratio,
+                       kv_blocks_ratio=summary["kv_blocks"]
+                       / base["kv_blocks"],
+                       greedy_match_ratio=match)
+        say(f"  against phase 4 (bf16): bytes per block {ratio:.4f}x "
+            f"fewer (gate >= {INT8_BLOCK_RATIO_MIN}), KV blocks "
+            f"{summary['kv_blocks']} vs {base['kv_blocks']} "
+            f"({summary['kv_blocks_ratio']:.3f}x), weights "
+            f"{summary['weight_gib']:.3f} vs {base['weight_gib']:.3f} GiB, "
+            f"tokens/s {summary['tokens_per_s']:.1f} vs "
+            f"{base['tokens_per_s']:.1f}, greedy match ratio {match:.4f} "
+            f"(reported, not gated)")
+        if not ratio >= INT8_BLOCK_RATIO_MIN:
+            fail(f"{phase}: bytes per block only {ratio:.4f}x fewer than "
+                 f"the bf16 pool's")
     steps0 = eng.stats()["steps"]
     prof = profile_device(lambda: eng.generate(prompts[:8],
                                                max_new_tokens=16))
     summary["profile"] = split_profile(prof, eng.stats()["steps"] - steps0,
                                        "burst")
-    return counts, summary
+    if int8:
+        with torch.no_grad():
+            summary["gemms"] = time_int8_gemms(ops, model, eng.token_budget)
+    return counts, summary, generated
 
 
 #: device-time groups of the profile, by kernel-name substring (first
-#: match wins); column_sum is the second pass of both backward kernels'
-#: column sums
-_PROFILE_GROUPS = (("ragged_attention", "ragged_attn_kernel"),
+#: match wins: the int8 kernels' instantiations, whose pool or weight type
+#: is int8_t, "signed char", come before their float twins); column_sum
+#: is the second pass of both backward kernels' column sums, and
+#: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
+#: float: its instantiations do not say which)
+_PROFILE_GROUPS = (("ragged_attention_int8",
+                    ("ragged_attn_kernel<float, signed char>",
+                     "ragged_attn_kernel<__nv_bfloat16, signed char>")),
+                   ("matmul_epilogue_int8",
+                    ("me_fwd_wmma_bf16<signed char",
+                     "me_fwd_fma<float, signed char",
+                     "me_fwd_fma<__nv_bfloat16, signed char")),
+                   ("ragged_attention", "ragged_attn_kernel"),
                    ("layer_norm", "layer_norm_fwd_kernel"),
                    ("layer_norm_bwd", "layer_norm_bwd_kernel"),
                    ("matmul_epilogue", "me_fwd_"),
                    ("matmul_epilogue_bwd", "me_bwd_kernel"),
                    ("column_sum", "column_sum_kernel"),
+                   ("splitk_epilogue", "splitk_epilogue_kernel"),
                    ("softmax_xent_fwd", "xent_fwd_kernel"),
                    ("softmax_xent_bwd", "xent_bwd_kernel"),
                    ("flash_attention_fwd", "flash_fwd_kernel"),
@@ -1466,28 +1731,33 @@ MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "flash_attention_fwd": "bfloat16",
               "flash_attention_bwd_dq": "bfloat16",
               "flash_attention_bwd_dkv": "bfloat16",
-              "rms_norm": "float32", "rms_norm_bwd": "float32"}
+              "rms_norm": "float32", "rms_norm_bwd": "float32",
+              "ragged_attention_int8": "bfloat16",
+              "matmul_epilogue_int8": "bfloat16"}
 TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
 
 
 def kernels_line(results, counts):
     """One entry per kernel: its main path's dtype and shapes (the
-    serving drive's for the three serving kernels, the flash drive's for
-    flash attention, the LLaMA training drive's for RMS norm), the other
+    serving drive's for the serving kernels, int8 ones included, the
+    flash drive's for flash attention, the LLaMA training drive's for RMS
+    norm), the other
     dtype, the forward kernels at the training drive's shapes too, flash
     attention at its decode and head_dim-64 shapes and RMS norm at
     LLaMA-2 7B's prefill and decode shapes.  ``launches`` counts the main
     path's run (the serving drive, the composite training drive, or the
-    ``main`` drive of `KERNEL_INFO`: the flash drive's or the LLaMA
-    training drive's timed steps); ``launches_<drive>`` every drive's."""
+    ``main`` drive of `KERNEL_INFO`: the flash drive's, the LLaMA
+    training drive's timed steps or the int8 serving drive's);
+    ``launches_<drive>`` every drive's."""
     out = []
     for name, info in KERNEL_INFO.items():
         main = MAIN_DTYPE[name]
         other = "float32" if main == "bfloat16" else "bfloat16"
         shapes = FLASH_SHAPES if name.startswith("flash_attention") \
             else RMS_SHAPES if name.startswith("rms_norm") else {}
-        key = (name,) if "serve" in info else (name, "train")
-        drive = "serve" if "serve" in info else info.get("main", "train")
+        served = "serve" in info or "serve_int8" in info
+        key = (name,) if served else (name, "train")
+        drive = info.get("main", "serve" if "serve" in info else "train")
         entry = dict(name=name, route="cuda", source=info["source"],
                      replaces=info["replaces"],
                      launches=counts[drive][name], dtype=main,
@@ -1542,11 +1812,13 @@ def main():
     budgets = {"bfloat16": 256 + 7 * 16, "float32": 256 + 7 * 8}
     results = phase_kernels(ops, budgets)
 
-    say("[3] parity: full width, 2 layers, f32, CUDA vs CPU")
+    say("[3] parity: full width, 2 layers, f32, CUDA vs CPU; float, then "
+        "int8 weights + int8 KV pool")
     phase_parity(pt, ops)
+    phase_parity(pt, ops, int8=True)
 
     say("[4] serving: GPT_1P3B bf16, 16 requests x 64 tokens")
-    serve_counts, serving = phase_serving(pt, ops)
+    serve_counts, serving, serve_tokens = phase_serving(pt, ops)
     free_device_memory()
 
     say("[5] training parity: full width, 2 layers, f32, 3 AdamW steps, "
@@ -1586,11 +1858,17 @@ def main():
     say("[12] LLaMA generate: parity at LLaMA-2 7B width, 2 layers, f32; "
         "LLAMA_7B bf16")
     llama_gen_counts, llama_generate = phase_llama_generate(pt, ops)
+    free_device_memory()
+
+    say("[13] int8 serving: GPT_1P3B bf16 with int8 weights and an int8 KV "
+        "pool, 16 requests x 64 tokens")
+    int8_counts, int8_serving, _ = phase_serving(
+        pt, ops, int8=True, base=dict(serving, generated=serve_tokens))
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
                   llama_train=llama_train_counts,
-                  llama_gen=llama_gen_counts)
+                  llama_gen=llama_gen_counts, serve_int8=int8_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -1599,7 +1877,8 @@ def main():
                     "generate": generate,
                     "llama_training_parity": llama_parity,
                     "llama_training": llama_training,
-                    "llama_generate": llama_generate}))
+                    "llama_generate": llama_generate,
+                    "int8_serving": int8_serving}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,16 +23,22 @@ Ported so far (see ``ops`` for the kernels):
 * LLaMA: ``models.llama`` (RMSNorm, rotary embeddings, grouped-query
   attention, SwiGLU; the ``LLAMA_7B`` preset), trained with recompute
   and served by ``LlamaForCausalLM.generate`` over the dense KV cache,
-  with the RMS-norm kernels forward and backward.
+  with the RMS-norm kernels forward and backward;
+* int8 serving: ``quantization.convert_to_int8`` (weight-only int8
+  Linears through the int8 matmul-epilogue kernel) and the int8 paged
+  KV cache (per-slot scales, the int8 ragged-attention kernel), both
+  selected by ``GenerationEngine(weight_dtype="int8",
+  kv_cache_dtype="int8")``.
 """
-from . import amp, distributed, nn, optimizer
+from . import amp, distributed, nn, optimizer, quantization
 from .convert import load_reference_state
 from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion)
 from .models.llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM
 from .inference.serving import GenerationEngine
 
-__all__ = ["amp", "distributed", "nn", "optimizer", "load_reference_state",
+__all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
+           "load_reference_state",
            "GPT_1P3B",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "GenerationEngine"]

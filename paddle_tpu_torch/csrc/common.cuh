@@ -2,13 +2,17 @@
 //
 // Every kernel takes its element type as a template parameter and is
 // instantiated for float (dtype code 0) and __nv_bfloat16 (dtype code 1);
-// arithmetic is always in float.  Each C entry point returns
-// cudaGetLastError() right after its launch so the Python wrapper can
-// raise on a refused launch (too many threads, too much shared memory).
+// arithmetic is always in float.  The int8 serving kernels also read
+// int8_t codes (weights, KV pools), widened to float exactly.  Each C
+// entry point returns cudaGetLastError() right after its launch so the
+// Python wrapper can raise on a refused launch (too many threads, too
+// much shared memory).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #define PTT_DTYPE_F32 0
 #define PTT_DTYPE_BF16 1
@@ -18,6 +22,9 @@ namespace ptt {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>

@@ -35,6 +35,30 @@
 // q-block does one row's work, not block_q's.  The probabilities stay in
 // f32 for the PV product; the reference composite rounds them to the
 // query type first, which is the only intended difference.
+//
+// int8 pools: the same kernel over int8 K/V codes.
+//
+// Replaces: paddle_tpu/ops/pallas_ragged.py `_ragged_attn_int8_kernel`
+// (:197, the int8 branch of `ragged_paged_attention` :268-279) over the
+// shared body `_ragged_attn_body` (:115).  The pools are int8
+// [num_blocks, H, block_size, D]; k_scales / v_scales are
+// [num_blocks, block_size, 1] f32 (KV_SCALE_LANES = 1), one dequant
+// scale per slot shared by every head, walked through the same block
+// table as K/V.  q and the output stay f32 or bf16.
+//
+// What bounds it on the H100: what bounds the float kernel.  int8 halves
+// the K/V bytes of bf16 (plus 4 bytes of scale per slot and side), but
+// the float kernel already runs ~42x its byte bound, limited by its
+// CUDA-core products and barriers, which int8 does not change.
+//
+// Design: the float kernel, templated on the pool's element type.  K/V
+// tiles are read with 16-byte loads (16 codes each), widened to f32 and
+// multiplied by their slot's scale as they are staged, BEFORE the score
+// and PV products, as the TPU kernel dequantizes its VMEM tile
+// (pallas_ragged.py:149-150, 168-169).  The scale is not folded into the
+// score after the dot: that would reassociate against the reference.
+// Masking, the online softmax, null segments and zero rows are the float
+// kernel's.
 #include <cstdint>
 
 #include "common.cuh"
@@ -46,30 +70,46 @@ constexpr int kLanes = 8;          // threads that share one score's dot
 
 // Copy `rows` rows of `cols` contiguous values of type T into f32 shared
 // memory rows `ld` apart: 16 bytes per load where the source allows it.
+// With `row_scale` (int8 codes), row r is widened and multiplied by
+// row_scale[r] in f32.
 template <typename T>
-__device__ __forceinline__ void stage_rows(float* __restrict__ dst, int ld,
-                                           const T* __restrict__ src,
-                                           int rows, int cols, bool vec) {
+__device__ __forceinline__ void stage_rows(
+    float* __restrict__ dst, int ld, const T* __restrict__ src, int rows,
+    int cols, bool vec, const float* __restrict__ row_scale = nullptr) {
   constexpr int kVec = 16 / sizeof(T);
   if (vec) {
     for (int e = threadIdx.x * kVec; e < rows * cols;
          e += blockDim.x * kVec) {
       const uint4 raw = *reinterpret_cast<const uint4*>(src + e);
       const T* v = reinterpret_cast<const T*>(&raw);
-      float* d = dst + (e / cols) * ld + e % cols;
+      const int r = e / cols;
+      float* d = dst + r * ld + e % cols;
+      if (row_scale != nullptr) {
+        const float sc = row_scale[r];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) d[j] = ptt::to_float(v[j]);
+        for (int j = 0; j < kVec; ++j) d[j] = ptt::to_float(v[j]) * sc;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) d[j] = ptt::to_float(v[j]);
+      }
     }
   } else {
-    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x)
-      dst[(e / cols) * ld + e % cols] = ptt::to_float(src[e]);
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const float f = ptt::to_float(src[e]);
+      dst[(e / cols) * ld + e % cols] =
+          row_scale != nullptr ? f * row_scale[e / cols] : f;
+    }
   }
 }
 
-template <typename T>
+// T: the queries' and the output's type; TKV: the pools' (T, or int8
+// codes with per-slot scales k_scales / v_scales [nb, bs], else null).
+template <typename T, typename TKV>
 __global__ void __launch_bounds__(128)
-    ragged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
+    ragged_attn_kernel(const T* __restrict__ q, const TKV* __restrict__ k_pool,
+                       const TKV* __restrict__ v_pool,
+                       const float* __restrict__ k_scales,
+                       const float* __restrict__ v_scales,
                        const int* __restrict__ block_tables,
                        const int* __restrict__ context_lens,
                        const int* __restrict__ seq_ids,
@@ -104,12 +144,14 @@ __global__ void __launch_bounds__(128)
 
   // 16-byte copies need 16-byte aligned bases and D filling whole vectors
   // (every row and pool block then starts on a 16-byte boundary)
-  const bool vec = D % (16 / sizeof(T)) == 0 &&
-                   ((reinterpret_cast<uintptr_t>(q) |
-                     reinterpret_cast<uintptr_t>(k_pool) |
-                     reinterpret_cast<uintptr_t>(v_pool)) & 15) == 0;
+  const bool q_vec = D % (16 / sizeof(T)) == 0 &&
+                     (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  const bool kv_vec = D % (16 / sizeof(TKV)) == 0 &&
+                      ((reinterpret_cast<uintptr_t>(k_pool) |
+                        reinterpret_cast<uintptr_t>(v_pool)) & 15) == 0;
   for (int r = 0; r < block_q; ++r)
-    stage_rows<T>(qs + r * ld, ld, q + ((row0 + r) * H + h) * D, 1, D, vec);
+    stage_rows<T>(qs + r * ld, ld, q + ((row0 + r) * H + h) * D, 1, D,
+                  q_vec);
   for (int e = tid; e < block_q * D; e += nt) acc[e] = 0.f;
   for (int r = tid; r < block_q; r += nt) {
     m[r] = kNegInf;
@@ -125,8 +167,11 @@ __global__ void __launch_bounds__(128)
 
   for (int w = 0; w < nblk; ++w) {
     const size_t base = (static_cast<size_t>(table[w]) * H + h) * bs * D;
-    stage_rows<T>(ks, ld, k_pool + base, bs, D, vec);
-    stage_rows<T>(vs, D, v_pool + base, bs, D, vec);
+    const size_t slot0 = static_cast<size_t>(table[w]) * bs;
+    stage_rows<TKV>(ks, ld, k_pool + base, bs, D, kv_vec,
+                    k_scales != nullptr ? k_scales + slot0 : nullptr);
+    stage_rows<TKV>(vs, D, v_pool + base, bs, D, kv_vec,
+                    v_scales != nullptr ? v_scales + slot0 : nullptr);
     __syncthreads();
 
     // rows past q_valids see nothing: only the valid rows are computed
@@ -189,8 +234,9 @@ __global__ void __launch_bounds__(128)
   }
 }
 
-template <typename T>
+template <typename T, typename TKV>
 int launch(const void* q, const void* k_pool, const void* v_pool,
+           const float* k_scales, const float* v_scales,
            const int* block_tables, const int* context_lens,
            const int* seq_ids, const int* q_starts, const int* q_valids,
            void* out, int num_q_blocks, int num_seqs, int H, int D, int bs,
@@ -201,15 +247,15 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
        static_cast<size_t>(bs) * (2 * D + kLanes) +
        static_cast<size_t>(block_q) * bs + 3 * static_cast<size_t>(block_q));
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ragged_attn_kernel<T, TKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(num_q_blocks, H);
-  ragged_attn_kernel<T><<<grid, 128, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), block_tables, context_lens, seq_ids,
-      q_starts, q_valids, static_cast<T*>(out), num_seqs, H, D, bs, W,
-      block_q, scale);
+  ragged_attn_kernel<T, TKV><<<grid, 128, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const TKV*>(k_pool),
+      static_cast<const TKV*>(v_pool), k_scales, v_scales, block_tables,
+      context_lens, seq_ids, q_starts, q_valids, static_cast<T*>(out),
+      num_seqs, H, D, bs, W, block_q, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -230,12 +276,45 @@ extern "C" int ptt_ragged_attention_fwd(
   const int* qs = static_cast<const int*>(q_starts);
   const int* qv = static_cast<const int*>(q_valids);
   if (dtype == PTT_DTYPE_F32)
-    return launch<float>(q, k_pool, v_pool, bt, cl, sid, qs, qv, out,
-                         num_q_blocks, num_seqs, H, D, bs, W, block_q, scale,
-                         s);
+    return launch<float, float>(q, k_pool, v_pool, nullptr, nullptr, bt, cl,
+                                sid, qs, qv, out, num_q_blocks, num_seqs, H,
+                                D, bs, W, block_q, scale, s);
   if (dtype == PTT_DTYPE_BF16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, bt, cl, sid, qs, qv, out,
-                                 num_q_blocks, num_seqs, H, D, bs, W, block_q,
-                                 scale, s);
+    return launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pool, v_pool, nullptr, nullptr, bt, cl, sid, qs, qv, out,
+        num_q_blocks, num_seqs, H, D, bs, W, block_q, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The int8 pools' entry: k_pool / v_pool int8, k_scales / v_scales f32
+// [num_blocks, bs] (one lane); q and out of `dtype`.
+extern "C" int ptt_ragged_attention_int8_fwd(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scales, const void* v_scales, const void* block_tables,
+    const void* context_lens, const void* seq_ids, const void* q_starts,
+    const void* q_valids, void* out, int num_q_blocks, int num_seqs, int H,
+    int D, int bs, int W, int block_q, float scale, int dtype, int device,
+    void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ksc = static_cast<const float*>(k_scales);
+  const float* vsc = static_cast<const float*>(v_scales);
+  if (ksc == nullptr || vsc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* bt = static_cast<const int*>(block_tables);
+  const int* cl = static_cast<const int*>(context_lens);
+  const int* sid = static_cast<const int*>(seq_ids);
+  const int* qs = static_cast<const int*>(q_starts);
+  const int* qv = static_cast<const int*>(q_valids);
+  if (dtype == PTT_DTYPE_F32)
+    return launch<float, int8_t>(q, k_pool, v_pool, ksc, vsc, bt, cl, sid,
+                                 qs, qv, out, num_q_blocks, num_seqs, H, D,
+                                 bs, W, block_q, scale, s);
+  if (dtype == PTT_DTYPE_BF16)
+    return launch<__nv_bfloat16, int8_t>(q, k_pool, v_pool, ksc, vsc, bt, cl,
+                                         sid, qs, qv, out, num_q_blocks,
+                                         num_seqs, H, D, bs, W, block_q,
+                                         scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,13 +1,16 @@
 """The paged cache as the model sees it: K/V scatter + ragged attention.
 
 Port of ``paddle_tpu/inference/serving/attention.py``: ``RaggedCacheView``,
-``RaggedLayerCache``, ``kv_cache_scatter`` and ``ragged_attention``.  The
+``RaggedLayerCache``, ``kv_cache_scatter``, ``kv_cache_scatter_quant``
+(with ``_quantize_tokens``) and ``ragged_attention``.  The
 view holds one step's driving tensors (slot mapping, block tables,
 context lengths, positions, segment descriptors), all on the pool's
 device; ``models/gpt.py`` finds it by its ``attend`` and
 ``position_ids`` attributes.  Each layer scatters its fresh K/V into the
 pool in place, then runs ragged paged attention over every segment, so
-prefill chunks and decode rows share one kernel launch.
+prefill chunks and decode rows share one kernel launch.  An int8 pool
+quantizes each token as it is scattered and hands its per-slot scale
+tables to the int8 attention kernel.
 """
 from __future__ import annotations
 
@@ -15,8 +18,8 @@ import torch
 
 from ...ops.ragged import ragged_paged_attention
 
-__all__ = ["kv_cache_scatter", "ragged_attention", "RaggedCacheView",
-           "RaggedLayerCache"]
+__all__ = ["kv_cache_scatter", "kv_cache_scatter_quant", "ragged_attention",
+           "RaggedCacheView", "RaggedLayerCache"]
 
 
 def kv_cache_scatter(k_pool, v_pool, k_new, v_new, blk, off):
@@ -31,13 +34,45 @@ def kv_cache_scatter(k_pool, v_pool, k_new, v_new, blk, off):
     v_pool[blk, :, off] = v_new.reshape(-1, H, D).to(v_pool.dtype)
 
 
+def _quantize_tokens(flat, lanes):
+    """Per-token symmetric int8 quantization of ``flat`` ``[T, H, D]``:
+    one abs-max over each token's ``(H, D)``, scale ``amax / 127`` (1.0
+    where the abs-max is 0), codes rounded half to even and clamped to
+    ±127.  Returns (int8 ``[T, H, D]``, f32 scales ``[T, lanes]``)."""
+    f = flat.float()
+    amax = f.abs().amax(dim=(1, 2))                  # [T]
+    scale = torch.where(amax > 0.0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(f / scale[:, None, None]), -127.0, 127.0)
+    return q.to(torch.int8), scale[:, None].expand(scale.shape[0], lanes)
+
+
+def kv_cache_scatter_quant(k_pool, v_pool, k_scales, v_scales, k_new,
+                           v_new, blk, off):
+    """`kv_cache_scatter` for int8 pools: quantize each new token on its
+    own (`_quantize_tokens`) and write its codes into the pools and its
+    dequant scale into the per-slot tables ``[nb, bs, lanes]``, in place.
+    A block filling up over many steps never re-scales a written slot.
+    K and V are quantized in one pass (each token keeps its own scale)."""
+    H, D = k_pool.shape[1], k_pool.shape[3]
+    kv = torch.stack((k_new.reshape(-1, H, D), v_new.reshape(-1, H, D)))
+    q, sc = _quantize_tokens(kv.reshape(-1, H, D), k_scales.shape[-1])
+    n = kv.shape[1]
+    k_pool[blk, :, off] = q[:n]
+    v_pool[blk, :, off] = q[n:]
+    k_scales[blk, off] = sc[:n]
+    v_scales[blk, off] = sc[n:]
+
+
 def ragged_attention(q, k_pool, v_pool, block_tables, context_lens,
-                     seq_ids, q_starts, q_valids, block_q, scale=None):
-    """Mixed prefill + decode attention for q ``[1, T, H, D]``."""
+                     seq_ids, q_starts, q_valids, block_q, scale=None,
+                     k_scales=None, v_scales=None):
+    """Mixed prefill + decode attention for q ``[1, T, H, D]`` (int8
+    pools with their scale tables)."""
     out = ragged_paged_attention(q[0].contiguous(), k_pool, v_pool,
                                  block_tables, context_lens, seq_ids,
                                  q_starts, q_valids, block_q=block_q,
-                                 scale=scale)
+                                 scale=scale, k_scales=k_scales,
+                                 v_scales=v_scales)
     return out[None]
 
 
@@ -53,15 +88,24 @@ class RaggedLayerCache:
 
     def attend(self, q, k, v):
         """Scatter this step's K/V into the pool, then attend.  q/k/v:
-        ``[1, T, H, D]``; returns ``[1, T, H, D]``."""
+        ``[1, T, H, D]``; returns ``[1, T, H, D]``.  An int8 pool
+        quantizes per token at scatter time and passes its per-slot scale
+        tables to the attention."""
         view = self._view
         k_pool, v_pool = view.cache.layer_pools(self._layer)
-        kv_cache_scatter(k_pool, v_pool, k, v, view.slot_block,
-                         view.slot_offset)
+        scales = view.cache.layer_scales(self._layer)
+        if scales is not None:
+            kv_cache_scatter_quant(k_pool, v_pool, *scales, k, v,
+                                   view.slot_block, view.slot_offset)
+        else:
+            kv_cache_scatter(k_pool, v_pool, k, v, view.slot_block,
+                             view.slot_offset)
+            scales = (None, None)
         return ragged_attention(q, k_pool, v_pool, view.block_tables,
                                 view.context_lens, view.seq_ids,
                                 view.q_starts, view.q_valids,
-                                view.block_q)
+                                view.block_q, k_scales=scales[0],
+                                v_scales=scales[1])
 
 
 class RaggedCacheView:

@@ -24,10 +24,16 @@ of each sequence's last query row is gathered before the head, which
 gives the same logits for those rows as the reference's full ``[T, V]``
 product.
 
+**int8 serving**: ``weight_dtype="int8"`` (or ``PADDLE_TPU_WEIGHT_DTYPE=
+int8``) converts every ``Linear`` of the model to weight-only int8
+(``quantization.convert_to_int8``), and ``kv_cache_dtype="int8"`` (or
+``PADDLE_TPU_KV_DTYPE=int8``) makes the paged pool int8 with per-slot
+scales, under any compute dtype.  The step geometry (``block_q``)
+follows the compute dtype, not the pool's.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-LoRA adapters, speculative decoding, SLO policies, int8 weights or KV
-pools, the host KV tier, the prefill/decode roles, streaming, the step
-watchdog and load shedding.
+LoRA adapters, speculative decoding, SLO policies, the host KV tier, the
+prefill/decode roles, streaming, the step watchdog and load shedding.
 """
 from __future__ import annotations
 
@@ -39,22 +45,27 @@ import torch
 
 from ...core import random, resolve_device, to_torch_dtype
 from ...ops.ragged import ragged_q_block
+from ...quantization import convert_to_int8
 from .attention import RaggedCacheView
 from .kv_cache import PagedKVCache
 from .scheduler import (ContinuousBatchingScheduler, Request,
                         max_batch_size, prefill_chunk_size)
 
 __all__ = ["GenerationEngine", "sample_next", "pipeline_depth",
-           "ENV_PIPELINE_DEPTH"]
+           "ENV_PIPELINE_DEPTH", "ENV_KV_DTYPE", "ENV_WEIGHT_DTYPE"]
 
 ENV_PIPELINE_DEPTH = "PADDLE_TPU_PIPELINE_DEPTH"
 _DEFAULT_PIPELINE_DEPTH = 2
+#: KV pool element dtype override ("int8": the quantized paged cache;
+#: unset: the model's dtype)
+ENV_KV_DTYPE = "PADDLE_TPU_KV_DTYPE"
+#: weight dtype override ("int8": weight-only int8 Linears; unset: float)
+ENV_WEIGHT_DTYPE = "PADDLE_TPU_WEIGHT_DTYPE"
 
 #: environment knobs of the reference that select paths not ported yet
 _UNPORTED_ENV = ("PADDLE_TPU_SPEC_K", "PADDLE_TPU_KV_TIERING",
                  "PADDLE_TPU_SERVE_STEP_DEADLINE_MS",
                  "PADDLE_TPU_SERVE_SHED_DEPTH")
-_INT8_ENV = ("PADDLE_TPU_KV_DTYPE", "PADDLE_TPU_WEIGHT_DTYPE")
 
 
 def pipeline_depth():
@@ -148,22 +159,25 @@ class GenerationEngine:
             raise _not_ported("the host KV tier")
         if role != "colocated":
             raise _not_ported(f"the {role!r} engine role")
-        if weight_dtype is not None:
-            raise _not_ported(f"weight_dtype={weight_dtype!r}")
-        if kv_cache_dtype is not None \
-                and to_torch_dtype(kv_cache_dtype) != model.dtype:
-            raise _not_ported(f"a {kv_cache_dtype} KV pool under a "
-                              f"{model.dtype} model")
         for var in _UNPORTED_ENV:
             if os.environ.get(var):
                 raise _not_ported(f"{var} (set in the environment)")
-        for var in _INT8_ENV:
-            if os.environ.get(var) == "int8":
-                raise _not_ported(f"{var}=int8 (set in the environment)")
+        if weight_dtype is None:
+            weight_dtype = os.environ.get(ENV_WEIGHT_DTYPE) or None
+        if weight_dtype is not None and str(weight_dtype) != "int8":
+            raise _not_ported(f"weight_dtype={weight_dtype!r}")
+        if kv_cache_dtype is None:
+            kv_cache_dtype = os.environ.get(ENV_KV_DTYPE) or model.dtype
+        kv_dtype = to_torch_dtype(kv_cache_dtype)
+        if kv_dtype not in (model.dtype, torch.int8):
+            raise _not_ported(f"a {kv_cache_dtype} KV pool under a "
+                              f"{model.dtype} model")
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the "
                              f"engine serves on {self.device}")
+        if weight_dtype is not None:
+            convert_to_int8(model)   # a no-op on converted layers
         cfg = model.config
         self.model = model
         model.eval()
@@ -173,7 +187,7 @@ class GenerationEngine:
             cfg.max_position_embeddings))
         self.cache = PagedKVCache(
             cfg.num_hidden_layers, cfg.num_attention_heads, head_dim,
-            dtype=model.dtype, block_size=block_size,
+            dtype=kv_dtype, block_size=block_size,
             num_blocks=num_blocks, max_model_len=self.max_model_len,
             hbm_fraction=hbm_fraction, prefix_cache=prefix_cache,
             device=self.device)
@@ -181,7 +195,7 @@ class GenerationEngine:
 
         # unified step geometry: one prefill chunk padded to whole
         # q-blocks plus one q-block per other row; block_q follows the
-        # compute dtype, as in the reference
+        # compute dtype (never the int8 pool's), as in the reference
         self.block_q = ragged_q_block(model.dtype)
         chunk = min(int(prefill_chunk or prefill_chunk_size()),
                     self.max_model_len)

@@ -21,12 +21,18 @@ shared block splits it (device block copy + table swap); a write into a
 private indexed block de-indexes it.  ``truncate`` releases whole blocks
 refcount-aware and never touches block contents.
 
+**int8 pools** (``dtype=torch.int8``): every token is quantized on its
+own at scatter time, and each layer carries per-slot f32 dequant scale
+tables ``[num_blocks, block_size, KV_SCALE_LANES]`` for K and V beside
+the int8 blocks.  The COW split copies the scale rows with the data, and
+the byte charge per block counts the element type plus the scales, so a
+fixed budget admits about twice the bf16 pool's blocks.
+
 The host-side bookkeeping is the reference's, decision for decision, so
 that the two engines' block tables match step for step.  Not ported yet:
-the host-RAM tier, sequence export/import, and int8 pools with their
-scale tables.  Sizing: ``num_blocks`` explicit, else ``hbm_fraction`` of
-the device memory ``torch.cuda.mem_get_info`` reports free, else (CPU)
-256 blocks.
+the host-RAM tier and sequence export/import.  Sizing: ``num_blocks``
+explicit, else ``hbm_fraction`` of the device memory
+``torch.cuda.mem_get_info`` reports free, else (CPU) 256 blocks.
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ import numpy as np
 import torch
 
 from ...core import dtype_name, resolve_device, to_torch_dtype
+from ...ops.ragged import KV_SCALE_LANES
 
 __all__ = ["ENV_KV_BLOCK_SIZE", "ENV_PREFIX_CACHE", "kv_block_size",
            "prefix_cache_enabled", "PagedKVCache"]
@@ -76,15 +83,19 @@ class PagedKVCache:
                  hbm_fraction=0.3, prefix_cache=None, device=None):
         self.device = resolve_device(device)
         self.dtype = to_torch_dtype(dtype)
-        if self.dtype == torch.int8:
-            raise NotImplementedError("int8 KV pools are not ported yet")
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.block_size = int(block_size or kv_block_size())
+        #: int8 pools carry per-slot f32 dequant scale tables
+        self.quantized = self.dtype == torch.int8
+        self.scale_lanes = KV_SCALE_LANES if self.quantized else 0
+        # the charge follows the element type plus the scale tables
         self.bytes_per_block = (2 * self.num_layers * self.num_heads
                                 * self.block_size * self.head_dim
-                                * self.dtype.itemsize)
+                                * self.dtype.itemsize
+                                + 2 * self.num_layers * self.block_size
+                                * self.scale_lanes * 4)
         if num_blocks is None:
             num_blocks = self._blocks_from_budget(hbm_fraction)
         # +1: block 0 is the reserved pad block, never allocated
@@ -102,6 +113,13 @@ class PagedKVCache:
                         torch.zeros(shape, dtype=self.dtype,
                                     device=self.device))
                        for _ in range(self.num_layers)]
+        sshape = (self.num_blocks, self.block_size, self.scale_lanes)
+        self._scales = [(torch.zeros(sshape, dtype=torch.float32,
+                                     device=self.device),
+                         torch.zeros(sshape, dtype=torch.float32,
+                                     device=self.device))
+                        for _ in range(self.num_layers)] \
+            if self.quantized else []
 
         self._free = list(range(self.num_blocks - 1, 0, -1))  # pop() -> 1
         self._tables = {}      # seq_id -> [block ids]
@@ -132,6 +150,11 @@ class PagedKVCache:
     def layer_pools(self, layer):
         """(k_pool, v_pool) tensors of one layer."""
         return self._pools[layer]
+
+    def layer_scales(self, layer):
+        """(k_scale, v_scale) per-slot dequant tables of one layer (int8
+        pools only; None otherwise)."""
+        return self._scales[layer] if self.quantized else None
 
     # -- allocator -------------------------------------------------------
     @property
@@ -313,8 +336,9 @@ class PagedKVCache:
                 del self._by_hash[h]
 
     def _copy_block(self, src, dst):
-        """Device-side block copy across all layers (the COW split)."""
-        for k, v in self._pools:
+        """Device-side block copy across all layers (the COW split).  An
+        int8 pool copies the per-slot scale rows with the data."""
+        for k, v in self._pools + self._scales:
             k[dst].copy_(k[src])
             v[dst].copy_(v[src])
 

@@ -22,6 +22,8 @@ through the softmax cross-entropy kernels.
 
 ``fc1`` runs through the matmul-epilogue kernels with ``gelu_tanh``, the
 three layer norms through the layer-norm kernels, forward and backward.
+After ``quantization.convert_to_int8`` every ``Linear`` (qkv, out, fc1,
+fc2) runs the int8 matmul-epilogue kernel; the tied LM head stays float.
 A model starts in training mode, as the reference's ``Layer`` does (the
 serving engine switches it to eval); dropout masks come from the
 model's own ``torch.Generator``.
@@ -105,8 +107,15 @@ class GPTMLP(nn.Module):
         self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
     def forward(self, x):
-        # fc1's bias + gelu fold into the matmul-epilogue kernel
-        h = F.linear_act(x, self.fc1.weight, self.fc1.bias, act="gelu_tanh")
+        # fc1's bias + gelu fold into the matmul-epilogue kernel (its int8
+        # twin once convert_to_int8 has run)
+        w_q = getattr(self.fc1, "weight_q", None)
+        if w_q is not None:
+            h = F.linear_act_int8(x, w_q, self.fc1.weight_scale,
+                                  self.fc1.bias, act="gelu_tanh")
+        else:
+            h = F.linear_act(x, self.fc1.weight, self.fc1.bias,
+                             act="gelu_tanh")
         return self.fc2(h)
 
 

@@ -2,7 +2,8 @@
 ``torch.Tensor``.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
-``linear_act`` :54, ``embedding`` :523, ``dropout``),
+``linear_act`` :54, ``linear_act_int8`` :130, ``embedding`` :523,
+``dropout``),
 ``nn/functional/activation.py`` (``silu``),
 ``nn/functional/norm.py`` (``layer_norm`` :22, ``rms_norm`` :103),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
@@ -11,12 +12,12 @@ path), ``nn/functional/flash_attention.py``
 ``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
-``linear_act``, ``rms_norm`` (with a weight), ``cross_entropy`` and
-dense attention through its Pallas kernels; here they call the port's
-differentiable kernel entry points, which take the plain versions for
-CPU tensors and launch the CUDA kernels (forward and backward) for CUDA
-tensors.  Plain GEMMs and
-lookups stay PyTorch ops, as the reference left them to XLA.  Each
+``linear_act``, ``linear_act_int8``, ``rms_norm`` (with a weight),
+``cross_entropy`` and dense attention through its Pallas kernels; here
+they call the port's kernel entry points (differentiable, but for the
+int8 epilogue), which take the plain versions for CPU tensors and launch
+the CUDA kernels (forward and backward) for CUDA tensors.  Plain GEMMs
+and lookups stay PyTorch ops, as the reference left them to XLA.  Each
 functional the reference's AMP lists name casts its inputs by the O1
 rule (``amp.cast_inputs``).
 """
@@ -30,7 +31,8 @@ from .. import amp
 from .. import ops
 from ..ops.tiles import NEG_INF
 
-__all__ = ["linear", "linear_act", "matmul", "embedding", "layer_norm",
+__all__ = ["linear", "linear_act", "linear_act_int8", "matmul",
+           "embedding", "layer_norm",
            "rms_norm", "silu", "dropout", "scaled_dot_product_attention",
            "flash_attention", "sdp_kernel", "cross_entropy"]
 
@@ -46,6 +48,24 @@ def linear_act(x, weight, bias, act="none"):
     """``act(x @ weight + bias)`` through the matmul-epilogue kernels."""
     x, weight, bias = amp.cast_inputs("linear_act", x, weight, bias)
     return ops.linear_act(x.contiguous(), weight, bias, act)
+
+
+def linear_act_int8(x, weight_q, weight_scale, bias=None, act="none"):
+    """``act((x @ weight_q) * weight_scale + bias)`` through the int8
+    matmul-epilogue kernel: ``weight_q`` ``[in, out]`` int8 codes,
+    ``weight_scale`` ``[out]`` f32, applied to the f32 accumulator after
+    the product.  A missing bias is f32 zeros, as in the reference.  The
+    op is on the O1 white list: under ``auto_cast`` its floating inputs
+    (x, the scale and the bias; the codes are not floating) are cast to
+    the AMP dtype, as the reference casts them, and the scale is read back
+    in f32 by the kernel, as the reference's ``astype(f32)`` reads it."""
+    if bias is None:
+        bias = torch.zeros(weight_q.shape[-1], dtype=torch.float32,
+                           device=x.device)
+    x, weight_q, weight_scale, bias = amp.cast_inputs(
+        "linear_act_int8", x, weight_q, weight_scale, bias)
+    return ops.fused_linear_act_int8(x.contiguous(), weight_q,
+                                     weight_scale.float(), bias, act)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):

@@ -29,7 +29,9 @@ def _param(shape, device, dtype):
 
 
 class Linear(nn.Module):
-    """``y = x @ weight + bias`` with ``weight`` ``[in, out]``."""
+    """``y = x @ weight + bias`` with ``weight`` ``[in, out]``.  After
+    ``quantization.convert_to_int8`` the weight is the int8 buffers
+    ``weight_q``/``weight_scale`` and the layer runs the int8 epilogue."""
 
     def __init__(self, in_features, out_features, bias=True, *, device,
                  dtype=torch.float32, generator=None):
@@ -45,6 +47,9 @@ class Linear(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x):
+        w_q = getattr(self, "weight_q", None)
+        if w_q is not None:
+            return F.linear_act_int8(x, w_q, self.weight_scale, self.bias)
         return F.linear(x, self.weight, self.bias)
 
     def extra_repr(self):

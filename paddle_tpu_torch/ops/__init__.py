@@ -16,6 +16,8 @@ fused_flash_attention_bwd_dq   flash_attention.cu   pallas_kernels.py:128
 fused_flash_attention_bwd_dkv  flash_attention.cu   pallas_kernels.py:170
 fused_rms_norm                 rms_norm.cu          pallas_kernels.py:648
 fused_rms_norm_bwd             rms_norm.cu          pallas_kernels.py:658
+ragged_paged_attention_int8    ragged_attention.cu  pallas_ragged.py:197
+fused_linear_act_int8          matmul_epilogue.cu   pallas_fused.py:406
 =============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
@@ -34,11 +36,13 @@ from .flash_attention import (flash_attention, flash_attention_bwd_ref,
 from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
                          layer_norm, layer_norm_bwd_ref, layer_norm_ref)
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
-                              fused_linear_act_bwd, linear_act,
-                              linear_act_bwd_ref, linear_act_ref)
+                              fused_linear_act_bwd, fused_linear_act_int8,
+                              linear_act, linear_act_bwd_ref,
+                              linear_act_int8_ref, linear_act_ref)
 from .rms_norm import (fused_rms_norm, fused_rms_norm_bwd, rms_norm,
                        rms_norm_bwd_ref, rms_norm_ref)
-from .ragged import (ragged_attention_ref, ragged_paged_attention,
+from .ragged import (KV_SCALE_LANES, ragged_attention_ref,
+                     ragged_paged_attention, ragged_paged_attention_int8,
                      ragged_q_block, ragged_segments)
 from .softmax_xent import (fused_softmax_cross_entropy, softmax_xent_bwd,
                            softmax_xent_bwd_ref, softmax_xent_fwd,
@@ -56,10 +60,12 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "flash_bwd_stats", "fused_flash_attention_bwd_dkv",
            "fused_flash_attention_bwd_dq", "fused_flash_attention_fwd",
            "fused_rms_norm", "fused_rms_norm_bwd", "rms_norm",
-           "rms_norm_bwd_ref", "rms_norm_ref", "KERNELS"]
+           "rms_norm_bwd_ref", "rms_norm_ref", "fused_linear_act_int8",
+           "linear_act_int8_ref", "KV_SCALE_LANES",
+           "ragged_paged_attention_int8", "KERNELS"]
 
-#: every kernel wrapper of the serving, training and LLaMA paths, by
-#: kernel name
+#: every kernel wrapper of the serving, training, LLaMA and int8 serving
+#: paths, by kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
@@ -73,4 +79,6 @@ KERNELS = {
     "flash_attention_bwd_dkv": fused_flash_attention_bwd_dkv,
     "rms_norm": fused_rms_norm,
     "rms_norm_bwd": fused_rms_norm_bwd,
+    "ragged_attention_int8": ragged_paged_attention_int8,
+    "matmul_epilogue_int8": fused_linear_act_int8,
 }

@@ -47,15 +47,20 @@ _SIGNATURES = {
     "ptt_rms_norm_fwd": ((_P, _P, _P, _P, _I, _I, _F, _I, _I, _P), _I),
     "ptt_rms_norm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P), _I),
-    "ptt_matmul_epilogue_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _P), _I),
+    "ptt_matmul_epilogue_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P), _I),
     "ptt_matmul_epilogue_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _P), _I),
+    "ptt_matmul_epilogue_int8_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _P), _I),
     "ptt_softmax_xent_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ptt_softmax_xent_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "ptt_ragged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _I, _F, _I, _I, _P),
                                  _I),
+    "ptt_ragged_attention_int8_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                       _F, _I, _I, _P), _I),
     "ptt_flash_attention_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _LL, _F, _I, _I, _I, _P), _I),
     "ptt_flash_attention_bwd_dq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -4,18 +4,27 @@ Port of ``paddle_tpu/ops/pallas_fused.py`` ``fused_linear_act`` (:379),
 whose bodies ``_me_fwd_kernel`` (:266) and ``_me_bwd_kernel`` (:278)
 become ``paddle_tpu_torch/csrc/matmul_epilogue.cu``.  The forward's
 product runs inside that kernel (WMMA tensor-core tiles for bf16,
-CUDA-core f32 tiles for f32); no library GEMM stands in for it.  The
+CUDA-core f32 tiles for f32, with split-K when the output tiles are too
+few to fill the card, see `split_k`); no library GEMM stands in for it.  The
 backward kernel computes ``dz = g * act'(z)`` and the bias gradient;
 ``dx = dz @ w^T`` and ``dw = x^T @ dz`` are plain ``torch.matmul``, as
 the reference leaves them to XLA (pallas_fused.py:363-370).  ``w`` keeps
 Paddle's ``[in, out]`` layout.  `linear_act` is the differentiable entry
 point.
 
+Weight-only int8 (`fused_linear_act_int8`) is the port of the
+reference's ``fused_linear_act_int8`` (:516), whose forward body
+``_me_int8_fwd_kernel`` (:406) is the same source's int8 path: ``w_q``
+``[K, N]`` int8 codes, ``scale`` ``[N]`` f32 applied to the f32
+accumulator after the dot, then the bias and the activation.  Serving
+runs it without gradients; its backward is not ported yet.
+
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -23,8 +32,9 @@ import torch
 from . import cuda_lib
 
 __all__ = ["ACTIVATIONS", "act_f32", "act_grad_f32", "linear_act_ref",
-           "fused_linear_act", "linear_act_bwd_ref", "fused_linear_act_bwd",
-           "linear_act"]
+           "split_k", "fused_linear_act", "linear_act_bwd_ref",
+           "fused_linear_act_bwd", "linear_act", "linear_act_int8_ref",
+           "fused_linear_act_int8"]
 
 #: the reference's activation names (pallas_fused.py:47), in the order of
 #: the kernel's activation codes
@@ -86,6 +96,38 @@ def linear_act_ref(x, w, b, act="none", return_z=False):
     return (out, z.to(x.dtype)) if return_z else out
 
 
+#: the forward kernels' output tile (64 x 64), the depth of a K slice
+#: (32), the tiles an SM holds at once (6: registers), the least slices a
+#: split-K chunk sums (4) and the most chunks (16)
+_TILE, _SLICE, _TILES_PER_SM, _MIN_SLICES, _MAX_SPLITS = 64, 32, 6, 4, 16
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_k(M, K, N, sm_count):
+    """How many K chunks a forward launch sums separately (split-K): 1
+    when its 64x64 output tiles fill the card's ``sm_count`` SMs, else
+    enough chunks for about one full wave of blocks, each chunk at least
+    128 deep.  A serving step's 368 rows give 192 tiles at N = 2048
+    (4 chunks on 132 SMs) and 768 at fc1's N = 8192 (1)."""
+    tiles = -(-M // _TILE) * -(-N // _TILE)
+    slices = -(-K // _SLICE)
+    return max(1, min(_TILES_PER_SM * sm_count // max(tiles, 1),
+                      slices // _MIN_SLICES, _MAX_SPLITS))
+
+
+def _split_scratch(M, K, N, device):
+    """(chunks, f32 partial-sum scratch [chunks, M, N] or None)."""
+    splits = split_k(M, K, N, _sm_count(device.index))
+    if splits == 1:
+        return 1, None
+    return splits, torch.empty(splits, M, N, dtype=torch.float32,
+                               device=device)
+
+
 def fused_linear_act(x, w, b, act="none", return_z=False):
     """``act(x @ w + b)`` for x ``[..., K]``, w ``[K, N]``, b ``[N]``.
     With ``return_z`` the pre-activation ``z`` is written as well and
@@ -115,11 +157,12 @@ def fused_linear_act(x, w, b, act="none", return_z=False):
     out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
     z = torch.empty_like(out) if return_z else None
     if M and N:
-        lib = cuda_lib.library()
-        rc = lib.ptt_matmul_epilogue_fwd(
+        splits, partial = _split_scratch(M, K, N, x.device)
+        rc = cuda_lib.library().ptt_matmul_epilogue_fwd(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-            z.data_ptr() if z is not None else None, M, K, N,
-            ACTIVATIONS.index(act), code, x.device.index,
+            z.data_ptr() if z is not None else None,
+            partial.data_ptr() if partial is not None else None, M, K, N,
+            splits, ACTIVATIONS.index(act), code, x.device.index,
             cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "matmul_epilogue")
         fused_linear_act.launches += 1
@@ -208,6 +251,74 @@ def linear_act(x, w, b, act="none"):
     return fused_linear_act(x, w, b, act)
 
 
+def linear_act_int8_ref(x, w_q, scale, b, act="none"):
+    """Plain PyTorch ``act((x @ w_q) * scale + b)``, the reference's
+    composite (``nn/functional/common.py:150-155``) op for op: the f32
+    product of ``x`` and the widened codes, then ``* scale + b`` in f32,
+    the activation in f32 and one cast to ``x``'s type."""
+    _check_act(act)
+    z = torch.matmul(x.float(), w_q.float())
+    z = z * scale.float() + b.float()
+    return act_f32(z, act).to(x.dtype)
+
+
+def fused_linear_act_int8(x, w_q, scale, b, act="none"):
+    """``act((x @ w_q) * scale + b)`` for x ``[..., K]`` (f32 or bf16),
+    w_q ``[K, N]`` int8, scale ``[N]`` f32 and b ``[N]`` (f32 or bf16).
+    Inference only: an input that requires grad raises."""
+    _check_act(act)
+    if scale is None or b is None:
+        raise ValueError("int8 matmul epilogue needs the per-channel scale "
+                         "and the bias")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, b)):
+        raise NotImplementedError(
+            "int8 matmul epilogue: the backward is not ported yet")
+    if w_q.dtype != torch.int8:
+        raise ValueError(f"int8 matmul epilogue: w_q must be int8, got "
+                         f"{w_q.dtype}")
+    if x.device.type == "cpu":
+        return linear_act_int8_ref(x, w_q, scale, b, act)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"int8 matmul epilogue: no kernel for device "
+                           f"{x.device}")
+    code = cuda_lib.dtype_code(x.dtype)
+    K = x.shape[-1]
+    if w_q.dim() != 2 or w_q.shape[0] != K:
+        raise ValueError(f"int8 matmul epilogue: w_q must be [{K}, N], "
+                         f"got {tuple(w_q.shape)}")
+    N = w_q.shape[1]
+    for name, t in (("scale", scale), ("b", b)):
+        if tuple(t.shape) != (N,):
+            raise ValueError(f"int8 matmul epilogue: {name} must be [{N}], "
+                             f"got {tuple(t.shape)}")
+    if scale.dtype != torch.float32:
+        raise ValueError(f"int8 matmul epilogue: scale must be float32, "
+                         f"got {scale.dtype}")
+    b_code = cuda_lib.dtype_code(b.dtype)
+    for name, t in (("x", x), ("w_q", w_q), ("scale", scale), ("b", b)):
+        if t.device != x.device:
+            raise ValueError(f"int8 matmul epilogue: {name} is on "
+                             f"{t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"int8 matmul epilogue: {name} must be "
+                             f"contiguous")
+    M = math.prod(x.shape[:-1])
+    out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
+    if M and N:
+        splits, partial = _split_scratch(M, K, N, x.device)
+        rc = cuda_lib.library().ptt_matmul_epilogue_int8_fwd(
+            x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), b.data_ptr(),
+            out.data_ptr(),
+            partial.data_ptr() if partial is not None else None, M, K, N,
+            splits, ACTIVATIONS.index(act), code, b_code, x.device.index,
+            cuda_lib.stream_handle(x.device))
+        cuda_lib.check(rc, "matmul_epilogue_int8")
+        fused_linear_act_int8.launches += 1
+    return out
+
+
 #: kernel launches since the last reset (chip_smoke.py reads them)
 fused_linear_act.launches = 0
 fused_linear_act_bwd.launches = 0
+fused_linear_act_int8.launches = 0

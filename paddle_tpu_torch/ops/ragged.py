@@ -20,6 +20,14 @@ q-block ``i`` sees key ``c`` iff ``r < q_valids[i]`` and ``c <=
 q_starts[i] + r`` and ``c < context_len``; a row that sees nothing is
 zeros.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
+
+int8 pools (the reference's ``_ragged_attn_int8_kernel`` :197, the int8
+branch :268-279) carry per-slot f32 dequant scales ``k_scales`` /
+``v_scales`` ``[num_blocks, block_size, KV_SCALE_LANES]``, walked through
+the same block tables; the gathered tiles are dequantized to f32 before
+the score and output products.  `ragged_paged_attention` sends them to
+`ragged_paged_attention_int8`, the int8 kernel's wrapper, which counts
+its launches apart from the float kernel's.
 """
 from __future__ import annotations
 
@@ -29,8 +37,13 @@ import torch
 from . import cuda_lib
 from .tiles import NEG_INF, STAT_LANES, min_rows
 
-__all__ = ["ragged_q_block", "ragged_segments", "ragged_attention_ref",
-           "ragged_paged_attention"]
+__all__ = ["KV_SCALE_LANES", "ragged_q_block", "ragged_segments",
+           "ragged_attention_ref", "ragged_paged_attention",
+           "ragged_paged_attention_int8"]
+
+#: lane width of the int8 pools' per-slot scale tables (pallas_ragged.py
+#: :64): one f32 per slot, shared by every head
+KV_SCALE_LANES = 1
 
 
 def ragged_q_block(dtype) -> int:
@@ -83,10 +96,13 @@ def ragged_segments(query_lens, context_lens, block_q,
 
 def ragged_attention_ref(q, k_pool, v_pool, block_tables, context_lens,
                          seq_ids, q_starts, q_valids, block_q=None,
-                         scale=None):
+                         scale=None, k_scales=None, v_scales=None):
     """Plain PyTorch version: gather every q-block's table, f32 scores,
     -1e30 mask, f32 softmax, probabilities cast to ``q``'s type (as the
-    reference does), any-visible zeroing, f32 PV product."""
+    reference does), any-visible zeroing, f32 PV product.  With
+    ``k_scales``/``v_scales`` (int8 pools) the gathered tiles are
+    dequantized to f32 first, slot by slot (``_ragged_ref``,
+    serving/attention.py:260-264)."""
     T, H, D = q.shape
     if block_q is None:
         block_q = ragged_q_block(q.dtype)
@@ -103,8 +119,14 @@ def ragged_attention_ref(q, k_pool, v_pool, block_tables, context_lens,
                     torch.zeros(1, dtype=torch.long, device=dev)])
     sid = seq_ids.long()
     bt_q = bt[sid]                                   # [nqb, W]
-    k = k_pool[bt_q].movedim(2, 1).reshape(nqb, H, W * bs, D)
-    v = v_pool[bt_q].movedim(2, 1).reshape(nqb, H, W * bs, D)
+    k = k_pool[bt_q]                                 # [nqb, W, H, bs, D]
+    v = v_pool[bt_q]
+    if k_scales is not None:
+        # per-slot dequant: [nqb, W, 1, bs, 1] over the heads and D
+        k = k.float() * k_scales[bt_q][:, :, None, :, :1]
+        v = v.float() * v_scales[bt_q][:, :, None, :, :1]
+    k = k.movedim(2, 1).reshape(nqb, H, W * bs, D)
+    v = v.movedim(2, 1).reshape(nqb, H, W * bs, D)
     qt = q.reshape(nqb, block_q, H, D).transpose(1, 2)
     scores = torch.einsum("nhqd,nhkd->nhqk", qt.float(), k.float()) * scale
     row = torch.arange(block_q, device=dev)
@@ -123,11 +145,8 @@ def ragged_attention_ref(q, k_pool, v_pool, block_tables, context_lens,
     return out.to(q.dtype).transpose(1, 2).reshape(T, H, D)
 
 
-def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
-                           seq_ids, q_starts, q_valids, block_q=None,
-                           scale=None):
-    """Mixed prefill + decode attention over the paged pool (see the
-    module doc).  Returns ``[T, H, D]`` in ``q``'s type."""
+def _geometry(q, seq_ids, block_q, scale):
+    """(block_q, number of q-blocks, scale) of a call, checked."""
     T, H, D = q.shape
     if block_q is None:
         block_q = ragged_q_block(q.dtype)
@@ -141,51 +160,117 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
                          f"{nqb} q-blocks")
     if scale is None:
         scale = 1.0 / D ** 0.5
-    if q.device.type == "cpu":
-        return ragged_attention_ref(q, k_pool, v_pool, block_tables,
-                                    context_lens, seq_ids, q_starts,
-                                    q_valids, block_q, scale)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"ragged attention: no kernel for device {q.device}")
-    code = cuda_lib.dtype_code(q.dtype)
+    return block_q, nqb, scale
+
+
+def _check_inputs(what, q, pools, ints, nqb, pool_dtype):
+    """Raise unless the pools match q's heads and dim and hold
+    ``pool_dtype``, the int32 inputs have their shapes, and everything
+    lies contiguous on q's device."""
+    T, H, D = q.shape
+    k_pool, v_pool = pools[:2]
     nb, Hp, bs, Dp = k_pool.shape
-    S, W = block_tables.shape
+    S, W = ints[0].shape
     if (Hp, Dp) != (H, D) or tuple(v_pool.shape) != tuple(k_pool.shape):
-        raise ValueError(f"ragged attention: pools {tuple(k_pool.shape)} / "
+        raise ValueError(f"{what}: pools {tuple(k_pool.shape)} / "
                          f"{tuple(v_pool.shape)} do not match q heads {H} "
                          f"x dim {D}")
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"ragged attention: {name} is {t.dtype}, "
-                             f"q is {q.dtype}")
-    ints = (("block_tables", block_tables, (S, W)),
-            ("context_lens", context_lens, (S,)),
-            ("seq_ids", seq_ids, (nqb,)), ("q_starts", q_starts, (nqb,)),
-            ("q_valids", q_valids, (nqb,)))
-    for name, t, shape in ints:
+        if t.dtype != pool_dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, expected "
+                             f"{pool_dtype}")
+    named = [("q", q), ("k_pool", k_pool), ("v_pool", v_pool)]
+    if len(pools) == 4:
+        for name, t in (("k_scales", pools[2]), ("v_scales", pools[3])):
+            if t.dtype != torch.float32 or tuple(t.shape) != (
+                    nb, bs, KV_SCALE_LANES):
+                raise ValueError(f"{what}: {name} must be float32 "
+                                 f"{(nb, bs, KV_SCALE_LANES)}, got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+            named.append((name, t))
+    shapes = ((S, W), (S,), (nqb,), (nqb,), (nqb,))
+    for name, t, shape in zip(("block_tables", "context_lens", "seq_ids",
+                               "q_starts", "q_valids"), ints, shapes):
         if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"ragged attention: {name} must be int32 "
-                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)) \
-            + tuple((n, t) for n, t, _ in ints):
+            raise ValueError(f"{what}: {name} must be int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        named.append((name, t))
+    for name, t in named:
         if t.device != q.device:
-            raise ValueError(f"ragged attention: {name} is on {t.device}, "
-                             f"q on {q.device}")
+            raise ValueError(f"{what}: {name} is on {t.device}, q on "
+                             f"{q.device}")
         if not t.is_contiguous():
-            raise ValueError(f"ragged attention: {name} must be contiguous")
+            raise ValueError(f"{what}: {name} must be contiguous")
+    return S, H, D, bs, W
+
+
+def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                           seq_ids, q_starts, q_valids, block_q=None,
+                           scale=None, k_scales=None, v_scales=None):
+    """Mixed prefill + decode attention over the paged pool (see the
+    module doc).  Returns ``[T, H, D]`` in ``q``'s type.  int8 pools
+    need ``k_scales``/``v_scales`` and go to
+    `ragged_paged_attention_int8`."""
+    ints = (block_tables, context_lens, seq_ids, q_starts, q_valids)
+    if k_pool.dtype == torch.int8:
+        return ragged_paged_attention_int8(q, k_pool, v_pool, k_scales,
+                                           v_scales, *ints, block_q=block_q,
+                                           scale=scale)
+    block_q, nqb, scale = _geometry(q, seq_ids, block_q, scale)
+    if q.device.type == "cpu":
+        return ragged_attention_ref(q, k_pool, v_pool, *ints, block_q,
+                                    scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"ragged attention: no kernel for device {q.device}")
+    code = cuda_lib.dtype_code(q.dtype)
+    S, H, D, bs, W = _check_inputs("ragged attention", q, (k_pool, v_pool),
+                                   ints, nqb, q.dtype)
     out = torch.empty_like(q)
     if nqb and H:
-        lib = cuda_lib.library()
-        rc = lib.ptt_ragged_attention_fwd(
+        rc = cuda_lib.library().ptt_ragged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            block_tables.data_ptr(), context_lens.data_ptr(),
-            seq_ids.data_ptr(), q_starts.data_ptr(), q_valids.data_ptr(),
-            out.data_ptr(), nqb, S, H, D, bs, W, block_q, float(scale),
-            code, q.device.index, cuda_lib.stream_handle(q.device))
+            *(t.data_ptr() for t in ints), out.data_ptr(), nqb, S, H, D, bs,
+            W, block_q, float(scale), code, q.device.index,
+            cuda_lib.stream_handle(q.device))
         cuda_lib.check(rc, "ragged_attention")
         ragged_paged_attention.launches += 1
     return out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads it)
+def ragged_paged_attention_int8(q, k_pool, v_pool, k_scales, v_scales,
+                                block_tables, context_lens, seq_ids,
+                                q_starts, q_valids, block_q=None,
+                                scale=None):
+    """`ragged_paged_attention` over int8 pools with their per-slot f32
+    scales ``[num_blocks, block_size, 1]``: the int8 kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    if k_scales is None or v_scales is None:
+        raise ValueError("int8 KV pools need k_scales/v_scales tables")
+    ints = (block_tables, context_lens, seq_ids, q_starts, q_valids)
+    block_q, nqb, scale = _geometry(q, seq_ids, block_q, scale)
+    if q.device.type == "cpu":
+        return ragged_attention_ref(q, k_pool, v_pool, *ints, block_q,
+                                    scale, k_scales, v_scales)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"int8 ragged attention: no kernel for device "
+                           f"{q.device}")
+    code = cuda_lib.dtype_code(q.dtype)
+    S, H, D, bs, W = _check_inputs(
+        "int8 ragged attention", q, (k_pool, v_pool, k_scales, v_scales),
+        ints, nqb, torch.int8)
+    out = torch.empty_like(q)
+    if nqb and H:
+        rc = cuda_lib.library().ptt_ragged_attention_int8_fwd(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            k_scales.data_ptr(), v_scales.data_ptr(),
+            *(t.data_ptr() for t in ints), out.data_ptr(), nqb, S, H, D, bs,
+            W, block_q, float(scale), code, q.device.index,
+            cuda_lib.stream_handle(q.device))
+        cuda_lib.check(rc, "ragged_attention_int8")
+        ragged_paged_attention_int8.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (chip_smoke.py reads them)
 ragged_paged_attention.launches = 0
+ragged_paged_attention_int8.launches = 0

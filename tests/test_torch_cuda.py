@@ -18,13 +18,18 @@ output and gradients as any other value (both versions compute in f32
 on the same values and round once).  bf16
 ragged attention is also held to the plain version run in f32, which
 keeps the probabilities in f32 as the kernel does, within one bf16 ulp
-(rtol 2^-7) plus 2^-8 of the output's RMS.
+(rtol 2^-7) plus 2^-8 of the output's RMS.  The int8 kernels (int8
+weights of the matmul epilogue, int8 KV pools of ragged attention) are
+held to their plain versions with the same tolerances, on shapes off the
+16-byte grid and off the tile, with an all-zero weight channel and with
+a scale per pool slot.
 """
 import numpy as np
 import pytest
 import torch
 
 from paddle_tpu_torch import ops
+from paddle_tpu_torch.ops.matmul_epilogue import act_f32
 
 pytestmark = pytest.mark.cuda
 
@@ -67,6 +72,25 @@ def test_matmul_epilogue_kernel(gen, dtype, act):
     b = torch.randn(130, device="cuda", generator=gen).to(dtype)
     out, z = ops.fused_linear_act(x, w, b, act, return_z=True)
     want, z_ref = ops.linear_act_ref(x, w, b, act, return_z=True)
+    _close(out, want, dtype)
+    _close(z, z_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("M,K,N", [(33, 1000, 70), (4, 2048, 520),
+                                   (88, 8192, 130)])
+def test_matmul_epilogue_split_k_kernel(gen, dtype, M, K, N):
+    """Few output tiles over a long K: the forward sums K in chunks
+    (split-K, 8, 6 and 12 of them on 132 SMs, the last chunk ragged) and
+    adds them in a second pass that applies the epilogue."""
+    from paddle_tpu_torch.ops.matmul_epilogue import split_k
+    assert split_k(M, K, N, torch.cuda.get_device_properties(
+        0).multi_processor_count) > 1
+    x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5).to(dtype)
+    b = torch.randn(N, device="cuda", generator=gen).to(dtype)
+    out, z = ops.fused_linear_act(x, w, b, "gelu_tanh", return_z=True)
+    want, z_ref = ops.linear_act_ref(x, w, b, "gelu_tanh", return_z=True)
     _close(out, want, dtype)
     _close(z, z_ref, dtype)
 
@@ -315,3 +339,123 @@ def test_dense_flash_attention_raises_on_the_card(gen):
     with pytest.raises(ValueError, match="head_dim"):
         F.scaled_dot_product_attention(wide, wide, wide, is_causal=True)
     assert ops.fused_flash_attention_fwd.launches == n0 + 1
+
+
+def _int8_weight(K, N, gen, dead=(0,)):
+    """Per-channel int8 codes and f32 scales of a random [K, N] weight
+    with all-zero columns ``dead`` (scale 1.0, as convert_to_int8 gives
+    them)."""
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    w = torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5
+    w[:, list(dead)] = 0.0
+    return quantize_weight_int8(w, axis=1)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ops.ACTIVATIONS)
+@pytest.mark.parametrize("M,K,N", [(70, 200, 130), (64, 256, 128),
+                                   (5, 17, 9), (33, 1000, 70)])
+def test_matmul_epilogue_int8_kernel(gen, dtype, act, M, K, N):
+    """Off the 16-byte grid (N = 130, 9, 70: one code a load) and off the
+    64x64 tile, and on both (64 x 256 x 128); split-K (33 x 1000 x 70);
+    bias in x's type and f32."""
+    x = torch.randn(M, K, device="cuda", generator=gen).to(dtype)
+    w_q, scale = _int8_weight(K, N, gen)
+    assert float(scale[0]) == 1.0
+    for b in (torch.randn(N, device="cuda", generator=gen).to(dtype),
+              torch.randn(N, device="cuda", generator=gen)):
+        n0 = ops.fused_linear_act_int8.launches
+        out = ops.fused_linear_act_int8(x, w_q, scale, b, act)
+        want = ops.linear_act_int8_ref(x, w_q, scale, b, act)
+        assert ops.fused_linear_act_int8.launches == n0 + 1
+        assert out.dtype == dtype and out.shape == (M, N)
+        _close(out, want, dtype)
+        # the dead channel: act(b) in every row
+        _close(out[:, 0], act_f32(b[0].float().expand(M), act), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("qlens,ctxs,pad,D", [
+    ([1, 1, 1], [60, 17, 5], 0, 64),
+    ([20], [20], 0, 64),
+    ([12, 1, 1], [30, 25, 9], 1, 128),
+    ([1, 0], [25, 0], 2, 64),
+    ([3, 1], [40, 9], 0, 40),              # D off the 16-byte grid
+])
+def test_ragged_attention_int8_kernel(gen, dtype, qlens, ctxs, pad, D):
+    from paddle_tpu_torch.inference.serving.attention import \
+        _quantize_tokens
+    H, bs, W = 4, 16, 4
+    block_q = ops.ragged_q_block(dtype)
+    S = len(qlens)
+    nqb = len(ops.ragged_segments(qlens, ctxs, block_q)[0]) + pad
+    sid, qs, qv, _, _ = ops.ragged_segments(qlens, ctxs, block_q,
+                                            num_q_blocks=nqb, num_seqs=S)
+    tables = np.zeros((S, W), np.int32)
+    for s, c in enumerate(ctxs):
+        tables[s, :-(-c // bs)] = 1 + s * W + np.arange(-(-c // bs))
+    nb = S * W + 1
+    q = torch.randn(nqb * block_q, H, D, device="cuda",
+                    generator=gen).to(dtype)
+    pools, scales = [], []
+    for _ in range(2):
+        # a different magnitude in every slot, so every slot's scale differs
+        f = torch.randn(nb, bs, H, D, device="cuda", generator=gen) * (
+            0.1 + 3 * torch.rand(nb, bs, 1, 1, device="cuda", generator=gen))
+        codes, sc = _quantize_tokens(f.reshape(-1, H, D), 1)
+        pools.append(codes.reshape(nb, bs, H, D).transpose(1, 2)
+                     .contiguous())
+        scales.append(sc.reshape(nb, bs, 1).contiguous())
+    assert scales[0].unique().numel() == nb * bs
+    ints = [torch.from_numpy(a).cuda() for a in
+            (tables, np.asarray(ctxs, np.int32), sid, qs, qv)]
+    n0 = (ops.ragged_paged_attention.launches,
+          ops.ragged_paged_attention_int8.launches)
+    out = ops.ragged_paged_attention(q, *pools, *ints, block_q=block_q,
+                                     k_scales=scales[0], v_scales=scales[1])
+    assert (ops.ragged_paged_attention.launches,
+            ops.ragged_paged_attention_int8.launches) == (n0[0], n0[1] + 1)
+    want = ops.ragged_attention_ref(q, *pools, *ints, block_q=block_q,
+                                    k_scales=scales[0], v_scales=scales[1])
+    _close(out, want, dtype)
+    if dtype == torch.bfloat16:
+        want32 = ops.ragged_attention_ref(q.float(), *pools, *ints,
+                                          block_q=block_q,
+                                          k_scales=scales[0],
+                                          v_scales=scales[1])
+        rms = float(want32.pow(2).mean().sqrt())
+        torch.testing.assert_close(out.float(), want32, atol=2 ** -8 * rms,
+                                   rtol=2 ** -7)
+    if pad:
+        assert float(out[-pad * block_q:].abs().sum()) == 0.0
+
+
+def test_int8_wrappers_refuse_missing_scales(gen):
+    block_q = ops.ragged_q_block(torch.float32)
+    sid, qs, qv, _, _ = ops.ragged_segments([1], [9], block_q)
+    ints = [torch.from_numpy(a).cuda() for a in
+            (np.ones((1, 1), np.int32), np.asarray([9], np.int32), sid, qs,
+             qv)]
+    q = torch.randn(block_q, 2, 64, device="cuda", generator=gen)
+    pool = torch.ones(2, 2, 16, 64, dtype=torch.int8, device="cuda")
+    scales = torch.ones(2, 16, 1, device="cuda")
+    n0 = ops.ragged_paged_attention_int8.launches
+    with pytest.raises(ValueError, match="k_scales"):
+        ops.ragged_paged_attention(q, pool, pool, *ints, block_q=block_q)
+    with pytest.raises(ValueError, match="k_scales"):
+        ops.ragged_paged_attention_int8(q, pool, pool, scales, None, *ints,
+                                        block_q=block_q)
+    with pytest.raises(ValueError, match="k_scales"):
+        ops.ragged_paged_attention_int8(q, pool, pool, scales[:, :8],
+                                        scales, *ints, block_q=block_q)
+    w_q, scale = _int8_weight(64, 32, gen)
+    b = torch.zeros(32, device="cuda")
+    n1 = ops.fused_linear_act_int8.launches
+    with pytest.raises(ValueError, match="scale"):
+        ops.fused_linear_act_int8(q[:, 0], w_q, None, b)
+    with pytest.raises(ValueError, match="scale"):
+        ops.fused_linear_act_int8(q[:, 0], w_q, scale.to(torch.bfloat16), b)
+    with pytest.raises(ValueError, match="int8"):
+        ops.fused_linear_act_int8(q[:, 0], w_q.float(), scale, b)
+    assert ops.ragged_paged_attention_int8.launches == n0
+    assert ops.fused_linear_act_int8.launches == n1

@@ -40,7 +40,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
     for m in ("inference.serving.engine", "core.random", "amp",
               "optimizer.optimizer", "nn.clip", "ops.softmax_xent",
               "ops.flash_attention", "distributed.fleet.recompute",
-              "models.generation", "models.llama", "ops.rms_norm"):
+              "models.generation", "models.llama", "ops.rms_norm",
+              "quantization"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -115,6 +116,16 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     pt.ops.rms_norm(xr, torch.ones(8)).sum().backward()
     q = torch.randn(1, 4, 2, 8, requires_grad=True)
     pt.ops.flash_attention(q, q, q, causal=True).sum().backward()
+    codes = torch.ones(8, 3, dtype=torch.int8)
+    pt.ops.fused_linear_act_int8(x, codes, torch.ones(3), torch.zeros(3))
+    ints = [torch.ones(1, 1, dtype=torch.int32),
+            torch.full((1,), 8, dtype=torch.int32)] + [
+        torch.tensor([v], dtype=torch.int32) for v in (0, 0, 8)]
+    pool = torch.ones(2, 2, 16, 8, dtype=torch.int8)
+    scales = torch.ones(2, 16, 1)
+    pt.ops.ragged_paged_attention(torch.randn(8, 2, 8), pool, pool, *ints,
+                                  block_q=8, k_scales=scales,
+                                  v_scales=scales)
     after = {k: f.launches for k, f in pt.ops.KERNELS.items()}
     assert after == before, "a CPU call is not a kernel launch"
 

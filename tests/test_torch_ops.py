@@ -173,6 +173,22 @@ def test_matmul_epilogue_bf16_multiblock_plain_matches_pallas():
     np.testing.assert_allclose(_np(got), _np(ref), atol=2e-2, rtol=2e-2)
 
 
+def test_matmul_epilogue_split_k_choice():
+    """Split-K only where the 64x64 output tiles cannot fill the card
+    (132 SMs, 6 tiles each): a serving step's out and fc2 GEMMs (192
+    tiles) take 4 chunks, qkv and fc1 (576 and 768 tiles) and the
+    training shape none; every chunk sums at least 4 slices of 32."""
+    from paddle_tpu_torch.ops.matmul_epilogue import split_k
+    cases = {(368, 2048, 6144): 1, (368, 2048, 2048): 4,
+             (368, 2048, 8192): 1, (368, 8192, 2048): 4,
+             (4096, 2048, 8192): 1, (4, 2048, 8192): 6, (70, 200, 130): 1,
+             (5, 17, 9): 1, (88, 8192, 2048): 12, (1, 1 << 20, 64): 16}
+    for (m, k, n), want in cases.items():
+        got = split_k(m, k, n, 132)
+        assert got == want, (m, k, n, got)
+        assert got == 1 or -(-k // 32) // got >= 4
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(RuntimeError):

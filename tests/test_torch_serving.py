@@ -272,7 +272,6 @@ def test_sampler_filters():
 def test_unported_options_raise(models):
     _, port = models
     for kw in (dict(speculative=4), dict(slo=object()),
-               dict(kv_cache_dtype="int8"), dict(weight_dtype="int8"),
                dict(role="prefill"), dict(kv_tiering=True)):
         with pytest.raises(NotImplementedError):
             pt.GenerationEngine(port, device="cpu", num_blocks=16, **kw)
