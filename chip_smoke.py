@@ -14,9 +14,13 @@ phase fails.  Phases:
    against its plain PyTorch version on the card, at the shapes the
    serving and the training drives give it (flash attention: the flash
    drive's B=8, S=1024, 16 heads of 128, causal; a decode step's one
-   query against 640 keys; and heads of 64 at the 0.35B width; RMS norm:
-   the LLaMA training drive's 8192 rows of 1024, LLaMA-2 7B's prefill of
-   512 rows and decode step of 4 rows of 4096), in bf16 and in f32, with
+   query against 640 keys; heads of 64 at the 0.35B width; BERT-base's
+   B=64, S=128, 12 heads of 64, not causal; and heads of 256, causal and
+   not; RMS norm: the LLaMA training drive's 8192 rows of 1024, LLaMA-2
+   7B's prefill of 512 rows and decode step of 4 rows of 4096; the fused
+   residual layer norm at the BERT drive's 8192 rows of 768, forward and,
+   through the layer-norm backward kernel, backward), in bf16 and in f32,
+   with
    errors against stated tolerances and CUDA-event times of the kernel,
    the plain version and (where one PyTorch call computes the same
    function) the library call, beside the least time the card could take
@@ -90,12 +94,37 @@ phase fails.  Phases:
     1/1.8 of the bf16 pool's, launches counted as in phase 4.  Reports
     tokens/s, ms/step, TTFT, weight memory and KV blocks against phase
     4's, the greedy match ratio against phase 4's tokens, and one
-    profiled burst.
+    profiled burst;
+14. BERT training parity: BERT-base's width (hidden 768, 12 heads, ffn
+    3072, vocab 30522) cut to 2 layers, f32, both dropouts 0, weights
+    from a numpy seed, B=2, S=128, labels the ids with about 15% at -100:
+    3 AdamW steps on the card and on the CPU, held as in phases 5, 7 and
+    10, but for the parameter elements whose gradient lay within the
+    gradient gate of 0 at some step (AdamW steps them by ~lr of a sign
+    the gate does not fix; the key slices of the qkv biases have a
+    gradient of 0 in exact arithmetic): those are held to 2 * 3 * lr;
+    every kernel of the path must launch, the three flash kernels (not
+    causal) included;
+15. BERT training: bench.py's ``bench_bert`` recipe (bench.py:314-380)
+    run eagerly: ``BertConfig()`` (12 layers, dropout 0.1 on the hidden
+    states and the attention probabilities, so attention takes the
+    composite and no flash kernel runs), f32 master weights under
+    ``amp.auto_cast(bf16, O1)``, ``AdamW(1e-4)``, B=64, S=128, ids from
+    ``np.random.default_rng(0)`` fed as ids and labels: 2 warm-up steps,
+    then 5 timed steps (ms/step, tokens/s, MFU, peak memory, launches per
+    step, one profiled step);
+16. ERNIE: ``ErnieConfig()``'s width cut to 2 layers, f32, eval, numpy
+    weights: the MLM logits, the pooled output and the sequence
+    classification logits on the card against the CPU; then
+    ``ErnieForSequenceClassification`` at 12 layers in bf16, random
+    weights from a seed, eval, B=64, S=128: ms per forward, sequences/s,
+    launches per forward (the flash forward, not causal), one profiled
+    forward.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
-training, generate, the three LLaMA and the int8 serving summaries) and
-the card's
+training, generate, the three LLaMA, the int8 serving, the two BERT and
+the ERNIE summaries) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -447,6 +476,63 @@ def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
+#: the BERT training drive's residual stream (B=64, S=128, hidden 768):
+#: 8192 token rows, f32 under O1 (fused_residual_layer_norm is black-listed)
+BERT_ROWS, BERT_HIDDEN = 8192, 768
+
+
+def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
+    """The fused residual add + layer norm forward at the BERT drive's
+    [8192, 768], and its backward, the layer-norm backward kernel on the
+    saved sum (held and timed in the note)."""
+    import torch
+    n = BERT_HIDDEN
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
+         + 0.5).to(dtype)
+    r = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    out, s, mu, rstd = ops.fused_layer_norm_residual(x, r, g, b, 1e-12)
+    ref, s_r, mu_r, rstd_r = ops.layer_norm_residual_ref(x, r, g, b, 1e-12)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    bargs = (s_r, g, mu_r, rstd_r, do)
+    dx, dg, db = ops.fused_layer_norm_bwd(*bargs)
+    dx_r, dg_r, db_r = ops.layer_norm_bwd_ref(*bargs)
+    torch.cuda.synchronize()
+    err, rel, ok = compare(out, ref, dtype_name)
+    s_err, _, s_ok = compare(s, s_r, dtype_name)
+    stat_ok = compare(mu, mu_r, "float32")[2] \
+        and compare(rstd, rstd_r, "float32")[2]
+    dx_err, _, dx_ok = compare(dx, dx_r, dtype_name)
+    xhat = (s_r.float() - mu_r[:, None]) * rstd_r[:, None]
+    dg_err, dg_ok, _ = compare_sum(dg, dg_r, (do.float() * xhat).abs().sum(0),
+                                   dtype_name)
+    db_err, db_ok, _ = compare_sum(db, db_r, do.float().abs().sum(0),
+                                   dtype_name)
+    del xhat
+    isz = x.element_size()
+    # four [rows, n] streams (x, r read; out, s written), gamma and beta,
+    # the f32 mu and rstd
+    nbytes = 4 * rows * n * isz + 2 * n * isz + 2 * rows * 4
+    bms, by = bound(nbytes, 10 * rows * n, dtype_name)
+    bwd_ms = time_ms(lambda: ops.fused_layer_norm_bwd(*bargs))
+
+    def library():      # two calls: no single PyTorch call computes it
+        return torch.nn.functional.layer_norm(x + r, (n,), g, b, 1e-12)
+    return dict(      # err: the forward kernel's (out, s); the rest in note
+        err=max(err, s_err), rel=rel,
+        ok=ok and s_ok and stat_ok and dx_ok and dg_ok and db_ok,
+        shape=f"x, r[{rows},{n}]",
+        note=(f"out {err:.3e}, s {s_err:.3e}; backward (layer_norm_bwd on "
+              f"the saved s) dx {dx_err:.3e}, dgamma {dg_err:.3e}, dbeta "
+              f"{db_err:.3e}, {bwd_ms:.4f} ms; library: F.layer_norm(x + r), "
+              f"two calls"),
+        ms=time_ms(lambda: ops.fused_layer_norm_residual(x, r, g, b, 1e-12)),
+        plain_ms=time_ms(lambda: ops.layer_norm_residual_ref(x, r, g, b,
+                                                             1e-12)),
+        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
+
+
 def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen):
     """The training drive's fc1 epilogue backward: z, g [4096, 8192],
     gelu_tanh."""
@@ -620,10 +706,17 @@ def check_rms_norm_bwd(ops, shape_key, dtype, dtype_name, gen):
 #: flash attention shapes: (B, Sq, Sk, H, D, causal).  train: the flash
 #: drive's (B=8, S=1024, GPT_1P3B's 16 heads of 128); decode: one
 #: generate step of the 1.3B drive (4 rows, one query against 640 keys);
-#: train_d64: bench.py's 0.35B width (hidden 1024, 16 heads of 64)
+#: train_d64: bench.py's 0.35B width (hidden 1024, 16 heads of 64); bert:
+#: BERT-base's attention in the ERNIE eval drive and at dropout 0 (B=64,
+#: S=128, 12 heads of 64, not causal); d256: the widest head the
+#: reference routes to its kernel, causal and not (no model of the repo
+#: has it; 8 heads of 256 at S=1024)
 FLASH_SHAPES = {"train": (8, 1024, 1024, 16, 128, True),
                 "decode": (4, 1, 640, 16, 128, True),
-                "train_d64": (8, 1024, 1024, 16, 64, True)}
+                "train_d64": (8, 1024, 1024, 16, 64, True),
+                "bert": (64, 128, 128, 12, 64, False),
+                "d256_causal": (2, 1024, 1024, 8, 256, True),
+                "d256_full": (2, 1024, 1024, 8, 256, False)}
 
 
 def visible_pairs(sq, sk, causal):
@@ -753,7 +846,13 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
 #: or the composite training drive.  The LLaMA drives: llama_train (two
 #: RMS norms and one attention a layer, every layer's forward run twice
 #: by recompute, the final norm and the loss once) and llama_gen (one
-#: forward of generate())
+#: forward of generate()).  The BERT drives: bert_train (dropout on:
+#: attention takes the composite, no flash kernel; per layer two fused
+#: residual layer norms, fc1's epilogue; once the embeddings' and the MLM
+#: head's layer norms, the MLM transform's epilogue and the loss),
+#: bert_parity (the same at dropout 0: the flash kernels, not causal) and
+#: ernie_eval (one forward of ErnieForSequenceClassification in eval: no
+#: MLM head, the pooler and classifier are cuBLAS GEMMs)
 KERNEL_INFO = {
     "ragged_attention": dict(
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
@@ -763,42 +862,51 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
         serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1),
-        serve_int8=(2, 1)),
+        serve_int8=(2, 1), bert_train=(0, 2), bert_parity=(0, 2),
+        ernie_eval=(0, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
-        serve=(1, 0), train=(1, 0), train_flash=(2, 0), generate=(1, 0)),
+        serve=(1, 0), train=(1, 0), train_flash=(2, 0), generate=(1, 0),
+        bert_train=(1, 1), bert_parity=(1, 1), ernie_eval=(1, 0)),
     "layer_norm_bwd": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:536",
-        train=(2, 1), train_flash=(2, 1)),
+        train=(2, 1), train_flash=(2, 1), bert_train=(2, 2),
+        bert_parity=(2, 2)),
     "matmul_epilogue_bwd": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:278",
-        train=(1, 0), train_flash=(1, 0)),
+        train=(1, 0), train_flash=(1, 0), bert_train=(1, 1),
+        bert_parity=(1, 1)),
     "softmax_xent_fwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
-        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1)),
+        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
+        bert_train=(0, 1), bert_parity=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
-        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1)),
+        train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
+        bert_train=(0, 1), bert_parity=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:78",
         main="train_flash", train_flash=(2, 0), generate=(1, 0),
-        llama_train=(2, 0), llama_gen=(1, 0)),
+        llama_train=(2, 0), llama_gen=(1, 0), bert_parity=(1, 0),
+        ernie_eval=(1, 0)),
     "flash_attention_bwd_dq": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:128",
-        main="train_flash", train_flash=(1, 0), llama_train=(1, 0)),
+        main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
+        bert_parity=(1, 0)),
     "flash_attention_bwd_dkv": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:170",
-        main="train_flash", train_flash=(1, 0), llama_train=(1, 0)),
+        main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
+        bert_parity=(1, 0)),
     "rms_norm": dict(
         source="paddle_tpu_torch/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:648",
@@ -815,13 +923,19 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:406",
         main="serve_int8", serve_int8=(4, 0)),
+    "layer_norm_residual": dict(
+        source="paddle_tpu_torch/csrc/layer_norm.cu",
+        replaces="paddle_tpu/ops/pallas_fused.py:101",
+        main="bert_train", bert_train=(2, 0), bert_parity=(2, 0),
+        ernie_eval=(2, 0)),
 }
 
 
 def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve",
-    "serve_int8", "train", "train_flash", "llama_train", or "generate" and
-    "llama_gen", whose step is one forward)."""
+    "serve_int8", "train", "train_flash", "llama_train", "bert_train",
+    "bert_parity", or "generate", "llama_gen" and "ernie_eval", whose step
+    is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -866,6 +980,7 @@ def warm_up(ops):
     x, g, b = rand(64, 256), rand(256), rand(256)
     _, mu, rstd = ops.fused_layer_norm(x, g, b)
     ops.fused_layer_norm_bwd(x, g, mu, rstd, x)
+    ops.fused_layer_norm_residual(x, x, g, b)
     ops.fused_linear_act(x, rand(256, 128), rand(128), "gelu_tanh")
     ops.fused_linear_act_bwd(x, x, "gelu_tanh")
     labels = torch.arange(64, device="cuda")
@@ -905,8 +1020,9 @@ def phase_kernels(ops, budgets):
     """Every kernel at the serving drive's shapes (keys (name, dtype); the
     int8 serving kernels too, from a generator of their own so that the
     other rows' inputs stay as they were), at the training drive's (keys
-    (name, dtype, "train")) and, for flash attention and RMS norm, at each
-    of `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape))."""
+    (name, dtype, "train"); the fused residual layer norm at the BERT
+    training drive's) and, for flash attention and RMS norm, at each of
+    `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape))."""
     import torch
     warm_up(ops)
     serve = {"ragged_attention": check_ragged,
@@ -917,7 +1033,8 @@ def phase_kernels(ops, budgets):
              "layer_norm_bwd": (check_layer_norm_bwd, TRAIN_ROWS),
              "matmul_epilogue_bwd": (check_matmul_epilogue_bwd, TRAIN_ROWS),
              "softmax_xent_fwd": (check_softmax_xent_fwd, XENT_ROWS),
-             "softmax_xent_bwd": (check_softmax_xent_bwd, XENT_ROWS)}
+             "softmax_xent_bwd": (check_softmax_xent_bwd, XENT_ROWS),
+             "layer_norm_residual": (check_layer_norm_residual, BERT_ROWS)}
     serve_int8 = {"ragged_attention_int8": check_ragged_int8,
                   "matmul_epilogue_int8": check_matmul_epilogue_int8}
     results = {}
@@ -977,10 +1094,12 @@ def numpy_weights(model, seed):
     params = {}
     for name, p in model.named_parameters():
         shape = tuple(p.shape)
-        if name.endswith(("wte.weight", "wpe.weight", "embed_tokens.weight")):
+        if name.endswith(("wte.weight", "wpe.weight", "embed_tokens.weight",
+                          "embeddings.weight")):
             a = rng.standard_normal(shape, np.float32)
         elif ("ln_" in name and name.endswith("weight")) \
-                or name.endswith("norm.weight"):
+                or name.endswith(("norm.weight", ".ln.weight", ".ln1.weight",
+                                  ".ln2.weight")):
             a = 1 + 0.1 * rng.standard_normal(shape, np.float32)
         elif len(shape) == 2:
             std = (2.0 / (shape[0] + shape[1])) ** 0.5
@@ -1242,6 +1361,7 @@ _PROFILE_GROUPS = (("ragged_attention_int8",
                      "me_fwd_fma<float, signed char",
                      "me_fwd_fma<__nv_bfloat16, signed char")),
                    ("ragged_attention", "ragged_attn_kernel"),
+                   ("layer_norm_residual", "layer_norm_residual_fwd_kernel"),
                    ("layer_norm", "layer_norm_fwd_kernel"),
                    ("layer_norm_bwd", "layer_norm_bwd_kernel"),
                    ("matmul_epilogue", "me_fwd_"),
@@ -1331,11 +1451,14 @@ PARITY_TOL = dict(loss=1e-5, grad=1e-4, param=(1e-4, 1e-4))
 
 
 def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
-                     device, clip=True, steps=3):
+                     device, clip=True, steps=3, track_small=False):
     """Losses, step-1 gradients and final parameters of ``steps`` AdamW
     steps (global-norm clip 1.0 with ``clip``) of ``make_model(device)``
-    on ``device``, with ``loss_of(model, ids, labels)`` as the loss, and
-    the launch counts of the run."""
+    on ``device``, with ``loss_of(model, ids, labels)`` as the loss, the
+    launch counts of the run, and (with ``track_small``) for each
+    parameter the elements whose gradient was, at some step, within the
+    gradient gate of 0 (at most ``PARITY_TOL["grad"]`` of that gradient's
+    largest magnitude)."""
     import torch
     model = make_model(device)
     pt.load_reference_state(model, params)
@@ -1346,7 +1469,7 @@ def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
     x, y = (torch.from_numpy(a).to(device) for a in (ids, labels))
     reset_launches(ops)
     t0 = time.perf_counter()
-    losses, grads = [], None
+    losses, grads, small = [], None, {}
     for step in range(steps):
         loss = loss_of(model, x, y)
         loss.backward()
@@ -1354,6 +1477,10 @@ def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
         if step == 0:
             grads = {n: p.grad.detach().cpu().clone()
                      for n, p in model.named_parameters()}
+        for n, p in model.named_parameters() if track_small else ():
+            g = p.grad.detach().abs()
+            m = (g <= PARITY_TOL["grad"] * g.max()).cpu()
+            small[n] = small[n] | m if n in small else m
         opt.step()
         opt.clear_grad()
     if device == "cuda":
@@ -1362,7 +1489,7 @@ def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
     say(f"  {device}: {steps} steps in {time.perf_counter() - t0:.2f} s, "
         f"losses {losses}")
     final = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-    return losses, grads, final, counts
+    return losses, grads, final, counts, small
 
 
 def phase_train_parity(pt, ops, flash=False):
@@ -1380,25 +1507,34 @@ def phase_train_parity(pt, ops, flash=False):
 
 
 def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
-                 clip=True):
+                 clip=True, ignore_share=0.0, sign_free=False):
     """3 AdamW steps of ``make_model`` on the card and on the CPU from the
     same numpy weights and batch (B=2, S=128, a few labels at the ignore
-    index): losses, step-1 gradients and final parameters held to
-    `PARITY_TOL`, and each kernel's launches to ``drive``'s per step."""
+    index, and about ``ignore_share`` of the rest): losses, step-1
+    gradients and final parameters held to `PARITY_TOL`, and each kernel's
+    launches to ``drive``'s per step.  With ``sign_free`` the parameter
+    elements whose gradient at some step lay within the gradient gate of
+    0 are held by `hold_sign_free` instead."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 3)
     ids = rng.integers(0, vocab, (2, 128))
     labels = ids.copy()
     labels[0, :3] = -100                       # the loss's ignore index
+    if ignore_share:
+        labels[rng.random(labels.shape) < ignore_share] = -100
     params = numpy_weights(make_model("cpu"), SEED + 2)
     runs = {}
     for device in ("cuda", "cpu"):
-        runs[device] = train_parity_run(pt, ops, make_model, loss_of, params,
-                                        ids, labels, device, clip)
+        runs[device] = train_parity_run(
+            pt, ops, make_model, loss_of, params, ids, labels, device, clip,
+            track_small=sign_free and device == "cpu")
         torch.cuda.empty_cache()
-    (l_gpu, g_gpu, p_gpu, counts), (l_cpu, g_cpu, p_cpu, _) = \
+    (l_gpu, g_gpu, p_gpu, counts, _), (l_cpu, g_cpu, p_cpu, _, small) = \
         runs["cuda"], runs["cpu"]
+    key_note = ""
+    if sign_free:
+        key_note = hold_sign_free(phase, small, p_gpu, p_cpu)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     grad_err, grad_at = max(
         (float((g_gpu[n] - g_cpu[n]).abs().max())
@@ -1414,7 +1550,7 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
         f"{PARITY_TOL['loss']:g}); step-1 grads max err / max |grad| "
         f"{grad_err:.3e} at {grad_at} (tolerance {PARITY_TOL['grad']:g}); "
         f"params after 3 steps max (|err| - {rtol:g}*|p|) {worst:.3e} at "
-        f"{worst_at or '-'} (tolerance {atol:g})")
+        f"{worst_at or '-'} (tolerance {atol:g}){key_note}")
     if loss_err > PARITY_TOL["loss"]:
         fail(f"{phase}: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
     if grad_err > PARITY_TOL["grad"]:
@@ -1427,6 +1563,34 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
     return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
                 param_max_excess=worst, losses_cuda=l_gpu,
                 losses_cpu=l_cpu)
+
+
+def hold_sign_free(phase, small, p_gpu, p_cpu, steps=3):
+    """AdamW moves each element by about lr times the sign of its
+    gradient's running mean, whatever the gradient's size.  Where a
+    gradient lies within the gradient gate of 0 (``small``: at most
+    ``PARITY_TOL["grad"]`` of its tensor's largest, at some step on the
+    CPU), its sign is not fixed by the gate, and the two devices may step
+    such an element by up to lr in opposite directions: those elements
+    are held to 2 * steps * lr, the most two such walks can differ, and
+    taken out of the `PARITY_TOL` check (``p_gpu`` gets the CPU's values
+    there).  Among them are the key slices of the qkv biases, whose
+    gradient is 0 in exact arithmetic (softmax is invariant to a per-row
+    constant)."""
+    import torch
+    bound = 2 * steps * PARITY_LR
+    worst, count = 0.0, 0
+    for n, m in small.items():
+        if not bool(m.any()):
+            continue
+        d = float((p_gpu[n] - p_cpu[n]).abs()[m].max())
+        if d > bound:
+            fail(f"{phase}: {n} differs by {d:.3e} after {steps} steps where "
+                 f"its gradient was ~0, past 2 * {steps} * lr")
+        worst, count = max(worst, d), count + int(m.sum())
+        p_gpu[n] = torch.where(m, p_cpu[n], p_gpu[n])
+    return (f"; {count} elements whose gradient lay within the gate of 0 at "
+            f"some step: max |err| {worst:.3e} (bound {bound:g})")
 
 
 # ---------------------------------------------------------------------
@@ -1470,10 +1634,10 @@ def phase_training(pt, ops, flash=False):
                           "train_flash" if flash else "train")
 
 
-def drive_training(ops, step, n_params, B, L, H, phase, drive):
+def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     """`TRAIN_WARMUP` untimed calls of ``step`` (one training step that
     returns its loss), then `TRAIN_STEPS` timed ones at batch ``B`` of
-    `TRAIN_S` tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token
+    ``S`` tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token
     against the bf16 peak), peak memory; the losses must be finite and
     fall, each kernel's launches must equal ``drive``'s per step; one
     profiled step.  Returns (launch counts, summary)."""
@@ -1493,10 +1657,10 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive):
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     step_ms = elapsed / TRAIN_STEPS * 1e3
-    tokens_per_s = B * TRAIN_S * TRAIN_STEPS / elapsed
-    flops_per_token = 6 * n_params + 12 * L * TRAIN_S * H
+    tokens_per_s = B * S * TRAIN_STEPS / elapsed
+    flops_per_token = 6 * n_params + 12 * L * S * H
     mfu = flops_per_token * tokens_per_s / PEAK_BF16
-    say(f"  {n_params / 1e6:.1f}M params, B={B} S={TRAIN_S}: warm-up "
+    say(f"  {n_params / 1e6:.1f}M params, B={B} S={S}: warm-up "
         f"{TRAIN_WARMUP} steps {warm_s:.2f} s; {TRAIN_STEPS} steps in "
         f"{elapsed:.3f} s: {step_ms:.2f} ms/step, {tokens_per_s:.1f} "
         f"tokens/s, MFU {mfu:.4f} (6N + 12LSH = {flops_per_token:.4e} "
@@ -1508,7 +1672,7 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive):
         fail(f"{phase}: the loss did not fall on a repeated batch: "
              f"{losses}")
     check_counts(phase, counts, TRAIN_STEPS, L, drive)
-    summary = dict(n_params=n_params, batch=B, seq=TRAIN_S,
+    summary = dict(n_params=n_params, batch=B, seq=S,
                    steps=TRAIN_STEPS, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    peak_memory_gib=peak_gib, losses=losses)
@@ -1704,6 +1868,155 @@ def phase_llama_generate(pt, ops):
     return counts, summary
 
 
+# ---------------------------------------------------------------------
+# phases 14-16: BERT and ERNIE
+# ---------------------------------------------------------------------
+#: BERT-base (BertConfig()'s widths: hidden 768, 12 heads of 64, ffn 3072,
+#: vocab 30522) and bench.py:314-380's bench_bert batch
+BERT_B, BERT_S = 64, 128
+#: ERNIE eval drive: forwards timed after 2 warm-up forwards
+ERNIE_WARMUP, ERNIE_FORWARDS = 2, 10
+
+
+def phase_bert_train_parity(pt, ops):
+    """Phase 14: BERT-base's width cut to 2 layers, f32, both dropouts 0
+    (attention takes the flash kernels, not causal), weights from a numpy
+    seed, B=2, S=128, token types 0 then 1, labels the ids with about 15%
+    at -100: 3 AdamW(1e-4) steps without a clip (bench_bert has none),
+    card vs CPU."""
+    import torch
+    cfg = pt.BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+
+    def loss_of(model, x, y):     # token type 1 on the second half
+        tt = (torch.arange(x.shape[1], device=x.device)
+              >= x.shape[1] // 2).long().expand_as(x)
+        return model(x, tt, labels=y)[0]
+    return train_parity(
+        pt, ops, "bert training parity",
+        lambda device: pt.BertForMaskedLM(cfg, device=device),
+        loss_of, cfg.vocab_size,
+        cfg.num_hidden_layers, "bert_parity", clip=False, ignore_share=0.15,
+        sign_free=True)
+
+
+def phase_bert_training(pt, ops):
+    """Phase 15: bench_bert's recipe on the card, eagerly: BertConfig()
+    (12 layers, dropout 0.1 on the hidden states and the attention
+    probabilities), f32 master weights under auto_cast(bf16, O1),
+    AdamW(1e-4), B=64, S=128, one batch of ids from
+    np.random.default_rng(0) fed as ids and labels."""
+    import numpy as np
+    import torch
+    cfg = pt.BertConfig()
+    model = pt.BertForMaskedLM(cfg, dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (BERT_B, BERT_S))).cuda()
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return drive_training(ops, step, n_params, BERT_B,
+                          cfg.num_hidden_layers, cfg.hidden_size,
+                          "bert training", "bert_train", S=BERT_S)
+
+
+def phase_ernie(pt, ops):
+    """Phase 16: (a) ErnieConfig()'s width cut to 2 layers, f32, eval,
+    numpy weights, B=2, S=128 with token types and task types left at
+    None: the MLM logits, the pooled output and the classification logits
+    on the card within f32's `TOL` of the CPU's, the classifier's
+    launches exactly ``ernie_eval``'s per forward; (b)
+    ErnieForSequenceClassification at 12 layers in bf16, random weights
+    from a seed, eval, B=64, S=128: ms per forward, sequences/s, launches
+    per forward, one profiled forward."""
+    import numpy as np
+    import torch
+    cfg = pt.ErnieConfig(num_hidden_layers=2)
+    rng = np.random.default_rng(SEED + 5)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 128)))
+    token_types = (torch.arange(128) >= 64).long().expand(2, 128)
+    outs, counts = {}, None
+    for device in ("cuda", "cpu"):
+        x, tt = ids.to(device), token_types.to(device)
+        mlm = pt.ErnieForMaskedLM(cfg, device=device).eval()
+        pt.load_reference_state(mlm, numpy_weights(mlm, SEED + 6))
+        clf = pt.ErnieForSequenceClassification(cfg, device=device).eval()
+        pt.load_reference_state(clf, numpy_weights(clf, SEED + 7))
+        with torch.no_grad():
+            logits = mlm(x, tt)
+            pooled = mlm.ernie(x, tt)[1]
+            reset_launches(ops)
+            cls_logits = clf(x, tt)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                counts = launches(ops)
+        outs[device] = [t.cpu() for t in (logits, pooled, cls_logits)]
+        del mlm, clf
+        free_device_memory()
+    errs = []
+    for what, got, want in zip(("MLM logits", "pooled", "class logits"),
+                               outs["cuda"], outs["cpu"]):
+        err, _, ok = compare(got, want, "float32")
+        errs.append(err)
+        if not ok:
+            fail(f"ernie parity: {what} differ by {err:.3e} between the "
+                 f"card and the CPU")
+    say(f"  card vs CPU max abs err: MLM logits {errs[0]:.3e}, pooled "
+        f"{errs[1]:.3e}, class logits {errs[2]:.3e} (tolerance "
+        f"{TOL['float32'][0]:g} + {TOL['float32'][1]:g}*|cpu|)")
+    check_counts("ernie parity", counts, 1, cfg.num_hidden_layers,
+                 "ernie_eval")
+
+    cfg = pt.ErnieConfig()
+    model = pt.ErnieForSequenceClassification(cfg, dtype=torch.bfloat16,
+                                              seed=SEED).eval()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (BERT_B, BERT_S))).cuda()
+
+    def forward():
+        with torch.no_grad():
+            return model(ids)
+    for _ in range(ERNIE_WARMUP):
+        forward()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    for _ in range(ERNIE_FORWARDS):
+        out = forward()
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = launches(ops)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if out.shape != (BERT_B, cfg.num_labels) or not bool(
+            torch.isfinite(out).all()):
+        fail(f"ernie eval: logits of shape {tuple(out.shape)} or not finite")
+    ms = elapsed / ERNIE_FORWARDS * 1e3
+    say(f"  ErnieForSequenceClassification bf16, {cfg.num_hidden_layers} "
+        f"layers, B={BERT_B} S={BERT_S}: {ms:.2f} ms per forward, "
+        f"{BERT_B / ms * 1e3:.1f} sequences/s, peak memory {peak:.2f} GiB")
+    check_counts("ernie eval", counts, ERNIE_FORWARDS,
+                 cfg.num_hidden_layers, "ernie_eval")
+    summary = dict(parity_max_abs_err=dict(zip(
+        ("mlm_logits", "pooled", "class_logits"), errs)),
+        batch=BERT_B, seq=BERT_S, forwards=ERNIE_FORWARDS,
+        ms_per_forward=ms, sequences_per_s=BERT_B / ms * 1e3,
+        peak_memory_gib=peak)
+    summary["profile"] = split_profile(profile_device(forward), 1,
+                                       "ERNIE forward")
+    return counts, summary
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -1733,7 +2046,8 @@ MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "flash_attention_bwd_dkv": "bfloat16",
               "rms_norm": "float32", "rms_norm_bwd": "float32",
               "ragged_attention_int8": "bfloat16",
-              "matmul_epilogue_int8": "bfloat16"}
+              "matmul_epilogue_int8": "bfloat16",
+              "layer_norm_residual": "float32"}
 TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
 
 
@@ -1741,12 +2055,13 @@ def kernels_line(results, counts):
     """One entry per kernel: its main path's dtype and shapes (the
     serving drive's for the serving kernels, int8 ones included, the
     flash drive's for flash attention, the LLaMA training drive's for RMS
-    norm), the other
+    norm, the BERT training drive's for the fused residual layer norm),
+    the other
     dtype, the forward kernels at the training drive's shapes too, flash
     attention at its decode and head_dim-64 shapes and RMS norm at
     LLaMA-2 7B's prefill and decode shapes.  ``launches`` counts the main
     path's run (the serving drive, the composite training drive, or the
-    ``main`` drive of `KERNEL_INFO`: the flash drive's, the LLaMA
+    ``main`` drive of `KERNEL_INFO`: the flash drive's, the LLaMA or BERT
     training drive's timed steps or the int8 serving drive's);
     ``launches_<drive>`` every drive's."""
     out = []
@@ -1764,8 +2079,10 @@ def kernels_line(results, counts):
                      **kernel_entry(results[(key[0], main) + key[1:]]))
         for d, c in counts.items():
             entry[f"launches_{d}"] = c[name]
-        for d in ("train_flash", "llama_train"):
+        for d in ("train_flash", "llama_train", "bert_train"):
             entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
+        entry["launches_per_forward_ernie_eval"] = \
+            counts["ernie_eval"][name] // ERNIE_FORWARDS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
@@ -1864,11 +2181,27 @@ def main():
         "pool, 16 requests x 64 tokens")
     int8_counts, int8_serving, _ = phase_serving(
         pt, ops, int8=True, base=dict(serving, generated=serve_tokens))
+    free_device_memory()
+
+    say("[14] BERT training parity: BERT-base width, 2 layers, f32, "
+        "dropout 0, 3 AdamW steps, CUDA vs CPU")
+    bert_parity = phase_bert_train_parity(pt, ops)
+    free_device_memory()
+
+    say("[15] BERT training: bench_bert recipe, BERT-base MLM, bf16 O1, "
+        "dropout 0.1, AdamW, B=64 S=128")
+    bert_counts, bert_training = phase_bert_training(pt, ops)
+    free_device_memory()
+
+    say("[16] ERNIE: parity at ErnieConfig width, 2 layers, f32, eval; "
+        "ErnieForSequenceClassification bf16 forward, B=64 S=128")
+    ernie_counts, ernie = phase_ernie(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
                   llama_train=llama_train_counts,
-                  llama_gen=llama_gen_counts, serve_int8=int8_counts)
+                  llama_gen=llama_gen_counts, serve_int8=int8_counts,
+                  bert_train=bert_counts, ernie_eval=ernie_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -1878,7 +2211,9 @@ def main():
                     "llama_training_parity": llama_parity,
                     "llama_training": llama_training,
                     "llama_generate": llama_generate,
-                    "int8_serving": int8_serving}))
+                    "int8_serving": int8_serving,
+                    "bert_training_parity": bert_parity,
+                    "bert_training": bert_training, "ernie": ernie}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package ``paddle_tpu`` stays the reference; this package serves
-and trains the same GPT and LLaMA models on an NVIDIA H100 through
-kernels written by hand in CUDA C++ for Hopper (``csrc/``), each with a
-plain PyTorch version that the CPU runs.  It imports torch and numpy,
+and trains the same GPT, LLaMA, BERT and ERNIE models on an NVIDIA H100
+through kernels written by hand in CUDA C++ for Hopper (``csrc/``), each
+with a plain PyTorch version that the CPU runs.  It imports torch and numpy,
 never JAX and never ``paddle_tpu``.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
 
@@ -28,17 +28,27 @@ Ported so far (see ``ops`` for the kernels):
   Linears through the int8 matmul-epilogue kernel) and the int8 paged
   KV cache (per-slot scales, the int8 ragged-attention kernel), both
   selected by ``GenerationEngine(weight_dtype="int8",
-  kv_cache_dtype="int8")``.
+  kv_cache_dtype="int8")``;
+* BERT and ERNIE: ``models.bert`` (``BertForMaskedLM``, trained with
+  attention and hidden dropout) and ``models.ernie`` (``ErnieModel`` with
+  its tanh pooler, the MLM and sequence-classification heads), whose
+  post-norm layers add the residual inside the fused residual layer-norm
+  kernel, and whose attention runs the flash kernels without causality
+  in eval (with dropout, the composite).
 """
 from . import amp, distributed, nn, optimizer, quantization
 from .convert import load_reference_state
+from .models.bert import BertConfig, BertForMaskedLM
+from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
+                           ErnieForSequenceClassification)
 from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion)
 from .models.llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM
 from .inference.serving import GenerationEngine
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
-           "load_reference_state",
-           "GPT_1P3B",
+           "load_reference_state", "BertConfig", "BertForMaskedLM",
+           "ErnieConfig", "ErnieForMaskedLM",
+           "ErnieForSequenceClassification", "GPT_1P3B",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "GenerationEngine"]

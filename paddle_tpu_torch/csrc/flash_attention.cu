@@ -36,22 +36,28 @@
 // Design, kept simple and right first.  Blocks run in parallel in no
 // order, so the TPU grid's sequential axis becomes a loop inside the
 // block:
-//  * forward and dq: one block of 256 threads per (b*h, 64-row q tile)
-//    walks the 64-row key tiles up to the causal limit (whole tiles past
-//    it are skipped).  Q (and dout) are staged once, transposed, as f32;
-//    each key tile is staged as f32 in shared memory.  A thread owns a
-//    4x4 block of the 64x64 score tile (four rows, four columns) and
-//    4 rows x D/16 columns of the output accumulator, so the running
-//    max and sum of a row live in the 16 threads of a half-warp and are
-//    reduced with shuffles.  Products read 16-byte vectors from shared
-//    memory; transposed tiles are padded to 68 floats a row.
-//  * dk/dv: one block per (b*h, 64-row key tile) walks the 32-row query
-//    tiles from the first one that can see it, and keeps dk and dv in
-//    registers: the sums over query tiles happen inside one block, in a
-//    fixed order, with no atomics, so they are the same on every run.
-// head_dim up to 128 (instantiated for 64 and 128; a smaller D is
-// zero-padded in shared memory); any Sq and Sk, Sq = 1 and Sq > Sk
-// included.
+//  * forward and dq: one block of 256 threads per (b*h, q tile) walks
+//    the key tiles up to the causal limit (whole tiles past it are
+//    skipped).  Q (and dout) are staged once, transposed, as f32; each
+//    key tile is staged as f32 in shared memory.  The 256 threads form a
+//    16 x 16 grid over the score tile: a thread owns tile/16 of its rows
+//    and of its columns (4 x 4 of a 64 x 64 tile) and those rows x D/16
+//    columns of the output accumulator, so the running max and sum of a
+//    row live in the 16 threads of a half-warp and are reduced with
+//    shuffles.  Products read 8- or 16-byte vectors from shared memory;
+//    transposed tiles are padded by 4 floats a row.
+//  * dk/dv: one block per (b*h, key tile) walks the query tiles from the
+//    first one that can see it, and keeps dk and dv in registers: the
+//    sums over query tiles happen inside one block, in a fixed order,
+//    with no atomics, so they are the same on every run.
+// Tiles (`Tiles`): up to head_dim 128 the q and key tiles are 64 rows
+// (dk/dv steps through 32 query rows); at 256 f32 staging would need
+// ~223 KB (forward), ~360 KB (dq) and ~300 KB (dk/dv) of shared memory,
+// past the 227 KB a block may have, so there the q tile is 32 rows, dq's
+// key tile 32, and dk/dv owns 32 keys and steps through 16 query rows
+// (~180, ~185 and ~150 KB).  head_dim up to 256 (instantiated for 64,
+// 128 and 256; a smaller D is zero-padded in shared memory); any Sq and
+// Sk, Sq = 1 and Sq > Sk included.
 #include <cstdint>
 
 #include "common.cuh"
@@ -60,10 +66,17 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the TPU kernel's _NEG_INF
 constexpr int kThreads = 256;      // 16 x 16
-constexpr int kTile = 64;          // q rows (fwd, dq) / k rows (dkv) a block
-constexpr int kLd = kTile + 4;     // row length of a transposed 64-tile
-constexpr int kQStep = 32;         // q rows per step of the dk/dv loop
-constexpr int kLdQ = kQStep + 4;   // row length of a transposed 32-tile
+
+// Rows of each tile, by padded head width (see the design note).
+template <int kD>
+struct Tiles {
+  static constexpr int fwd_q = kD > 128 ? 32 : 64;   // fwd q rows a block
+  static constexpr int fwd_k = 64;                   // fwd key tile
+  static constexpr int dq_q = kD > 128 ? 32 : 64;    // dq q rows a block
+  static constexpr int dq_k = kD > 128 ? 32 : 64;    // dq key tile
+  static constexpr int dkv_k = kD > 128 ? 32 : 64;   // keys a dk/dv block
+  static constexpr int dkv_q = kD > 128 ? 16 : 32;   // q rows a dk/dv step
+};
 
 // (batch, seq, head) strides of one [B, S, H, D] operand, in elements
 struct View {
@@ -102,12 +115,26 @@ __device__ __forceinline__ void stage_r(float* __restrict__ dst, int ld,
   }
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// N consecutive floats of shared memory (N-float aligned) in one load.
+template <int N>
+__device__ __forceinline__ void ldn(float (&a)[N], const float* p);
+template <>
+__device__ __forceinline__ void ldn<4>(float (&a)[4], const float* p) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+  a[2] = v.z;
+  a[3] = v.w;
 }
-
-__device__ __forceinline__ float at(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+template <>
+__device__ __forceinline__ void ldn<2>(float (&a)[2], const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  a[0] = v.x;
+  a[1] = v.y;
+}
+template <>
+__device__ __forceinline__ void ldn<1>(float (&a)[1], const float* p) {
+  a[0] = *p;
 }
 
 // Max / sum over the 16 threads of a half-warp (the threads of one row).
@@ -123,22 +150,24 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// a[4] x b[4] outer products summed over `depth`: aT and bT are
-// transposed tiles ([depth][ld]); the thread's rows start at ra, its
-// columns at cb.
-template <int kDepth>
-__device__ __forceinline__ void dot_tile(float (&s)[4][4],
+// a[kR] x b[kC] outer products summed over `kDepth`: aT and bT are
+// transposed tiles ([depth][lda], [depth][ldb]); the thread's rows start
+// at ra, its columns at cb.
+template <int kDepth, int kR, int kC>
+__device__ __forceinline__ void dot_tile(float (&s)[kR][kC],
                                          const float* __restrict__ aT,
+                                         int lda,
                                          const float* __restrict__ bT,
-                                         int ra, int cb) {
+                                         int ldb, int ra, int cb) {
 #pragma unroll 8
   for (int d = 0; d < kDepth; ++d) {
-    const float4 a = ld4(aT + d * kLd + ra);
-    const float4 b = ld4(bT + d * kLd + cb);
+    float a[kR], b[kC];
+    ldn<kR>(a, aT + d * lda + ra);
+    ldn<kC>(b, bT + d * ldb + cb);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(at(a, i), at(b, j), s[i][j]);
+      for (int j = 0; j < kC; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
 }
 
@@ -147,13 +176,14 @@ __device__ __forceinline__ bool visible(int r, int c, int Sq, int Sk,
   return r < Sq && c < Sk && (!causal || c <= r + offset);
 }
 
-// Key tiles a q tile starting at q0 needs: up to the causal limit of its
-// last row, and never past Sk.
+// Key tiles of `kTK` rows a q tile of `kTQ` rows starting at q0 needs: up
+// to the causal limit of its last row, and never past Sk.
+template <int kTQ, int kTK>
 __device__ __forceinline__ int key_tiles(int q0, int Sk, int causal,
                                          int offset) {
   int end = Sk;
-  if (causal) end = min(Sk, max(q0 + kTile + offset, 0));
-  return (end + kTile - 1) / kTile;
+  if (causal) end = min(Sk, max(q0 + kTQ + offset, 0));
+  return (end + kTK - 1) / kTK;
 }
 
 // ---------------------------------------------------------------------
@@ -165,49 +195,51 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v, T* __restrict__ out,
                      float* __restrict__ lse, int H, int Sq, int Sk, int D,
                      View qv, View kv, View vv, float scale, int causal) {
-  constexpr int kLdV = kD + 4;
+  constexpr int kTQ = Tiles<kD>::fwd_q, kTK = Tiles<kD>::fwd_k;
+  constexpr int kR = kTQ / 16, kC = kTK / 16;  // score rows, cols a thread
+  constexpr int kLdQ = kTQ + 4, kLdK = kTK + 4, kLdV = kD + 4;
   constexpr int kCols = kD / 64;  // float4 column groups a thread owns
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);  // [kD][kLd]
-  float* kT = qT + kD * kLd;                    // [kD][kLd]
-  float* vS = kT + kD * kLd;                    // [kTile][kLdV]
-  float* pT = vS + kTile * kLdV;                // [kTile][kLd]: pT[c][r]
+  float* qT = reinterpret_cast<float*>(smem4);  // [kD][kLdQ]
+  float* kT = qT + kD * kLdQ;                   // [kD][kLdK]
+  float* vS = kT + kD * kLdK;                   // [kTK][kLdV]
+  float* pT = vS + kTK * kLdV;                  // [kTK][kLdQ]: pT[c][r]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kTQ;
   const int offset = Sk - Sq;
   const T* qp = q + b * qv.b + h * qv.h;
   const T* kp = k + b * kv.b + h * kv.h;
   const T* vp = v + b * vv.b + h * vv.h;
 
-  stage_t<T, kD, kTile>(qT, kLd, qp, qv.s, q0, Sq, D);
-  float m[4], l[4], acc[4][kCols * 4];
+  stage_t<T, kD, kTQ>(qT, kLdQ, qp, qv.s, q0, Sq, D);
+  float m[kR], l[kR], acc[kR][kCols * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < kR; ++i) {
     m[i] = kNegInf;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < kCols * 4; ++j) acc[i][j] = 0.f;
   }
 
-  const int ntiles = key_tiles(q0, Sk, causal, offset);
+  const int ntiles = key_tiles<kTQ, kTK>(q0, Sk, causal, offset);
   for (int t = 0; t < ntiles; ++t) {
-    const int c0 = t * kTile;
+    const int c0 = t * kTK;
     __syncthreads();  // the last tile's readers are done
-    stage_t<T, kD, kTile>(kT, kLd, kp, kv.s, c0, Sk, D);
-    stage_r<T, kD, kTile>(vS, kLdV, vp, vv.s, c0, Sk, D);
+    stage_t<T, kD, kTK>(kT, kLdK, kp, kv.s, c0, Sk, D);
+    stage_r<T, kD, kTK>(vS, kLdV, vp, vv.s, c0, Sk, D);
     __syncthreads();
 
-    float s[4][4] = {};
-    dot_tile<kD>(s, qT, kT, ty * 4, tx * 4);
+    float s[kR][kC] = {};
+    dot_tile<kD, kR, kC>(s, qT, kLdQ, kT, kLdK, ty * kR, tx * kC);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+    for (int i = 0; i < kR; ++i) {
+      const int r = q0 + ty * kR + i;
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + tx * 4 + j;
+      for (int j = 0; j < kC; ++j) {
+        const int c = c0 + tx * kC + j;
         s[i][j] = visible(r, c, Sq, Sk, causal, offset) ? s[i][j] * scale
                                                         : -INFINITY;
         mx = fmaxf(mx, s[i][j]);
@@ -215,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
       const float m_new = fmaxf(m[i], row_max(mx));
       float psum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kC; ++j) {
         // masked columns give exactly 0: for a row with nothing visible
         // yet, s - m_new would be 0, not -inf
         const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_new);
@@ -229,30 +261,32 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < kCols * 4; ++j) acc[i][j] *= alpha;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        pT[(tx * 4 + j) * kLd + ty * 4 + i] = s[i][j];
+      for (int j = 0; j < kC; ++j)
+        pT[(tx * kC + j) * kLdQ + ty * kR + i] = s[i][j];
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float4 p = ld4(pT + c * kLd + ty * 4);
+    for (int c = 0; c < kTK; ++c) {
+      float p[kR];
+      ldn<kR>(p, pT + c * kLdQ + ty * kR);
 #pragma unroll
       for (int g = 0; g < kCols; ++g) {
-        const float4 vv4 = ld4(vS + c * kLdV + g * 64 + tx * 4);
+        float vv4[4];
+        ldn<4>(vv4, vS + c * kLdV + g * 64 + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(at(p, i), at(vv4, j), acc[i][g * 4 + j]);
+            acc[i][g * 4 + j] = fmaf(p[i], vv4[j], acc[i][g * 4 + j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int r = q0 + ty * kR + i;
     if (r >= Sq) continue;
     const float ls = l[i] == 0.f ? 1.f : l[i];
     T* orow = out + ((static_cast<size_t>(b) * Sq + r) * H + h) * D;
@@ -280,30 +314,32 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int H, int Sq, int Sk, int D, View qv, View kv,
                         View vv, View dov, float scale, int causal) {
-  constexpr int kLdK = kD + 4;
+  constexpr int kTQ = Tiles<kD>::dq_q, kTK = Tiles<kD>::dq_k;
+  constexpr int kR = kTQ / 16, kC = kTK / 16;
+  constexpr int kLdQ = kTQ + 4, kLdK = kTK + 4, kLdKS = kD + 4;
   constexpr int kCols = kD / 64;
   extern __shared__ float4 smem4[];
-  float* qT = reinterpret_cast<float*>(smem4);  // [kD][kLd]
-  float* doT = qT + kD * kLd;                   // [kD][kLd]
-  float* kT = doT + kD * kLd;                   // [kD][kLd]
-  float* vT = kT + kD * kLd;                    // [kD][kLd]
-  float* kS = vT + kD * kLd;                    // [kTile][kLdK]
-  float* dsT = kS + kTile * kLdK;               // [kTile][kLd]: dsT[c][r]
+  float* qT = reinterpret_cast<float*>(smem4);  // [kD][kLdQ]
+  float* doT = qT + kD * kLdQ;                  // [kD][kLdQ]
+  float* kT = doT + kD * kLdQ;                  // [kD][kLdK]
+  float* vT = kT + kD * kLdK;                   // [kD][kLdK]
+  float* kS = vT + kD * kLdK;                   // [kTK][kLdKS]
+  float* dsT = kS + kTK * kLdKS;                // [kTK][kLdQ]: dsT[c][r]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kTile;
+  const int q0 = blockIdx.x * kTQ;
   const int offset = Sk - Sq;
   const T* kp = k + b * kv.b + h * kv.h;
   const T* vp = v + b * vv.b + h * vv.h;
 
-  stage_t<T, kD, kTile>(qT, kLd, q + b * qv.b + h * qv.h, qv.s, q0, Sq, D);
-  stage_t<T, kD, kTile>(doT, kLd, dout + b * dov.b + h * dov.h, dov.s, q0,
-                        Sq, D);
-  float row_lse[4], row_delta[4], acc[4][kCols * 4];
+  stage_t<T, kD, kTQ>(qT, kLdQ, q + b * qv.b + h * qv.h, qv.s, q0, Sq, D);
+  stage_t<T, kD, kTQ>(doT, kLdQ, dout + b * dov.b + h * dov.h, dov.s, q0,
+                      Sq, D);
+  float row_lse[kR], row_delta[kR], acc[kR][kCols * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int r = q0 + ty * kR + i;
     const size_t idx = static_cast<size_t>(bh) * Sq + r;
     row_lse[i] = r < Sq ? lse[idx] : 1e30f;
     row_delta[i] = r < Sq ? delta[idx] : 0.f;
@@ -311,49 +347,51 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < kCols * 4; ++j) acc[i][j] = 0.f;
   }
 
-  const int ntiles = key_tiles(q0, Sk, causal, offset);
+  const int ntiles = key_tiles<kTQ, kTK>(q0, Sk, causal, offset);
   for (int t = 0; t < ntiles; ++t) {
-    const int c0 = t * kTile;
+    const int c0 = t * kTK;
     __syncthreads();
-    stage_t<T, kD, kTile>(kT, kLd, kp, kv.s, c0, Sk, D);
-    stage_t<T, kD, kTile>(vT, kLd, vp, vv.s, c0, Sk, D);
-    stage_r<T, kD, kTile>(kS, kLdK, kp, kv.s, c0, Sk, D);
+    stage_t<T, kD, kTK>(kT, kLdK, kp, kv.s, c0, Sk, D);
+    stage_t<T, kD, kTK>(vT, kLdK, vp, vv.s, c0, Sk, D);
+    stage_r<T, kD, kTK>(kS, kLdKS, kp, kv.s, c0, Sk, D);
     __syncthreads();
 
-    float s[4][4] = {}, dp[4][4] = {};
-    dot_tile<kD>(s, qT, kT, ty * 4, tx * 4);
-    dot_tile<kD>(dp, doT, vT, ty * 4, tx * 4);
+    float s[kR][kC] = {}, dp[kR][kC] = {};
+    dot_tile<kD, kR, kC>(s, qT, kLdQ, kT, kLdK, ty * kR, tx * kC);
+    dot_tile<kD, kR, kC>(dp, doT, kLdQ, vT, kLdK, ty * kR, tx * kC);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = q0 + ty * 4 + i, c = c0 + tx * 4 + j;
+      for (int j = 0; j < kC; ++j) {
+        const int r = q0 + ty * kR + i, c = c0 + tx * kC + j;
         const float p = visible(r, c, Sq, Sk, causal, offset)
                             ? expf(s[i][j] * scale - row_lse[i])
                             : 0.f;
-        dsT[(tx * 4 + j) * kLd + ty * 4 + i] =
+        dsT[(tx * kC + j) * kLdQ + ty * kR + i] =
             p * (dp[i][j] - row_delta[i]) * scale;
       }
     __syncthreads();
 
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      const float4 ds = ld4(dsT + c * kLd + ty * 4);
+    for (int c = 0; c < kTK; ++c) {
+      float ds[kR];
+      ldn<kR>(ds, dsT + c * kLdQ + ty * kR);
 #pragma unroll
       for (int g = 0; g < kCols; ++g) {
-        const float4 kk = ld4(kS + c * kLdK + g * 64 + tx * 4);
+        float kk[4];
+        ldn<4>(kk, kS + c * kLdKS + g * 64 + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            acc[i][g * 4 + j] = fmaf(at(ds, i), at(kk, j), acc[i][g * 4 + j]);
+            acc[i][g * 4 + j] = fmaf(ds[i], kk[j], acc[i][g * 4 + j]);
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int r = q0 + ty * kR + i;
     if (r >= Sq) continue;
     T* row = dq + ((static_cast<size_t>(b) * Sq + r) * H + h) * D;
 #pragma unroll
@@ -378,108 +416,109 @@ __global__ void __launch_bounds__(kThreads)
                          T* __restrict__ dk, T* __restrict__ dv, int H,
                          int Sq, int Sk, int D, View qv, View kv, View vv,
                          View dov, float scale, int causal) {
-  constexpr int kLdR = kD + 4;
+  constexpr int kTK = Tiles<kD>::dkv_k, kQS = Tiles<kD>::dkv_q;
+  constexpr int kR = kTK / 16, kC = kQS / 16;  // keys, queries a thread
+  constexpr int kLdK = kTK + 4, kLdQ = kQS + 4, kLdR = kD + 4;
   constexpr int kCols = kD / 64;
   extern __shared__ float4 smem4[];
-  float* kT = reinterpret_cast<float*>(smem4);  // [kD][kLd]
-  float* vT = kT + kD * kLd;                    // [kD][kLd]
-  float* qT = vT + kD * kLd;                    // [kD][kLdQ]
+  float* kT = reinterpret_cast<float*>(smem4);  // [kD][kLdK]
+  float* vT = kT + kD * kLdK;                   // [kD][kLdK]
+  float* qT = vT + kD * kLdK;                   // [kD][kLdQ]
   float* doT = qT + kD * kLdQ;                  // [kD][kLdQ]
-  float* qS = doT + kD * kLdQ;                  // [kQStep][kLdR]
-  float* doS = qS + kQStep * kLdR;              // [kQStep][kLdR]
-  float* pS = doS + kQStep * kLdR;              // [kQStep][kLd]: pS[r][c]
-  float* dsS = pS + kQStep * kLd;               // [kQStep][kLd]
-  float* lseS = dsS + kQStep * kLd;             // [kQStep]
-  float* deltaS = lseS + kQStep;                // [kQStep]
+  float* qS = doT + kD * kLdQ;                  // [kQS][kLdR]
+  float* doS = qS + kQS * kLdR;                 // [kQS][kLdR]
+  float* pS = doS + kQS * kLdR;                 // [kQS][kLdK]: pS[r][c]
+  float* dsS = pS + kQS * kLdK;                 // [kQS][kLdK]
+  float* lseS = dsS + kQS * kLdK;               // [kQS]
+  float* deltaS = lseS + kQS;                   // [kQS]
 
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kTile;
+  const int k0 = blockIdx.x * kTK;
   const int offset = Sk - Sq;
   const T* qp = q + b * qv.b + h * qv.h;
   const T* dop = dout + b * dov.b + h * dov.h;
 
-  stage_t<T, kD, kTile>(kT, kLd, k + b * kv.b + h * kv.h, kv.s, k0, Sk, D);
-  stage_t<T, kD, kTile>(vT, kLd, v + b * vv.b + h * vv.h, vv.s, k0, Sk, D);
-  float dk_acc[4][kCols * 4], dv_acc[4][kCols * 4];
+  stage_t<T, kD, kTK>(kT, kLdK, k + b * kv.b + h * kv.h, kv.s, k0, Sk, D);
+  stage_t<T, kD, kTK>(vT, kLdK, v + b * vv.b + h * vv.h, vv.s, k0, Sk, D);
+  float dk_acc[kR][kCols * 4], dv_acc[kR][kCols * 4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < kR; ++i)
 #pragma unroll
     for (int j = 0; j < kCols * 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
   // the first q row that can see this key tile: r >= k0 - offset
-  const int first = causal ? max(k0 - offset, 0) / kQStep : 0;
-  const int nsteps = (Sq + kQStep - 1) / kQStep;
+  const int first = causal ? max(k0 - offset, 0) / kQS : 0;
+  const int nsteps = (Sq + kQS - 1) / kQS;
   for (int t = first; t < nsteps; ++t) {
-    const int r0 = t * kQStep;
+    const int r0 = t * kQS;
     __syncthreads();
-    stage_t<T, kD, kQStep>(qT, kLdQ, qp, qv.s, r0, Sq, D);
-    stage_t<T, kD, kQStep>(doT, kLdQ, dop, dov.s, r0, Sq, D);
-    stage_r<T, kD, kQStep>(qS, kLdR, qp, qv.s, r0, Sq, D);
-    stage_r<T, kD, kQStep>(doS, kLdR, dop, dov.s, r0, Sq, D);
-    for (int r = threadIdx.x; r < kQStep; r += kThreads) {
+    stage_t<T, kD, kQS>(qT, kLdQ, qp, qv.s, r0, Sq, D);
+    stage_t<T, kD, kQS>(doT, kLdQ, dop, dov.s, r0, Sq, D);
+    stage_r<T, kD, kQS>(qS, kLdR, qp, qv.s, r0, Sq, D);
+    stage_r<T, kD, kQS>(doS, kLdR, dop, dov.s, r0, Sq, D);
+    for (int r = threadIdx.x; r < kQS; r += kThreads) {
       const size_t idx = static_cast<size_t>(bh) * Sq + r0 + r;
       lseS[r] = r0 + r < Sq ? lse[idx] : 1e30f;
       deltaS[r] = r0 + r < Sq ? delta[idx] : 0.f;
     }
     __syncthreads();
 
-    // transposed scores: rows are this block's keys (ty*4 + i), columns
-    // the step's queries (tx*2 + j)
-    float s[4][2] = {}, dp[4][2] = {};
+    // transposed scores: rows are this block's keys (ty*kR + i), columns
+    // the step's queries (tx*kC + j)
+    float s[kR][kC] = {}, dp[kR][kC] = {};
 #pragma unroll 8
     for (int d = 0; d < kD; ++d) {
-      const float4 kk = ld4(kT + d * kLd + ty * 4);
-      const float4 vv4 = ld4(vT + d * kLd + ty * 4);
-      const float2 qq =
-          *reinterpret_cast<const float2*>(qT + d * kLdQ + tx * 2);
-      const float2 gg =
-          *reinterpret_cast<const float2*>(doT + d * kLdQ + tx * 2);
+      float kk[kR], vv[kR], qq[kC], gg[kC];
+      ldn<kR>(kk, kT + d * kLdK + ty * kR);
+      ldn<kR>(vv, vT + d * kLdK + ty * kR);
+      ldn<kC>(qq, qT + d * kLdQ + tx * kC);
+      ldn<kC>(gg, doT + d * kLdQ + tx * kC);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = fmaf(at(kk, i), qq.x, s[i][0]);
-        s[i][1] = fmaf(at(kk, i), qq.y, s[i][1]);
-        dp[i][0] = fmaf(at(vv4, i), gg.x, dp[i][0]);
-        dp[i][1] = fmaf(at(vv4, i), gg.y, dp[i][1]);
-      }
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          s[i][j] = fmaf(kk[i], qq[j], s[i][j]);
+          dp[i][j] = fmaf(vv[i], gg[j], dp[i][j]);
+        }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < kR; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = k0 + ty * 4 + i, rl = tx * 2 + j;
+      for (int j = 0; j < kC; ++j) {
+        const int c = k0 + ty * kR + i, rl = tx * kC + j;
         const float p = visible(r0 + rl, c, Sq, Sk, causal, offset)
                             ? expf(s[i][j] * scale - lseS[rl])
                             : 0.f;
-        pS[rl * kLd + ty * 4 + i] = p;
-        dsS[rl * kLd + ty * 4 + i] = p * (dp[i][j] - deltaS[rl]) * scale;
+        pS[rl * kLdK + ty * kR + i] = p;
+        dsS[rl * kLdK + ty * kR + i] = p * (dp[i][j] - deltaS[rl]) * scale;
       }
     __syncthreads();
 
 #pragma unroll 4
-    for (int r = 0; r < kQStep; ++r) {
-      const float4 p = ld4(pS + r * kLd + ty * 4);
-      const float4 ds = ld4(dsS + r * kLd + ty * 4);
+    for (int r = 0; r < kQS; ++r) {
+      float p[kR], ds[kR];
+      ldn<kR>(p, pS + r * kLdK + ty * kR);
+      ldn<kR>(ds, dsS + r * kLdK + ty * kR);
 #pragma unroll
       for (int g = 0; g < kCols; ++g) {
-        const float4 gg = ld4(doS + r * kLdR + g * 64 + tx * 4);
-        const float4 qq = ld4(qS + r * kLdR + g * 64 + tx * 4);
+        float gg[4], qq[4];
+        ldn<4>(gg, doS + r * kLdR + g * 64 + tx * 4);
+        ldn<4>(qq, qS + r * kLdR + g * 64 + tx * 4);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < kR; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            dv_acc[i][g * 4 + j] =
-                fmaf(at(p, i), at(gg, j), dv_acc[i][g * 4 + j]);
-            dk_acc[i][g * 4 + j] =
-                fmaf(at(ds, i), at(qq, j), dk_acc[i][g * 4 + j]);
+            dv_acc[i][g * 4 + j] = fmaf(p[i], gg[j], dv_acc[i][g * 4 + j]);
+            dk_acc[i][g * 4 + j] = fmaf(ds[i], qq[j], dk_acc[i][g * 4 + j]);
           }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty * 4 + i;
+  for (int i = 0; i < kR; ++i) {
+    const int c = k0 + ty * kR + i;
     if (c >= Sk) continue;
     const size_t base = ((static_cast<size_t>(b) * Sk + c) * H + h) * D;
 #pragma unroll
@@ -500,18 +539,26 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------
 template <int kD>
 constexpr size_t fwd_smem() {
-  return sizeof(float) * (2 * kD * kLd + kTile * (kD + 4) + kTile * kLd);
+  constexpr int q = Tiles<kD>::fwd_q, k = Tiles<kD>::fwd_k;
+  return sizeof(float) *
+         (kD * (q + 4) + kD * (k + 4) + k * (kD + 4) + k * (q + 4));
 }
 template <int kD>
 constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * kD * kLd + kTile * (kD + 4) + kTile * kLd);
+  constexpr int q = Tiles<kD>::dq_q, k = Tiles<kD>::dq_k;
+  return sizeof(float) * (2 * kD * (q + 4) + 2 * kD * (k + 4) +
+                          k * (kD + 4) + k * (q + 4));
 }
 template <int kD>
 constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kD * kLd + 2 * kD * kLdQ +
-                          2 * kQStep * (kD + 4) + 2 * kQStep * kLd +
-                          2 * kQStep);
+  constexpr int k = Tiles<kD>::dkv_k, q = Tiles<kD>::dkv_q;
+  return sizeof(float) * (2 * kD * (k + 4) + 2 * kD * (q + 4) +
+                          2 * q * (kD + 4) + 2 * q * (k + 4) + 2 * q);
 }
+static_assert(fwd_smem<256>() <= 227 * 1024 && dq_smem<256>() <= 227 * 1024 &&
+                  dkv_smem<256>() <= 227 * 1024,
+              "a D=256 flash kernel needs more shared memory than a block "
+              "may have");
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -528,10 +575,11 @@ template <typename T, int kD>
 int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         int B, int H, int Sq, int Sk, int D, const long long* st,
         float scale, int causal, cudaStream_t s) {
+  constexpr int kTQ = Tiles<kD>::fwd_q;
   const size_t smem = fwd_smem<kD>();
   cudaError_t err = allow_smem(flash_fwd_kernel<T, kD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
+  const dim3 grid((Sq + kTQ - 1) / kTQ, B * H);
   flash_fwd_kernel<T, kD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, H, Sq, Sk, D,
@@ -544,10 +592,11 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, int B, int H,
            int Sq, int Sk, int D, const long long* st, float scale,
            int causal, cudaStream_t s) {
+  constexpr int kTQ = Tiles<kD>::dq_q;
   const size_t smem = dq_smem<kD>();
   cudaError_t err = allow_smem(flash_bwd_dq_kernel<T, kD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sq + kTile - 1) / kTile, B * H);
+  const dim3 grid((Sq + kTQ - 1) / kTQ, B * H);
   flash_bwd_dq_kernel<T, kD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -561,10 +610,11 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
             const float* lse, const float* delta, void* dk, void* dv, int B,
             int H, int Sq, int Sk, int D, const long long* st, float scale,
             int causal, cudaStream_t s) {
+  constexpr int kTK = Tiles<kD>::dkv_k;
   const size_t smem = dkv_smem<kD>();
   cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T, kD>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Sk + kTile - 1) / kTile, B * H);
+  const dim3 grid((Sk + kTK - 1) / kTK, B * H);
   flash_bwd_dkv_kernel<T, kD><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
@@ -573,16 +623,17 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pick the element type and the padded head width (64 or 128).
+// Pick the element type and the padded head width (64, 128 or 256).
+#define PTT_FLASH_WIDTH(T, FN, ...)                                       \
+  (D <= 64 ? FN<T, 64>(__VA_ARGS__)                                       \
+           : D <= 128 ? FN<T, 128>(__VA_ARGS__) : FN<T, 256>(__VA_ARGS__))
 #define PTT_FLASH_DISPATCH(FN, ...)                                         \
   do {                                                                      \
-    if (D < 1 || D > 128) return static_cast<int>(cudaErrorInvalidValue);   \
+    if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);   \
     if (dtype == PTT_DTYPE_F32)                                             \
-      return D <= 64 ? FN<float, 64>(__VA_ARGS__)                           \
-                     : FN<float, 128>(__VA_ARGS__);                         \
+      return PTT_FLASH_WIDTH(float, FN, __VA_ARGS__);                       \
     if (dtype == PTT_DTYPE_BF16)                                            \
-      return D <= 64 ? FN<__nv_bfloat16, 64>(__VA_ARGS__)                   \
-                     : FN<__nv_bfloat16, 128>(__VA_ARGS__);                 \
+      return PTT_FLASH_WIDTH(__nv_bfloat16, FN, __VA_ARGS__);               \
     return static_cast<int>(cudaErrorInvalidValue);                         \
   } while (0)
 

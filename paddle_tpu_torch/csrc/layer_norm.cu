@@ -1,4 +1,5 @@
-// Layer norm forward over the last dimension, with saved statistics.
+// Layer norm forward over the last dimension, with saved statistics; the
+// fused residual add + layer norm forward; the layer-norm backward.
 //
 // Replaces: paddle_tpu/ops/pallas_kernels.py `_ln_fwd_kernel` (:522,
 // called at :575), the row-blocked Pallas layer norm that keeps its
@@ -53,6 +54,79 @@ __global__ void __launch_bounds__(256)
     mu_out[row] = mu;
     rstd_out[row] = rstd;
   }
+}
+
+// ---- residual add + layer norm, forward ---------------------------------
+// Replaces: paddle_tpu/ops/pallas_fused.py `_ln_res_fwd_kernel` (:101,
+// driven by `_fused_ln_residual_2d_fwd` :126), the post-norm sublayer
+// epilogue of BERT and ERNIE: s = x + r added in f32 and stored in x's
+// type; out = (s - mean) * rstd * gamma + beta from the f32 sum, cast
+// once; mean and rstd saved in f32.  Its backward is the layer-norm
+// backward below run on the saved s (pallas_fused.py:160-195).
+//
+// What bounds it on the H100: bytes.  Four [rows, N] streams (x and r
+// read, out and s written) at ~10 flops per element.
+//
+// Design: layer_norm_fwd_kernel's, one block of 256 threads per row with
+// scalar loads, neighbouring threads on neighbouring addresses.  The
+// first pass adds x and r in f32, writes s and sums it; the second and
+// third passes re-read x and r (from L1: a BERT row is 3-6 KB) and add
+// them again, so the statistics and the output come from the f32 sum,
+// never from the stored s that a bf16 input rounds.  Device memory sees
+// each stream once.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    layer_norm_residual_fwd_kernel(
+        const T* __restrict__ x, const T* __restrict__ r,
+        const T* __restrict__ gamma, const T* __restrict__ beta,
+        T* __restrict__ out, T* __restrict__ s_out,
+        float* __restrict__ mu_out, float* __restrict__ rstd_out, int n,
+        float eps) {
+  __shared__ float red[32];
+  const size_t off = static_cast<size_t>(blockIdx.x) * n;
+  const T* xr = x + off;
+  const T* rr = r + off;
+
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float s = ptt::to_float(xr[i]) + ptt::to_float(rr[i]);
+    s_out[off + i] = ptt::from_float<T>(s);
+    sum += s;
+  }
+  const float mu = ptt::block_sum(sum, red) / n;
+
+  float v = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = ptt::to_float(xr[i]) + ptt::to_float(rr[i]) - mu;
+    v += d * d;
+  }
+  const float var = ptt::block_sum(v, red) / n;
+  const float rstd = rsqrtf(var + eps);
+
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float shat =
+        (ptt::to_float(xr[i]) + ptt::to_float(rr[i]) - mu) * rstd;
+    out[off + i] = ptt::from_float<T>(shat * ptt::to_float(gamma[i]) +
+                                      ptt::to_float(beta[i]));
+  }
+  if (threadIdx.x == 0) {
+    mu_out[blockIdx.x] = mu;
+    rstd_out[blockIdx.x] = rstd;
+  }
+}
+
+template <typename T>
+cudaError_t layer_norm_residual_fwd(const void* x, const void* r,
+                                    const void* gamma, const void* beta,
+                                    void* out, void* s, void* mu, void* rstd,
+                                    int rows, int n, float eps,
+                                    cudaStream_t stream) {
+  layer_norm_residual_fwd_kernel<T><<<rows, 256, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(out), static_cast<T*>(s), static_cast<float*>(mu),
+      static_cast<float*>(rstd), n, eps);
+  return cudaGetLastError();
 }
 
 // ---- backward -----------------------------------------------------------
@@ -177,6 +251,31 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* gamma,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// x, r, out, s: [rows, n] of one dtype; gamma, beta: [n]; mu, rstd: f32
+// [rows].
+extern "C" int ptt_layer_norm_residual_fwd(const void* x, const void* r,
+                                           const void* gamma,
+                                           const void* beta, void* out,
+                                           void* s, void* mu, void* rstd,
+                                           int rows, int n, float eps,
+                                           int dtype, int device,
+                                           void* stream) {
+  const cudaError_t dev_err = cudaSetDevice(device);
+  if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == PTT_DTYPE_F32) {
+    e = layer_norm_residual_fwd<float>(x, r, gamma, beta, out, s, mu, rstd,
+                                       rows, n, eps, st);
+  } else if (dtype == PTT_DTYPE_BF16) {
+    e = layer_norm_residual_fwd<__nv_bfloat16>(x, r, gamma, beta, out, s,
+                                               mu, rstd, rows, n, eps, st);
+  } else {
+    e = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(e);
 }
 
 // partial: f32 scratch of 2 * nblk * n floats, 1 <= nblk <= rows.

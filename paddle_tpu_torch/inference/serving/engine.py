@@ -32,8 +32,15 @@ scales, under any compute dtype.  The step geometry (``block_q``)
 follows the compute dtype, not the pool's.
 
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-LoRA adapters, speculative decoding, SLO policies, the host KV tier, the
-prefill/decode roles, streaming, the step watchdog and load shedding.
+LoRA adapters (``enable_lora``, ``register_adapter``), speculative
+decoding, SLO policies, the host KV tier (``kv_tiering``,
+``kv_host_budget``), the prefill/decode roles and their handoff
+(``extract_request``, ``inject_request``), streaming (``open_stream``),
+the step watchdog (``step_deadline_ms``, ``clock``), load shedding
+(``shed_depth``) and the memory guard's resident (``resident_name``).
+Every constructor parameter and public method of the reference's engine
+exists here, so a caller meets that error rather than a ``TypeError`` or
+an ``AttributeError``.
 """
 from __future__ import annotations
 
@@ -145,18 +152,25 @@ class GenerationEngine:
     the model must live on the engine's device.
     """
 
-    def __init__(self, model, max_batch=None,
+    def __init__(self, model, config=None, max_batch=None,
                  block_size=None, num_blocks=None, max_model_len=None,
                  prefill_chunk=None, hbm_fraction=0.3, prefix_cache=None,
-                 speculative=None, slo=None, kv_cache_dtype=None,
+                 speculative=None, slo=None, step_deadline_ms=None,
+                 shed_depth=None, clock=None, kv_cache_dtype=None,
                  weight_dtype=None, role="colocated", kv_tiering=None,
-                 device=None):
+                 kv_host_budget=None, resident_name=None, device=None):
         if speculative is not None:
             raise _not_ported("speculative decoding")
         if slo is not None:
             raise _not_ported("SLO serving")
-        if kv_tiering:
+        if kv_tiering or kv_host_budget is not None:
             raise _not_ported("the host KV tier")
+        if step_deadline_ms is not None or clock is not None:
+            raise _not_ported("the step watchdog")
+        if shed_depth is not None:
+            raise _not_ported("load shedding")
+        if resident_name is not None:
+            raise _not_ported("the memory guard's KV resident")
         if role != "colocated":
             raise _not_ported(f"the {role!r} engine role")
         for var in _UNPORTED_ENV:
@@ -178,7 +192,7 @@ class GenerationEngine:
                              f"engine serves on {self.device}")
         if weight_dtype is not None:
             convert_to_int8(model)   # a no-op on converted layers
-        cfg = model.config
+        cfg = config or model.config
         self.model = model
         model.eval()
         head_dim = cfg.hidden_size // cfg.num_attention_heads
@@ -250,6 +264,35 @@ class GenerationEngine:
 
     def has_unfinished(self):
         return self.scheduler.has_work() or bool(self._pending)
+
+    def enable_lora(self, rank=8, alpha=None, targets=None, num_slots=None,
+                    budget=None):
+        raise _not_ported("LoRA adapters (enable_lora)")
+
+    def register_adapter(self, name, weights, alpha=None, rank=None):
+        raise _not_ported("LoRA adapters (register_adapter)")
+
+    def handoff_ready(self):
+        """Requests whose prompt K/V is complete and first token sampled:
+        what a prefill engine would hand to a decode engine (the
+        reference's engine.py:503-508)."""
+        return [r for r in self.scheduler.running
+                if not r.done and not r.prefilling and r.generated]
+
+    def extract_request(self, req):
+        raise _not_ported("the prefill/decode handoff (extract_request)")
+
+    def inject_request(self, req, length, payload, stream=None):
+        raise _not_ported("the prefill/decode handoff (inject_request)")
+
+    def open_stream(self, request_id):
+        raise _not_ported("streaming (open_stream)")
+
+    def close(self):
+        """The reference's close releases the speculative proposer, the
+        adapter store and the pool's memory-guard charge; the port has
+        none of them, so there is nothing to release, and the pool dies
+        with its last reference, as the reference's does."""
 
     def step(self):
         """One unified ragged step (admissions + at most one prefill

@@ -1,10 +1,16 @@
-"""Models of the port: GPT and LLaMA, and generation over their dense KV
-caches."""
+"""Models of the port: GPT and LLaMA, generation over their dense KV
+caches, and the BERT/ERNIE encoders."""
+from .bert import BertConfig, BertForMaskedLM, BertModel
+from .ernie import (ErnieConfig, ErnieForMaskedLM,
+                    ErnieForSequenceClassification, ErnieModel)
 from .generation import GenerationMixin, generate
 from .gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM, GPTModel,
                   GPTPretrainingCriterion)
 from .llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM, LlamaModel
 
-__all__ = ["GenerationMixin", "generate", "GPT_1P3B", "GPTConfig",
-           "GPTForCausalLM", "GPTModel", "GPTPretrainingCriterion",
-           "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "LlamaModel"]
+__all__ = ["BertConfig", "BertForMaskedLM", "BertModel", "ErnieConfig",
+           "ErnieForMaskedLM", "ErnieForSequenceClassification",
+           "ErnieModel", "GenerationMixin", "generate", "GPT_1P3B",
+           "GPTConfig", "GPTForCausalLM", "GPTModel",
+           "GPTPretrainingCriterion", "LLAMA_7B", "LlamaConfig",
+           "LlamaForCausalLM", "LlamaModel"]

@@ -1,4 +1,5 @@
-"""Layers, functionals and gradient clipping of the GPT and LLaMA paths."""
+"""Layers, functionals and gradient clipping of the GPT, LLaMA, BERT and
+ERNIE paths."""
 from . import functional
 from .clip import ClipGradByGlobalNorm
 from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,

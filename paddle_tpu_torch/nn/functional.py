@@ -1,19 +1,21 @@
-"""The functionals GPT and LLaMA serving and training call, on
-``torch.Tensor``.
+"""The functionals GPT, LLaMA, BERT and ERNIE serving and training call,
+on ``torch.Tensor``.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``linear_act`` :54, ``linear_act_int8`` :130, ``embedding`` :523,
 ``dropout``),
-``nn/functional/activation.py`` (``silu``),
-``nn/functional/norm.py`` (``layer_norm`` :22, ``rms_norm`` :103),
+``nn/functional/activation.py`` (``silu``, ``tanh``),
+``nn/functional/norm.py`` (``layer_norm`` :22,
+``fused_residual_layer_norm`` :58, ``rms_norm`` :103),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
 path), ``nn/functional/flash_attention.py``
 (``scaled_dot_product_attention`` :85 with its routing, the composite
 ``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
-``linear_act``, ``linear_act_int8``, ``rms_norm`` (with a weight),
-``cross_entropy`` and dense attention through its Pallas kernels; here
+``fused_residual_layer_norm``, ``linear_act``, ``linear_act_int8``,
+``rms_norm`` (with a weight), ``cross_entropy`` and dense attention
+without dropout through its Pallas kernels; here
 they call the port's kernel entry points (differentiable, but for the
 int8 epilogue), which take the plain versions for CPU tensors and launch
 the CUDA kernels (forward and backward) for CUDA tensors.  Plain GEMMs
@@ -32,9 +34,10 @@ from .. import ops
 from ..ops.tiles import NEG_INF
 
 __all__ = ["linear", "linear_act", "linear_act_int8", "matmul",
-           "embedding", "layer_norm",
-           "rms_norm", "silu", "dropout", "scaled_dot_product_attention",
-           "flash_attention", "sdp_kernel", "cross_entropy"]
+           "embedding", "layer_norm", "fused_residual_layer_norm",
+           "rms_norm", "silu", "tanh", "dropout",
+           "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
+           "cross_entropy"]
 
 
 def linear(x, weight, bias=None):
@@ -97,6 +100,27 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return ops.layer_norm(x.contiguous(), weight, bias, epsilon)
 
 
+def fused_residual_layer_norm(x, residual, normalized_shape, weight=None,
+                              bias=None, epsilon=1e-5):
+    """``layer_norm(x + residual)`` over the last dim with ``weight`` and
+    ``bias``, the post-norm sublayer epilogue (norm.py:58-99), through the
+    fused residual layer-norm kernel forward and the layer-norm backward
+    kernel on the saved sum.  The add runs in f32; ``x`` and the residual
+    share a dtype on the card.  It is on the O1 black list, so under
+    ``auto_cast`` it runs in f32.  Other forms (no affine parameters,
+    several axes) are not ported yet."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    if len(tuple(normalized_shape)) != 1 or weight is None or bias is None:
+        raise NotImplementedError(
+            "fused_residual_layer_norm without affine parameters or over "
+            "several axes is not ported yet")
+    x, residual, weight, bias = amp.cast_inputs(
+        "fused_residual_layer_norm", x, residual, weight, bias)
+    return ops.layer_norm_residual(x.contiguous(), residual.contiguous(),
+                                   weight, bias, epsilon)
+
+
 def rms_norm(x, weight=None, epsilon=1e-6):
     """RMS norm over the last dim, routed as the reference routes it
     (norm.py:103-121): with a ``weight``, the RMS-norm kernels forward and
@@ -120,6 +144,12 @@ def silu(x):
     return torch.nn.functional.silu(x)
 
 
+def tanh(x):
+    """``tanh(x)``; the reference leaves it to XLA, the port to
+    PyTorch."""
+    return torch.tanh(x)
+
+
 def dropout(x, p=0.5, training=True, generator=None):
     """Inverted dropout (Paddle's ``upscale_in_train``): zero each value
     with probability ``p`` and scale the rest by ``1/(1-p)``.  The mask
@@ -132,13 +162,17 @@ def dropout(x, p=0.5, training=True, generator=None):
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
-def _sdpa_composite(q, k, v, is_causal, bias=None):
+def _sdpa_composite(q, k, v, is_causal, bias=None, dropout_p=0.0,
+                    generator=None):
     """The reference's ``_sdpa_ref`` (flash_attention.py:27-54), op for
     op, over ``[b, s, h, d]``: scores in f32 (the bf16 products are exact
     in f32) scaled after the product; the mask ``bias`` added; masked
     scores -1e30; an f32 softmax; the probabilities cast to the input
-    type; rows with no visible key zeroed; the PV product accumulated in
-    f32 and cast."""
+    type; rows with no visible key zeroed; with ``dropout_p`` > 0 each
+    probability kept with probability ``1 - dropout_p`` (the mask drawn
+    from ``generator``) and the kept ones divided by ``1 - dropout_p`` in
+    the probabilities' type; the PV product accumulated in f32 and
+    cast."""
     sq, sk, d = q.shape[1], k.shape[1], q.shape[-1]
     scale = 1.0 / d ** 0.5
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -153,6 +187,10 @@ def _sdpa_composite(q, k, v, is_causal, bias=None):
     if bias is not None or is_causal:
         visible = (scores > -1e29).any(dim=-1, keepdim=True)
         probs = torch.where(visible, probs, 0.0)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) >= dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
     # a bf16 product accumulates in f32 and rounds once, as the
     # reference's preferred_element_type=f32 einsum then astype
     out = torch.matmul(probs, vt)
@@ -207,18 +245,24 @@ def _use_flash(head_dim, seqlen_k, dtype):
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True, name=None):
+                                 training=True, name=None, generator=None):
     """Dense attention over ``[b, s, h, d]``, routed as the reference
     routes it on its chip: with no mask and no dropout, f32 or bf16,
     head_dim <= 256 and K + V under 8 MB, inside ``sdp_kernel(
     enable_flash=True)`` (the default), it is the flash-attention kernel
     (``ops.flash_attention``: the plain version on CPU tensors, the CUDA
     kernels on the card); otherwise the composite ``_sdpa_ref``.
-    Attention dropout is not ported yet."""
+
+    Attention dropout (``dropout_p`` > 0 in training) always takes the
+    composite, as in the reference (flash_attention.py:97-111), with its
+    keep mask drawn from ``generator`` (the model's own; the global
+    generator when None).  The reference dispatches that branch as
+    ``scaled_dot_product_attention_drop``, which is on neither O1 list,
+    so under ``auto_cast`` its inputs are not cast."""
     drop = float(dropout_p) if training else 0.0
     if drop > 0.0:
-        raise NotImplementedError(
-            "attention dropout (dropout_p > 0) is not ported yet")
+        return _sdpa_composite(query, key, value, is_causal, attn_mask,
+                               drop, generator)
     query, key, value = amp.cast_inputs("scaled_dot_product_attention",
                                         query, key, value)
     if attn_mask is None and _flash_allowed() and _use_flash(

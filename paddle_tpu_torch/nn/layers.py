@@ -1,4 +1,5 @@
-"""The layers GPT and LLaMA are built from, as ``torch.nn.Module``s.
+"""The layers GPT, LLaMA, BERT and ERNIE are built from, as
+``torch.nn.Module``s.
 
 Port of ``paddle_tpu/nn/layer/{common,norm,layers}.py``: ``Linear``,
 ``Embedding``, ``LayerNorm``, ``RMSNorm``, ``Dropout`` and ``LayerList``.
@@ -84,6 +85,14 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight,
                             self.bias, self.epsilon)
+
+    def forward_fused(self, x, residual):
+        """``layer_norm(x + residual)``, the post-norm sublayer epilogue
+        (norm.py:43-50), through the fused residual layer-norm kernel."""
+        return F.fused_residual_layer_norm(x, residual,
+                                           self.normalized_shape,
+                                           self.weight, self.bias,
+                                           self.epsilon)
 
 
 class RMSNorm(nn.Module):

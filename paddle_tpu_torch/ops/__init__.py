@@ -18,15 +18,18 @@ fused_rms_norm                 rms_norm.cu          pallas_kernels.py:648
 fused_rms_norm_bwd             rms_norm.cu          pallas_kernels.py:658
 ragged_paged_attention_int8    ragged_attention.cu  pallas_ragged.py:197
 fused_linear_act_int8          matmul_epilogue.cu   pallas_fused.py:406
+fused_layer_norm_residual      layer_norm.cu        pallas_fused.py:101
 =============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
-`layer_norm`, `rms_norm`, `linear_act`, `fused_softmax_cross_entropy`
-and `flash_attention` are the differentiable entry points:
-``torch.autograd.Function``s whose backward is the backward kernel (for
-flash attention, the dq and the dk/dv kernels).
+`layer_norm`, `layer_norm_residual`, `rms_norm`, `linear_act`,
+`fused_softmax_cross_entropy` and `flash_attention` are the
+differentiable entry points: ``torch.autograd.Function``s whose backward
+is the backward kernel (for the residual layer norm, the layer-norm
+backward on the saved sum; for flash attention, the dq and the dk/dv
+kernels).
 """
 from .flash_attention import (flash_attention, flash_attention_bwd_ref,
                               flash_attention_ref, flash_bwd_stats,
@@ -34,7 +37,9 @@ from .flash_attention import (flash_attention, flash_attention_bwd_ref,
                               fused_flash_attention_bwd_dq,
                               fused_flash_attention_fwd)
 from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
-                         layer_norm, layer_norm_bwd_ref, layer_norm_ref)
+                         fused_layer_norm_residual, layer_norm,
+                         layer_norm_bwd_ref, layer_norm_ref,
+                         layer_norm_residual, layer_norm_residual_ref)
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
                               fused_linear_act_bwd, fused_linear_act_int8,
                               linear_act, linear_act_bwd_ref,
@@ -62,10 +67,11 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "fused_rms_norm", "fused_rms_norm_bwd", "rms_norm",
            "rms_norm_bwd_ref", "rms_norm_ref", "fused_linear_act_int8",
            "linear_act_int8_ref", "KV_SCALE_LANES",
-           "ragged_paged_attention_int8", "KERNELS"]
+           "ragged_paged_attention_int8", "fused_layer_norm_residual",
+           "layer_norm_residual", "layer_norm_residual_ref", "KERNELS"]
 
-#: every kernel wrapper of the serving, training, LLaMA and int8 serving
-#: paths, by kernel name
+#: every kernel wrapper of the serving, training, LLaMA, int8 serving and
+#: BERT/ERNIE paths, by kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
@@ -81,4 +87,5 @@ KERNELS = {
     "rms_norm_bwd": fused_rms_norm_bwd,
     "ragged_attention_int8": ragged_paged_attention_int8,
     "matmul_epilogue_int8": fused_linear_act_int8,
+    "layer_norm_residual": fused_layer_norm_residual,
 }

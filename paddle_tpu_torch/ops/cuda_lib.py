@@ -44,6 +44,8 @@ _SIGNATURES = {
                             _P), _I),
     "ptt_layer_norm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _P), _I),
+    "ptt_layer_norm_residual_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                     _F, _I, _I, _P), _I),
     "ptt_rms_norm_fwd": ((_P, _P, _P, _P, _I, _I, _F, _I, _I, _P), _I),
     "ptt_rms_norm_bwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                           _P), _I),

@@ -17,7 +17,8 @@ leaves it to XLA), so ring attention can hand in its own.
 
 The kernels read q, k, v and dout through their (batch, seq, head)
 strides, so the views ``qkv.unbind(2)`` gives go in without a copy; the
-last dim must be contiguous.  They take head_dim up to 128.
+last dim must be contiguous.  They take head_dim up to 256, the
+reference's routing limit.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
 kernel or raises.  `flash_attention` is the differentiable entry point:
@@ -38,8 +39,8 @@ __all__ = ["MAX_HEAD_DIM", "flash_attention_ref", "flash_attention_bwd_ref",
            "fused_flash_attention_bwd_dq", "fused_flash_attention_bwd_dkv",
            "flash_attention"]
 
-#: the widest head the kernels take (they are built for 64 and 128)
-MAX_HEAD_DIM = 128
+#: the widest head the kernels take (they are built for 64, 128 and 256)
+MAX_HEAD_DIM = 256
 #: the backward's lse for a row that sees no key: exp(s - lse) = 0
 _EMPTY_LSE = 1e30
 

@@ -22,7 +22,11 @@ keeps the probabilities in f32 as the kernel does, within one bf16 ulp
 weights of the matmul epilogue, int8 KV pools of ragged attention) are
 held to their plain versions with the same tolerances, on shapes off the
 16-byte grid and off the tile, with an all-zero weight channel and with
-a scale per pool slot.
+a scale per pool slot.  The fused residual layer norm is held to its
+plain version forward (out, s, mu, rstd) and backward (the layer-norm
+backward kernel on the saved s) at odd row counts; flash attention also
+at heads of 160 and 256 (the widest the reference routes to its kernel)
+and at BERT-base's non-causal shape.
 """
 import numpy as np
 import pytest
@@ -269,7 +273,7 @@ _FLASH_CASES = [(2, 100, 100, True), (2, 100, 100, False), (3, 1, 300, True),
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 160, 256])
 @pytest.mark.parametrize("B,Sq,Sk,causal", _FLASH_CASES)
 def test_flash_attention_kernels(gen, dtype, D, B, Sq, Sk, causal):
     H = 3
@@ -321,24 +325,91 @@ def test_flash_attention_autograd_on_strided_views(gen, dtype):
 
 def test_dense_flash_attention_raises_on_the_card(gen):
     # the functional routes to the flash kernels on the card (head_dim up
-    # to 256, as the reference routes it); the kernels refuse a head
-    # wider than the 128 they are built for, and there is no fallback
+    # to 256, as the reference routes it), a head of 160 included (zero-
+    # padded to the kernels' 256); the kernels refuse a head wider than
+    # 256 and a type they are not built for, and there is no fallback
     from paddle_tpu_torch.nn import functional as F
-    q = torch.randn(1, 8, 2, 16, device="cuda", generator=gen)
     n0 = ops.fused_flash_attention_fwd.launches
-    out = F.scaled_dot_product_attention(q, q, q, is_causal=True)
-    assert ops.fused_flash_attention_fwd.launches == n0 + 1
-    with F.sdp_kernel(enable_flash=False):
-        want = F.scaled_dot_product_attention(q, q, q, is_causal=True)
-    _close(out, want, torch.float32)
-    wide = torch.randn(1, 8, 2, 160, device="cuda", generator=gen)
+    for d in (16, 160):
+        q = torch.randn(1, 8, 2, d, device="cuda", generator=gen)
+        out = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+        with F.sdp_kernel(enable_flash=False):
+            want = F.scaled_dot_product_attention(q, q, q, is_causal=True)
+        _close(out, want, torch.float32)
+    assert ops.fused_flash_attention_fwd.launches == n0 + 2
+    wide = torch.randn(1, 8, 2, 257, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="head_dim"):
         ops.fused_flash_attention_fwd(wide, wide, wide, True)
     with pytest.raises(TypeError):
         ops.fused_flash_attention_fwd(q.half(), q.half(), q.half(), True)
-    with pytest.raises(ValueError, match="head_dim"):
-        F.scaled_dot_product_attention(wide, wide, wide, is_causal=True)
-    assert ops.fused_flash_attention_fwd.launches == n0 + 1
+    assert ops.fused_flash_attention_fwd.launches == n0 + 2
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_flash_attention_at_bert_shape(gen, dtype):
+    """BERT-base's attention (12 heads of 64, S = 128, no mask, not
+    causal) on the views ``qkv.unbind(2)`` gives, forward and backward
+    through autograd, against the plain versions."""
+    qkv = torch.randn(2, 128, 3, 12, 64, device="cuda",
+                      generator=gen).to(dtype).requires_grad_()
+    n0 = [ops.KERNELS[n].launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")]
+    out = ops.flash_attention(*qkv.unbind(2), causal=False)
+    g = torch.randn_like(out)
+    out.backward(g)
+    rq, rk, rv = qkv.detach().unbind(2)
+    want, lse = ops.flash_attention_ref(rq, rk, rv, False)
+    lse_s, delta = ops.flash_bwd_stats(want, g, lse)
+    grads = ops.flash_attention_bwd_ref(rq, rk, rv, g, lse_s, delta, False)
+    _close(out, want, dtype)
+    _close(qkv.grad, torch.stack(grads, dim=2), dtype)
+    assert [ops.KERNELS[n].launches for n in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")] == [c + 1 for c in n0]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,n", [(37, 768), (300, 768), (5, 300)])
+def test_layer_norm_residual_kernel(gen, dtype, rows, n):
+    """Row counts off any block, widths off the 256-thread stride: the
+    forward's out, s, mu and rstd, and the gradients through autograd
+    (the layer-norm backward kernel on the saved s) against the plain
+    versions; x's and the residual's gradients are one tensor's values."""
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
+         + 0.5).to(dtype).requires_grad_()
+    r = torch.randn(rows, n, device="cuda", generator=gen).to(
+        dtype).requires_grad_()
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(
+        dtype).requires_grad_()
+    b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(
+        dtype).requires_grad_()
+    n0 = ops.fused_layer_norm_residual.launches, \
+        ops.fused_layer_norm_bwd.launches
+    got = ops.fused_layer_norm_residual(x.detach(), r.detach(), g.detach(),
+                                        b.detach())
+    want = ops.layer_norm_residual_ref(x.detach(), r.detach(), g.detach(),
+                                       b.detach())
+    for a, w, dt in zip(got, want, (dtype, dtype, torch.float32,
+                                    torch.float32)):
+        assert a.dtype == w.dtype == dt
+        _close(a, w, dt)
+    out = ops.layer_norm_residual(x, r, g, b)
+    dout = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    out.backward(dout)
+    _, s, mu, rstd = want
+    dx, dg, db = ops.layer_norm_bwd_ref(s, g.detach(), mu, rstd, dout)
+    _close(x.grad, dx, dtype)
+    assert torch.equal(x.grad, r.grad)
+    for a, w in ((g.grad, dg), (b.grad, db)):
+        torch.testing.assert_close(a.float(), w.float(),
+                                   atol=_sum_tol(dtype, rows),
+                                   rtol=_TOL[dtype])
+    assert (ops.fused_layer_norm_residual.launches,
+            ops.fused_layer_norm_bwd.launches) == (n0[0] + 2, n0[1] + 1)
+    with pytest.raises(ValueError, match="residual"):
+        ops.fused_layer_norm_residual(x.detach(), r.detach().double(),
+                                      g.detach(), b.detach())
 
 
 def _int8_weight(K, N, gen, dead=(0,)):

@@ -10,7 +10,9 @@ on the CPU as ``tests/test_pallas_kernels.py`` calls it, and its
 gradients against ``jax.vjp`` of it, on the same inputs and the same
 upstream gradient made from a seed with numpy.  Cases: causal and not,
 S not a multiple of any tile, cross lengths (Sq=24, Sk=40), Sq > Sk
-causal (rows with no visible key), and Sq=1 decode.
+causal (rows with no visible key), Sq=1 decode, and heads of 256 and
+160 (the widest the reference routes to its kernel, and one the card's
+kernels zero-pad to 256).
 
 Tolerances:
 * f32: the output and lse within 2e-5 abs + rel (the reference's own
@@ -50,6 +52,8 @@ _CASES = {
     "cross_full": (2, 24, 40, 2, 32, False),
     "sq_gt_sk_causal": (1, 48, 16, 2, 32, True),
     "decode": (2, 1, 40, 2, 64, True),
+    "causal_d256": (1, 70, 70, 2, 256, True),
+    "full_d160": (1, 40, 40, 1, 160, False),
 }
 
 
@@ -172,10 +176,15 @@ def test_sdpa_routes_as_the_reference(monkeypatch):
     assert len(calls) == 1, "a mask or fp16 takes the composite"
     out, none = F.flash_attention(q, k, v, causal=True)
     assert none is None and torch.equal(out, flash) and len(calls) == 2
-    with pytest.raises(NotImplementedError):
-        F.scaled_dot_product_attention(q, k, v, dropout_p=0.1)
+    # attention dropout in training takes the composite, as the
+    # reference's does; in eval the rate is ignored and flash runs
+    gen = torch.Generator().manual_seed(0)
+    assert F.scaled_dot_product_attention(
+        q, k, v, dropout_p=0.1, generator=gen).shape == q.shape
+    assert len(calls) == 2
     assert F.scaled_dot_product_attention(
         q, k, v, dropout_p=0.1, training=False).shape == q.shape
+    assert len(calls) == 3
     # head_dim and the reference's 8 MB K+V cap (head_dim padded to 128)
     assert F._use_flash(128, 8192, torch.float32)
     assert F._use_flash(256, 4096, torch.float32)

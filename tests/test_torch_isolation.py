@@ -26,6 +26,9 @@ TINY_LLAMA = pt.LlamaConfig(vocab_size=64, hidden_size=16,
                             num_hidden_layers=1, num_attention_heads=2,
                             num_key_value_heads=1, intermediate_size=32,
                             max_position_embeddings=32)
+TINY_BERT = dict(vocab_size=64, hidden_size=16, num_hidden_layers=1,
+                 num_attention_heads=2, intermediate_size=32,
+                 max_position_embeddings=32)
 
 
 def _modules():
@@ -41,7 +44,7 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "optimizer.optimizer", "nn.clip", "ops.softmax_xent",
               "ops.flash_attention", "distributed.fleet.recompute",
               "models.generation", "models.llama", "ops.rms_norm",
-              "quantization"):
+              "quantization", "models.bert", "models.ernie"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -104,6 +107,27 @@ def test_llama_defaults_to_cuda_and_refuses_without_it():
                         torch.ones(16, device="meta"))
 
 
+def test_bert_and_ernie_default_to_cuda_and_refuse_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    for make in (lambda **kw: pt.BertForMaskedLM(
+                     pt.BertConfig(**TINY_BERT), **kw),
+                 lambda **kw: pt.ErnieForMaskedLM(
+                     pt.ErnieConfig(**TINY_BERT), **kw),
+                 lambda **kw: pt.ErnieForSequenceClassification(
+                     pt.ErnieConfig(**TINY_BERT), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(device="gpu", dtype="bfloat16")
+        model = make(device="cpu")
+        assert model.device.type == "cpu" and model.dtype == torch.float32
+    meta = torch.zeros(2, 16, device="meta")
+    with pytest.raises(RuntimeError, match="layer norm residual"):
+        pt.ops.layer_norm_residual(meta, meta, torch.ones(16, device="meta"),
+                                   torch.zeros(16, device="meta"))
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.randn(4, 8)
     out, mu, rstd = pt.ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
@@ -114,6 +138,8 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     pt.ops.softmax_xent_fwd(x, torch.zeros(4, dtype=torch.int64))
     xr = x.clone().requires_grad_()
     pt.ops.rms_norm(xr, torch.ones(8)).sum().backward()
+    pt.ops.layer_norm_residual(xr, x, torch.ones(8),
+                               torch.zeros(8)).sum().backward()
     q = torch.randn(1, 4, 2, 8, requires_grad=True)
     pt.ops.flash_attention(q, q, q, causal=True).sum().backward()
     codes = torch.ones(8, 3, dtype=torch.int8)

@@ -287,3 +287,50 @@ def test_unported_options_raise(models):
     with pytest.raises(NotImplementedError):
         pt.GPTForCausalLM(pt.GPTConfig(**TINY, use_scan_layers=True),
                           device="cpu")
+
+
+def test_engine_takes_every_reference_name(models):
+    """Every constructor parameter and public method of the reference's
+    engine exists on the port's: ``config``, ``handoff_ready`` and
+    ``close`` work as the reference's do, every other unported option or
+    method raises ``NotImplementedError`` (never a ``TypeError`` or an
+    ``AttributeError``)."""
+    import inspect
+    ref_model, port = models
+    params = inspect.signature(RefEngine.__init__).parameters
+    assert set(params) <= set(inspect.signature(
+        pt.GenerationEngine.__init__).parameters)
+    methods = {n for n, f in vars(RefEngine).items()
+               if callable(f) and not n.startswith("_")}
+    assert methods <= {n for n in dir(pt.GenerationEngine)
+                       if not n.startswith("_")}
+    for kw in (dict(step_deadline_ms=50.0), dict(shed_depth=4),
+               dict(clock=lambda: 0.0), dict(kv_host_budget=1 << 20),
+               dict(resident_name="kv")):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            pt.GenerationEngine(port, device="cpu", num_blocks=16, **kw)
+    eng = pt.GenerationEngine(port, port.config, device="cpu", num_blocks=16,
+                              max_batch=2)
+    for name, args in (("enable_lora", ()), ("register_adapter", ("a", {})),
+                       ("extract_request", (None,)),
+                       ("inject_request", (None, 0, None)),
+                       ("open_stream", ("req0",))):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            getattr(eng, name)(*args)
+    # handoff_ready lists the same requests as the reference's, step by
+    # step: prompt complete, first token drained, not done
+    ref = RefEngine(ref_model, num_blocks=16, max_batch=2)
+    prompts = [[5, 6, 7, 8, 9], [1, 2, 3]]
+    for e in (eng, ref):
+        for p in prompts:
+            e.add_request(p, max_new_tokens=4)
+    seen = []
+    while eng.has_unfinished() or ref.has_unfinished():
+        eng.step()
+        ref.step()
+        got = sorted(r.id for r in eng.handoff_ready())
+        assert got == sorted(r.id for r in ref.handoff_ready())
+        seen += got
+    assert seen, "no request was ever handoff-ready"
+    assert eng.result("req0") == ref.result("req0")
+    assert eng.close() is None and ref.close() is None
