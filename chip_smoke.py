@@ -27,6 +27,16 @@ phase fails.  Phases:
    (``bound_ms``); the int8 serving kernels at the serving drive's shapes
    too (the int8 matmul epilogue at fc1's 368 x 2048 @ 2048 x 8192 with
    gelu_tanh, int8 ragged attention at the mixed step with int8 pools);
+   and the grouped-expert matmul's forward and dw kernels at the MoE
+   drives' shapes with skewed expert counts (one expert empty, one
+   holding almost everything): the serving step's 736 assignments (368
+   packed rows x top 2) over 4 experts at block rows 128 through w1
+   (2048 -> 8192, gelu_tanh) and w2 (8192 -> 2048), and the training
+   drive's 16384 assignments through w1 (768 -> 3072, z saved), its dx
+   (w1 read transposed) and its dw; the library yardstick is
+   ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
+   loop of ``torch._addmm_activation`` / ``addmm`` / ``mm``, named in
+   each row's note;
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
@@ -119,12 +129,36 @@ phase fails.  Phases:
     ``ErnieForSequenceClassification`` at 12 layers in bf16, random
     weights from a seed, eval, B=64, S=128: ms per forward, sequences/s,
     launches per forward (the flash forward, not causal), one profiled
-    forward.
+    forward;
+17. MoE serving parity: MoE-GPT at GPT_1P3B's width (4 experts, top 2)
+    cut to 2 layers, f32, numpy weights, served on the card and on the
+    CPU with phase 3's 4 requests, 16 greedy tokens each: identical
+    tokens, identical expert choices of every row at the first step
+    (else each differing row's top-k margin is printed), and the grouped
+    forward kernel launched exactly 2 x layers a step;
+18. MoE serving: MoE-GPT at GPT_1P3B's width (24 layers, ~3.7 B
+    parameters) in bf16, random weights from a seed, on phase 4's trace
+    unchanged (the dense twin): tokens/s, ms/step, TTFT, peak memory,
+    launches per step, each step's per-expert counts and their imbalance
+    (mean and max), one profiled burst with the grouped kernel in its own
+    group, beside phase 4's numbers;
+19. MoE training parity: ``MoEGPTConfig()``'s width (hidden 768, 12
+    heads, vocab 50304, experts of 3072) cut to 2 layers, f32, composite
+    attention, numpy weights, B=2, S=128: 3 AdamW steps with the aux loss
+    on the card and on the CPU, held as phase 14; the grouped forward
+    kernel launches 4 x layers a step (forward and dx), the dw kernel 2 x
+    layers;
+20. MoE training: bench.py's ``moe_gpt`` recipe (bench.py:1518-1545:
+    ``MoEGPTPretrainingCriterion`` with the aux loss, ``AdamW(1e-4)``,
+    random ids as labels, f32, no ``auto_cast``, composite attention) at
+    ``MoEGPTConfig()``'s own 12 layers on one card, B=8, S=1024: ms/step,
+    tokens/s, MFU over the active parameters, peak memory, launches per
+    step, the loss falling on the repeated batch, one profiled step.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
-training, generate, the three LLaMA, the int8 serving, the two BERT and
-the ERNIE summaries) and the card's
+training, generate, the three LLaMA, the int8 serving, the two BERT, the
+ERNIE and the four MoE summaries) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -837,6 +871,201 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
     }
 
 
+#: the grouped-expert matmul's cases: (assignments per expert, K, N, act,
+#: transposed weights, z saved).  serve/w2: the MoE serving drive's mixed
+#: step (368 packed rows x top 2 = 736 assignments over E = 4 at bm 128,
+#: 10 blocks) through w1 (2048 -> 8192, gelu_tanh) and w2 (8192 -> 2048);
+#: train/train_dx: the MoE training drive's 16384 assignments (B=8,
+#: S=1024, top 2) through w1 (768 -> 3072, z saved) and the backward's dx
+#: (3072 -> 768 against w1 read transposed).  Counts are skewed: one
+#: expert empty, one holding almost everything.
+GROUPED_CASES = {"serve": ([0, 700, 20, 16], 2048, 8192, "gelu_tanh",
+                           False, False),
+                 "w2": ([0, 700, 20, 16], 8192, 2048, "none", False, False),
+                 "train": ([0, 15000, 1000, 384], 768, 3072, "gelu_tanh",
+                           False, True),
+                 "train_dx": ([0, 15000, 1000, 384], 3072, 768, "none",
+                              True, False)}
+
+
+def grouped_inputs(ops, counts, K, dtype, gen):
+    """x [R, K] with each expert's rows in its blocks (padding rows zero),
+    the block ids, and each expert's (first row, rows) for the library
+    yardstick."""
+    import torch
+    E = len(counts)
+    bm, nb, R = ops.grouped_layout(sum(counts), E, dtype)
+    gid, offsets = ops.group_segments(torch.tensor(counts), bm, nb)
+    x = torch.zeros(R, K, device="cuda", dtype=dtype)
+    segs = []
+    for e, c in enumerate(counts):
+        o = int(offsets[e])
+        x[o:o + c] = torch.randn(c, K, device="cuda", generator=gen).to(dtype)
+        segs.append((o, -(-c // bm) * bm))
+    return x, gid.cuda(), segs, bm
+
+
+def _grouped_mm_offsets(segs):
+    """torch._grouped_mm's ``offs``: each expert's last row + 1, its rows
+    taken as its whole run of blocks (padding rows are zero)."""
+    import torch
+    return torch.tensor([o + n for o, n in segs], dtype=torch.int32,
+                        device="cuda")
+
+
+def check_grouped(ops, case, dtype, dtype_name, gen):
+    """The grouped forward kernel at one of `GROUPED_CASES` against its
+    plain version.  Library yardstick: ``torch._grouped_mm`` on the same
+    rows plus the bias and the activation as separate calls (bf16, where
+    this torch has it), else a per-expert loop of
+    ``torch._addmm_activation`` (``addmm`` without activation; for the
+    transposed case the weights' transposed views)."""
+    import torch
+    counts, K, N, act, trans, save_z = GROUPED_CASES[case]
+    E = len(counts)
+    x, gid, segs, bm = grouped_inputs(ops, counts, K, dtype, gen)
+    shape_w = (E, N, K) if trans else (E, K, N)
+    w = (torch.randn(*shape_w, device="cuda", generator=gen)
+         / K ** 0.5).to(dtype)
+    b = None if trans else (0.1 * torch.randn(
+        E, N, device="cuda", generator=gen)).to(dtype)
+
+    def kernel():
+        return ops.fused_grouped_linear_act(x, w, b, gid, act,
+                                            return_z=save_z,
+                                            transpose_w=trans)
+    wp = w.transpose(1, 2) if trans else w        # [E, K, N] views
+
+    def plain():
+        return ops.grouped_linear_act_ref(x, wp, b, block_group=gid,
+                                          act=act)
+    got = kernel()
+    got = got[0] if save_z else got
+    want = plain()
+    torch.cuda.synchronize()
+    err, rel, ok = compare(got, want, dtype_name)
+    real = [(e, o, n) for e, (o, n) in enumerate(segs) if n]
+    lib_fn = None
+    if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        offs = _grouped_mm_offsets(segs)
+        row_e = torch.repeat_interleave(
+            torch.arange(E, device="cuda"),
+            torch.tensor([n for _, n in segs], device="cuda"))
+        rows = int(offs[-1])
+        xr = x[:rows]
+
+        def lib_fn():
+            y = torch._grouped_mm(xr, wp, offs=offs)
+            if b is not None:
+                y = y + b[row_e]
+            if act == "gelu_tanh":
+                y = torch.nn.functional.gelu(y, approximate="tanh")
+            return y
+        lib_name = "torch._grouped_mm" + ("" if b is None else " + bias") \
+            + (" + gelu" if act == "gelu_tanh" else "")
+        try:
+            lib_out = lib_fn()
+            lib_err = compare(lib_out, want[:rows], dtype_name)[0]
+        except (RuntimeError, TypeError) as exc:
+            lib_fn, lib_name = None, (
+                f"torch._grouped_mm failed ({str(exc).splitlines()[0][:100]})"
+                f"; ")
+    if lib_fn is None:
+        prefix = "" if dtype != torch.bfloat16 else lib_name
+        zero_b = torch.zeros(N, device="cuda", dtype=dtype)
+
+        def lib_fn():
+            if act == "gelu_tanh":
+                return [torch._addmm_activation(
+                    zero_b if b is None else b[e], x[o:o + n], wp[e],
+                    use_gelu=True) for e, o, n in real]
+            return [torch.addmm(zero_b if b is None else b[e], x[o:o + n],
+                                wp[e]) for e, o, n in real]
+        lib_name = prefix + ("a per-expert loop of torch._addmm_activation"
+                             if act == "gelu_tanh" else
+                             "a per-expert loop of torch.addmm")
+        lib_out = torch.cat([y for y in lib_fn()])
+        lib_err = compare(lib_out, torch.cat(
+            [want[o:o + n] for _, o, n in real]), dtype_name)[0]
+    T = sum(counts)
+    isz = x.element_size()
+    used = sum(1 for c in counts if c)
+    nbytes = (used * (K * N + (0 if b is None else N)) + x.shape[0] * K
+              + x.shape[0] * N * (2 if save_z else 1)) * isz
+    bms, by = bound(nbytes, 2 * T * K * N, dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"{case}: x[{x.shape[0]},{K}] (bm {bm}, counts {counts}) "
+               f"w[{E},{K},{N}]{' read transposed' if trans else ''} "
+               f"{act}{', z saved' if save_z else ''}"),
+        note=f"library: {lib_name}, vs plain max abs err {lib_err:.3e}",
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
+
+
+def check_grouped_dw(ops, case, dtype, dtype_name, gen):
+    """The grouped dw kernel at the training case's shapes (x [R, K], dz
+    [R, N] of w1) against its plain version, as a column sum (`SUM_TOL`
+    of the largest sum of |terms|).  Library yardstick: ``torch._grouped_mm``
+    of x^T and dz over the experts' row ranges (bf16, where this torch
+    has it), else a per-expert loop of ``torch.mm``."""
+    import torch
+    counts, K, N = GROUPED_CASES[case][:3]
+    E = len(counts)
+    x, gid, segs, bm = grouped_inputs(ops, counts, K, dtype, gen)
+    dz = torch.zeros(x.shape[0], N, device="cuda", dtype=dtype)
+    for o, n in segs:
+        dz[o:o + n] = torch.randn(n, N, device="cuda", generator=gen).to(
+            dtype)
+
+    def kernel():
+        return ops.fused_grouped_dw(x, dz, gid, E)
+
+    def plain():
+        return ops.grouped_dw_ref(x, dz, gid, E)
+    got, want = kernel(), plain()
+    abs_sum = ops.grouped_dw_ref(x.abs(), dz.abs(), gid, E).float()
+    torch.cuda.synchronize()
+    err, ok, _ = compare_sum(got, want, abs_sum, dtype_name)
+    rel = compare(got, want, dtype_name)[1]
+    ok = ok and all(not bool(got[e].any()) for e, c in enumerate(counts)
+                    if not c)
+    lib_fn = None
+    if dtype == torch.bfloat16 and hasattr(torch, "_grouped_mm"):
+        offs = _grouped_mm_offsets(segs)
+        rows = int(offs[-1])
+        xt, dzr = x[:rows].t(), dz[:rows]
+
+        def lib_fn():
+            return torch._grouped_mm(xt, dzr, offs=offs)
+        lib_name = "torch._grouped_mm"
+        try:
+            lib_err = compare(lib_fn(), want, dtype_name)[0]
+        except (RuntimeError, TypeError) as exc:
+            lib_fn, lib_name = None, (
+                f"torch._grouped_mm failed ({str(exc).splitlines()[0][:100]})"
+                f"; ")
+    if lib_fn is None:
+        prefix = "" if dtype != torch.bfloat16 else lib_name
+
+        def lib_fn():
+            return [torch.mm(x[o:o + n].t(), dz[o:o + n])
+                    for o, n in segs if n]
+        lib_name = prefix + "a per-expert loop of torch.mm"
+        lib_err = compare(torch.stack(lib_fn()), torch.stack(
+            [want[e] for e, (_, n) in enumerate(segs) if n]),
+            dtype_name)[0]
+    isz = x.element_size()
+    nbytes = (x.numel() + dz.numel() + E * K * N) * isz
+    bms, by = bound(nbytes, 2 * sum(counts) * K * N, dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"{case}: x[{x.shape[0]},{K}] dz[{x.shape[0]},{N}] (bm {bm}, "
+               f"counts {counts}) -> dw[{E},{K},{N}]"),
+        note=f"library: {lib_name}, vs plain max abs err {lib_err:.3e}",
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
+
 #: every kernel: its source, the TPU kernel it replaces, and its launches
 #: per step of each drive as (per layer, per step once); a kernel a drive
 #: does not run launches 0 times there.  serve_int8: the serving drive
@@ -852,18 +1081,22 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
 #: head's layer norms, the MLM transform's epilogue and the loss),
 #: bert_parity (the same at dropout 0: the flash kernels, not causal) and
 #: ernie_eval (one forward of ErnieForSequenceClassification in eval: no
-#: MLM head, the pooler and classifier are cuBLAS GEMMs)
+#: MLM head, the pooler and classifier are cuBLAS GEMMs).  The MoE drives:
+#: serve_moe (per layer two layer norms, one attention and the two grouped
+#: expert GEMMs; no fc1 epilogue) and moe_train (the composite attention;
+#: per layer the two grouped GEMMs forward and their two dx through the
+#: same forward kernel, and the two dw)
 KERNEL_INFO = {
     "ragged_attention": dict(
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas_ragged.py:115",
-        serve=(1, 0)),
+        serve=(1, 0), serve_moe=(1, 0)),
     "layer_norm": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
         serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1),
         serve_int8=(2, 1), bert_train=(0, 2), bert_parity=(0, 2),
-        ernie_eval=(0, 1)),
+        ernie_eval=(0, 1), serve_moe=(2, 1), moe_train=(2, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
@@ -873,7 +1106,7 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:536",
         train=(2, 1), train_flash=(2, 1), bert_train=(2, 2),
-        bert_parity=(2, 2)),
+        bert_parity=(2, 2), moe_train=(2, 1)),
     "matmul_epilogue_bwd": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:278",
@@ -883,12 +1116,12 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
-        bert_train=(0, 1), bert_parity=(0, 1)),
+        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
-        bert_train=(0, 1), bert_parity=(0, 1)),
+        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
@@ -928,14 +1161,22 @@ KERNEL_INFO = {
         replaces="paddle_tpu/ops/pallas_fused.py:101",
         main="bert_train", bert_train=(2, 0), bert_parity=(2, 0),
         ernie_eval=(2, 0)),
+    "grouped_matmul": dict(
+        source="paddle_tpu_torch/csrc/grouped_matmul.cu",
+        replaces="paddle_tpu/ops/pallas_grouped.py:85",
+        main="serve_moe", serve_moe=(2, 0), moe_train=(4, 0)),
+    "grouped_matmul_dw": dict(
+        source="paddle_tpu_torch/csrc/grouped_matmul.cu",
+        replaces="paddle_tpu/ops/pallas_grouped.py:133",
+        main="moe_train", moe_train=(2, 0)),
 }
 
 
 def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve",
-    "serve_int8", "train", "train_flash", "llama_train", "bert_train",
-    "bert_parity", or "generate", "llama_gen" and "ernie_eval", whose step
-    is one forward)."""
+    "serve_int8", "serve_moe", "train", "train_flash", "llama_train",
+    "bert_train", "bert_parity", "moe_train", or "generate", "llama_gen"
+    and "ernie_eval", whose step is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -1009,6 +1250,10 @@ def warm_up(ops):
                                             device="cuda"),
                               torch.ones(128, device="cuda"), rand(128),
                               "gelu_tanh")
+    gid = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device="cuda")
+    ops.fused_grouped_linear_act(x, rand(2, 256, 128), rand(2, 128), gid,
+                                 "gelu_tanh")
+    ops.fused_grouped_dw(x, rand(64, 128), gid, 2)
     torch.cuda.synchronize()
     idle = [name for name, n in launches(ops).items() if n != 1]
     if idle:
@@ -1022,7 +1267,10 @@ def phase_kernels(ops, budgets):
     other rows' inputs stay as they were), at the training drive's (keys
     (name, dtype, "train"); the fused residual layer norm at the BERT
     training drive's) and, for flash attention and RMS norm, at each of
-    `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape))."""
+    `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape)); the
+    grouped-expert kernels at each of `GROUPED_CASES` (keys
+    ("grouped_matmul", dtype) for the serving case, else (name, dtype,
+    case)), from a generator of their own."""
     import torch
     warm_up(ops)
     serve = {"ragged_attention": check_ragged,
@@ -1040,6 +1288,7 @@ def phase_kernels(ops, budgets):
     results = {}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen8 = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    gen_moe = torch.Generator(device="cuda").manual_seed(SEED + 17)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -1077,6 +1326,16 @@ def phase_kernels(ops, budgets):
                            f"{twin['ms']:.4f} ms")))
             report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        torch.cuda.empty_cache()
+        for case in GROUPED_CASES:
+            r = check_grouped(ops, case, dtype, dtype_name, gen_moe)
+            report("grouped_matmul", dtype_name, r)
+            key = () if case == "serve" else (case,)
+            results[("grouped_matmul", dtype_name) + key] = r
+            torch.cuda.empty_cache()
+        r = check_grouped_dw(ops, "train", dtype, dtype_name, gen_moe)
+        report("grouped_matmul_dw", dtype_name, r)
+        results[("grouped_matmul_dw", dtype_name, "train")] = r
         torch.cuda.empty_cache()
     return results
 
@@ -1245,17 +1504,25 @@ def time_int8_gemms(ops, model, rows):
     return out
 
 
-def phase_serving(pt, ops, int8=False, base=None):
+def phase_serving(pt, ops, int8=False, base=None, moe=False):
     """GPT_1P3B in bf16 served by the engine (phase 4).  With ``int8``
     (phase 13) the same weights and trace with int8 weights and an int8
-    KV pool, held against ``base``, phase 4's summary.  Returns (launch
-    counts, summary, the generated tokens of each request)."""
+    KV pool, held against ``base``, phase 4's summary.  With ``moe``
+    (phase 18) MoE-GPT at GPT_1P3B's width (E = 4, top 2) on the same
+    trace, with each step's per-expert counts and their imbalance, beside
+    ``base``.  Returns (launch counts, summary, the generated tokens of
+    each request)."""
     import numpy as np
     import torch
-    phase = "int8 serving" if int8 else "serving"
-    cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    phase = "moe serving" if moe else "int8 serving" if int8 else "serving"
+    drive = "serve_moe" if moe else "serve_int8" if int8 else "serve"
     torch.cuda.reset_peak_memory_stats()
-    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    if moe:
+        cfg = moe_serve_cfg(pt)
+        model = pt.MoEGPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    else:
+        cfg = pt.GPTConfig(**pt.GPT_1P3B)
+        model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
     rng = np.random.default_rng(SEED)
     shared = list(rng.integers(1, cfg.vocab_size, size=512))
     prompts = [shared + list(rng.integers(
@@ -1280,6 +1547,10 @@ def phase_serving(pt, ops, int8=False, base=None):
     hit0, look0 = eng.cache._hit_tokens, eng.cache._lookup_tokens
     steps0, toks0 = eng.stats()["steps"], eng.stats()["tokens_generated"]
 
+    routed = []         # each MoE layer's per-expert counts, per forward
+    hooks = [blk.mlp.register_forward_hook(
+        lambda mod, inp, out: routed.append(mod.counts))
+        for blk in model.gpt.h] if moe else []
     reset_launches(ops)
     t0 = time.perf_counter()
     ids = [eng.add_request(p, max_new_tokens=64) for p in prompts]
@@ -1288,6 +1559,8 @@ def phase_serving(pt, ops, int8=False, base=None):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
+    for h in hooks:
+        h.remove()
 
     reqs = [eng._results[i] for i in ids]
     if not all(len(r.generated) == 64 for r in reqs):
@@ -1310,8 +1583,7 @@ def phase_serving(pt, ops, int8=False, base=None):
         f"{summary['weight_gib_bf16']:.3f}); {summary['kv_dtype']} KV pool "
         f"of {summary['kv_blocks']} blocks x {summary['bytes_per_block']} "
         f"bytes at hbm_fraction 0.3")
-    check_counts(phase, counts, steps, cfg.num_hidden_layers,
-                 "serve_int8" if int8 else "serve")
+    check_counts(phase, counts, steps, cfg.num_hidden_layers, drive)
     generated = [list(r.generated) for r in reqs]
     summary.update(tokens_per_s=tokens / elapsed,
                    median_ttft_ms=ttft[len(ttft) // 2],
@@ -1336,6 +1608,18 @@ def phase_serving(pt, ops, int8=False, base=None):
         if not ratio >= INT8_BLOCK_RATIO_MIN:
             fail(f"{phase}: bytes per block only {ratio:.4f}x fewer than "
                  f"the bf16 pool's")
+    if moe:
+        summary["routing"] = routing_summary(
+            ops, routed, cfg.num_hidden_layers, steps)
+        say(f"  against phase 4 (dense GPT_1P3B, bf16, same trace): "
+            f"tokens/s {summary['tokens_per_s']:.1f} vs "
+            f"{base['tokens_per_s']:.1f}, ms/step "
+            f"{summary['ms_per_step']:.2f} vs {base['ms_per_step']:.2f}, "
+            f"median TTFT {summary['median_ttft_ms']:.1f} vs "
+            f"{base['median_ttft_ms']:.1f} ms, peak memory "
+            f"{summary['peak_memory_gib']:.2f} vs "
+            f"{base['peak_memory_gib']:.2f} GiB, weights "
+            f"{summary['weight_gib']:.3f} vs {base['weight_gib']:.3f} GiB")
     steps0 = eng.stats()["steps"]
     prof = profile_device(lambda: eng.generate(prompts[:8],
                                                max_new_tokens=16))
@@ -1347,13 +1631,41 @@ def phase_serving(pt, ops, int8=False, base=None):
     return counts, summary, generated
 
 
+def routing_summary(ops, routed, layers, steps):
+    """Per-step expert counts of a serving drive (``routed``: each MoE
+    layer's counts per forward, in order) and their ``expert_imbalance``
+    (max / mean over the experts) per layer and step: mean and max, and
+    layer 0's counts at the first and the last step."""
+    import torch
+    from paddle_tpu_torch.distributed.auto_parallel import moe_dispatch
+    c = torch.stack(routed).cpu().reshape(-1, layers, routed[0].shape[0])
+    if c.shape[0] != steps:
+        fail(f"moe serving: {c.shape[0]} routed forwards in {steps} steps")
+    imb = torch.stack([moe_dispatch.expert_imbalance(row)
+                       for row in c.reshape(-1, c.shape[-1])])
+    out = dict(imbalance_mean=float(imb.mean()),
+               imbalance_max=float(imb.max()),
+               layer0_first_step=c[0, 0].tolist(),
+               layer0_last_step=c[-1, 0].tolist(),
+               assignments_per_step=int(c[0, 0].sum()))
+    say(f"  routing: {c.shape[0]} steps x {layers} layers, expert "
+        f"imbalance (max / mean count) mean {out['imbalance_mean']:.3f}, "
+        f"max {out['imbalance_max']:.3f}; layer 0 counts at the first step "
+        f"{out['layer0_first_step']}, at the last {out['layer0_last_step']} "
+        f"({out['assignments_per_step']} assignments a step, padding rows "
+        f"included)")
+    return out
+
+
 #: device-time groups of the profile, by kernel-name substring (first
 #: match wins: the int8 kernels' instantiations, whose pool or weight type
 #: is int8_t, "signed char", come before their float twins); column_sum
 #: is the second pass of both backward kernels' column sums, and
 #: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
 #: float: its instantiations do not say which)
-_PROFILE_GROUPS = (("ragged_attention_int8",
+_PROFILE_GROUPS = (("grouped_matmul", "gmm_fwd_"),
+                   ("grouped_matmul_dw", "gmm_dw_"),
+                   ("ragged_attention_int8",
                     ("ragged_attn_kernel<float, signed char>",
                      "ragged_attn_kernel<__nv_bfloat16, signed char>")),
                    ("matmul_epilogue_int8",
@@ -2017,6 +2329,156 @@ def phase_ernie(pt, ops):
     return counts, summary
 
 
+# ---------------------------------------------------------------------
+# phases 17-20: MoE-GPT
+# ---------------------------------------------------------------------
+MOE_TRAIN_B, MOE_TRAIN_S = 8, 1024
+
+
+def moe_serve_cfg(pt, **over):
+    """MoE-GPT at the width the repo serves GPT at: GPT_1P3B (hidden 2048,
+    24 layers, 16 heads, vocab 50304, experts of 8192) with 4 experts,
+    top 2."""
+    return pt.MoEGPTConfig(**dict(pt.GPT_1P3B, num_experts=4, top_k=2,
+                                  **over))
+
+
+def phase_moe_parity(pt, ops):
+    """Phase 17: MoE-GPT at GPT_1P3B's width (E = 4, top 2) cut to 2
+    layers, f32, numpy weights, served by the engine on the card and on
+    the CPU with phase 3's 4 requests and geometry, 16 greedy tokens each:
+    identical tokens, and identical expert choices of every row at the
+    first step (a prefill chunk, padding rows included), each MLP routing
+    its own input; a choice that differs is reported with that row's
+    top-k margin on the CPU.  Launches exactly ``serve_moe``'s per step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import moe_gpt
+    phase = "moe parity"
+    cfg = moe_serve_cfg(pt, num_hidden_layers=2)
+    rng = np.random.default_rng(SEED + 1)
+    shared = list(rng.integers(1, cfg.vocab_size, size=48))
+    prompts = [shared + list(rng.integers(1, cfg.vocab_size, size=n))
+               for n in (5, 9, 12, 7)]
+    kw = dict(max_batch=4, prefill_chunk=64, max_model_len=256,
+              num_blocks=128)
+    outs, routes, params = {}, {}, None
+    for device in ("cuda", "cpu"):
+        model = pt.MoEGPTForCausalLM(cfg, device=device)
+        if params is None:
+            params = numpy_weights(model, SEED + 2)
+        pt.load_reference_state(model, params)
+        first = []
+
+        def grab(mod, inp):
+            if len(first) < cfg.num_hidden_layers:
+                x = inp[0].reshape(-1, inp[0].shape[-1])
+                first.append(moe_gpt.route(x, mod.router, mod.top_k))
+        hooks = [blk.mlp.register_forward_pre_hook(grab)
+                 for blk in model.gpt.h]
+        eng = pt.GenerationEngine(model, device=device, **kw)
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        outs[device] = eng.generate(prompts, max_new_tokens=16)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts, steps = launches(ops), eng.stats()["steps"]
+        say(f"  {device}: {eng.stats()['steps']} steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+        for h in hooks:
+            h.remove()
+        routes[device] = [tuple(t.cpu() for t in r) for r in first]
+        del eng, model
+        free_device_memory()
+    flips = []
+    for layer, (gpu, cpu) in enumerate(zip(routes["cuda"], routes["cpu"])):
+        bad = (gpu[2] != cpu[2]).any(dim=1).nonzero().flatten().tolist()
+        for row in bad:
+            p = cpu[0][row].sort(descending=True).values
+            k = cfg.top_k
+            flips.append(f"layer {layer} row {row}: card {gpu[2][row]} cpu "
+                         f"{cpu[2][row]}, cpu top-{k} margin "
+                         f"{float(p[k - 1] - p[k]):.3e}")
+    rows = routes["cpu"][0][2].shape[0]
+    say(f"  expert choices at the first step ({rows} rows x "
+        f"{cfg.num_hidden_layers} layers): "
+        + ("identical on the card and the CPU" if not flips
+           else f"{len(flips)} differ: " + "; ".join(flips[:8])))
+    if flips:
+        fail(f"{phase}: expert choices differ between the card and the CPU")
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"{phase}: CUDA tokens {outs['cuda']} != CPU tokens "
+             f"{outs['cpu']}")
+    if not all(len(o) == len(p) + 16 for o, p in zip(outs["cuda"], prompts)):
+        fail(f"{phase}: a request did not return 16 tokens")
+    say(f"  greedy tokens identical on CUDA and CPU for {len(prompts)} "
+        f"requests x 16 tokens")
+    check_counts(phase, counts, steps, cfg.num_hidden_layers, "serve_moe")
+    return dict(steps=steps, first_step_rows=rows, choices_identical=True,
+                tokens_identical=True)
+
+
+def moe_train_cfg(pt, **over):
+    """bench.py's moe_gpt recipe (:1518-1545) at MoEGPTConfig()'s own
+    width (hidden 768, 12 layers, 12 heads, vocab 50304, E = 4, top 2,
+    experts of 3072): the composite attention (use_flash_attention=False)."""
+    return pt.MoEGPTConfig(use_flash_attention=False, **over)
+
+
+def phase_moe_train_parity(pt, ops):
+    """Phase 19: `moe_train_cfg` cut to 2 layers, f32, numpy weights, B=2,
+    S=128: 3 AdamW steps with the aux loss on the card and on the CPU,
+    held as phase 14 (elements whose gradient lay within the gradient gate
+    of 0 held to 2 * 3 * lr); both grouped kernels launch."""
+    cfg = moe_train_cfg(pt, num_hidden_layers=2)
+
+    def loss_of(model, x, y):
+        return pt.MoEGPTPretrainingCriterion(model=model)(model(x), y)
+    return train_parity(
+        pt, ops, "moe training parity",
+        lambda device: pt.MoEGPTForCausalLM(cfg, device=device), loss_of,
+        cfg.vocab_size, cfg.num_hidden_layers, "moe_train", sign_free=True)
+
+
+def phase_moe_training(pt, ops):
+    """Phase 20: bench.py's moe_gpt recipe on one card (ep = 1):
+    `moe_train_cfg` at its 12 layers, f32, no auto_cast,
+    MoEGPTPretrainingCriterion with the aux loss, AdamW(1e-4), B=8,
+    S=1024, one batch of random ids fed as ids and labels.  MFU counts
+    the active parameters (the non-expert ones and top_k / E of the
+    experts')."""
+    import numpy as np
+    import torch
+    cfg = moe_train_cfg(pt)
+    model = pt.MoEGPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_expert = sum(p.numel() for n, p in model.named_parameters()
+                   if ".mlp." in n and not n.endswith("router"))
+    n_active = n_params - n_expert + n_expert * cfg.top_k // cfg.num_experts
+    say(f"  {n_params / 1e6:.1f}M parameters, {n_active / 1e6:.1f}M active "
+        f"a token (top {cfg.top_k} of {cfg.num_experts} experts)")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    crit = pt.MoEGPTPretrainingCriterion(model=model)
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (MOE_TRAIN_B, MOE_TRAIN_S))).cuda()
+
+    def step():
+        loss = crit(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    counts, summary = drive_training(
+        ops, step, n_active, MOE_TRAIN_B, cfg.num_hidden_layers,
+        cfg.hidden_size, "moe training", "moe_train", S=MOE_TRAIN_S)
+    summary.update(n_params_total=n_params, n_params_active=n_active,
+                   aux_loss=float(model.aux_loss().detach()))
+    return counts, summary
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -2047,8 +2509,10 @@ MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "rms_norm": "float32", "rms_norm_bwd": "float32",
               "ragged_attention_int8": "bfloat16",
               "matmul_epilogue_int8": "bfloat16",
-              "layer_norm_residual": "float32"}
-TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16"}
+              "layer_norm_residual": "float32",
+              "grouped_matmul": "bfloat16", "grouped_matmul_dw": "float32"}
+TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16",
+               "grouped_matmul": "float32"}
 
 
 def kernels_line(results, counts):
@@ -2062,15 +2526,17 @@ def kernels_line(results, counts):
     LLaMA-2 7B's prefill and decode shapes.  ``launches`` counts the main
     path's run (the serving drive, the composite training drive, or the
     ``main`` drive of `KERNEL_INFO`: the flash drive's, the LLaMA or BERT
-    training drive's timed steps or the int8 serving drive's);
+    training drive's timed steps, the int8 serving drive's or the MoE
+    drives');
     ``launches_<drive>`` every drive's."""
     out = []
     for name, info in KERNEL_INFO.items():
         main = MAIN_DTYPE[name]
         other = "float32" if main == "bfloat16" else "bfloat16"
         shapes = FLASH_SHAPES if name.startswith("flash_attention") \
-            else RMS_SHAPES if name.startswith("rms_norm") else {}
-        served = "serve" in info or "serve_int8" in info
+            else RMS_SHAPES if name.startswith("rms_norm") \
+            else {"w2": 0, "train_dx": 0} if name == "grouped_matmul" else {}
+        served = any(d in info for d in ("serve", "serve_int8", "serve_moe"))
         key = (name,) if served else (name, "train")
         drive = info.get("main", "serve" if "serve" in info else "train")
         entry = dict(name=name, route="cuda", source=info["source"],
@@ -2079,7 +2545,7 @@ def kernels_line(results, counts):
                      **kernel_entry(results[(key[0], main) + key[1:]]))
         for d, c in counts.items():
             entry[f"launches_{d}"] = c[name]
-        for d in ("train_flash", "llama_train", "bert_train"):
+        for d in ("train_flash", "llama_train", "bert_train", "moe_train"):
             entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
         entry["launches_per_forward_ernie_eval"] = \
             counts["ernie_eval"][name] // ERNIE_FORWARDS
@@ -2196,12 +2662,34 @@ def main():
     say("[16] ERNIE: parity at ErnieConfig width, 2 layers, f32, eval; "
         "ErnieForSequenceClassification bf16 forward, B=64 S=128")
     ernie_counts, ernie = phase_ernie(pt, ops)
+    free_device_memory()
+
+    say("[17] MoE serving parity: GPT_1P3B width, E=4 top 2, 2 layers, "
+        "f32, CUDA vs CPU")
+    moe_parity = phase_moe_parity(pt, ops)
+    free_device_memory()
+
+    say("[18] MoE serving: GPT_1P3B width, E=4 top 2, 24 layers, bf16, "
+        "16 requests x 64 tokens")
+    moe_serve_counts, moe_serving, _ = phase_serving(
+        pt, ops, moe=True, base=serving)
+    free_device_memory()
+
+    say("[19] MoE training parity: MoEGPTConfig width, 2 layers, f32, aux "
+        "loss, 3 AdamW steps, CUDA vs CPU")
+    moe_train_parity = phase_moe_train_parity(pt, ops)
+    free_device_memory()
+
+    say("[20] MoE training: bench.py's moe_gpt recipe at MoEGPTConfig() "
+        "width, 12 layers, f32, AdamW, B=8 S=1024")
+    moe_train_counts, moe_training = phase_moe_training(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
                   llama_train=llama_train_counts,
                   llama_gen=llama_gen_counts, serve_int8=int8_counts,
-                  bert_train=bert_counts, ernie_eval=ernie_counts)
+                  bert_train=bert_counts, ernie_eval=ernie_counts,
+                  serve_moe=moe_serve_counts, moe_train=moe_train_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -2213,7 +2701,11 @@ def main():
                     "llama_generate": llama_generate,
                     "int8_serving": int8_serving,
                     "bert_training_parity": bert_parity,
-                    "bert_training": bert_training, "ernie": ernie}))
+                    "bert_training": bert_training, "ernie": ernie,
+                    "moe_serving_parity": moe_parity,
+                    "moe_serving": moe_serving,
+                    "moe_training_parity": moe_train_parity,
+                    "moe_training": moe_training}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,9 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 The JAX package ``paddle_tpu`` stays the reference; this package serves
-and trains the same GPT, LLaMA, BERT and ERNIE models on an NVIDIA H100
-through kernels written by hand in CUDA C++ for Hopper (``csrc/``), each
-with a plain PyTorch version that the CPU runs.  It imports torch and numpy,
+and trains the same GPT, MoE-GPT, LLaMA, BERT and ERNIE models on an
+NVIDIA H100 through kernels written by hand in CUDA C++ for Hopper
+(``csrc/``), each with a plain PyTorch version that the CPU runs.  It imports torch and numpy,
 never JAX and never ``paddle_tpu``.  Entry points run on the CUDA device
 unless the caller passes ``device="cpu"``.
 
@@ -34,7 +34,12 @@ Ported so far (see ``ops`` for the kernels):
   its tanh pooler, the MLM and sequence-classification heads), whose
   post-norm layers add the residual inside the fused residual layer-norm
   kernel, and whose attention runs the flash kernels without causality
-  in eval (with dropout, the composite).
+  in eval (with dropout, the composite);
+* MoE-GPT: ``models.moe_gpt`` (dropless top-k routing,
+  ``distributed.auto_parallel.moe_dispatch``; stacked experts through the
+  grouped-matmul kernels, forward and weight gradient), served by the
+  ``GenerationEngine`` and trained with ``MoEGPTPretrainingCriterion``'s
+  load-balance term.
 """
 from . import amp, distributed, nn, optimizer, quantization
 from .convert import load_reference_state
@@ -44,6 +49,8 @@ from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
 from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
                          GPTPretrainingCriterion)
 from .models.llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM
+from .models.moe_gpt import (MoEGPTConfig, MoEGPTForCausalLM,
+                             MoEGPTPretrainingCriterion)
 from .inference.serving import GenerationEngine
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
@@ -51,4 +58,6 @@ __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
            "ErnieConfig", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "GPT_1P3B",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
-           "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "GenerationEngine"]
+           "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "MoEGPTConfig",
+           "MoEGPTForCausalLM", "MoEGPTPretrainingCriterion",
+           "GenerationEngine"]

@@ -77,29 +77,13 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kActNone = 0;
-constexpr int kActRelu = 1;
-constexpr int kActGelu = 2;
-constexpr int kActGeluTanh = 3;
-constexpr int kActSilu = 4;
-
-__device__ __forceinline__ float apply_act(float z, int act) {
-  switch (act) {
-    case kActRelu:
-      return fmaxf(z, 0.f);
-    case kActGelu:
-      return 0.5f * z * (1.f + erff(z / 1.4142135623730951f));
-    case kActGeluTanh: {
-      const float t =
-          tanhf(0.7978845608028654f * (z + 0.044715f * z * z * z));
-      return 0.5f * z * (1.f + t);
-    }
-    case kActSilu:
-      return z * (1.f / (1.f + expf(-z)));
-    default:
-      return z;
-  }
-}
+using ptt::apply_act;
+using ptt::kActGelu;
+using ptt::kActGeluTanh;
+using ptt::kActNone;
+using ptt::kActRelu;
+using ptt::kActSilu;
+using ptt::stage_tile;
 
 // z = acc (* scale, int8 weights) + b; out = act(z).  The scale's product
 // is rounded before the bias is added (__fmul_rn is never fused into an
@@ -133,38 +117,10 @@ __device__ __forceinline__ void store_or_split(float acc, float* partial,
 // ---- bf16: WMMA tensor-core tiles ---------------------------------------
 constexpr int kBM = 64, kBN = 64, kBK = 32;
 
-// Stage rows x cols of a row-major bf16 matrix (leading dimension
-// `ld_src`, `rows_total` x `cols_total`) at (row0, col0) into shared
-// memory, eight values (16 bytes) per copy where they are in bounds and
-// `vec` says the rows are 16-byte aligned; element by element, with zero
-// fill, at the ragged edge.
-template <int kRows, int kCols>
-__device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
-                                           int ld_dst,
-                                           const bf16* __restrict__ src,
-                                           int ld_src, int row0, int col0,
-                                           int rows_total, int cols_total,
-                                           bool vec) {
-  constexpr int kChunks = kCols / 8;
-  const bf16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < kRows * kChunks; e += blockDim.x) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    bf16* d = dst + r * ld_dst + c;
-    const bf16* s = src + static_cast<size_t>(gr) * ld_src + gc;
-    if (vec && gr < rows_total && gc + 8 <= cols_total) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = (gr < rows_total && gc + j < cols_total) ? s[j] : zero;
-    }
-  }
-}
-
-// The same for an int8 source, widened to bf16 (exactly) on the way into
-// shared memory: sixteen codes (16 bytes) per copy where they are in
-// bounds and `vec` says the rows are 16-byte aligned.
+// `ptt::stage_tile` (common.cuh) for an int8 source, widened to bf16
+// (exactly) on the way into shared memory: sixteen codes (16 bytes) per
+// copy where they are in bounds and `vec` says the rows are 16-byte
+// aligned.
 template <int kRows, int kCols>
 __device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
                                            int ld_dst,

@@ -120,13 +120,16 @@ class GPTMLP(nn.Module):
 
 
 class GPTBlock(nn.Module):
+    #: the block's MLP (MoE-GPT's block swaps in its expert MLP)
+    mlp_cls = GPTMLP
+
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.ln_1 = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
         self.attn = GPTAttention(cfg, **kw)
         self.ln_2 = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
-        self.mlp = GPTMLP(cfg, **kw)
+        self.mlp = self.mlp_cls(cfg, **kw)
         self.dropout = pnn.Dropout(cfg.hidden_dropout_prob,
                                    generator=generator)
 
@@ -140,6 +143,8 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
+    block_cls = GPTBlock
+
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
         if cfg.use_scan_layers:
@@ -152,7 +157,7 @@ class GPTModel(nn.Module):
         self.wte = pnn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
         self.wpe = pnn.Embedding(cfg.max_position_embeddings,
                                  cfg.hidden_size, **kw)
-        self.h = pnn.LayerList([GPTBlock(cfg, **kw)
+        self.h = pnn.LayerList([self.block_cls(cfg, **kw)
                                 for _ in range(cfg.num_hidden_layers)])
         self.ln_f = pnn.LayerNorm(cfg.hidden_size, device=device, dtype=dtype)
 
@@ -191,13 +196,16 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
     optimizers pass to ``apply_decay_param_fun``.
     """
 
+    model_cls = GPTModel
+
     def __init__(self, cfg, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         device = resolve_device(device)
         dtype = to_torch_dtype(dtype)
         gen = torch.Generator(device=device).manual_seed(int(seed))
         self.config = cfg
-        self.gpt = GPTModel(cfg, device=device, dtype=dtype, generator=gen)
+        self.gpt = self.model_cls(cfg, device=device, dtype=dtype,
+                                  generator=gen)
         for name, p in self.named_parameters():
             p.param_name = name
 

@@ -19,23 +19,30 @@ fused_rms_norm_bwd             rms_norm.cu          pallas_kernels.py:658
 ragged_paged_attention_int8    ragged_attention.cu  pallas_ragged.py:197
 fused_linear_act_int8          matmul_epilogue.cu   pallas_fused.py:406
 fused_layer_norm_residual      layer_norm.cu        pallas_fused.py:101
+fused_grouped_linear_act       grouped_matmul.cu    pallas_grouped.py:85
+fused_grouped_dw               grouped_matmul.cu    pallas_grouped.py:133
 =============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
 `layer_norm`, `layer_norm_residual`, `rms_norm`, `linear_act`,
-`fused_softmax_cross_entropy` and `flash_attention` are the
-differentiable entry points: ``torch.autograd.Function``s whose backward
-is the backward kernel (for the residual layer norm, the layer-norm
-backward on the saved sum; for flash attention, the dq and the dk/dv
-kernels).
+`fused_softmax_cross_entropy`, `flash_attention` and
+`grouped_linear_act` are the differentiable entry points:
+``torch.autograd.Function``s whose backward is the backward kernel (for
+the residual layer norm, the layer-norm backward on the saved sum; for
+flash attention, the dq and the dk/dv kernels; for the grouped matmul,
+the forward kernel on the transposed weights for dx and the dw kernel).
 """
 from .flash_attention import (flash_attention, flash_attention_bwd_ref,
                               flash_attention_ref, flash_bwd_stats,
                               fused_flash_attention_bwd_dkv,
                               fused_flash_attention_bwd_dq,
                               fused_flash_attention_fwd)
+from .grouped import (fused_grouped_dw, fused_grouped_linear_act,
+                      group_segments, grouped_block_rows, grouped_dw_ref,
+                      grouped_layout, grouped_linear_act,
+                      grouped_linear_act_ref, num_group_blocks)
 from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
                          fused_layer_norm_residual, layer_norm,
                          layer_norm_bwd_ref, layer_norm_ref,
@@ -68,10 +75,14 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "rms_norm_bwd_ref", "rms_norm_ref", "fused_linear_act_int8",
            "linear_act_int8_ref", "KV_SCALE_LANES",
            "ragged_paged_attention_int8", "fused_layer_norm_residual",
-           "layer_norm_residual", "layer_norm_residual_ref", "KERNELS"]
+           "layer_norm_residual", "layer_norm_residual_ref",
+           "fused_grouped_dw", "fused_grouped_linear_act", "group_segments",
+           "grouped_block_rows", "grouped_dw_ref", "grouped_layout",
+           "grouped_linear_act", "grouped_linear_act_ref", "num_group_blocks",
+           "KERNELS"]
 
-#: every kernel wrapper of the serving, training, LLaMA, int8 serving and
-#: BERT/ERNIE paths, by kernel name
+#: every kernel wrapper of the serving, training, LLaMA, int8 serving,
+#: BERT/ERNIE and MoE paths, by kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
@@ -88,4 +99,6 @@ KERNELS = {
     "ragged_attention_int8": ragged_paged_attention_int8,
     "matmul_epilogue_int8": fused_linear_act_int8,
     "layer_norm_residual": fused_layer_norm_residual,
+    "grouped_matmul": fused_grouped_linear_act,
+    "grouped_matmul_dw": fused_grouped_dw,
 }

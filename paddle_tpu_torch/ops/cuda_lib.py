@@ -70,6 +70,10 @@ _SIGNATURES = {
     "ptt_flash_attention_bwd_dkv": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                      _I, _I, _I, _LL, _F, _I, _I, _I, _P),
                                     _I),
+    "ptt_grouped_matmul_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _P), _I),
+    "ptt_grouped_matmul_dw": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P), _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
 }
 

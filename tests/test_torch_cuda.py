@@ -26,7 +26,10 @@ a scale per pool slot.  The fused residual layer norm is held to its
 plain version forward (out, s, mu, rstd) and backward (the layer-norm
 backward kernel on the saved s) at odd row counts; flash attention also
 at heads of 160 and 256 (the widest the reference routes to its kernel)
-and at BERT-base's non-causal shape.
+and at BERT-base's non-causal shape.  The grouped-expert matmul's
+forward (both weight layouts) and dw kernels are held to their plain
+versions at block rows 8, 16 and 128 with empty experts and an all-null
+buffer (exact zeros there), dw as a column sum.
 """
 import numpy as np
 import pytest
@@ -530,3 +533,101 @@ def test_int8_wrappers_refuse_missing_scales(gen):
         ops.fused_linear_act_int8(q[:, 0], w_q.float(), scale, b)
     assert ops.ragged_paged_attention_int8.launches == n0
     assert ops.fused_linear_act_int8.launches == n1
+
+
+def _grouped_buffer(counts, bm, K, gen, dtype):
+    """x [R, K] with each expert's rows in its blocks (padding rows zero)
+    for ``counts`` at block rows ``bm``, and the int32 block ids."""
+    nb = ops.num_group_blocks(sum(counts), len(counts), bm)
+    gid, offsets = ops.group_segments(torch.tensor(counts), bm, nb)
+    x = torch.zeros(nb * bm, K, device="cuda")
+    for e, c in enumerate(counts):
+        o = int(offsets[e])
+        x[o:o + c] = torch.randn(c, K, device="cuda", generator=gen)
+    return x.to(dtype), gid.cuda()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ops.ACTIVATIONS)
+@pytest.mark.parametrize("counts,bm", [([7, 0, 21, 4], 16), ([5, 0, 9, 3], 8),
+                                       ([300, 0, 120, 60], 128),
+                                       ([0, 0, 0, 0], 16)])
+def test_grouped_matmul_kernel(gen, dtype, act, counts, bm):
+    """Row tiles of 16 (bm = 16), 8 (bm = 8, f32 only: bf16 blocks are
+    16-row multiples), 64 (bm = 128); an empty buffer of null blocks
+    only; ragged K (200) and N (130).  Both weight layouts: [E, K, N] and
+    the backward's transposed read of [E, N, K]."""
+    if dtype == torch.bfloat16 and bm % 16:
+        bm = 16
+    K, N, E = 200, 130, len(counts)
+    x, gid = _grouped_buffer(counts, bm, K, gen, dtype)
+    w = (torch.randn(E, K, N, device="cuda", generator=gen) / 14).to(dtype)
+    b = torch.randn(E, N, device="cuda", generator=gen).to(dtype)
+    n0 = ops.fused_grouped_linear_act.launches
+    out, z = ops.fused_grouped_linear_act(x, w, b, gid, act, return_z=True)
+    assert ops.fused_grouped_linear_act.launches == n0 + 1
+    want = ops.grouped_linear_act_ref(x, w, b, block_group=gid, act=act)
+    z_ref = ops.grouped_linear_act_ref(x, w, b, block_group=gid)
+    _close(out, want, dtype)
+    _close(z, z_ref, dtype)
+    null = (gid == E).repeat_interleave(bm)
+    assert not out[null].any() and not z[null].any()
+    wt = w.transpose(1, 2).contiguous()          # [E, N, K]
+    y = torch.randn(x.shape[0], N, device="cuda", generator=gen).to(dtype)
+    dx = ops.fused_grouped_linear_act(y, w, None, gid, transpose_w=True)
+    _close(dx, ops.grouped_linear_act_ref(y, wt, None, block_group=gid),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("counts,bm", [([7, 0, 21, 4], 16), ([5, 0, 9, 3], 8),
+                                       ([300, 0, 120, 60], 128),
+                                       ([0, 0, 0, 0], 16)])
+def test_grouped_dw_kernel(gen, dtype, counts, bm):
+    """dw[e] against the plain per-block sum, at K = 200, N = 130 (ragged
+    64-wide tiles); an expert with no block (and an all-null buffer)
+    gives exact zeros.  Sums over up to 300 rows: the column-sum bound of
+    the other backward kernels."""
+    if dtype == torch.bfloat16 and bm % 16:
+        bm = 16
+    K, N, E = 200, 130, len(counts)
+    x, gid = _grouped_buffer(counts, bm, K, gen, dtype)
+    dz = torch.randn(x.shape[0], N, device="cuda", generator=gen).to(dtype)
+    n0 = ops.fused_grouped_dw.launches
+    dw = ops.fused_grouped_dw(x, dz, gid, E)
+    assert ops.fused_grouped_dw.launches == n0 + 1
+    want = ops.grouped_dw_ref(x, dz, gid, E)
+    torch.testing.assert_close(dw.float(), want.float(),
+                               atol=_sum_tol(dtype, max(counts) or 1),
+                               rtol=_TOL[dtype])
+    for e, c in enumerate(counts):
+        if c == 0:
+            assert not dw[e].any()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_grouped_linear_act_gradients_on_the_card(gen, dtype):
+    """The autograd function on the card (forward kernel; dx through the
+    forward kernel on the transposed weights, dw through the dw kernel,
+    dz and db in plain torch) against the same function on the CPU."""
+    counts, bm = [37, 0, 80, 11], 32
+    K, N, E = 96, 160, 4
+    x, gid = _grouped_buffer(counts, bm, K, gen, dtype)
+    w = (torch.randn(E, K, N, device="cuda", generator=gen) / 10).to(dtype)
+    b = torch.randn(E, N, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(x.shape[0], N, device="cuda", generator=gen).to(dtype)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        xs, ws, bs = (t.detach().to(dev).requires_grad_()
+                      for t in (x, w, b))
+        out = ops.grouped_linear_act(xs, ws, bs, block_group=gid.to(dev),
+                                     act="gelu_tanh")
+        out.backward(g.to(dev))
+        grads[dev] = [t.detach().cpu() for t in (out, xs.grad, ws.grad,
+                                                 bs.grad)]
+    for name, got, want in zip(("out", "dx", "dw", "db"), grads["cuda"],
+                               grads["cpu"]):
+        tol = _TOL[dtype] * (10 if name in ("dw", "db") else 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=_TOL[dtype], msg=name)
+    assert not grads["cuda"][2][1].any() and not grads["cuda"][3][1].any()

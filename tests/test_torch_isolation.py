@@ -44,7 +44,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "optimizer.optimizer", "nn.clip", "ops.softmax_xent",
               "ops.flash_attention", "distributed.fleet.recompute",
               "models.generation", "models.llama", "ops.rms_norm",
-              "quantization", "models.bert", "models.ernie"):
+              "quantization", "models.bert", "models.ernie",
+              "models.moe_gpt", "ops.grouped",
+              "distributed.auto_parallel.moe_dispatch"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -128,6 +130,27 @@ def test_bert_and_ernie_default_to_cuda_and_refuse_without_it():
                                    torch.zeros(16, device="meta"))
 
 
+def test_moe_gpt_defaults_to_cuda_and_refuses_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    cfg = pt.MoEGPTConfig(**dict(vars(TINY), num_experts=4, top_k=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.MoEGPTForCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.MoEGPTForCausalLM(cfg, device="gpu", dtype="bfloat16")
+    model = pt.MoEGPTForCausalLM(cfg, device="cpu")
+    assert model.device.type == "cpu" and model.dtype == torch.float32
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.GenerationEngine(model, num_blocks=8)
+    meta = torch.zeros(16, 8, device="meta")
+    gid = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="grouped matmul"):
+        pt.ops.fused_grouped_linear_act(meta, torch.zeros(
+            2, 8, 4, device="meta"), None, gid)
+    with pytest.raises(RuntimeError, match="grouped dw"):
+        pt.ops.fused_grouped_dw(meta, meta, gid, 2)
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     x = torch.randn(4, 8)
     out, mu, rstd = pt.ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))
@@ -144,6 +167,10 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     pt.ops.flash_attention(q, q, q, causal=True).sum().backward()
     codes = torch.ones(8, 3, dtype=torch.int8)
     pt.ops.fused_linear_act_int8(x, codes, torch.ones(3), torch.zeros(3))
+    gid = torch.tensor([0, 2], dtype=torch.int32)
+    w3 = torch.randn(2, 8, 3, requires_grad=True)
+    pt.ops.grouped_linear_act(x.repeat(4, 1), w3, block_group=gid,
+                              act="gelu").sum().backward()
     ints = [torch.ones(1, 1, dtype=torch.int32),
             torch.full((1,), 8, dtype=torch.int32)] + [
         torch.tensor([v], dtype=torch.int32) for v in (0, 0, 8)]
