@@ -36,7 +36,14 @@ phase fails.  Phases:
    (w1 read transposed) and its dw; the library yardstick is
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
    loop of ``torch._addmm_activation`` / ``addmm`` / ``mm``, named in
-   each row's note;
+   each row's note; the LoRA SGMV epilogue at the multi-LoRA serving
+   step's qkv, out, fc1 (gelu_tanh) and fc2 (the token budget's rows, 4
+   adapters of 16 slots mixed with null blocks, rank 16; no library
+   call), the grouped kernels at LoRA's backward shapes (8192 rows, one
+   adapter: u and dx through the transposed read with N or K = 16, dA and
+   dB; yardstick ``torch.mm``), and paged decode attention at phase 25's
+   decode shape (4 sequences at contexts 129-192 and one at 0, 16 heads
+   of 128, pages of 16; no library call);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
@@ -153,12 +160,45 @@ phase fails.  Phases:
     random ids as labels, f32, no ``auto_cast``, composite attention) at
     ``MoEGPTConfig()``'s own 12 layers on one card, B=8, S=1024: ms/step,
     tokens/s, MFU over the active parameters, peak memory, launches per
-    step, the loss falling on the repeated batch, one profiled step.
+    step, the loss falling on the repeated batch, one profiled step;
+21. LoRA serving parity: bench_gpt_multilora's width (hidden 1024, 16
+    heads, vocab 50304, 1024 positions) cut to 2 layers, f32, numpy
+    weights, served with LoRA on (rank 16) on the card and on the CPU: 4
+    adapters and 2 base-model rows among 6 requests, 16 greedy tokens
+    each: identical tokens; the SGMV epilogue 4 x layers a step, fc1's
+    matmul epilogue none;
+22. multi-LoRA serving: bench.py:959-1068's ``bench_gpt_multilora``
+    recipe (TPU branch) at 24 layers in bf16 with random weights from a
+    seed (the reference builds f32 weights): 64 adapters of rank 16
+    (``make_adapter``, seed 1000 + i), ``enable_lora(rank=16,
+    num_slots=16)``, ``max_batch=8``, ``bursty_trace(7, 64 requests,
+    adapter_pool=64)`` after a warm-up of 2 requests x 2 tokens:
+    tokens/s, p99 TTFT, ms/step, the adapter hit rate and spills, peak
+    memory, launches per step, one profiled burst; then the same trace
+    without adapters on a LoRA-free engine (the base twin), and the
+    base-model rows' greedy match ratio against it (reported);
+23. LoRA fine-tuning parity: phase 21's width, 2 layers, f32, the base
+    frozen and ``convert_to_lora(rank=16)``: 3 AdamW steps on the card and
+    on the CPU held as phase 19; the base parameters end bit-unchanged;
+    the SGMV epilogue, the grouped forward kernel (u, t, dx) and the
+    grouped dw kernel launch;
+24. LoRA fine-tuning: the multilora width at 24 layers, rank 16, on
+    ``bench_gpt``'s recipe (f32 master weights under ``auto_cast(bf16,
+    O1)``, ``AdamW(1e-4, weight_decay=0.01)`` over the LoRA factors, clip
+    1.0), B=8, S=1024: ms/step, tokens/s, peak memory, launches per step,
+    one profiled step (no MFU), the loss falling;
+25. the paged decode view: GPT_1P3B's width cut to 2 layers, f32: 4
+    prompts of 64 tokens prefilled through ``PagedCacheView("prefill")``
+    and 16 greedy steps through ``PagedCacheView("decode")`` give the
+    same tokens on the card and the CPU; then GPT_1P3B in bf16 on phase
+    9's prompts (4 x 128) and weights, 64 decode steps: ms per decode step
+    beside phase 9's dense cache and the token match against phase 9.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
 training, generate, the three LLaMA, the int8 serving, the two BERT, the
-ERNIE and the four MoE summaries) and the card's
+ERNIE, the four MoE, the four LoRA and the paged decode summaries) and
+the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -205,6 +245,49 @@ RAGGED_BF16_F32P_TOL = (2.0 ** -8, 2.0 ** -7)
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def bursty_trace(seed, n_requests=8, vocab=97, prefix_pool=4,
+                 prefix_len=16, tail_max=5, zipf_a=1.5, pareto_a=1.3,
+                 max_new_tokens=6, horizon=24, adapter_pool=0,
+                 adapter_zipf=1.3, adapter_none_frac=0.25):
+    """The reference's synthetic serving trace
+    (``paddle_tpu/distributed/fault_tolerance/chaos.py:60``, its burst
+    mode), copied so that this script needs no JAX: heavy-tailed arrival
+    gaps, prompts that share Zipf-popular prefixes, and with
+    ``adapter_pool`` a Zipf-popular adapter id per request (``"t0"``...,
+    ``adapter_none_frac`` of them None: base-model rows) from a stream of
+    its own.  Returns ``[{"arrival_step", "prompt", "max_new_tokens"[,
+    "adapter"]}, ...]``, equal to the reference's for the same
+    arguments."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    prefixes = [[int(t) for t in rng.randint(1, vocab, size=prefix_len)]
+                for _ in range(prefix_pool)]
+    ranks = np.arange(1, prefix_pool + 1, dtype=np.float64) ** -zipf_a
+    probs = ranks / ranks.sum()
+    if adapter_pool:
+        a_rng = np.random.RandomState([int(seed), 0xADA])
+        a_ranks = np.arange(1, int(adapter_pool) + 1,
+                            dtype=np.float64) ** -float(adapter_zipf)
+        a_probs = a_ranks / a_ranks.sum()
+    t = 0.0
+    out = []
+    for i in range(int(n_requests)):
+        if i:
+            t += float(rng.pareto(pareto_a))
+        p = int(rng.choice(prefix_pool, p=probs))
+        tail = [int(x) for x in
+                rng.randint(1, vocab, size=1 + int(rng.randint(tail_max)))]
+        req = {"arrival_step": min(int(t), horizon - 1),
+               "prompt": prefixes[p] + tail,
+               "max_new_tokens": int(max_new_tokens)}
+        if adapter_pool:
+            base = a_rng.random_sample() < float(adapter_none_frac)
+            aid = int(a_rng.choice(int(adapter_pool), p=a_probs))
+            req["adapter"] = None if base else f"t{aid}"
+        out.append(req)
+    return out
 
 
 def say(msg):
@@ -1066,6 +1149,237 @@ def check_grouped_dw(ops, case, dtype, dtype_name, gen):
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
         library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
 
+
+#: the SGMV epilogue at the multi-LoRA serving step (phase 22's model:
+#: hidden 1024, ffn 4096; rank 16 over 16 slots): (K, N, act) of each
+#: projection.  The step's rows are its token budget (bf16: 256 + 7 x 16 =
+#: 368, 23 blocks of 16; f32: 312, 39 blocks of 8).
+LORA_CASES = {"qkv": (1024, 3072, "none"), "out": (1024, 1024, "none"),
+              "fc1": (1024, 4096, "gelu_tanh"), "fc2": (4096, 1024, "none")}
+LORA_RANK, LORA_SLOTS = 16, 16
+#: the SGMV epilogue at the LoRA fine-tuning drive's shapes (phase 24:
+#: B x S = `LORA_BWD_ROWS` rows, one adapter that owns every block; GPT's
+#: MLP runs fc1 through the matmul epilogue there): (K, N, act)
+LORA_TRAIN_CASES = {"train_qkv": (1024, 3072, "none"),
+                    "train_out": (1024, 1024, "none"),
+                    "train_fc2": (4096, 1024, "none")}
+
+
+def lora_block_ids(nb, slots):
+    """Per-block adapter slots of a mixed serving step: adapters 0, 3, 6
+    and 9 in turn, a null block (``slots``) every third block; the other
+    slots own no block."""
+    return [slots if i % 3 == 2 else (0, 3, 6, 9)[i % 4] for i in range(nb)]
+
+
+def check_lora(ops, case, dtype, dtype_name, gen, rows):
+    """The SGMV epilogue at one of `LORA_CASES` (the serving step's mixed
+    blocks over `LORA_SLOTS` slots) or `LORA_TRAIN_CASES` (one adapter
+    owning every block, as fine-tuning's single-adapter path runs it)
+    against its plain version (out; the saved sum against the plain
+    version without activation, and equal to z on null rows).  No single
+    PyTorch call computes it.  Bound: z read and out and s written for
+    every row, x read for the adapter blocks' rows, the factors of the
+    adapters in use."""
+    import torch
+    train = case in LORA_TRAIN_CASES
+    K, N, act = (LORA_TRAIN_CASES if train else LORA_CASES)[case]
+    bm = ops.ragged_q_block(dtype)
+    nb = rows // bm
+    r = ops.lora_rank_pad(LORA_RANK, dtype)
+    slots = 1 if train else LORA_SLOTS
+    aid = [0] * nb if train else lora_block_ids(nb, slots)
+    gid = torch.tensor(aid, dtype=torch.int32, device="cuda")
+    z = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
+    x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
+    a = (0.05 * torch.randn(slots, K, r, device="cuda",
+                            generator=gen)).to(dtype)
+    b = (0.05 * torch.randn(slots, r, N, device="cuda",
+                            generator=gen)).to(dtype)
+
+    def kernel():
+        return ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
+
+    def plain(act=act):
+        return ops.lora_segment_epilogue_ref(z, x, a, b, block_adapter=gid,
+                                             act=act)
+    (out, s), want, s_want = kernel(), plain(), plain("none")
+    torch.cuda.synchronize()
+    err, rel, ok = compare(out, want, dtype_name)
+    s_err, _, s_ok = compare(s, s_want, dtype_name)
+    null = (gid == slots).repeat_interleave(bm)
+    ok = ok and s_ok and bool(torch.equal(s[null], z[null]))
+    used = sorted(set(aid) - {slots})
+    real_rows = (nb - aid.count(slots)) * bm
+    isz = x.element_size()
+    nbytes = (3 * rows * N + real_rows * K + len(used) * r * (K + N)) * isz
+    bms, by = bound(nbytes, 2 * real_rows * r * (K + N), dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"{case}: z[{rows},{N}] x[{rows},{K}] (bm {bm}, "
+               f"{aid.count(slots)} of {nb} blocks null, adapters "
+               f"{used} of {slots} slots) r {r} {act}"),
+        note=(f"s vs plain max abs err {s_err:.3e}, null rows' s == z; "
+              f"library: none, no single PyTorch call applies each row "
+              f"block's own adapter"),
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
+#: LoRA's backward at the fine-tuning drive's qkv (phase 24: B = 8,
+#: S = 1024 rows, one adapter, hidden 1024 -> 3072, rank 16): the grouped
+#: kernels over the adapter stacks, blocks of min_rows rows.  14a, as
+#: (K, N, transposed): u = ds @ B^T ([8192, 3072] against B [1, 16, 3072]
+#: read transposed: N = 16, under the 64-column tile), dx = u @ A^T
+#: (K = 16) and the recomputed t = x @ A (A [1, 1024, 16] as stored:
+#: N = 16); 14b: dA = x^T u ([1, 1024, 16]) and dB = t^T ds ([1, 16,
+#: 3072]).
+LORA_BWD_ROWS = 8192
+LORA_BWD_CASES = {"lora_u": (3072, 16, True), "lora_dx": (16, 1024, True),
+                  "lora_t": (1024, 16, False)}
+LORA_DW_CASES = {"lora_dA": (1024, 16), "lora_dB": (16, 3072)}
+
+
+def check_lora_grouped(ops, case, dtype, dtype_name, gen):
+    """Row 14a at one of `LORA_BWD_CASES` (x [8192, K], w [1, N, K] read
+    transposed, or w [1, K, N] as stored) against its plain version.
+    Library yardstick: ``torch.mm`` of x and the one adapter's factor."""
+    import torch
+    K, N, trans = LORA_BWD_CASES[case]
+    R = LORA_BWD_ROWS
+    bm = ops.ragged_q_block(dtype)
+    gid = torch.zeros(R // bm, dtype=torch.int32, device="cuda")
+    x = torch.randn(R, K, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(1, *((N, K) if trans else (K, N)), device="cuda",
+                     generator=gen) / K ** 0.5).to(dtype)
+
+    def kernel():
+        return ops.fused_grouped_linear_act(x, w, None, gid, "none",
+                                            transpose_w=trans)
+    wk = w.transpose(1, 2) if trans else w      # [1, K, N]
+
+    def plain():
+        return ops.grouped_linear_act_ref(x, wk, None, block_group=gid)
+
+    def lib_fn():
+        return torch.mm(x, wk[0])
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel, ok = compare(got, want, dtype_name)
+    lib_err = compare(lib_fn(), want, dtype_name)[0]
+    isz = x.element_size()
+    bms, by = bound((R * K + N * K + R * N) * isz, 2 * R * K * N,
+                    dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"{case}: x[{R},{K}] (bm {bm}, one adapter) "
+               f"w[1,{w.shape[1]},{w.shape[2]}]"
+               + (" read transposed" if trans else "")),
+        note=f"library: torch.mm, vs plain max abs err {lib_err:.3e}",
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
+
+
+def check_lora_dw(ops, case, dtype, dtype_name, gen):
+    """Row 14b at one of `LORA_DW_CASES` (x [8192, K], dz [8192, N], one
+    adapter) against its plain version, as a column sum (`SUM_TOL`).
+    Library yardstick: ``torch.mm(x^T, dz)``."""
+    import torch
+    K, N = LORA_DW_CASES[case]
+    R = LORA_BWD_ROWS
+    bm = ops.ragged_q_block(dtype)
+    gid = torch.zeros(R // bm, dtype=torch.int32, device="cuda")
+    x = torch.randn(R, K, device="cuda", generator=gen).to(dtype)
+    dz = torch.randn(R, N, device="cuda", generator=gen).to(dtype)
+
+    def kernel():
+        return ops.fused_grouped_dw(x, dz, gid, 1)
+
+    def plain():
+        return ops.grouped_dw_ref(x, dz, gid, 1)
+
+    def lib_fn():
+        return torch.mm(x.t(), dz)
+    got, want = kernel(), plain()
+    abs_sum = ops.grouped_dw_ref(x.abs(), dz.abs(), gid, 1).float()
+    torch.cuda.synchronize()
+    err, ok, _ = compare_sum(got, want, abs_sum, dtype_name)
+    rel = compare(got, want, dtype_name)[1]
+    lib_err = compare(lib_fn(), want[0], dtype_name)[0]
+    isz = x.element_size()
+    bms, by = bound((R * K + R * N + K * N) * isz, 2 * R * K * N,
+                    dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"{case}: x[{R},{K}] dz[{R},{N}] (bm {bm}, one adapter) -> "
+               f"dw[1,{K},{N}]"),
+        note=f"library: torch.mm, vs plain max abs err {lib_err:.3e}",
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
+
+
+#: paged decode attention at phase 25's decode step (GPT_1P3B: 16 heads of
+#: 128, block 16): 4 sequences at contexts 129-192 plus one at context 0,
+#: tables 16 wide (padding entries point at block 0)
+PAGED_CTX, PAGED_H, PAGED_D, PAGED_BS, PAGED_W = (129, 150, 171, 192, 0), \
+    16, 128, 16, 16
+
+
+def check_paged(ops, dtype, dtype_name, gen):
+    """Paged decode attention against its plain version; bf16 also against
+    the plain version run in f32 (`RAGGED_BF16_F32P_TOL`: the kernel keeps
+    the probabilities in f32).  No single PyTorch call gathers the pages
+    and attends.  Bound: q and the visible keys' rows of K and V read
+    (not the rest of their last pages: the kernel reads only the rows
+    below the context length), the output written; 4 operations per
+    visible key element."""
+    import torch
+    B, H, D, bs, W = len(PAGED_CTX), PAGED_H, PAGED_D, PAGED_BS, PAGED_W
+    pages = [-(-c // bs) for c in PAGED_CTX]
+    nb = sum(pages) + 1
+    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
+    perm = torch.randperm(nb - 1, device="cuda", generator=gen) + 1
+    tables = torch.zeros(B, W, dtype=torch.int32, device="cuda")
+    used = 0
+    for i, n in enumerate(pages):
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    ctx = torch.tensor(PAGED_CTX, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        return ops.paged_attention(q, k, v, tables, ctx)
+
+    def plain():
+        return ops.paged_attention_ref(q, k, v, tables, ctx)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err, rel, ok = compare(got, want, dtype_name)
+    ok = ok and not bool(got[PAGED_CTX.index(0)].any())
+    note = ""
+    if dtype == torch.bfloat16:
+        w32 = ops.paged_attention_ref(q.float(), k.float(), v.float(),
+                                      tables, ctx)
+        a, r_ = RAGGED_BF16_F32P_TOL
+        rms = float(w32.pow(2).mean().sqrt())
+        e32 = float((got.float() - w32).abs().max())
+        ok = ok and bool(((got.float() - w32).abs()
+                          <= a * rms + r_ * w32.abs()).all())
+        note = f"vs plain in f32 max abs err {e32:.3e}; "
+    isz = q.element_size()
+    nbytes = (2 * B * H * D + 2 * sum(PAGED_CTX) * H * D) * isz
+    bms, by = bound(nbytes, 4 * sum(PAGED_CTX) * H * D, dtype_name)
+    return dict(
+        err=err, rel=rel, ok=ok,
+        shape=(f"q[{B},1,{H},{D}] pools[{nb},{H},{bs},{D}] contexts "
+               f"{list(PAGED_CTX)} tables [{B},{W}]"),
+        note=note + "library: none, no single PyTorch call gathers the "
+                    "pages and attends",
+        ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by)
+
+
 #: every kernel: its source, the TPU kernel it replaces, and its launches
 #: per step of each drive as (per layer, per step once); a kernel a drive
 #: does not run launches 0 times there.  serve_int8: the serving drive
@@ -1085,43 +1399,56 @@ def check_grouped_dw(ops, case, dtype, dtype_name, gen):
 #: serve_moe (per layer two layer norms, one attention and the two grouped
 #: expert GEMMs; no fc1 epilogue) and moe_train (the composite attention;
 #: per layer the two grouped GEMMs forward and their two dx through the
-#: same forward kernel, and the two dw)
+#: same forward kernel, and the two dw).  The LoRA drives: serve_lora (per
+#: layer four SGMV epilogues, qkv, out, fc1 with its gelu and fc2; fc1's
+#: GEMM is cuBLAS, so no matmul epilogue) and lora_train (convert_to_lora
+#: with the base frozen, flash attention: GPT's MLP runs fc1 through the
+#: matmul epilogue, so the SGMV epilogue runs 3 a layer; the backward of
+#: each runs the grouped forward kernel for u, t and dx, but layer 0's qkv
+#: needs no dx (its input is frozen), and the grouped dw for dA and dB;
+#: layer 0's first layer norm needs no backward for the same reason).
+#: paged_decode: one decode step of the paged view (per layer two layer
+#: norms, fc1's epilogue and one paged attention)
 KERNEL_INFO = {
     "ragged_attention": dict(
         source="paddle_tpu_torch/csrc/ragged_attention.cu",
         replaces="paddle_tpu/ops/pallas_ragged.py:115",
-        serve=(1, 0), serve_moe=(1, 0)),
+        serve=(1, 0), serve_moe=(1, 0), serve_lora=(1, 0)),
     "layer_norm": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:522",
         serve=(2, 1), train=(2, 1), train_flash=(4, 1), generate=(2, 1),
         serve_int8=(2, 1), bert_train=(0, 2), bert_parity=(0, 2),
-        ernie_eval=(0, 1), serve_moe=(2, 1), moe_train=(2, 1)),
+        ernie_eval=(0, 1), serve_moe=(2, 1), moe_train=(2, 1),
+        serve_lora=(2, 1), lora_train=(2, 1), paged_decode=(2, 1)),
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
         serve=(1, 0), train=(1, 0), train_flash=(2, 0), generate=(1, 0),
-        bert_train=(1, 1), bert_parity=(1, 1), ernie_eval=(1, 0)),
+        bert_train=(1, 1), bert_parity=(1, 1), ernie_eval=(1, 0),
+        lora_train=(1, 0), paged_decode=(1, 0)),
     "layer_norm_bwd": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:536",
         train=(2, 1), train_flash=(2, 1), bert_train=(2, 2),
-        bert_parity=(2, 2), moe_train=(2, 1)),
+        bert_parity=(2, 2), moe_train=(2, 1), lora_train=(2, 0)),
     "matmul_epilogue_bwd": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:278",
         train=(1, 0), train_flash=(1, 0), bert_train=(1, 1),
-        bert_parity=(1, 1)),
+        bert_parity=(1, 1), lora_train=(1, 0)),
     "softmax_xent_fwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
-        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1)),
+        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
+        lora_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
-        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1)),
+        bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
+        lora_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
@@ -1129,17 +1456,17 @@ KERNEL_INFO = {
         replaces="paddle_tpu/ops/pallas_kernels.py:78",
         main="train_flash", train_flash=(2, 0), generate=(1, 0),
         llama_train=(2, 0), llama_gen=(1, 0), bert_parity=(1, 0),
-        ernie_eval=(1, 0)),
+        ernie_eval=(1, 0), lora_train=(1, 0)),
     "flash_attention_bwd_dq": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:128",
         main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
-        bert_parity=(1, 0)),
+        bert_parity=(1, 0), lora_train=(1, 0)),
     "flash_attention_bwd_dkv": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:170",
         main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
-        bert_parity=(1, 0)),
+        bert_parity=(1, 0), lora_train=(1, 0)),
     "rms_norm": dict(
         source="paddle_tpu_torch/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:648",
@@ -1164,19 +1491,29 @@ KERNEL_INFO = {
     "grouped_matmul": dict(
         source="paddle_tpu_torch/csrc/grouped_matmul.cu",
         replaces="paddle_tpu/ops/pallas_grouped.py:85",
-        main="serve_moe", serve_moe=(2, 0), moe_train=(4, 0)),
+        main="serve_moe", serve_moe=(2, 0), moe_train=(4, 0),
+        lora_train=(9, -1)),
     "grouped_matmul_dw": dict(
         source="paddle_tpu_torch/csrc/grouped_matmul.cu",
         replaces="paddle_tpu/ops/pallas_grouped.py:133",
-        main="moe_train", moe_train=(2, 0)),
+        main="moe_train", moe_train=(2, 0), lora_train=(6, 0)),
+    "lora_sgmv": dict(
+        source="paddle_tpu_torch/csrc/lora_sgmv.cu",
+        replaces="paddle_tpu/ops/pallas_grouped.py:355",
+        main="serve_lora", serve_lora=(4, 0), lora_train=(3, 0)),
+    "paged_attention": dict(
+        source="paddle_tpu_torch/csrc/paged_attention.cu",
+        replaces="paddle_tpu/ops/pallas_kernels.py:898",
+        main="paged_decode", paged_decode=(1, 0)),
 }
 
 
 def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve",
-    "serve_int8", "serve_moe", "train", "train_flash", "llama_train",
-    "bert_train", "bert_parity", "moe_train", or "generate", "llama_gen"
-    and "ernie_eval", whose step is one forward)."""
+    "serve_int8", "serve_moe", "serve_lora", "train", "train_flash",
+    "llama_train", "bert_train", "bert_parity", "moe_train", "lora_train",
+    "paged_decode", or "generate", "llama_gen" and "ernie_eval", whose step
+    is one forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -1254,6 +1591,9 @@ def warm_up(ops):
     ops.fused_grouped_linear_act(x, rand(2, 256, 128), rand(2, 128), gid,
                                  "gelu_tanh")
     ops.fused_grouped_dw(x, rand(64, 128), gid, 2)
+    ops.fused_lora_segment_epilogue(rand(64, 128), x, rand(2, 256, 8),
+                                    rand(2, 8, 128), gid, "gelu_tanh")
+    ops.paged_attention(rand(1, 1, 2, 64), pool, pool, *ints[:2])
     torch.cuda.synchronize()
     idle = [name for name, n in launches(ops).items() if n != 1]
     if idle:
@@ -1270,7 +1610,12 @@ def phase_kernels(ops, budgets):
     `FLASH_SHAPES` and `RMS_SHAPES` (keys (name, dtype, shape)); the
     grouped-expert kernels at each of `GROUPED_CASES` (keys
     ("grouped_matmul", dtype) for the serving case, else (name, dtype,
-    case)), from a generator of their own."""
+    case)), from a generator of their own; the LoRA SGMV epilogue at each
+    of `LORA_CASES` and `LORA_TRAIN_CASES` (keys ("lora_sgmv", dtype) for
+    qkv, else ("lora_sgmv", dtype, case)), the grouped kernels at LoRA's backward shapes (keys
+    (name, dtype, case) of `LORA_BWD_CASES` and `LORA_DW_CASES`) and
+    paged decode attention (key ("paged_attention", dtype)), from a
+    generator of their own."""
     import torch
     warm_up(ops)
     serve = {"ragged_attention": check_ragged,
@@ -1289,6 +1634,7 @@ def phase_kernels(ops, budgets):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     gen8 = torch.Generator(device="cuda").manual_seed(SEED + 8)
     gen_moe = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    gen_lora = torch.Generator(device="cuda").manual_seed(SEED + 21)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -1336,6 +1682,25 @@ def phase_kernels(ops, budgets):
         r = check_grouped_dw(ops, "train", dtype, dtype_name, gen_moe)
         report("grouped_matmul_dw", dtype_name, r)
         results[("grouped_matmul_dw", dtype_name, "train")] = r
+        torch.cuda.empty_cache()
+        for case in (*LORA_CASES, *LORA_TRAIN_CASES):
+            rows = LORA_BWD_ROWS if case in LORA_TRAIN_CASES \
+                else budgets[dtype_name]
+            r = check_lora(ops, case, dtype, dtype_name, gen_lora, rows)
+            report("lora_sgmv", dtype_name, r)
+            key = () if case == "qkv" else (case,)
+            results[("lora_sgmv", dtype_name) + key] = r
+        for case in LORA_BWD_CASES:
+            r = check_lora_grouped(ops, case, dtype, dtype_name, gen_lora)
+            report("grouped_matmul", dtype_name, r)
+            results[("grouped_matmul", dtype_name, case)] = r
+        for case in LORA_DW_CASES:
+            r = check_lora_dw(ops, case, dtype, dtype_name, gen_lora)
+            report("grouped_matmul_dw", dtype_name, r)
+            results[("grouped_matmul_dw", dtype_name, case)] = r
+        r = check_paged(ops, dtype, dtype_name, gen_lora)
+        report("paged_attention", dtype_name, r)
+        results[("paged_attention", dtype_name)] = r
         torch.cuda.empty_cache()
     return results
 
@@ -1663,7 +2028,9 @@ def routing_summary(ops, routed, layers, steps):
 #: is the second pass of both backward kernels' column sums, and
 #: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
 #: float: its instantiations do not say which)
-_PROFILE_GROUPS = (("grouped_matmul", "gmm_fwd_"),
+_PROFILE_GROUPS = (("lora_sgmv", "lora_sgmv_kernel"),
+                   ("paged_attention", "paged_attn_kernel"),
+                   ("grouped_matmul", "gmm_fwd_"),
                    ("grouped_matmul_dw", "gmm_dw_"),
                    ("ragged_attention_int8",
                     ("ragged_attn_kernel<float, signed char>",
@@ -1788,8 +2155,11 @@ def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
         losses.append(float(loss.detach()))
         if step == 0:
             grads = {n: p.grad.detach().cpu().clone()
-                     for n, p in model.named_parameters()}
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
         for n, p in model.named_parameters() if track_small else ():
+            if p.grad is None:
+                continue
             g = p.grad.detach().abs()
             m = (g <= PARITY_TOL["grad"] * g.max()).cpu()
             small[n] = small[n] | m if n in small else m
@@ -1819,14 +2189,16 @@ def phase_train_parity(pt, ops, flash=False):
 
 
 def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
-                 clip=True, ignore_share=0.0, sign_free=False):
+                 clip=True, ignore_share=0.0, sign_free=False, frozen=None):
     """3 AdamW steps of ``make_model`` on the card and on the CPU from the
     same numpy weights and batch (B=2, S=128, a few labels at the ignore
     index, and about ``ignore_share`` of the rest): losses, step-1
     gradients and final parameters held to `PARITY_TOL`, and each kernel's
-    launches to ``drive``'s per step.  With ``sign_free`` the parameter
-    elements whose gradient at some step lay within the gradient gate of
-    0 are held by `hold_sign_free` instead."""
+    launches to ``drive``'s per step.  The same parameters must get a
+    gradient on both sides.  With ``sign_free`` the parameter elements
+    whose gradient at some step lay within the gradient gate of 0 are held
+    by `hold_sign_free` instead.  ``frozen`` (a predicate on parameter
+    names) names parameters that must end bit-unchanged on both sides."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 3)
@@ -1844,6 +2216,18 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
         torch.cuda.empty_cache()
     (l_gpu, g_gpu, p_gpu, counts, _), (l_cpu, g_cpu, p_cpu, _, small) = \
         runs["cuda"], runs["cpu"]
+    if set(g_gpu) != set(g_cpu):
+        fail(f"{phase}: gradients of {sorted(set(g_gpu) ^ set(g_cpu))} on "
+             f"one side only")
+    if frozen is not None:
+        names = [n for n in p_cpu if frozen(n)]
+        changed = [n for n in names for side in (p_gpu, p_cpu)
+                   if not torch.equal(side[n], torch.from_numpy(
+                       params[n]).to(side[n].dtype))]
+        if not names or changed:
+            fail(f"{phase}: frozen parameters changed: {changed[:8]}")
+        say(f"  {len(names)} frozen parameters bit-unchanged on both sides; "
+            f"{len(g_cpu)} got a gradient")
     key_note = ""
     if sign_free:
         key_note = hold_sign_free(phase, small, p_gpu, p_cpu)
@@ -1950,9 +2334,10 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     """`TRAIN_WARMUP` untimed calls of ``step`` (one training step that
     returns its loss), then `TRAIN_STEPS` timed ones at batch ``B`` of
     ``S`` tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token
-    against the bf16 peak), peak memory; the losses must be finite and
-    fall, each kernel's launches must equal ``drive``'s per step; one
-    profiled step.  Returns (launch counts, summary)."""
+    against the bf16 peak; none when ``n_params`` is None), peak memory;
+    the losses must be finite and fall, each kernel's launches must equal
+    ``drive``'s per step; one profiled step.  Returns (launch counts,
+    summary)."""
     import numpy as np
     import torch
     t0 = time.perf_counter()
@@ -1970,13 +2355,17 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     losses = [float(v) for v in losses]
     step_ms = elapsed / TRAIN_STEPS * 1e3
     tokens_per_s = B * S * TRAIN_STEPS / elapsed
-    flops_per_token = 6 * n_params + 12 * L * S * H
-    mfu = flops_per_token * tokens_per_s / PEAK_BF16
-    say(f"  {n_params / 1e6:.1f}M params, B={B} S={S}: warm-up "
-        f"{TRAIN_WARMUP} steps {warm_s:.2f} s; {TRAIN_STEPS} steps in "
-        f"{elapsed:.3f} s: {step_ms:.2f} ms/step, {tokens_per_s:.1f} "
-        f"tokens/s, MFU {mfu:.4f} (6N + 12LSH = {flops_per_token:.4e} "
-        f"flop/token vs {PEAK_BF16:.3g} flop/s), peak memory "
+    if n_params is None:
+        mfu, mfu_note = None, "no MFU"
+    else:
+        flops_per_token = 6 * n_params + 12 * L * S * H
+        mfu = flops_per_token * tokens_per_s / PEAK_BF16
+        mfu_note = (f"{n_params / 1e6:.1f}M params, MFU {mfu:.4f} (6N + "
+                    f"12LSH = {flops_per_token:.4e} flop/token vs "
+                    f"{PEAK_BF16:.3g} flop/s)")
+    say(f"  B={B} S={S}: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; "
+        f"{TRAIN_STEPS} steps in {elapsed:.3f} s: {step_ms:.2f} ms/step, "
+        f"{tokens_per_s:.1f} tokens/s, {mfu_note}, peak memory "
         f"{peak_gib:.2f} GiB; losses {losses}")
     if not all(np.isfinite(losses)):
         fail(f"{phase}: a loss is not finite: {losses}")
@@ -2001,7 +2390,7 @@ GEN_PARITY_NEW = 16
 GEN_B, GEN_PROMPT, GEN_NEW = 4, 128, 64
 
 
-def phase_generate(pt, ops):
+def phase_generate(pt, ops, keep=None):
     """``model.generate`` with the dense KV cache: a prefill forward, then
     one-token forwards whose attention is the flash kernel with one query
     row against the whole prefix.  (a) Full width, 2 layers, f32, prompts
@@ -2018,7 +2407,7 @@ def phase_generate(pt, ops):
     cfg = pt.GPTConfig(**pt.GPT_1P3B)
     model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
     return generate_drive(ops, model, rng, "GPT_1P3B", "generate",
-                          "generate")
+                          "generate", keep)
 
 
 def generate_parity(pt, ops, phase, make_model, vocab, layers, drive):
@@ -2064,11 +2453,12 @@ def generate_parity(pt, ops, phase, make_model, vocab, layers, drive):
     return rng
 
 
-def generate_drive(ops, model, rng, what, phase, drive):
+def generate_drive(ops, model, rng, what, phase, drive, keep=None):
     """Greedy `generate()` of ``model`` on the card, `GEN_B` prompts of
     `GEN_PROMPT` tokens drawn from ``rng``, `GEN_NEW` new tokens: prefill
     ms, ms per decode step, tokens/s and peak memory; each kernel must
-    launch ``drive``'s launches per forward times the forwards.  Returns
+    launch ``drive``'s launches per forward times the forwards.  The
+    prompts and new tokens go into ``keep`` (a dict) when given.  Returns
     (launch counts, summary)."""
     import torch
     cfg = model.config
@@ -2095,6 +2485,8 @@ def generate_drive(ops, model, rng, what, phase, drive):
         fail(f"{phase}: new tokens of shape {tuple(new.shape)} or outside "
              f"the vocabulary")
     decode_ms = (total_s - prefill_s) / (GEN_NEW - 1) * 1e3
+    if keep is not None:
+        keep.update(prompts=prompts, tokens=new.cpu())
     say(f"  {what} bf16, {GEN_B} prompts x {GEN_PROMPT} tokens, "
         f"{GEN_NEW} greedy tokens in {total_s:.3f} s: prefill "
         f"{prefill_s * 1e3:.1f} ms, {decode_ms:.2f} ms per decode step, "
@@ -2479,6 +2871,430 @@ def phase_moe_training(pt, ops):
     return counts, summary
 
 
+# ---------------------------------------------------------------------
+# phases 21-24: multi-LoRA serving and LoRA fine-tuning
+# ---------------------------------------------------------------------
+#: bench.py:959-1068's bench_gpt_multilora, TPU branch: GPT at hidden
+#: 1024, 24 layers, 16 heads, max_position_embeddings 1024 (vocab 50304),
+#: 64 adapters of rank 16 over 16 device slots, max_batch 8
+MULTILORA_CFG = dict(hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, max_position_embeddings=1024)
+LORA_ADAPTERS, LORA_MAX_BATCH = 64, 8
+
+
+def multilora_cfg(pt, **over):
+    return pt.GPTConfig(**dict(MULTILORA_CFG, **over))
+
+
+def make_adapter(sites, i, rank=LORA_RANK, scale=0.02):
+    """bench_gpt_multilora's ``make_adapter``: adapter ``i``'s factors
+    from ``np.random.default_rng(1000 + i)`` at ``scale``, alpha = rank."""
+    import numpy as np
+    r = np.random.default_rng(1000 + i)
+    return {name: {"A": (r.standard_normal((k, rank)) * scale
+                         ).astype(np.float32),
+                   "B": (r.standard_normal((rank, n)) * scale
+                         ).astype(np.float32),
+                   "rank": rank, "alpha": float(rank)}
+            for name, k, n in sites}
+
+
+def serve_requests(eng, reqs, max_new=None):
+    """Submit ``(prompt, adapter, max_new_tokens)`` requests and step the
+    engine until they finish; returns the finished requests in order."""
+    ids = [eng.add_request(p, max_new_tokens=max_new or n, adapter=a)
+           for p, a, n in reqs]
+    while eng.has_unfinished():
+        eng.step()
+    return [eng._results[i] for i in ids]
+
+
+def phase_lora_parity(pt, ops):
+    """Phase 21: the multilora width cut to 2 layers, f32, numpy weights,
+    served on the card and on the CPU with LoRA on: 4 adapters of rank 16
+    (``make_adapter`` at scale 0.3) and 2 base-model rows among 6 requests
+    sharing a prefix, 16 greedy tokens each: identical tokens; the SGMV
+    epilogue launches 4 x layers a step and fc1's matmul epilogue not at
+    all.  A LoRA-free engine on the card gives the base rows' tokens and
+    must differ on some adapter row: with the recipe's scale of 0.02 a
+    random model with N(0, 1) tied embeddings echoes its input tokens
+    whatever the adapters add, and the parity would not show that they
+    reach the logits."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.inference.serving import lora
+    phase = "lora parity"
+    cfg = multilora_cfg(pt, num_hidden_layers=2)
+    rng = np.random.default_rng(SEED + 1)
+    shared = list(rng.integers(1, cfg.vocab_size, size=48))
+    reqs = [(shared + list(rng.integers(1, cfg.vocab_size, size=n)), a, 16)
+            for n, a in zip((5, 9, 12, 7, 3, 10),
+                            ("t0", "t1", None, "t2", "t3", None))]
+    kw = dict(max_batch=4, prefill_chunk=64, max_model_len=256,
+              num_blocks=128)
+    outs, params = {}, None
+    for device in ("cuda", "cpu"):
+        model = pt.GPTForCausalLM(cfg, device=device)
+        if params is None:
+            params = numpy_weights(model, SEED + 2)
+        pt.load_reference_state(model, params)
+        sites = lora.attach_lora_sites(model)
+        eng = pt.GenerationEngine(model, device=device, **kw)
+        eng.enable_lora(rank=LORA_RANK)
+        for i in range(4):
+            eng.register_adapter(f"t{i}", make_adapter(sites, i, scale=0.3))
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        outs[device] = [r.generated for r in serve_requests(eng, reqs)]
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts, steps = launches(ops), eng.stats()["steps"]
+            base = pt.GenerationEngine(model, device=device, **kw)
+            plain = [r.generated for r in serve_requests(
+                base, [(p, None, n) for p, _, n in reqs])]
+            del base
+        say(f"  {device}: {eng.stats()['steps']} steps in "
+            f"{time.perf_counter() - t0:.2f} s, adapter hit rate "
+            f"{eng.stats()['adapter_hit_rate']:.3f}")
+        del eng, model
+        free_device_memory()
+    if outs["cuda"] != outs["cpu"]:
+        fail(f"{phase}: CUDA tokens {outs['cuda']} != CPU tokens "
+             f"{outs['cpu']}")
+    if not all(len(o) == 16 for o in outs["cuda"]):
+        fail(f"{phase}: a request did not return 16 tokens")
+    moved = sum(1 for (_, a, _), o, b in zip(reqs, outs["cuda"], plain)
+                if a is not None and o != b)
+    base_same = all(o == b for (_, a, _), o, b in zip(reqs, outs["cuda"],
+                                                      plain) if a is None)
+    say(f"  greedy tokens identical on CUDA and CPU for {len(reqs)} "
+        f"requests (4 adapters, 2 base rows) x 16 tokens; {moved} of 4 "
+        f"adapter rows differ from the LoRA-free engine's, its base rows "
+        f"{'equal' if base_same else 'differ'}")
+    if not moved:
+        fail(f"{phase}: no adapter changed its request's tokens")
+    check_counts(phase, counts, steps, cfg.num_hidden_layers, "serve_lora")
+    return dict(steps=steps, tokens_identical=True, adapter_rows_moved=moved,
+                base_rows_equal_lora_free=base_same)
+
+
+def phase_multilora_serving(pt, ops):
+    """Phase 22: bench_gpt_multilora's recipe (TPU branch) at full depth in
+    bf16 with random weights from a seed: 64 adapters (``make_adapter``),
+    ``enable_lora(rank=16, num_slots=16)``, ``max_batch=8``, the
+    ``bursty_trace(7, 64 requests, prefix 24, tail < 12, 32 tokens,
+    adapter_pool=64)`` trace (a quarter base-model rows) after a warm-up
+    of its first 2 requests x 2 tokens: tokens/s, p99 TTFT, ms/step, the
+    store's hit rate and spills, peak memory, launches per step, one
+    profiled burst.  Then the same trace without adapters on a LoRA-free
+    engine (the base twin): its numbers, and the greedy match ratio of
+    the base-model rows (reported: fc1 runs another kernel there)."""
+    import torch
+    from paddle_tpu_torch.inference.serving import lora
+    cfg = multilora_cfg(pt)
+    L = cfg.num_hidden_layers
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+    sites = lora.attach_lora_sites(model)
+    trace = bursty_trace(7, n_requests=64, vocab=cfg.vocab_size,
+                         prefix_len=24, tail_max=12, max_new_tokens=32,
+                         adapter_pool=LORA_ADAPTERS)
+    summary, generated, counts = {}, {}, None
+    for twin in ("lora", "base"):
+        phase = "multi-lora serving" + (" (base twin)" if twin == "base"
+                                        else "")
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        eng = pt.GenerationEngine(model, max_batch=LORA_MAX_BATCH,
+                                  max_model_len=cfg.max_position_embeddings)
+        out = dict(weight_gib=state_gib(model))
+        if twin == "lora":
+            eng.enable_lora(rank=LORA_RANK, num_slots=LORA_SLOTS)
+            t0 = time.perf_counter()
+            for i in range(LORA_ADAPTERS):
+                eng.register_adapter(f"t{i}", make_adapter(sites, i))
+            out["register_s"] = time.perf_counter() - t0
+        reqs = [(r["prompt"], r["adapter"] if twin == "lora" else None,
+                 r["max_new_tokens"]) for r in trace]
+        serve_requests(eng, reqs[:2], max_new=2)        # warm-up
+        torch.cuda.synchronize()
+        steps0 = eng.stats()["steps"]
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        done = serve_requests(eng, reqs)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        c = launches(ops)
+        steps = eng.stats()["steps"] - steps0
+        tokens = sum(n for _, _, n in reqs)
+        if not all(len(r.generated) == n for r, (_, _, n) in zip(done, reqs)):
+            fail(f"{phase}: a request returned too few tokens")
+        ttft = sorted((r.t_first_token - r.t_submit) * 1e3 for r in done)
+        p99 = ttft[min(len(ttft) - 1, int(round(0.99 * (len(ttft) - 1))))]
+        out.update(requests=len(reqs), tokens=tokens, elapsed_s=dt,
+                   tokens_per_s=tokens / dt, p99_ttft_ms=p99,
+                   median_ttft_ms=ttft[len(ttft) // 2], steps=steps,
+                   ms_per_step=dt / steps * 1e3,
+                   peak_memory_gib=torch.cuda.max_memory_allocated()
+                   / 2 ** 30)
+        note = ""
+        if twin == "lora":
+            ls = eng.stats()["lora"]
+            out.update(adapter_hit_rate=ls["hit_rate"],
+                       adapter_spills=ls["spills"], lora=ls,
+                       tenants=len({a for _, a, _ in reqs} - {None}),
+                       base_rows=sum(1 for _, a, _ in reqs if a is None))
+            note = (f", {out['tenants']} tenants over {LORA_SLOTS} slots "
+                    f"({out['base_rows']} base rows): adapter hit rate "
+                    f"{ls['hit_rate']:.4f}, {ls['spills']} spills, "
+                    f"{64} adapters registered in {out['register_s']:.2f} s")
+        say(f"  {twin}: {len(reqs)} requests, {tokens} tokens in {dt:.3f} "
+            f"s: {out['tokens_per_s']:.1f} tokens/s, p99 TTFT {p99:.1f} ms "
+            f"(median {out['median_ttft_ms']:.1f}), {steps} steps "
+            f"({out['ms_per_step']:.2f} ms/step), peak memory "
+            f"{out['peak_memory_gib']:.2f} GiB{note}")
+        check_counts(phase, c, steps, L,
+                     "serve_lora" if twin == "lora" else "serve")
+        if twin == "lora":
+            counts = c
+        steps0 = eng.stats()["steps"]
+        prof = profile_device(lambda: serve_requests(eng, reqs[:8],
+                                                     max_new=16))
+        out["profile"] = split_profile(prof, eng.stats()["steps"] - steps0,
+                                       f"{twin} burst")
+        generated[twin] = [list(r.generated) for r in done]
+        summary[twin] = out
+        eng.close()
+        del eng
+    base_rows = [i for i, r in enumerate(trace) if r["adapter"] is None]
+    match = pt.quantization.greedy_match_ratio(
+        [generated["base"][i] for i in base_rows],
+        [generated["lora"][i] for i in base_rows])
+    summary["base_rows_greedy_match_ratio"] = match
+    say(f"  against the base twin: tokens/s {summary['lora']['tokens_per_s']:.1f}"
+        f" vs {summary['base']['tokens_per_s']:.1f}, ms/step "
+        f"{summary['lora']['ms_per_step']:.2f} vs "
+        f"{summary['base']['ms_per_step']:.2f}; the {len(base_rows)} base "
+        f"rows' greedy match ratio {match:.4f} (reported, not gated: fc1 "
+        f"runs cuBLAS + the SGMV epilogue there, the matmul epilogue in "
+        f"the twin)")
+    return counts, summary
+
+
+def lora_finetune_model(pt, cfg, device=None, dtype=None, seed=SEED):
+    """GPT with every base parameter frozen, then ``convert_to_lora(rank=
+    16)``: the trainable parameters are the adapters' A and B."""
+    import torch
+    from paddle_tpu_torch.inference.serving import lora
+    model = pt.GPTForCausalLM(cfg, device=device,
+                              dtype=dtype or torch.float32, seed=seed)
+    for p in model.parameters():
+        p.requires_grad_(False)
+    lora.convert_to_lora(model, rank=LORA_RANK)
+    return model
+
+
+def phase_lora_train_parity(pt, ops):
+    """Phase 23: the multilora width cut to 2 layers, f32, flash attention,
+    base frozen and ``convert_to_lora(rank=16)``, numpy weights (A and B
+    too, so B starts nonzero), B=2, S=128: 3 AdamW steps on the card and
+    on the CPU, held as phase 14 (losses, step-1 gradients of the LoRA
+    factors, parameters after step 3; elements whose gradient lay within
+    the gradient gate of 0 held to 2 * 3 * lr).  The same factors get a
+    gradient on both sides (fc1's none: GPT's MLP runs fc1 through the
+    matmul epilogue, as the reference's does), and every base parameter
+    ends bit-unchanged.  The SGMV epilogue, the grouped forward kernel
+    (u, t and dx, the last read transposed) and the grouped dw kernel
+    launch."""
+    cfg = multilora_cfg(pt, num_hidden_layers=2)
+    crit = pt.GPTPretrainingCriterion()
+    return train_parity(
+        pt, ops, "lora training parity",
+        lambda device: lora_finetune_model(pt, cfg, device=device),
+        lambda model, x, y: crit(model(x), y), cfg.vocab_size,
+        cfg.num_hidden_layers, "lora_train", sign_free=True,
+        frozen=lambda n: ".lora_" not in n)
+
+
+def phase_lora_training(pt, ops):
+    """Phase 24: LoRA fine-tuning at the multilora width (24 layers, rank
+    16) on bench_gpt's recipe: f32 master weights under ``auto_cast(bf16,
+    O1)``, ``AdamW(1e-4, weight_decay=0.01)`` over the LoRA parameters
+    with a global-norm clip of 1.0, B=8, S=1024, one fixed batch from a
+    numpy seed fed as ids and labels; flash attention.  No MFU:
+    bench.py:642's 6N counts weight gradients that LoRA never computes."""
+    import numpy as np
+    import torch
+    cfg = multilora_cfg(pt)
+    model = lora_finetune_model(pt, cfg)
+    params = [p for p in model.parameters() if p.requires_grad]
+    n_train = sum(p.numel() for p in params)
+    n_total = sum(p.numel() for p in model.parameters())
+    say(f"  {n_total / 1e6:.1f}M parameters, {n_train / 1e6:.3f}M of them "
+        f"trainable LoRA factors")
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, weight_decay=0.01,
+                             parameters=params,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    crit = pt.GPTPretrainingCriterion()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (TRAIN_B[True], TRAIN_S))).cuda()
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss = crit(model(ids), ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    counts, summary = drive_training(
+        ops, step, None, TRAIN_B[True], cfg.num_hidden_layers,
+        cfg.hidden_size, "lora training", "lora_train")
+    summary.update(n_params_total=n_total, n_params_trainable=n_train,
+                   launches_per_step={k: v // TRAIN_STEPS
+                                      for k, v in counts.items() if v})
+    return counts, summary
+
+
+# ---------------------------------------------------------------------
+# phase 25: the paged decode view
+# ---------------------------------------------------------------------
+PAGED_PARITY_PROMPT, PAGED_PARITY_STEPS = 64, 16
+#: decode steps of phase 25b's profiled burst
+PAGED_PROFILE_STEPS = 16
+
+
+def paged_generate(pt, ops, model, prompts, steps, device, profile=False):
+    """Greedy decoding of ``prompts`` ([B, P] ints, equal lengths) through
+    ``PagedCacheView``: one ``"prefill"`` forward, then ``steps`` one-token
+    ``"decode"`` forwards, block 16.  Returns (tokens [B, steps + 1] on the
+    CPU, prefill s, decode s, launch counts of the decode steps, and with
+    ``profile`` the decode steps' `profile_device` result, else None: its
+    wall time then includes the profiler's overhead)."""
+    import numpy as np
+    import torch
+    cfg = model.config
+    B, P = prompts.shape
+    H = cfg.num_attention_heads
+    bs = 16
+    per = -(-(P + steps + 1) // bs)
+    cache = pt.inference.serving.PagedKVCache(
+        cfg.num_hidden_layers, H, cfg.hidden_size // H, dtype=model.dtype,
+        block_size=bs, num_blocks=B * per + 1, max_model_len=per * bs,
+        device=device)
+    seqs = [f"s{i}" for i in range(B)]
+    for s in seqs:
+        if not cache.allocate(s, P):
+            fail("paged view: the pool cannot hold the prompts")
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+    sync()
+    t0 = time.perf_counter()
+    view = pt.PagedCacheView(cache, "prefill")
+    view.set_inputs(
+        np.concatenate([cache.slot_mapping(s, 0, P) for s in seqs]),
+        np.stack([cache.block_table(s) for s in seqs]),
+        np.full(B, P, np.int32), np.tile(np.arange(P), (B, 1)))
+    ids = torch.as_tensor(np.asarray(prompts), device=device)
+    with torch.no_grad():
+        tok = model(ids, cache=view)[:, -1].argmax(-1)
+    toks = [tok]
+    sync()
+    prefill_s = time.perf_counter() - t0
+    reset_launches(ops)
+    view = pt.PagedCacheView(cache, "decode")
+
+    def decode():
+        tok = toks[-1]
+        for _ in range(steps):
+            for s in seqs:
+                cache.append(s, 1)
+            n = cache.length(seqs[0])
+            view.set_inputs(
+                np.concatenate([cache.slot_mapping(s, n - 1, 1)
+                                for s in seqs]),
+                np.stack([cache.block_table(s) for s in seqs]),
+                np.full(B, n, np.int32), np.full((B, 1), n - 1))
+            with torch.no_grad():
+                tok = model(tok[:, None], cache=view)[:, -1].argmax(-1)
+            toks.append(tok)
+    t0 = time.perf_counter()
+    prof = profile_device(decode) if profile else decode()
+    sync()
+    decode_s = time.perf_counter() - t0
+    return (torch.stack(toks, 1).cpu(), prefill_s, decode_s, launches(ops),
+            prof)
+
+
+def phase_paged(pt, ops, gen_keep, gen_summary):
+    """Phase 25: (a) GPT_1P3B's width cut to 2 layers, f32, numpy weights,
+    eval: 4 prompts of 64 tokens prefilled through the paged view, then
+    16 greedy decode steps, on the card and on the CPU: identical tokens,
+    and paged attention launching once a layer a decode step.  (b)
+    GPT_1P3B in bf16 with phase 9's weights (same seed) and phase 9's 4
+    prompts x 128 tokens, 64 decode steps: ms per decode step beside
+    phase 9's dense-cache decode from the same call, and the token match
+    against phase 9's 64 new tokens (reported: another attention
+    kernel), and a profiled burst of `PAGED_PROFILE_STEPS` decode steps
+    (the device split and idle share)."""
+    import numpy as np
+    import torch
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
+    rng = np.random.default_rng(SEED + 5)
+    prompts = rng.integers(1, cfg.vocab_size, (4, PAGED_PARITY_PROMPT))
+    toks, params = {}, None
+    for device in ("cuda", "cpu"):
+        model = pt.GPTForCausalLM(cfg, device=device).eval()
+        if params is None:
+            params = numpy_weights(model, SEED + 2)
+        pt.load_reference_state(model, params)
+        toks[device], _, dec_s, c, _ = paged_generate(
+            pt, ops, model, prompts, PAGED_PARITY_STEPS, device)
+        if device == "cuda":
+            counts = c
+        say(f"  {device}: {PAGED_PARITY_STEPS} decode steps in "
+            f"{dec_s:.2f} s")
+        del model
+        free_device_memory()
+    if not torch.equal(toks["cuda"], toks["cpu"]):
+        fail(f"paged parity: CUDA tokens {toks['cuda'].tolist()} != CPU "
+             f"tokens {toks['cpu'].tolist()}")
+    say(f"  greedy tokens identical on CUDA and CPU for 4 prompts x "
+        f"{PAGED_PARITY_PROMPT} tokens, {PAGED_PARITY_STEPS} decode steps")
+    check_counts("paged parity", counts, PAGED_PARITY_STEPS,
+                 cfg.num_hidden_layers, "paged_decode")
+    cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
+    prompts = gen_keep["prompts"].numpy()
+    paged_generate(pt, ops, model, prompts, 2, "cuda")     # first-use costs
+    torch.cuda.reset_peak_memory_stats()
+    toks, prefill_s, decode_s, counts, _ = paged_generate(
+        pt, ops, model, prompts, GEN_NEW, "cuda")
+    ms = decode_s / GEN_NEW * 1e3
+    match = pt.quantization.greedy_match_ratio(
+        gen_keep["tokens"].tolist(), toks[:, :GEN_NEW].tolist())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"  GPT_1P3B bf16, {prompts.shape[0]} prompts x {prompts.shape[1]} "
+        f"tokens: prefill {prefill_s * 1e3:.1f} ms, {GEN_NEW} decode steps "
+        f"at {ms:.2f} ms/step (phase 9's dense cache: "
+        f"{gen_summary['decode_ms_per_step']:.2f}), peak memory {peak:.2f} "
+        f"GiB; greedy match against phase 9's tokens {match:.4f} (reported)")
+    check_counts("paged decode", counts, GEN_NEW, cfg.num_hidden_layers,
+                 "paged_decode")
+    prof = paged_generate(pt, ops, model, prompts, PAGED_PROFILE_STEPS,
+                          "cuda", profile=True)[4]
+    profiled = split_profile(prof, PAGED_PROFILE_STEPS, "decode burst")
+    return counts, dict(profile=profiled, batch=int(prompts.shape[0]),
+                        prompt=int(prompts.shape[1]), decode_steps=GEN_NEW,
+                        prefill_ms=prefill_s * 1e3, decode_ms_per_step=ms,
+                        dense_decode_ms_per_step=gen_summary[
+                            "decode_ms_per_step"],
+                        greedy_match_vs_dense=match, peak_memory_gib=peak,
+                        parity_tokens_identical=True)
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -2510,7 +3326,8 @@ MAIN_DTYPE = {"ragged_attention": "bfloat16", "layer_norm": "bfloat16",
               "ragged_attention_int8": "bfloat16",
               "matmul_epilogue_int8": "bfloat16",
               "layer_norm_residual": "float32",
-              "grouped_matmul": "bfloat16", "grouped_matmul_dw": "float32"}
+              "grouped_matmul": "bfloat16", "grouped_matmul_dw": "float32",
+              "lora_sgmv": "bfloat16", "paged_attention": "bfloat16"}
 TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16",
                "grouped_matmul": "float32"}
 
@@ -2535,8 +3352,13 @@ def kernels_line(results, counts):
         other = "float32" if main == "bfloat16" else "bfloat16"
         shapes = FLASH_SHAPES if name.startswith("flash_attention") \
             else RMS_SHAPES if name.startswith("rms_norm") \
-            else {"w2": 0, "train_dx": 0} if name == "grouped_matmul" else {}
-        served = any(d in info for d in ("serve", "serve_int8", "serve_moe"))
+            else dict.fromkeys(("out", "fc1", "fc2", *LORA_TRAIN_CASES)) \
+            if name == "lora_sgmv" \
+            else dict.fromkeys(("w2", "train_dx", *LORA_BWD_CASES)) \
+            if name == "grouped_matmul" \
+            else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" else {}
+        served = any(d in info for d in ("serve", "serve_int8", "serve_moe",
+                                         "serve_lora", "paged_decode"))
         key = (name,) if served else (name, "train")
         drive = info.get("main", "serve" if "serve" in info else "train")
         entry = dict(name=name, route="cuda", source=info["source"],
@@ -2545,7 +3367,8 @@ def kernels_line(results, counts):
                      **kernel_entry(results[(key[0], main) + key[1:]]))
         for d, c in counts.items():
             entry[f"launches_{d}"] = c[name]
-        for d in ("train_flash", "llama_train", "bert_train", "moe_train"):
+        for d in ("train_flash", "llama_train", "bert_train", "moe_train",
+                  "lora_train"):
             entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
         entry["launches_per_forward_ernie_eval"] = \
             counts["ernie_eval"][name] // ERNIE_FORWARDS
@@ -2625,7 +3448,8 @@ def main():
 
     say("[9] generate: dense KV cache, greedy; parity at full width, "
         "2 layers, f32; GPT_1P3B bf16")
-    gen_counts, generate = phase_generate(pt, ops)
+    gen_keep = {}
+    gen_counts, generate = phase_generate(pt, ops, keep=gen_keep)
     free_device_memory()
 
     say("[10] LLaMA training parity: bench_llama width, 2 layers, f32, "
@@ -2683,13 +3507,40 @@ def main():
     say("[20] MoE training: bench.py's moe_gpt recipe at MoEGPTConfig() "
         "width, 12 layers, f32, AdamW, B=8 S=1024")
     moe_train_counts, moe_training = phase_moe_training(pt, ops)
+    free_device_memory()
+
+    say("[21] LoRA serving parity: multilora width, 2 layers, f32, 4 "
+        "adapters + base rows, CUDA vs CPU")
+    lora_parity = phase_lora_parity(pt, ops)
+    free_device_memory()
+
+    say("[22] multi-LoRA serving: bench_gpt_multilora recipe, 24 layers, "
+        "bf16, 64 adapters over 16 slots; base twin")
+    lora_serve_counts, lora_serving = phase_multilora_serving(pt, ops)
+    free_device_memory()
+
+    say("[23] LoRA fine-tuning parity: multilora width, 2 layers, f32, "
+        "rank 16, 3 AdamW steps, CUDA vs CPU")
+    lora_train_parity = phase_lora_train_parity(pt, ops)
+    free_device_memory()
+
+    say("[24] LoRA fine-tuning: multilora width, 24 layers, rank 16, bf16 "
+        "O1, AdamW, B=8 S=1024")
+    lora_train_counts, lora_training = phase_lora_training(pt, ops)
+    free_device_memory()
+
+    say("[25] paged decode view: parity at GPT_1P3B width, 2 layers, f32; "
+        "GPT_1P3B bf16 decode beside phase 9")
+    paged_counts, paged = phase_paged(pt, ops, gen_keep, generate)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
                   llama_train=llama_train_counts,
                   llama_gen=llama_gen_counts, serve_int8=int8_counts,
                   bert_train=bert_counts, ernie_eval=ernie_counts,
-                  serve_moe=moe_serve_counts, moe_train=moe_train_counts)
+                  serve_moe=moe_serve_counts, moe_train=moe_train_counts,
+                  serve_lora=lora_serve_counts, lora_train=lora_train_counts,
+                  paged_decode=paged_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -2705,7 +3556,11 @@ def main():
                     "moe_serving_parity": moe_parity,
                     "moe_serving": moe_serving,
                     "moe_training_parity": moe_train_parity,
-                    "moe_training": moe_training}))
+                    "moe_training": moe_training,
+                    "lora_serving_parity": lora_parity,
+                    "multi_lora_serving": lora_serving,
+                    "lora_training_parity": lora_train_parity,
+                    "lora_training": lora_training, "paged_decode": paged}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,14 @@ Ported so far (see ``ops`` for the kernels):
   ``distributed.auto_parallel.moe_dispatch``; stacked experts through the
   grouped-matmul kernels, forward and weight gradient), served by the
   ``GenerationEngine`` and trained with ``MoEGPTPretrainingCriterion``'s
-  load-balance term.
+  load-balance term;
+* multi-LoRA: ``inference.serving.lora`` (``convert_to_lora`` for
+  fine-tuning, merge and unmerge, the paged adapter store) with the
+  segmented SGMV epilogue kernel, whose backward runs the grouped-matmul
+  kernels; ``GenerationEngine.enable_lora`` serves many adapters and
+  base-model rows in one step;
+* the paged decode view: ``inference.serving.PagedCacheView`` in its
+  prefill and decode modes, decode through the paged-attention kernel.
 """
 from . import amp, distributed, nn, optimizer, quantization
 from .convert import load_reference_state
@@ -51,7 +58,8 @@ from .models.gpt import (GPT_1P3B, GPTConfig, GPTForCausalLM,
 from .models.llama import LLAMA_7B, LlamaConfig, LlamaForCausalLM
 from .models.moe_gpt import (MoEGPTConfig, MoEGPTForCausalLM,
                              MoEGPTPretrainingCriterion)
-from .inference.serving import GenerationEngine
+from .inference.serving import (GenerationEngine, PagedCacheView,
+                                convert_to_lora, merge_lora, unmerge_lora)
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
            "load_reference_state", "BertConfig", "BertForMaskedLM",
@@ -60,4 +68,5 @@ __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
            "GPTConfig", "GPTForCausalLM", "GPTPretrainingCriterion",
            "LLAMA_7B", "LlamaConfig", "LlamaForCausalLM", "MoEGPTConfig",
            "MoEGPTForCausalLM", "MoEGPTPretrainingCriterion",
-           "GenerationEngine"]
+           "GenerationEngine", "PagedCacheView", "convert_to_lora",
+           "merge_lora", "unmerge_lora"]

@@ -1,25 +1,35 @@
-"""The paged cache as the model sees it: K/V scatter + ragged attention.
+"""The paged cache as the model sees it: K/V scatter, then attention.
 
 Port of ``paddle_tpu/inference/serving/attention.py``: ``RaggedCacheView``,
-``RaggedLayerCache``, ``kv_cache_scatter``, ``kv_cache_scatter_quant``
-(with ``_quantize_tokens``) and ``ragged_attention``.  The
+``RaggedLayerCache``, ``PagedCacheView``, ``PagedLayerCache``,
+``kv_cache_scatter``, ``kv_cache_scatter_quant`` (with
+``_quantize_tokens``), ``ragged_attention`` and ``paged_attention``.  A
 view holds one step's driving tensors (slot mapping, block tables,
-context lengths, positions, segment descriptors), all on the pool's
-device; ``models/gpt.py`` finds it by its ``attend`` and
-``position_ids`` attributes.  Each layer scatters its fresh K/V into the
-pool in place, then runs ragged paged attention over every segment, so
-prefill chunks and decode rows share one kernel launch.  An int8 pool
-quantizes each token as it is scattered and hands its per-slot scale
-tables to the int8 attention kernel.
+context lengths, positions, and for the ragged step the segment
+descriptors), all on the pool's device; ``models/gpt.py`` finds it by its
+``attend`` and ``position_ids`` attributes.  Each layer scatters its
+fresh K/V into the pool in place, then attends.
+
+* The ragged view (the engine's unified step) runs ragged paged
+  attention over every segment, so prefill chunks and decode rows share
+  one kernel launch.  An int8 pool quantizes each token as it is
+  scattered and hands its per-slot scale tables to the int8 attention
+  kernel.  With multi-LoRA on, the view carries the per-q-block adapter
+  state (``lora``) that the model's projections read.
+* The paged view has two modes: ``"prefill"`` attends densely and
+  causally over the call's own K/V; ``"decode"`` runs the paged decode
+  attention kernel, one query row per sequence over its block table.
 """
 from __future__ import annotations
 
 import torch
 
+from ...ops.paged import paged_attention as _paged_attention
 from ...ops.ragged import ragged_paged_attention
 
 __all__ = ["kv_cache_scatter", "kv_cache_scatter_quant", "ragged_attention",
-           "RaggedCacheView", "RaggedLayerCache"]
+           "paged_attention", "RaggedCacheView", "RaggedLayerCache",
+           "PagedCacheView", "PagedLayerCache"]
 
 
 def kv_cache_scatter(k_pool, v_pool, k_new, v_new, blk, off):
@@ -76,6 +86,94 @@ def ragged_attention(q, k_pool, v_pool, block_tables, context_lens,
     return out[None]
 
 
+def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
+                    scale=None):
+    """Decode attention for q ``[B, 1, H, D]`` over paged K/V (the paged
+    decode kernel; the plain version on CPU tensors)."""
+    return _paged_attention(q.contiguous(), k_pool, v_pool, block_tables,
+                            context_lens, scale=scale)
+
+
+def _slots(slot_mapping, block_size):
+    """(block, offset) of each flat pool slot, int64."""
+    slots = slot_mapping.long()
+    return torch.div(slots, block_size, rounding_mode="floor"), \
+        slots % block_size
+
+
+class PagedLayerCache:
+    """One layer's view of a paged step: what GPTAttention receives as
+    ``cache``."""
+
+    __slots__ = ("_view", "_layer")
+
+    def __init__(self, view, layer):
+        self._view = view
+        self._layer = layer
+
+    def attend(self, q, k, v, use_flash=True):
+        """Scatter this step's K/V ``[b, s, H, D]`` into the pool, then
+        attend: in ``"prefill"`` mode densely and causally over the call's
+        own K/V (through ``F.scaled_dot_product_attention`` under
+        ``sdp_kernel(enable_flash=use_flash)``; padded tail rows are never
+        read), in ``"decode"`` mode through the paged decode kernel."""
+        view = self._view
+        k_pool, v_pool = view.cache.layer_pools(self._layer)
+        kv_cache_scatter(k_pool, v_pool, k, v, view.slot_block,
+                         view.slot_offset)
+        if view.mode == "prefill":
+            from ...nn import functional as F
+            with F.sdp_kernel(enable_flash=use_flash):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+        return paged_attention(q, k_pool, v_pool, view.block_tables,
+                               view.context_lens)
+
+
+class PagedCacheView:
+    """Adapts a float PagedKVCache to the model for a prefill or a decode
+    step (``mode``).  `set_inputs` stages one step's driving tensors;
+    every layer of the forward pass reads them."""
+
+    def __init__(self, cache, mode):
+        if mode not in ("prefill", "decode"):
+            raise ValueError(f"mode must be prefill|decode, got {mode!r}")
+        if cache.quantized:
+            raise NotImplementedError(
+                "an int8 pool under the paged view is not ported yet (the "
+                "reference's view has no scale tables either)")
+        self.cache = cache
+        self.mode = mode
+        self.slot_block = None     # [tokens] int64 pool block of each token
+        self.slot_offset = None    # [tokens] int64 offset in that block
+        self.block_tables = None   # [b, W] int32
+        self.context_lens = None   # [b] int32
+        self.position_ids = None   # [b, s] int64 absolute positions
+        self._layers = [PagedLayerCache(self, i)
+                        for i in range(cache.num_layers)]
+
+    def __getitem__(self, layer):
+        return self._layers[layer]
+
+    def __len__(self):
+        return len(self._layers)
+
+    def set_inputs(self, slot_mapping, block_tables, context_lens,
+                   position_ids):
+        """Stage this step's driving values (tensors or host arrays), on
+        the pool's device."""
+        dev = self.cache.device
+
+        def put(v, dtype):
+            return torch.as_tensor(v).to(dev, dtype)
+        self.slot_block, self.slot_offset = _slots(
+            put(slot_mapping, torch.int64).reshape(-1),
+            self.cache.block_size)
+        self.block_tables = put(block_tables, torch.int32).contiguous()
+        self.context_lens = put(context_lens, torch.int32).contiguous()
+        self.position_ids = put(position_ids, torch.int64)
+
+
 class RaggedLayerCache:
     """One layer's view of the ragged step: what GPTAttention receives
     as ``cache``."""
@@ -86,11 +184,18 @@ class RaggedLayerCache:
         self._view = view
         self._layer = layer
 
-    def attend(self, q, k, v):
+    @property
+    def lora(self):
+        """The multi-LoRA segment state (``serving.lora``), or None."""
+        return self._view.lora
+
+    def attend(self, q, k, v, use_flash=True):
         """Scatter this step's K/V into the pool, then attend.  q/k/v:
         ``[1, T, H, D]``; returns ``[1, T, H, D]``.  An int8 pool
         quantizes per token at scatter time and passes its per-slot scale
-        tables to the attention."""
+        tables to the attention.  ``use_flash`` is taken, as the
+        reference's signature has it, and does not apply: the ragged
+        kernel attends every row."""
         view = self._view
         k_pool, v_pool = view.cache.layer_pools(self._layer)
         scales = view.cache.layer_scales(self._layer)
@@ -126,8 +231,14 @@ class RaggedCacheView:
         self.seq_ids = None        # [T // block_q] int32 (S = null)
         self.q_starts = None       # [T // block_q] int32
         self.q_valids = None       # [T // block_q] int32
+        self.lora = None           # SegmentAdapterState with multi-LoRA on
         self._layers = [RaggedLayerCache(self, i)
                         for i in range(cache.num_layers)]
+
+    def set_lora(self, state):
+        """Attach the multi-LoRA segment state (``serving.lora``); model
+        layers reach it through their layer cache as ``cache.lora``."""
+        self.lora = state
 
     def __getitem__(self, layer):
         return self._layers[layer]
@@ -135,10 +246,8 @@ class RaggedCacheView:
     def set_inputs(self, slot_mapping, block_tables, context_lens,
                    position_ids, seq_ids, q_starts, q_valids):
         """Stage this step's driving tensors (on the pool's device)."""
-        slots = slot_mapping.long()
-        bs = self.cache.block_size
-        self.slot_block = torch.div(slots, bs, rounding_mode="floor")
-        self.slot_offset = slots % bs
+        self.slot_block, self.slot_offset = _slots(slot_mapping,
+                                                   self.cache.block_size)
         self.block_tables = block_tables
         self.context_lens = context_lens
         self.position_ids = position_ids

@@ -31,10 +31,18 @@ int8``) converts every ``Linear`` of the model to weight-only int8
 scales, under any compute dtype.  The step geometry (``block_q``)
 follows the compute dtype, not the pool's.
 
+**multi-LoRA**: ``enable_lora`` builds the paged adapter store
+(``lora.py``) over the model's qkv, out, fc1 and fc2 projections,
+``register_adapter`` lands adapters in its host tier, and
+``add_request(adapter=)`` serves a request through its adapter: it is
+pinned in a device slot at admission and released at finish or
+preemption, and every step stages each q-block's slot id (the null slot
+for rows without one), so rows with different adapters and base-model
+rows share one step.
+
 Not ported yet, and refused with ``NotImplementedError`` when asked for:
-LoRA adapters (``enable_lora``, ``register_adapter``), speculative
-decoding, SLO policies, the host KV tier (``kv_tiering``,
-``kv_host_budget``), the prefill/decode roles and their handoff
+tenant-tagged requests (``tenant=``), speculative decoding, SLO
+policies, the host KV tier (``kv_tiering``, ``kv_host_budget``), the prefill/decode roles and their handoff
 (``extract_request``, ``inject_request``), streaming (``open_stream``),
 the step watchdog (``step_deadline_ms``, ``clock``), load shedding
 (``shed_depth``) and the memory guard's resident (``resident_name``).
@@ -55,6 +63,7 @@ from ...ops.ragged import ragged_q_block
 from ...quantization import convert_to_int8
 from .attention import RaggedCacheView
 from .kv_cache import PagedKVCache
+from .lora import AdapterStoreFull
 from .scheduler import (ContinuousBatchingScheduler, Request,
                         max_batch_size, prefill_chunk_size)
 
@@ -222,6 +231,10 @@ class GenerationEngine:
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, self.max_batch, self.prefill_chunk)
         self._view = RaggedCacheView(self.cache, self.block_q)
+        # multi-LoRA (lora.py): the store and the per-q-block slot ids,
+        # built by enable_lora before the first step
+        self._lora = None
+        self._lora_held = {}      # req.id -> adapter pinned for it
         self._rows = [None] * self.max_batch
         self._last_tokens = torch.zeros(self.max_batch, dtype=torch.int64,
                                         device=self.device)
@@ -238,11 +251,16 @@ class GenerationEngine:
                     top_k=0, top_p=1.0, temperature=1.0, seed=0,
                     eos_token_id=None, request_id=None, tenant=None,
                     adapter=None):
-        """Enqueue one prompt; returns the request id."""
+        """Enqueue one prompt; returns the request id.  ``adapter`` names
+        a registered LoRA adapter (None: the base model)."""
         if tenant is not None:
             raise _not_ported("tenant-tagged (SLO) requests")
         if adapter is not None:
-            raise _not_ported("LoRA adapters")
+            if self._lora is None:
+                raise RuntimeError(
+                    f"adapter={adapter!r} requires enable_lora() first")
+            if not self._lora.store.has_adapter(adapter):
+                raise KeyError(f"adapter {adapter!r} is not registered")
         prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
         if not prompt:
             raise ValueError("empty prompt")
@@ -258,7 +276,7 @@ class GenerationEngine:
         req = Request(request_id, prompt, max_new_tokens=max_new_tokens,
                       do_sample=do_sample, top_k=top_k, top_p=top_p,
                       temperature=temperature, seed=seed,
-                      eos_token_id=eos_token_id)
+                      eos_token_id=eos_token_id, adapter=adapter)
         self.scheduler.submit(req)
         return request_id
 
@@ -267,10 +285,56 @@ class GenerationEngine:
 
     def enable_lora(self, rank=8, alpha=None, targets=None, num_slots=None,
                     budget=None):
-        raise _not_ported("LoRA adapters (enable_lora)")
+        """Build the paged adapter store over the model's target linears
+        and attach it to the step's view; run it before the first step.
+        Without ``num_slots``, ``budget`` or
+        ``PADDLE_TPU_LORA_STORE_BUDGET`` the store gets ``max_batch``
+        slots, one for each row, so admission never waits for a slot.
+        Returns the store."""
+        from .lora import (LoRAAdapterStore, SegmentAdapterState,
+                           attach_lora_sites, lora_store_budget)
+        if self._lora is not None:
+            return self._lora.store
+        if self._steps_dispatched:
+            raise RuntimeError("enable_lora() must run before the first "
+                               "step")
+        sites = attach_lora_sites(self.model, targets=targets)
+        if num_slots is None and budget is None \
+                and lora_store_budget() is None:
+            num_slots = self.max_batch
+        store = LoRAAdapterStore(sites, rank, dtype=self.model.dtype,
+                                 alpha=alpha, num_slots=num_slots,
+                                 budget=budget, device=self.device)
+        self._lora = SegmentAdapterState(store, self.block_q)
+        self._lora.stage(torch.full((self.num_q_blocks,), store.null_slot,
+                                    dtype=torch.int32))
+        self._view.set_lora(self._lora)
+        return store
 
     def register_adapter(self, name, weights, alpha=None, rank=None):
-        raise _not_ported("LoRA adapters (register_adapter)")
+        """Put one adapter in the store's host tier (see
+        ``LoRAAdapterStore.register_adapter``); needs `enable_lora`."""
+        if self._lora is None:
+            raise RuntimeError("enable_lora() first")
+        return self._lora.store.register_adapter(name, weights, alpha=alpha,
+                                                 rank=rank)
+
+    def _lora_acquire(self, req):
+        """Pin the request's adapter in a device slot, once (a requeued
+        request is admitted again without a second pin)."""
+        if self._lora is None or req.adapter is None \
+                or req.id in self._lora_held:
+            return
+        self._lora.store.acquire(req.adapter)
+        self._lora_held[req.id] = req.adapter
+
+    def _lora_release(self, req):
+        """Drop the request's pin; its slot parks as evictable."""
+        if self._lora is None:
+            return
+        name = self._lora_held.pop(req.id, None)
+        if name is not None:
+            self._lora.store.release(name)
 
     def handoff_ready(self):
         """Requests whose prompt K/V is complete and first token sampled:
@@ -289,10 +353,12 @@ class GenerationEngine:
         raise _not_ported("streaming (open_stream)")
 
     def close(self):
-        """The reference's close releases the speculative proposer, the
-        adapter store and the pool's memory-guard charge; the port has
-        none of them, so there is nothing to release, and the pool dies
-        with its last reference, as the reference's does."""
+        """Close the adapter store.  The reference's close also releases
+        the speculative proposer and the pool's memory-guard charge, which
+        the port does not have; the pool dies with its last reference, as
+        the reference's does."""
+        if self._lora is not None:
+            self._lora.store.close()
 
     def step(self):
         """One unified ragged step (admissions + at most one prefill
@@ -300,11 +366,18 @@ class GenerationEngine:
         requests that finished this step."""
         self._step_idx += 1
         self._step_finished = []
+        allow_admission = True
         while True:
-            action, payload = self.scheduler.next_action()
+            action, payload = self.scheduler.next_action(allow_admission)
             if action != "admit":
                 break
-            self._admit(payload)
+            try:
+                self._admit(payload)
+            except AdapterStoreFull:
+                # every adapter slot is pinned by a running request: the
+                # request stays at the queue head (nothing was mutated)
+                # and is admitted again next step, as in the reference
+                allow_admission = False
         if action == "step":
             self._run_step(payload)
         elif self._pending:
@@ -334,11 +407,17 @@ class GenerationEngine:
                  tokens_generated=self._tokens_generated,
                  token_budget=self.token_budget,
                  steps=self._steps_dispatched)
+        if self._lora is not None:
+            ls = self._lora.store.stats()
+            s.update(lora=ls, adapter_hit_rate=ls["hit_rate"])
         return s
 
     # -- admission ------------------------------------------------------
     def _admit(self, req):
         """Allocate the prompt (prefix-aware) and seat the request."""
+        # pin the adapter first: AdapterStoreFull leaves the scheduler and
+        # the pool untouched
+        self._lora_acquire(req)
         self.scheduler.begin_prefill(req)
         row = self._rows.index(None)
         self._rows[row] = req
@@ -399,6 +478,7 @@ class GenerationEngine:
         queue head and its written blocks stay prefix-indexed."""
         if victim.row is not None:
             self._rows[victim.row] = None
+        self._lora_release(victim)
         self.scheduler.requeue(victim, victim.generated)
 
     def _dispatch_step(self, chunk, decodes):
@@ -410,13 +490,17 @@ class GenerationEngine:
         # every int32 input of the step in ONE host buffer: one copy
         sizes = dict(ids=T, slots=T, positions=T, seq_ids=NQB,
                      q_starts=NQB, q_valids=NQB, tables=S * W, ctx=S,
-                     last_index=S, feed_flat=S, feed_rows=S)
+                     last_index=S, feed_flat=S, feed_rows=S,
+                     lora_slots=NQB if self._lora is not None else 0)
         buf = np.zeros(sum(sizes.values()), np.int32)
         host, off = {}, 0
         for name, n in sizes.items():
             host[name] = buf[off:off + n]
             off += n
         host["seq_ids"][:] = S           # S = null segment
+        store = self._lora.store if self._lora is not None else None
+        if store is not None:
+            host["lora_slots"][:] = store.null_slot
         tables = host["tables"].reshape(S, W)
         sample_pos = np.zeros(S, np.int64)
 
@@ -430,6 +514,8 @@ class GenerationEngine:
             host["seq_ids"][seg] = r
             host["q_starts"][seg] = length - 1
             host["q_valids"][seg] = 1
+            if store is not None and req.adapter is not None:
+                host["lora_slots"][seg] = store.slot_of(req.adapter)
             host["slots"][flat] = self.cache.slot_mapping(
                 req.id, length - 1, 1)[0]
             host["positions"][flat] = length - 1
@@ -454,6 +540,9 @@ class GenerationEngine:
                 host["seq_ids"][flat // BQ + j] = r
                 host["q_starts"][flat // BQ + j] = start + j * BQ
                 host["q_valids"][flat // BQ + j] = min(BQ, n - j * BQ)
+            if store is not None and req.adapter is not None:
+                host["lora_slots"][flat // BQ:flat // BQ + nseg] = \
+                    store.slot_of(req.adapter)
             tables[r] = self.cache.block_table(req.id)
             host["ctx"][r] = start + n
             if start + n == len(req.prompt):
@@ -472,6 +561,8 @@ class GenerationEngine:
                               dev["ctx"], dev["positions"].view(1, T),
                               dev["seq_ids"], dev["q_starts"],
                               dev["q_valids"])
+        if store is not None:
+            self._lora.stage(dev["lora_slots"])
         ids = dev["ids"]
         if n_feed:
             # the previous step's device-side tokens feed this step's
@@ -546,6 +637,7 @@ class GenerationEngine:
             if req.done:
                 if req.row is not None:
                     self._rows[req.row] = None
+                self._lora_release(req)
                 req.t_finish = time.perf_counter()
                 self.scheduler.finish(req)
                 self._results[req.id] = req

@@ -129,6 +129,7 @@ class PagedKVCache:
         self._by_hash = {}     # chain hash -> canonical block
         self._cached_free = OrderedDict()  # refcount-0 indexed blocks LRU
         self._cached_len = {}  # seq_id -> tokens served from the cache
+        self._seq_adapter = {}  # seq_id -> LoRA adapter id (None: base)
         self._hit_tokens = 0   # prefix tokens reused, cumulative
         self._lookup_tokens = 0  # prompt tokens that consulted the index
         self.cow_splits = 0
@@ -178,26 +179,31 @@ class PagedKVCache:
     def blocks_needed(self, num_tokens):
         return -(-int(num_tokens) // self.block_size)
 
-    def can_allocate(self, num_tokens, tokens=None, headroom=0):
+    def can_allocate(self, num_tokens, tokens=None, headroom=0,
+                     adapter=None):
         """Admission check: prefix hits count as available (a parked hit
         is reactivated, not consumed) and ``headroom`` blocks are held
         back for the decode growth of running sequences."""
-        hits = self._prefix_hits(tokens, num_tokens)
+        hits = self._prefix_hits(tokens, num_tokens, adapter)
         need = self.blocks_needed(num_tokens) - len(hits)
         hits_parked = sum(1 for b in hits if b in self._cached_free)
         capacity = (len(self._free)
                     + len(self._cached_free) - hits_parked)
         return need + int(headroom) <= capacity
 
-    def _chain_hash(self, prev, block_tokens):
-        # the chain root carries the pool dtype, as the reference's does
+    def _chain_hash(self, prev, block_tokens, adapter=None):
+        # the chain root carries the pool dtype and the LoRA adapter id, as
+        # the reference's does: an adapter changes the K/V every layer
+        # writes, so two adapters never share a prefix block
         if prev is None:
-            prev = (dtype_name(self.dtype), None)
+            prev = (dtype_name(self.dtype),
+                    None if adapter is None else str(adapter))
         return hash((prev, tuple(int(t) for t in block_tokens)))
 
-    def _prefix_hits(self, tokens, num_tokens):
+    def _prefix_hits(self, tokens, num_tokens, adapter=None):
         """Blocks covering the longest cached block-aligned prefix of
-        ``tokens``, capped so one of ``num_tokens`` is still computed."""
+        ``tokens`` under ``adapter``, capped so one of ``num_tokens`` is
+        still computed."""
         hits = []
         if not self.prefix_cache or tokens is None:
             return hits
@@ -207,7 +213,7 @@ class PagedKVCache:
         for b in range(min(len(tokens), int(num_tokens)) // bs):
             if (b + 1) * bs > max_reuse:
                 break
-            h = self._chain_hash(h, tokens[b * bs:(b + 1) * bs])
+            h = self._chain_hash(h, tokens[b * bs:(b + 1) * bs], adapter)
             blk = self._by_hash.get(h)
             if blk is None:
                 break
@@ -246,14 +252,15 @@ class PagedKVCache:
         else:
             self._free.append(blk)
 
-    def allocate(self, seq_id, num_tokens, tokens=None):
+    def allocate(self, seq_id, num_tokens, tokens=None, adapter=None):
         """Reserve blocks for a sequence's first ``num_tokens`` tokens,
-        sharing every leading cached block of ``tokens``.  Raises
-        KeyError on a duplicate id; returns False when the pool cannot
-        hold it."""
+        sharing every leading cached block of ``tokens`` cached under the
+        same ``adapter`` (remembered for the sequence's later commits).
+        Raises KeyError on a duplicate id; returns False when the pool
+        cannot hold it."""
         if seq_id in self._tables:
             raise KeyError(f"sequence {seq_id!r} already allocated")
-        hits = self._prefix_hits(tokens, num_tokens)
+        hits = self._prefix_hits(tokens, num_tokens, adapter)
         need = self.blocks_needed(num_tokens) - len(hits)
         hits_parked = sum(1 for b in hits if b in self._cached_free)
         if need > len(self._free) + (len(self._cached_free) - hits_parked):
@@ -269,6 +276,8 @@ class PagedKVCache:
             table.append(blk)
         self._tables[seq_id] = table
         self._lengths[seq_id] = int(num_tokens)
+        if adapter is not None:
+            self._seq_adapter[seq_id] = adapter
         cached = len(hits) * self.block_size
         self._cached_len[seq_id] = cached
         if self.prefix_cache and tokens is not None:
@@ -290,11 +299,12 @@ class PagedKVCache:
             return
         bs = self.block_size
         table = self._tables[seq_id]
+        adapter = self._seq_adapter.get(seq_id)
         n = min(int(len(tokens)), self._lengths[seq_id]) // bs
         h = None
         for b in range(n):
             blk = table[b]
-            h = self._chain_hash(h, tokens[b * bs:(b + 1) * bs])
+            h = self._chain_hash(h, tokens[b * bs:(b + 1) * bs], adapter)
             stored = self._hash_of.get(blk)
             if stored is not None:
                 if stored == h:
@@ -403,6 +413,7 @@ class PagedKVCache:
         blocks = self._tables.pop(seq_id)
         self._lengths.pop(seq_id, None)
         self._cached_len.pop(seq_id, None)
+        self._seq_adapter.pop(seq_id, None)
         for blk in reversed(blocks):
             self._release(blk)
         return len(blocks)

@@ -97,11 +97,12 @@ class Request:
                  "top_p", "temperature", "seed", "eos_token_id",
                  "generated", "n_scheduled", "num_computed",
                  "cached_prefix", "row", "arrival", "done",
-                 "preemptions", "t_submit", "t_first_token", "t_finish")
+                 "preemptions", "t_submit", "t_first_token", "t_finish",
+                 "adapter")
 
     def __init__(self, id, prompt, max_new_tokens=16, do_sample=False,
                  top_k=0, top_p=1.0, temperature=1.0, seed=0,
-                 eos_token_id=None):
+                 eos_token_id=None, adapter=None):
         self.id = id
         self.prompt = list(prompt)
         self.max_new_tokens = int(max_new_tokens)
@@ -122,6 +123,7 @@ class Request:
         self.t_submit = None      # wall clock at submit (TTFT start)
         self.t_first_token = None  # wall clock at first drained token
         self.t_finish = None      # wall clock at finish
+        self.adapter = adapter    # LoRA adapter id (None: the base model)
 
     @property
     def remaining(self):
@@ -172,18 +174,20 @@ class ContinuousBatchingScheduler:
         return len(self.waiting)
 
     # -- policy ---------------------------------------------------------
-    def next_action(self):
+    def next_action(self, allow_admission=True):
         """("admit", request) | ("step", (chunk, decodes)) |
         ("idle", None).  ``chunk`` is a `PrefillChunk` (or None) for the
         oldest running request still computing its prompt; ``decodes``
-        are the prefilled sequences that still owe tokens."""
+        are the prefilled sequences that still owe tokens.
+        ``allow_admission=False`` skips admission: the engine passes it
+        for the rest of a step whose admission failed."""
         # only ONE chunk runs per step, so admitting while a prompt is
         # still prefilling cannot start prefill sooner; it would only
         # allocate before that prompt's prefix is committed, turning
         # would-be prefix hits into misses
         prefilling = any(r.prefilling and not r.done
                          for r in self.running)
-        if (self.waiting and not prefilling
+        if (allow_admission and self.waiting and not prefilling
                 and len(self.running) < self.max_batch):
             req = self.admission_policy.select_admission(
                 list(self.waiting), self.running)
@@ -197,7 +201,7 @@ class ContinuousBatchingScheduler:
             headroom = sum(1 for r in self.running if not r.done)
             if req is not None and self.cache.can_allocate(
                     len(req.prompt) + 1, tokens=req.prompt,
-                    headroom=headroom):
+                    headroom=headroom, adapter=req.adapter):
                 return ("admit", req)
             if req is not None and not self.running:
                 need = self.cache.blocks_needed(len(req.prompt) + 1)
@@ -232,7 +236,8 @@ class ContinuousBatchingScheduler:
         if not self.waiting or self.waiting[0] is not request:
             raise RuntimeError(f"{request.id!r} is not at the queue head")
         if not self.cache.allocate(request.id, len(request.prompt),
-                                   tokens=request.prompt):
+                                   tokens=request.prompt,
+                                   adapter=request.adapter):
             raise RuntimeError(
                 f"allocation for {request.id!r} raced the free list")
         request.cached_prefix = self.cache.cached_prefix_len(request.id)

@@ -7,8 +7,12 @@ the reference's ``state_dict`` (``gpt.wte.weight``,
 
 Serving: with a paged cache view (anything with an ``attend`` method,
 see ``inference/serving/attention.py``) each layer scatters its K/V into
-the pool and runs ragged paged attention, and the per-row positions come
-from the view.
+the pool and runs ragged paged attention (the paged view's decode mode:
+paged decode attention), and the per-row positions come from the view.
+With multi-LoRA on, the view's ``lora`` state adds each q-block's adapter
+delta after the qkv, out, fc1 and fc2 projections through the SGMV
+epilogue; fc1 then runs as a plain GEMM with its activation deferred into
+that epilogue.
 
 Dense attention (``cache=None``, or the dense KV cache: a list of
 per-layer ``(k, v)`` that ``use_cache=True`` returns extended, as
@@ -81,13 +85,22 @@ class GPTAttention(nn.Module):
 
     def forward(self, x, cache=None, use_cache=False):
         b, s, h = x.shape
-        qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
-                                       self.head_dim)
-        q, k, v = qkv.unbind(dim=2)               # each [b, s, nh, hd]
+        qkv = self.qkv_proj(x)
+        # multi-LoRA serving: each q-block's adapter delta follows the
+        # projection through the SGMV epilogue (null rows unchanged)
+        lora = getattr(cache, "lora", None)
+        if lora is not None and lora.active(self.qkv_proj):
+            qkv = lora.apply(qkv, x, self.qkv_proj)
+        q, k, v = qkv.reshape(b, s, 3, self.num_heads,
+                              self.head_dim).unbind(dim=2)
         if cache is not None and hasattr(cache, "attend"):
             # the paged serving cache: the layer view scatters K/V into
             # the pool and attends through the block tables
-            out = self.out_proj(cache.attend(q, k, v).reshape(b, s, h))
+            attn = cache.attend(q, k, v, use_flash=self.use_flash).reshape(
+                b, s, h)
+            out = self.out_proj(attn)
+            if lora is not None and lora.active(self.out_proj):
+                out = lora.apply(out, attn, self.out_proj)
             return (out, cache) if use_cache else out
         if cache is not None:
             # dense decode: extend K/V with the cached prefix; the causal
@@ -106,17 +119,25 @@ class GPTMLP(nn.Module):
         self.fc1 = pnn.Linear(cfg.hidden_size, cfg.intermediate_size, **kw)
         self.fc2 = pnn.Linear(cfg.intermediate_size, cfg.hidden_size, **kw)
 
-    def forward(self, x):
+    def forward(self, x, lora=None):
         # fc1's bias + gelu fold into the matmul-epilogue kernel (its int8
         # twin once convert_to_int8 has run)
         w_q = getattr(self.fc1, "weight_q", None)
         if w_q is not None:
             h = F.linear_act_int8(x, w_q, self.fc1.weight_scale,
                                   self.fc1.bias, act="gelu_tanh")
+        elif lora is not None and lora.active(self.fc1):
+            # the activation is deferred past the adapter delta: the SGMV
+            # epilogue computes act(z + delta) in one pass
+            z = F.linear(x, self.fc1.weight, self.fc1.bias)
+            h = lora.apply(z, x, self.fc1, act="gelu_tanh")
         else:
             h = F.linear_act(x, self.fc1.weight, self.fc1.bias,
                              act="gelu_tanh")
-        return self.fc2(h)
+        y = self.fc2(h)
+        if lora is not None and lora.active(self.fc2):
+            y = lora.apply(y, h, self.fc2)
+        return y
 
 
 class GPTBlock(nn.Module):
@@ -134,12 +155,14 @@ class GPTBlock(nn.Module):
                                    generator=generator)
 
     def forward(self, x, cache=None, use_cache=False):
+        lora = getattr(cache, "lora", None)
         if use_cache:
             a, new_cache = self.attn(self.ln_1(x), cache, True)
             x = x + self.dropout(a)
-            return x + self.dropout(self.mlp(self.ln_2(x))), new_cache
+            return x + self.dropout(self.mlp(self.ln_2(x), lora=lora)), \
+                new_cache
         x = x + self.dropout(self.attn(self.ln_1(x), cache))
-        return x + self.dropout(self.mlp(self.ln_2(x)))
+        return x + self.dropout(self.mlp(self.ln_2(x), lora=lora))
 
 
 class GPTModel(nn.Module):

@@ -117,7 +117,12 @@ class MoEMLP(nn.Module):
         self.aux_loss = None
         self.counts = None
 
-    def forward(self, x):
+    def forward(self, x, lora=None):
+        if lora is not None:
+            # the reference's expert MLP has no adapter site
+            raise NotImplementedError(
+                "multi-LoRA serving of MoE-GPT's expert MLP is not ported "
+                "yet (the reference has no LoRA site there)")
         y, self.aux_loss, self.counts = moe_mlp_compute(
             x.reshape(-1, x.shape[-1]), self.router, self.w1, self.b1,
             self.w2, self.b2, top_k=self.top_k,

@@ -2,7 +2,7 @@
 on ``torch.Tensor``.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
-``linear_act`` :54, ``linear_act_int8`` :130, ``embedding`` :523,
+``linear_act`` :54, ``linear_act_int8`` :130, ``lora_segment_act`` :80, ``embedding`` :523,
 ``dropout``),
 ``nn/functional/activation.py`` (``silu``, ``tanh``),
 ``nn/functional/norm.py`` (``layer_norm`` :22,
@@ -14,7 +14,8 @@ path), ``nn/functional/flash_attention.py``
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
 ``fused_residual_layer_norm``, ``linear_act``, ``linear_act_int8``,
-``rms_norm`` (with a weight), ``cross_entropy`` and dense attention
+``rms_norm`` (with a weight), ``lora_segment_act``, ``cross_entropy``
+and dense attention
 without dropout through its Pallas kernels; here
 they call the port's kernel entry points (differentiable, but for the
 int8 epilogue), which take the plain versions for CPU tensors and launch
@@ -31,9 +32,10 @@ import torch
 
 from .. import amp
 from .. import ops
-from ..ops.tiles import NEG_INF
+from ..ops.tiles import NEG_INF, min_rows
 
-__all__ = ["linear", "linear_act", "linear_act_int8", "matmul",
+__all__ = ["linear", "linear_act", "linear_act_int8", "lora_segment_act",
+           "matmul",
            "embedding", "layer_norm", "fused_residual_layer_norm",
            "rms_norm", "silu", "tanh", "dropout",
            "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
@@ -69,6 +71,42 @@ def linear_act_int8(x, weight_q, weight_scale, bias=None, act="none"):
         "linear_act_int8", x, weight_q, weight_scale, bias)
     return ops.fused_linear_act_int8(x.contiguous(), weight_q,
                                      weight_scale.float(), bias, act)
+
+
+def lora_segment_act(z, x, lora_a, lora_b, block_adapter=None, act="none"):
+    """``act(z + (x @ A[a]) @ B[a])``, the segmented LoRA SGMV epilogue.
+
+    ``z`` is the base pre-activation for ``x`` (``[..., N]`` and ``[...,
+    K]``).  ``lora_a``/``lora_b`` are either one adapter's factors (``[K,
+    r]``/``[r, N]``: fine-tuning's single segment) or stacked factors
+    (``[L, K, r]``/``[L, r, N]``) routed per row block by
+    ``block_adapter`` (``[num_blocks]`` int32, the block height ``rows //
+    num_blocks``; id ``L`` is the null adapter, whose rows come out as
+    ``act(z)``).  Any scale (alpha / r) must be folded into ``lora_b``.
+    On the O1 white list: under ``auto_cast`` it runs in the AMP dtype."""
+    z, x, lora_a, lora_b = amp.cast_inputs("lora_segment_act", z, x, lora_a,
+                                           lora_b)
+    if lora_a.dim() == 2:
+        lora_a, lora_b = lora_a[None], lora_b[None]
+    z2 = z.reshape(-1, z.shape[-1])
+    x2 = x.reshape(-1, x.shape[-1])
+    rows = z2.shape[0]
+    if block_adapter is not None:
+        out = ops.lora_segment_epilogue(z2, x2, lora_a, lora_b,
+                                        block_adapter=block_adapter, act=act)
+    else:
+        # one segment: pad the rows to a legal block height with zeros
+        # (x = 0 there, so their delta is 0) and slice them off after
+        bm = min_rows(z2.dtype)
+        pad = (-rows) % bm
+        if pad:
+            z2 = torch.nn.functional.pad(z2, (0, 0, 0, pad))
+            x2 = torch.nn.functional.pad(x2, (0, 0, 0, pad))
+        blk = torch.zeros((rows + pad) // bm, dtype=torch.int32,
+                          device=z2.device)
+        out = ops.lora_segment_epilogue(z2, x2, lora_a, lora_b,
+                                        block_adapter=blk, act=act)[:rows]
+    return out.reshape(z.shape)
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False):

@@ -32,7 +32,10 @@ def _param(shape, device, dtype):
 class Linear(nn.Module):
     """``y = x @ weight + bias`` with ``weight`` ``[in, out]``.  After
     ``quantization.convert_to_int8`` the weight is the int8 buffers
-    ``weight_q``/``weight_scale`` and the layer runs the int8 epilogue."""
+    ``weight_q``/``weight_scale`` and the layer runs the int8 epilogue.
+    After ``inference.serving.lora.convert_to_lora`` it has ``lora_A``
+    and ``lora_B`` and, unless merged, adds their delta through the
+    segmented SGMV epilogue as one segment."""
 
     def __init__(self, in_features, out_features, bias=True, *, device,
                  dtype=torch.float32, generator=None):
@@ -51,7 +54,12 @@ class Linear(nn.Module):
         w_q = getattr(self, "weight_q", None)
         if w_q is not None:
             return F.linear_act_int8(x, w_q, self.weight_scale, self.bias)
-        return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight, self.bias)
+        if getattr(self, "lora_A", None) is not None \
+                and not getattr(self, "lora_merged", False):
+            y = F.lora_segment_act(y, x, self.lora_A,
+                                   self.lora_B * self.lora_scaling)
+        return y
 
     def extra_repr(self):
         return f"in={self.in_features}, out={self.out_features}"

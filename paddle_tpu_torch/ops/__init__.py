@@ -21,18 +21,22 @@ fused_linear_act_int8          matmul_epilogue.cu   pallas_fused.py:406
 fused_layer_norm_residual      layer_norm.cu        pallas_fused.py:101
 fused_grouped_linear_act       grouped_matmul.cu    pallas_grouped.py:85
 fused_grouped_dw               grouped_matmul.cu    pallas_grouped.py:133
+fused_lora_segment_epilogue    lora_sgmv.cu         pallas_grouped.py:355
+paged_attention                paged_attention.cu   pallas_kernels.py:898
 =============================  ===================  ========================
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors
 it launches its kernel (built at first use by `cuda_lib`) or raises.
 Each wrapper counts its launches in a ``launches`` attribute.
 `layer_norm`, `layer_norm_residual`, `rms_norm`, `linear_act`,
-`fused_softmax_cross_entropy`, `flash_attention` and
-`grouped_linear_act` are the differentiable entry points:
+`fused_softmax_cross_entropy`, `flash_attention`, `grouped_linear_act`
+and `lora_segment_epilogue` are the differentiable entry points:
 ``torch.autograd.Function``s whose backward is the backward kernel (for
 the residual layer norm, the layer-norm backward on the saved sum; for
 flash attention, the dq and the dk/dv kernels; for the grouped matmul,
-the forward kernel on the transposed weights for dx and the dw kernel).
+the forward kernel on the transposed weights for dx and the dw kernel;
+for the LoRA epilogue, the grouped forward and dw kernels over the
+adapter stacks).  `paged_attention` serves decoding only.
 """
 from .flash_attention import (flash_attention, flash_attention_bwd_ref,
                               flash_attention_ref, flash_bwd_stats,
@@ -47,12 +51,15 @@ from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
                          fused_layer_norm_residual, layer_norm,
                          layer_norm_bwd_ref, layer_norm_ref,
                          layer_norm_residual, layer_norm_residual_ref)
+from .lora import (fused_lora_segment_epilogue, lora_rank_pad,
+                   lora_segment_epilogue, lora_segment_epilogue_ref)
 from .matmul_epilogue import (ACTIVATIONS, fused_linear_act,
                               fused_linear_act_bwd, fused_linear_act_int8,
                               linear_act, linear_act_bwd_ref,
                               linear_act_int8_ref, linear_act_ref)
 from .rms_norm import (fused_rms_norm, fused_rms_norm_bwd, rms_norm,
                        rms_norm_bwd_ref, rms_norm_ref)
+from .paged import MAX_HEAD_DIM, paged_attention, paged_attention_ref
 from .ragged import (KV_SCALE_LANES, ragged_attention_ref,
                      ragged_paged_attention, ragged_paged_attention_int8,
                      ragged_q_block, ragged_segments)
@@ -79,10 +86,13 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "fused_grouped_dw", "fused_grouped_linear_act", "group_segments",
            "grouped_block_rows", "grouped_dw_ref", "grouped_layout",
            "grouped_linear_act", "grouped_linear_act_ref", "num_group_blocks",
+           "fused_lora_segment_epilogue", "lora_rank_pad",
+           "lora_segment_epilogue", "lora_segment_epilogue_ref",
+           "MAX_HEAD_DIM", "paged_attention", "paged_attention_ref",
            "KERNELS"]
 
 #: every kernel wrapper of the serving, training, LLaMA, int8 serving,
-#: BERT/ERNIE and MoE paths, by kernel name
+#: BERT/ERNIE, MoE, multi-LoRA and paged decode paths, by kernel name
 KERNELS = {
     "ragged_attention": ragged_paged_attention,
     "layer_norm": fused_layer_norm,
@@ -101,4 +111,6 @@ KERNELS = {
     "layer_norm_residual": fused_layer_norm_residual,
     "grouped_matmul": fused_grouped_linear_act,
     "grouped_matmul_dw": fused_grouped_dw,
+    "lora_sgmv": fused_lora_segment_epilogue,
+    "paged_attention": paged_attention,
 }

@@ -74,6 +74,10 @@ _SIGNATURES = {
                                 _I, _I, _I, _I, _P), _I),
     "ptt_grouped_matmul_dw": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P), _I),
+    "ptt_lora_sgmv_fwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _P), _I),
+    "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _F, _I, _I, _P), _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -29,7 +29,16 @@ at heads of 160 and 256 (the widest the reference routes to its kernel)
 and at BERT-base's non-causal shape.  The grouped-expert matmul's
 forward (both weight layouts) and dw kernels are held to their plain
 versions at block rows 8, 16 and 128 with empty experts and an all-null
-buffer (exact zeros there), dw as a column sum.
+buffer (exact zeros there), dw as a column sum.  The LoRA SGMV epilogue
+is held to its plain version (out and the saved sum) over blocks mixing
+adapters, null blocks (which give act(z), and s = z exactly) and an
+adapter with no block, at N off the 64-column tile and at ranks 8-64;
+its autograd function (the grouped kernels on the adapter stacks, read
+transposed, with N = r = 16 under the tile) against the same function on
+the CPU.  Paged decode attention is held to its plain version with a
+context-0 row, padded table entries and contexts off the page, at head
+dims 64-256 and pages of 8-32; outside its domain (head_dim 257, pages
+of 12, fp16) and on a CPU table it raises.
 """
 import numpy as np
 import pytest
@@ -629,5 +638,161 @@ def test_grouped_linear_act_gradients_on_the_card(gen, dtype):
                                grads["cpu"]):
         tol = _TOL[dtype] * (10 if name in ("dw", "db") else 1)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=_TOL[dtype], msg=name)
+                                   rtol=_TOL[dtype],
+                                   msg=lambda m, name=name: f"{name}: {m}")
     assert not grads["cuda"][2][1].any() and not grads["cuda"][3][1].any()
+
+
+# ---------------------------------------------------------------------
+# the LoRA SGMV epilogue
+# ---------------------------------------------------------------------
+def _lora_case(gen, dtype, K, N, r, aid, bm, L=4):
+    R = len(aid) * bm
+    z = torch.randn(R, N, device="cuda", generator=gen).to(dtype)
+    x = torch.randn(R, K, device="cuda", generator=gen).to(dtype)
+    a = (torch.randn(L, K, r, device="cuda", generator=gen) / 5).to(dtype)
+    b = (torch.randn(L, r, N, device="cuda", generator=gen) / 5).to(dtype)
+    return z, x, a, b, torch.tensor(aid, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ops.ACTIVATIONS)
+@pytest.mark.parametrize("K,N,r", [(200, 130, 16), (1024, 3072, 16),
+                                   (64, 16, 8), (96, 70, 64)])
+def test_lora_sgmv_kernel(gen, dtype, act, K, N, r):
+    """Blocks [0, null, 2, 2, null, 0, 3]: adapter 1 owns none.  Ragged
+    K and N off the 64-column tile; r = 64 at block rows 16 fills the
+    kernel's 1024 low-rank entries from 256 threads."""
+    bm = 16 if dtype == torch.bfloat16 else 8
+    aid = [0, 4, 2, 2, 4, 0, 3]
+    z, x, a, b, gid = _lora_case(gen, dtype, K, N, r, aid, bm)
+    n0 = ops.fused_lora_segment_epilogue.launches
+    out, s = ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
+    assert ops.fused_lora_segment_epilogue.launches == n0 + 1
+    want, s_ref = ops.lora.fused_lora_segment_epilogue(
+        z.cpu(), x.cpu(), a.cpu(), b.cpu(), gid.cpu(), act)
+    _close(out.cpu(), want, dtype)
+    _close(s.cpu(), s_ref, dtype)
+    null = (gid == 4).repeat_interleave(bm)
+    assert torch.equal(s[null], z[null])
+    _close(out[null], act_f32(z[null].float(), act).to(dtype), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_lora_segment_gradients_on_the_card(gen, dtype):
+    """The autograd function on the card (the SGMV kernel forward; u, dx
+    and t through the grouped forward kernel on the adapter stacks, dA
+    and dB through the grouped dw kernel after the sort by adapter)
+    against the same function on the CPU.  r = N = 16 puts the
+    transposed products' output under the 64-column tile."""
+    bm = 16 if dtype == torch.bfloat16 else 8
+    aid = [3, 0, 4, 3, 3, 0, 4, 2]
+    z, x, a, b, gid = _lora_case(gen, dtype, 48, 16, 16, aid, bm)
+    g = torch.randn(z.shape, device="cuda", generator=gen).to(dtype)
+    n_fwd = ops.fused_grouped_linear_act.launches
+    n_dw = ops.fused_grouped_dw.launches
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (z, x, a, b)]
+        out = ops.lora_segment_epilogue(*leaves, block_adapter=gid.to(dev),
+                                        act="gelu_tanh")
+        out.backward(g.to(dev))
+        grads[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    assert ops.fused_grouped_linear_act.launches == n_fwd + 3
+    assert ops.fused_grouped_dw.launches == n_dw + 2
+    for name, got, want in zip(("out", "dz", "dx", "dA", "dB"),
+                               grads["cuda"], grads["cpu"]):
+        tol = _TOL[dtype] * (10 if name in ("dA", "dB") else 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=_TOL[dtype], msg=name)
+    assert not grads["cuda"][3][1].any() and not grads["cuda"][4][1].any()
+
+
+def test_lora_wrapper_refuses_bad_inputs(gen):
+    z, x, a, b, gid = _lora_case(gen, torch.float32, 32, 40, 8, [0, 4], 8)
+    with pytest.raises(ValueError, match="int32"):
+        ops.fused_lora_segment_epilogue(z, x, a, b, gid.long())
+    with pytest.raises(ValueError, match="is torch.bfloat16"):
+        ops.fused_lora_segment_epilogue(z, x, a.bfloat16(), b, gid)
+    h = _lora_case(gen, torch.float16, 32, 40, 16, [0, 4], 16)
+    with pytest.raises(TypeError):
+        ops.fused_lora_segment_epilogue(*h)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.fused_lora_segment_epilogue(z, x, a.cpu(), b, gid)
+    with pytest.raises(ValueError, match="exceeds"):
+        big_a = torch.zeros(4, 32, 512, device="cuda")
+        ops.fused_lora_segment_epilogue(z, x, big_a,
+                                        torch.zeros(4, 512, 40,
+                                                    device="cuda"), gid)
+
+
+# ---------------------------------------------------------------------
+# paged decode attention
+# ---------------------------------------------------------------------
+def _paged_case(gen, dtype, B, H, D, bs, ctxs, W):
+    nb = sum(-(-c // bs) for c in ctxs) + 3      # 0 and two never read
+    q = torch.randn(B, 1, H, D, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
+    perm = torch.randperm(nb - 1, device="cuda", generator=gen) + 1
+    tables = torch.zeros(B, W, dtype=torch.int32, device="cuda")
+    used = 0
+    for i, c in enumerate(ctxs):
+        n = -(-c // bs)
+        tables[i, :n] = perm[used:used + n]
+        used += n
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
+    return q, k, v, tables, ctx
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("D,bs", [(128, 16), (64, 8), (256, 32), (80, 16)])
+@pytest.mark.parametrize("ctxs", [[129, 0, 192, 150], [1, 7, 33]])
+def test_paged_attention_kernel(gen, dtype, D, bs, ctxs):
+    """Contexts off the page (and 0: zeros), padded table entries; bf16
+    also against the plain version run in f32 (f32 probabilities, as the
+    kernel keeps them) within one bf16 ulp plus 2^-8 of the RMS."""
+    W = max(-(-c // bs) for c in ctxs) + 2
+    q, k, v, tables, ctx = _paged_case(gen, dtype, len(ctxs), 4, D, bs,
+                                       ctxs, W)
+    n0 = ops.paged_attention.launches
+    out = ops.paged_attention(q, k, v, tables, ctx)
+    assert ops.paged_attention.launches == n0 + 1
+    want = ops.paged_attention_ref(q, k, v, tables, ctx)
+    _close(out, want, dtype)
+    for i, c in enumerate(ctxs):
+        if c == 0:
+            assert not out[i].any()
+    if dtype == torch.bfloat16:
+        w32 = ops.paged_attention_ref(q.float(), k.float(), v.float(),
+                                      tables, ctx)
+        rms = float(w32.pow(2).mean().sqrt())
+        diff = (out.float() - w32).abs()
+        assert bool((diff <= 2.0 ** -8 * rms + 2.0 ** -7 * w32.abs()).all())
+    scaled = ops.paged_attention(q, k, v, tables, ctx, scale=0.05)
+    _close(scaled, ops.paged_attention_ref(q, k, v, tables, ctx, 0.05),
+           dtype)
+
+
+def test_paged_attention_refuses_outside_its_domain(gen):
+    q, k, v, tables, ctx = _paged_case(gen, torch.float32, 2, 2, 64, 16,
+                                       [20, 3], 3)
+    n0 = ops.paged_attention.launches
+    with pytest.raises(ValueError, match="head_dim 257"):
+        q2, k2, v2, t2, c2 = _paged_case(gen, torch.float32, 2, 2, 257, 16,
+                                         [20, 3], 3)
+        ops.paged_attention(q2, k2, v2, t2, c2)
+    with pytest.raises(ValueError, match="block_size 12"):
+        q2, k2, v2, t2, c2 = _paged_case(gen, torch.float32, 2, 2, 64, 12,
+                                         [20, 3], 3)
+        ops.paged_attention(q2, k2, v2, t2, c2)
+    with pytest.raises(TypeError):
+        ops.paged_attention(q.half(), k.half(), v.half(), tables, ctx)
+    with pytest.raises(ValueError, match="on cpu"):
+        ops.paged_attention(q, k, v, tables.cpu(), ctx)
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_attention(q, k, v, tables.long(), ctx)
+    with pytest.raises(ValueError, match="1 token"):
+        ops.paged_attention(q.expand(2, 2, 2, 64).contiguous(), k, v,
+                            tables, ctx)
+    assert ops.paged_attention.launches == n0

@@ -46,7 +46,8 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "models.generation", "models.llama", "ops.rms_norm",
               "quantization", "models.bert", "models.ernie",
               "models.moe_gpt", "ops.grouped",
-              "distributed.auto_parallel.moe_dispatch"):
+              "distributed.auto_parallel.moe_dispatch", "ops.lora",
+              "ops.paged", "inference.serving.lora"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -179,6 +180,12 @@ def test_kernel_wrappers_take_the_plain_version_only_on_cpu():
     pt.ops.ragged_paged_attention(torch.randn(8, 2, 8), pool, pool, *ints,
                                   block_q=8, k_scales=scales,
                                   v_scales=scales)
+    a3 = torch.randn(2, 8, 8, requires_grad=True)
+    pt.ops.lora_segment_epilogue(x.repeat(4, 1)[:, :3], x.repeat(4, 1), a3,
+                                 torch.randn(2, 8, 3), block_adapter=gid,
+                                 act="silu").sum().backward()
+    pt.ops.paged_attention(torch.randn(1, 1, 2, 8), pool.float(),
+                           pool.float(), ints[0], ints[1])
     after = {k: f.launches for k, f in pt.ops.KERNELS.items()}
     assert after == before, "a CPU call is not a kernel launch"
 
@@ -191,3 +198,26 @@ def test_dense_flash_attention_raises_off_the_cpu():
     with pytest.raises(RuntimeError, match="flash attention"):
         pt.nn.functional.scaled_dot_product_attention(q, q, q,
                                                       is_causal=True)
+
+
+def test_lora_and_paged_default_to_cuda_and_refuse_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from paddle_tpu_torch.inference.serving import LoRAAdapterStore
+    sites = [("blk.fc1", 16, 32)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoRAAdapterStore(sites, rank=4)
+    store = LoRAAdapterStore(sites, rank=4, device="cpu")
+    assert store.pair("blk.fc1")[0].device.type == "cpu"
+    meta = torch.zeros(16, 8, device="meta")
+    gid = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="lora epilogue"):
+        pt.ops.fused_lora_segment_epilogue(
+            meta, meta, torch.zeros(1, 8, 8, device="meta"),
+            torch.zeros(1, 8, 8, device="meta"), gid)
+    q = torch.zeros(1, 1, 2, 8, device="meta")
+    with pytest.raises(RuntimeError, match="paged attention"):
+        pt.ops.paged_attention(q, torch.zeros(2, 2, 8, 8, device="meta"),
+                               torch.zeros(2, 2, 8, 8, device="meta"),
+                               torch.zeros(1, 1, dtype=torch.int32),
+                               torch.ones(1, dtype=torch.int32))

@@ -277,7 +277,9 @@ def test_unported_options_raise(models):
             pt.GenerationEngine(port, device="cpu", num_blocks=16, **kw)
     eng = pt.GenerationEngine(port, device="cpu", num_blocks=16)
     with pytest.raises(NotImplementedError):
-        eng.add_request([1, 2, 3], adapter="a")
+        eng.add_request([1, 2, 3], tenant="a")
+    with pytest.raises(RuntimeError, match="enable_lora"):
+        eng.add_request([1, 2, 3], adapter="a")     # LoRA is ported
     with pytest.raises(NotImplementedError):
         eng.generate([[1, 2, 3]], stream=True)
     with pytest.raises(ValueError):
@@ -311,8 +313,11 @@ def test_engine_takes_every_reference_name(models):
             pt.GenerationEngine(port, device="cpu", num_blocks=16, **kw)
     eng = pt.GenerationEngine(port, port.config, device="cpu", num_blocks=16,
                               max_batch=2)
-    for name, args in (("enable_lora", ()), ("register_adapter", ("a", {})),
-                       ("extract_request", (None,)),
+    # multi-LoRA is ported (tests/test_torch_lora.py)
+    lora_eng = pt.GenerationEngine(port, device="cpu", num_blocks=16)
+    assert lora_eng.enable_lora().num_slots == lora_eng.max_batch
+    assert lora_eng.register_adapter("a", {}) == "a"
+    for name, args in (("extract_request", (None,)),
                        ("inject_request", (None, 0, None)),
                        ("open_stream", ("req0",))):
         with pytest.raises(NotImplementedError, match="not ported yet"):
