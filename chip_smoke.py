@@ -836,6 +836,47 @@ FLASH_SHAPES = {"train": (8, 1024, 1024, 16, 128, True),
                 "d256_full": (2, 1024, 1024, 8, 256, False)}
 
 
+#: the flash kernels' names (the bf16 tensor-core kernels add "_mma")
+FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                      "flash_bwd_dkv_kernel")
+
+
+def kernel_resources(cuda_lib, lib_path, names):
+    """Registers a thread and stack/local bytes (where spills go) of every
+    instantiation of the kernels whose names contain one of ``names``, from
+    ``cuobjdump --dump-resource-usage`` on the built library; printed, and
+    returned as {demangled name: {"registers", "stack", "local"}}.  None
+    (with the reason printed) where the toolkit has no cuobjdump."""
+    import re
+    bin_dir = Path(cuda_lib._nvcc()).parent
+    tool = bin_dir / "cuobjdump"
+    if not tool.exists():
+        say(f"  resource usage: no cuobjdump beside nvcc in {bin_dir}")
+        return None
+    dump = subprocess.run([str(tool), "--dump-resource-usage", str(lib_path)],
+                          capture_output=True, text=True, timeout=120)
+    found = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) "
+                       r"SHARED:\d+ LOCAL:(\d+)", dump.stdout)
+    found = [f for f in found if any(n in f[0] for n in names)]
+    plain = [f[0] for f in found]
+    filt = bin_dir / "cu++filt"
+    if filt.exists() and plain:
+        out = subprocess.run([str(filt), *plain], capture_output=True,
+                             text=True, timeout=60).stdout.splitlines()
+        if len(out) == len(plain):
+            # "void <unnamed>::tc::k<(int)128, (bool)1>(...)" -> k<128, 1>
+            plain = [re.sub(r"\((?:int|bool)\)|<unnamed>::|"
+                            r"\(anonymous namespace\)::|^void ", "", o)
+                     .split("(")[0] for o in out]
+    res = {}
+    for name, (_, reg, stack, local) in zip(plain, found):
+        res[name] = dict(registers=int(reg), stack=int(stack),
+                         local=int(local))
+        say(f"  {name}: {reg} registers a thread, stack {stack} B, local "
+            f"{local} B")
+    return res
+
+
 def visible_pairs(sq, sk, causal):
     """(row, key) pairs one (batch, head) attends: bottom-right causal."""
     if not causal:
@@ -902,7 +943,14 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
     dq = ops.fused_flash_attention_bwd_dq(*bargs)
     dk, dv = ops.fused_flash_attention_bwd_dkv(*bargs)
     dq_r, dk_r, dv_r = ops.flash_attention_bwd_ref(*bargs)
+    # the backward sums in a fixed order, no atomics: a second run is
+    # bit-identical
+    again = (ops.fused_flash_attention_bwd_dq(*bargs),
+             *ops.fused_flash_attention_bwd_dkv(*bargs))
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+        fail(f"flash backward {dtype_name} {shape_key}: two runs on the "
+             f"same inputs differ")
     err, rel, ok = compare(out, out_r, dtype_name)
     lse_err, _, lse_ok = compare(lse, lse_r, "float32")
     dq_err, dq_rel, dq_ok = compare(dq, dq_r, dtype_name)
@@ -3412,6 +3460,7 @@ def main():
     cuda_lib.library()
     say(f"[1] build: {time.perf_counter() - t0:.2f} s -> "
         f"{path.relative_to(ROOT)}")
+    flash_resources = kernel_resources(cuda_lib, path, FLASH_KERNEL_NAMES)
 
     say("[2] kernels vs plain versions at the main path's shapes")
     # the serving drive's token budget: chunk 256 + 7 rows of block_q
@@ -3560,7 +3609,8 @@ def main():
                     "lora_serving_parity": lora_parity,
                     "multi_lora_serving": lora_serving,
                     "lora_training_parity": lora_train_parity,
-                    "lora_training": lora_training, "paged_decode": paged}))
+                    "lora_training": lora_training, "paged_decode": paged,
+                    "flash_resources": flash_resources}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

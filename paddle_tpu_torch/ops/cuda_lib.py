@@ -78,6 +78,7 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _P), _I),
     "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _I, _I, _P), _I),
+    "ptt_mma_check": ((_P, _P, _P, _I, _P), _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
 }
 

@@ -14,8 +14,12 @@ in another order), bf16 2e-2 abs + rel (about two bf16 ulps at unit
 scale); column sums (dgamma, dbeta, db) f32 1e-4·sqrt(rows) abs, bf16
 2e-2; cross-entropy loss and lse (f32 whatever the logits' type) 1e-4
 abs + 1e-5 rel; flash attention's lse 1e-4 abs + 1e-5 rel, and its
-output and gradients as any other value (both versions compute in f32
-on the same values and round once).  bf16
+output and gradients as any other value: in f32 both versions compute
+in f32 on the same values and round once; in bf16 the kernels run their
+products on the tensor cores with f32 sums and round P and dS to bf16
+before the second product (one bf16 rounding, 2^-9 relative, per term,
+which averages out over the sum), so they stay within the same gate of
+about two bf16 ulps at unit scale.  bf16
 ragged attention is also held to the plain version run in f32, which
 keeps the probabilities in f32 as the kernel does, within one bf16 ulp
 (rtol 2^-7) plus 2^-8 of the output's RMS.  The int8 kernels (int8
@@ -25,8 +29,13 @@ held to their plain versions with the same tolerances, on shapes off the
 a scale per pool slot.  The fused residual layer norm is held to its
 plain version forward (out, s, mu, rstd) and backward (the layer-norm
 backward kernel on the saved s) at odd row counts; flash attention also
-at heads of 160 and 256 (the widest the reference routes to its kernel)
-and at BERT-base's non-causal shape.  The grouped-expert matmul's
+at heads of 160 and 256 (the widest the reference routes to its kernel),
+of 40 and 96 (zero-filled columns of the 64 and 128 instantiations) and
+of 129 (misaligned rows: the element-wise staging), on the views
+``qkv.unbind(2)`` gives at S = 1024 (many key tiles through the double
+buffer), and at BERT-base's non-causal shape; its backward is
+bit-identical from run to run, and the tensor-core fragments of
+``csrc/mma.cuh`` are held exactly to ``torch.mm`` on their own.  The grouped-expert matmul's
 forward (both weight layouts) and dw kernels are held to their plain
 versions at block rows 8, 16 and 128 with empty experts and an all-null
 buffer (exact zeros there), dw as a column sum.  The LoRA SGMV epilogue
@@ -280,19 +289,34 @@ def test_wrappers_refuse_bad_inputs(gen):
                                torch.ones(3, device="cuda"), x)  # rstd rows
 
 
-_FLASH_CASES = [(2, 100, 100, True), (2, 100, 100, False), (3, 1, 300, True),
-                (1, 70, 30, True), (1, 33, 150, False)]
+#: (B, Sq, Sk, causal, view): view takes q, k, v as the views
+#: ``qkv.unbind(2)`` gives (strided rows, one allocation), else separate
+#: tensors
+_FLASH_CASES = [(2, 100, 100, True, False), (2, 100, 100, False, False),
+                (3, 1, 300, True, False), (1, 70, 30, True, False),
+                (1, 33, 150, False, False), (2, 1024, 1024, True, True),
+                (2, 70, 70, False, True)]
+
+
+def _flash_inputs(gen, dtype, B, Sq, Sk, H, D, view):
+    if view:
+        qkv = torch.randn(B, Sq, 3, H, D, device="cuda",
+                          generator=gen).to(dtype)
+        q, k, v = qkv.unbind(2)
+    else:
+        q, k, v = (torch.randn(B, s, H, D, device="cuda",
+                               generator=gen).to(dtype)
+                   for s in (Sq, Sk, Sk))
+    g = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
+    return q, k, v, g
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("D", [64, 128, 160, 256])
-@pytest.mark.parametrize("B,Sq,Sk,causal", _FLASH_CASES)
-def test_flash_attention_kernels(gen, dtype, D, B, Sq, Sk, causal):
+@pytest.mark.parametrize("D", [64, 128, 160, 256, 40, 96, 129])
+@pytest.mark.parametrize("B,Sq,Sk,causal,view", _FLASH_CASES)
+def test_flash_attention_kernels(gen, dtype, D, B, Sq, Sk, causal, view):
     H = 3
-    q = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
-    k = torch.randn(B, Sk, H, D, device="cuda", generator=gen).to(dtype)
-    v = torch.randn(B, Sk, H, D, device="cuda", generator=gen).to(dtype)
-    g = torch.randn(B, Sq, H, D, device="cuda", generator=gen).to(dtype)
+    q, k, v, g = _flash_inputs(gen, dtype, B, Sq, Sk, H, D, view)
     n0 = [ops.KERNELS[n].launches for n in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")]
@@ -315,6 +339,46 @@ def test_flash_attention_kernels(gen, dtype, D, B, Sq, Sk, causal):
     assert [ops.KERNELS[n].launches for n in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv")] == [c + 1 for c in n0]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("D", [128, 129])
+def test_flash_attention_backward_is_deterministic(gen, dtype, D):
+    """dq, dk and dv sum over tiles in a fixed order with no atomics: two
+    runs on the same inputs are bit-identical (causal, S = 1024, the
+    views ``qkv.unbind(2)`` gives)."""
+    q, k, v, g = _flash_inputs(gen, dtype, 2, 1024, 1024, 4, D, True)
+    out, lse = ops.fused_flash_attention_fwd(q, k, v, True)
+    lse_s, delta = ops.flash_bwd_stats(out, g, lse)
+    args = (q, k, v, g, lse_s, delta, True)
+    first = (ops.fused_flash_attention_bwd_dq(*args),
+             *ops.fused_flash_attention_bwd_dkv(*args))
+    second = (ops.fused_flash_attention_bwd_dq(*args),
+              *ops.fused_flash_attention_bwd_dkv(*args))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_mma_fragments_match_torch_mm(gen):
+    """`csrc/mma.cuh` on its own: one warp multiplies 16 x 16 bf16 tiles
+    staged swizzled, through ldmatrix.trans ([depth][col], as V), through
+    ldmatrix ([col][depth], as K) and with the product fed back as an A
+    fragment in registers (as P); small integers keep every sum exact, so
+    each result equals torch.mm in f32 bit for bit."""
+    from paddle_tpu_torch.ops import cuda_lib
+    a = torch.randint(-2, 3, (16, 16), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    b = torch.randint(-2, 3, (16, 16), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    c = torch.full((3, 16, 16), float("nan"), device="cuda")
+    rc = cuda_lib.library().ptt_mma_check(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), a.device.index,
+        cuda_lib.stream_handle(a.device))
+    cuda_lib.check(rc, "mma_check")
+    ab = torch.mm(a.float(), b.float())
+    want = torch.stack([ab, ab, torch.mm(ab, b.float())])
+    for i in range(3):
+        assert torch.equal(c[i], want[i]), i
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
