@@ -9,7 +9,8 @@ phase fails.  Phases:
 
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
-   for sm_90a into one library (timed);
+   for sm_90a into one library (timed); the registers and stack/local
+   bytes of every flash attention and grouped matmul instantiation;
 2. kernels: one untimed launch of every kernel first, then each kernel
    against its plain PyTorch version on the card, at the shapes the
    serving and the training drives give it (flash attention: the flash
@@ -31,7 +32,8 @@ phase fails.  Phases:
    drives' shapes with skewed expert counts (one expert empty, one
    holding almost everything): the serving step's 736 assignments (368
    packed rows x top 2) over 4 experts at block rows 128 through w1
-   (2048 -> 8192, gelu_tanh) and w2 (8192 -> 2048), and the training
+   (2048 -> 8192, gelu_tanh) and w2 (8192 -> 2048), a decode step's 16
+   (8 rows x top 2, one block of 16 an expert) through both, the training
    drive's 16384 assignments through w1 (768 -> 3072, z saved), its dx
    (w1 read transposed) and its dw; the library yardstick is
    ``torch._grouped_mm`` (bf16, where this torch has it) or a per-expert
@@ -41,7 +43,12 @@ phase fails.  Phases:
    adapters of 16 slots mixed with null blocks, rank 16; no library
    call), the grouped kernels at LoRA's backward shapes (8192 rows, one
    adapter: u and dx through the transposed read with N or K = 16, dA and
-   dB; yardstick ``torch.mm``), and paged decode attention at phase 25's
+   dB; yardstick ``torch.mm``; and u's shape over blocks cycling over 4
+   adapters in unsorted order, ``lora_u_mixed``, against ``torch.bmm``),
+   each grouped kernel also run twice and held bit-identical, and the
+   f32 forward's card-test computation repeated 10 times (out, and the
+   whole autograd forward and backward, each bit-identical to the first
+   and within 1e-4 of the CPU), and paged decode attention at phase 25's
    decode shape (4 sequences at contexts 129-192 and one at 0, 16 heads
    of 128, pages of 16; no library call);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
@@ -197,8 +204,8 @@ phase fails.  Phases:
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
 training, generate, the three LLaMA, the int8 serving, the two BERT, the
-ERNIE, the four MoE, the four LoRA and the paged decode summaries) and
-the card's
+ERNIE, the four MoE, the four LoRA and the paged decode summaries, the
+grouped f32 repetitions and the kernels' resources) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -839,6 +846,8 @@ FLASH_SHAPES = {"train": (8, 1024, 1024, 16, 128, True),
 #: the flash kernels' names (the bf16 tensor-core kernels add "_mma")
 FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel")
+GROUPED_KERNEL_NAMES = ("gmm_fwd_mma", "gmm_fwd_fma", "gmm_dw_mma",
+                        "gmm_dw_fma")
 
 
 def kernel_resources(cuda_lib, lib_path, names):
@@ -1006,13 +1015,19 @@ def check_flash(ops, shape_key, dtype, dtype_name, gen):
 #: transposed weights, z saved).  serve/w2: the MoE serving drive's mixed
 #: step (368 packed rows x top 2 = 736 assignments over E = 4 at bm 128,
 #: 10 blocks) through w1 (2048 -> 8192, gelu_tanh) and w2 (8192 -> 2048);
-#: train/train_dx: the MoE training drive's 16384 assignments (B=8,
-#: S=1024, top 2) through w1 (768 -> 3072, z saved) and the backward's dx
-#: (3072 -> 768 against w1 read transposed).  Counts are skewed: one
-#: expert empty, one holding almost everything.
+#: decode/decode_w2: its decode steps (8 rows x top 2 = 16 assignments,
+#: bm 16, 5 blocks, every expert in use); train/train_dx: the MoE
+#: training drive's 16384 assignments (B=8, S=1024, top 2) through w1
+#: (768 -> 3072, z saved) and the backward's dx (3072 -> 768 against w1
+#: read transposed).  The mixed step's and training's counts are skewed:
+#: one expert empty, one holding almost everything.
 GROUPED_CASES = {"serve": ([0, 700, 20, 16], 2048, 8192, "gelu_tanh",
                            False, False),
                  "w2": ([0, 700, 20, 16], 8192, 2048, "none", False, False),
+                 "decode": ([5, 4, 4, 3], 2048, 8192, "gelu_tanh", False,
+                            False),
+                 "decode_w2": ([5, 4, 4, 3], 8192, 2048, "none", False,
+                               False),
                  "train": ([0, 15000, 1000, 384], 768, 3072, "gelu_tanh",
                            False, True),
                  "train_dx": ([0, 15000, 1000, 384], 3072, 768, "none",
@@ -1046,11 +1061,12 @@ def _grouped_mm_offsets(segs):
 
 def check_grouped(ops, case, dtype, dtype_name, gen):
     """The grouped forward kernel at one of `GROUPED_CASES` against its
-    plain version.  Library yardstick: ``torch._grouped_mm`` on the same
-    rows plus the bias and the activation as separate calls (bf16, where
-    this torch has it), else a per-expert loop of
-    ``torch._addmm_activation`` (``addmm`` without activation; for the
-    transposed case the weights' transposed views)."""
+    plain version, and a second run bit-identical to the first.  Library
+    yardstick: ``torch._grouped_mm`` on the same rows plus the bias and
+    the activation as separate calls (bf16, where this torch has it),
+    else a per-expert loop of ``torch._addmm_activation`` (``addmm``
+    without activation; for the transposed case the weights' transposed
+    views)."""
     import torch
     counts, K, N, act, trans, save_z = GROUPED_CASES[case]
     E = len(counts)
@@ -1073,7 +1089,12 @@ def check_grouped(ops, case, dtype, dtype_name, gen):
     got = kernel()
     got = got[0] if save_z else got
     want = plain()
+    again = kernel()
     torch.cuda.synchronize()
+    # fixed-order sums, no atomics: a second run is bit-identical
+    if not torch.equal(got, again[0] if save_z else again):
+        fail(f"grouped_matmul {dtype_name} {case}: two runs on the same "
+             f"inputs differ")
     err, rel, ok = compare(got, want, dtype_name)
     real = [(e, o, n) for e, (o, n) in enumerate(segs) if n]
     lib_fn = None
@@ -1139,7 +1160,8 @@ def check_grouped_dw(ops, case, dtype, dtype_name, gen):
     [R, N] of w1) against its plain version, as a column sum (`SUM_TOL`
     of the largest sum of |terms|).  Library yardstick: ``torch._grouped_mm``
     of x^T and dz over the experts' row ranges (bf16, where this torch
-    has it), else a per-expert loop of ``torch.mm``."""
+    has it), else a per-expert loop of ``torch.mm``.  A second run must
+    be bit-identical to the first."""
     import torch
     counts, K, N = GROUPED_CASES[case][:3]
     E = len(counts)
@@ -1157,6 +1179,9 @@ def check_grouped_dw(ops, case, dtype, dtype_name, gen):
     got, want = kernel(), plain()
     abs_sum = ops.grouped_dw_ref(x.abs(), dz.abs(), gid, E).float()
     torch.cuda.synchronize()
+    if not torch.equal(got, kernel()):
+        fail(f"grouped_matmul_dw {dtype_name} {case}: two runs on the same "
+             f"inputs differ")
     err, ok, _ = compare_sum(got, want, abs_sum, dtype_name)
     rel = compare(got, want, dtype_name)[1]
     ok = ok and all(not bool(got[e].any()) for e, c in enumerate(counts)
@@ -1196,6 +1221,92 @@ def check_grouped_dw(ops, case, dtype, dtype_name, gen):
         note=f"library: {lib_name}, vs plain max abs err {lib_err:.3e}",
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
         library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
+
+
+#: repetitions of the f32 grouped forward's card-test computation in
+#: phase 2 (`check_grouped_repeats`; a search for an intermittent miss
+#: calls it with more)
+GROUPED_REPEATS = 10
+
+
+def check_grouped_repeats(ops, reps=GROUPED_REPEATS):
+    """The computation of ``tests/test_torch_cuda.py``'s
+    ``test_grouped_linear_act_gradients_on_the_card`` in f32 (counts [37,
+    0, 80, 11], block rows 32, K 96, N 160, gelu_tanh), ``reps`` times:
+    the forward kernel alone (out and z), then the whole autograd forward
+    and backward (out, dx, dw, db).  Before each repetition a block of
+    NaNs is allocated and freed, so that the outputs land on stale
+    memory of changing size and place; ``out`` is also copied right
+    after the forward and held to itself after the backward, which would
+    show a backward kernel writing into its buffer.  Every repetition
+    must equal the first bit for bit and the CPU's plain version within
+    the test's tolerances.  Returns the counts of repetitions that
+    differed and the element indices of the misses."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    counts, bm, K, N, E = [37, 0, 80, 11], 32, 96, 160, 4
+    nb = ops.num_group_blocks(sum(counts), E, bm)
+    gid, offsets = ops.group_segments(torch.tensor(counts), bm, nb)
+    x = torch.zeros(nb * bm, K, device="cuda")
+    for e, c in enumerate(counts):
+        o = int(offsets[e])
+        x[o:o + c] = torch.randn(c, K, device="cuda", generator=gen)
+    gid = gid.cuda()
+    w = torch.randn(E, K, N, device="cuda", generator=gen) / 10
+    b = torch.randn(E, N, device="cuda", generator=gen)
+    g = torch.randn(x.shape[0], N, device="cuda", generator=gen)
+    want_k = ops.grouped.fused_grouped_linear_act(
+        x.cpu(), w.cpu(), b.cpu(), gid.cpu(), "gelu_tanh", return_z=True)
+
+    def autograd(dev):
+        xs, ws, bs = (t.detach().to(dev).requires_grad_() for t in (x, w, b))
+        out = ops.grouped_linear_act(xs, ws, bs, block_group=gid.to(dev),
+                                     act="gelu_tanh")
+        snap = out.detach().clone()
+        out.backward(g.to(dev))
+        return [out.detach(), xs.grad, ws.grad, bs.grad], snap
+    want_a = autograd("cpu")[0]
+    tols = (1e-4, 1e-4, 1e-3, 1e-3)            # the test's: dw, db x 10
+    first_k = first_a = None
+    differ_k = differ_a = miss_k = miss_a = moved = 0
+    where, worst = set(), 0.0
+    sizes = torch.randint(1, 1 << 16, (reps,), generator=torch.Generator()
+                          .manual_seed(1))
+    for i in range(reps):
+        junk = torch.full((int(sizes[i]) * 64,), float("nan"), device="cuda")
+        del junk
+        got_k = ops.fused_grouped_linear_act(x, w, b, gid, "gelu_tanh",
+                                             return_z=True)
+        got_a, snap = autograd("cuda")
+        got_k, got_a = [t.cpu() for t in got_k], [t.cpu() for t in got_a]
+        if first_k is None:
+            first_k, first_a = got_k, got_a
+        differ_k += not all(torch.equal(a, c) for a, c in zip(got_k, first_k))
+        differ_a += not all(torch.equal(a, c) for a, c in zip(got_a, first_a))
+        moved += not torch.equal(snap.cpu(), got_a[0])
+        bad = False
+        for t, r in zip(got_k, want_k):
+            d = (t - r).abs()
+            off = d > 1e-4 + 1e-4 * r.abs()
+            bad |= bool(off.any())
+            where.update(("kernel", *map(int, p)) for p in off.nonzero())
+            worst = max(worst, float(d.max()))
+        miss_k += bad
+        bad = False
+        for t, r, tol, name in zip(got_a, want_a, tols,
+                                   ("out", "dx", "dw", "db")):
+            d = (t - r).abs()
+            off = d > tol + 1e-4 * r.abs()
+            bad |= bool(off.any())
+            where.update((name, *map(int, p)) for p in off.nonzero())
+        miss_a += bad
+    res = dict(reps=reps, kernel_differs_from_first=differ_k,
+               autograd_differs_from_first=differ_a,
+               kernel_misses=miss_k, autograd_misses=miss_a,
+               out_changed_by_backward=moved,
+               kernel_max_abs_err=worst, miss_elements=sorted(where)[:20])
+    say(f"  grouped f32 repeats: {json.dumps(res)}")
+    return res
 
 
 #: the SGMV epilogue at the multi-LoRA serving step (phase 22's model:
@@ -1284,21 +1395,34 @@ def check_lora(ops, case, dtype, dtype_name, gen, rows):
 #: 3072]).
 LORA_BWD_ROWS = 8192
 LORA_BWD_CASES = {"lora_u": (3072, 16, True), "lora_dx": (16, 1024, True),
-                  "lora_t": (1024, 16, False)}
+                  "lora_t": (1024, 16, False),
+                  "lora_u_mixed": (3072, 16, True)}
+#: lora_u_mixed: u's shape over the worst layout for a row tile, blocks
+#: cycling over 4 adapters in unsorted order (as a multi-adapter
+#: backward passes them), so that every tile holds 4 ids
+LORA_MIXED_IDS = (2, 0, 3, 1)
 LORA_DW_CASES = {"lora_dA": (1024, 16), "lora_dB": (16, 3072)}
 
 
 def check_lora_grouped(ops, case, dtype, dtype_name, gen):
-    """Row 14a at one of `LORA_BWD_CASES` (x [8192, K], w [1, N, K] read
-    transposed, or w [1, K, N] as stored) against its plain version.
-    Library yardstick: ``torch.mm`` of x and the one adapter's factor."""
+    """Row 14a at one of `LORA_BWD_CASES` (x [8192, K], w [L, N, K] read
+    transposed, or w [L, K, N] as stored; L = 1, or 4 adapters over
+    `LORA_MIXED_IDS` for lora_u_mixed) against its plain version, and a
+    second run bit-identical to the first.  Library yardstick:
+    ``torch.mm`` of x and the one adapter's factor; for the mixed case
+    ``torch.bmm`` of each block against its adapter's factor (one call
+    computing the same function)."""
     import torch
     K, N, trans = LORA_BWD_CASES[case]
     R = LORA_BWD_ROWS
     bm = ops.ragged_q_block(dtype)
-    gid = torch.zeros(R // bm, dtype=torch.int32, device="cuda")
+    mixed = case == "lora_u_mixed"
+    L = len(LORA_MIXED_IDS) if mixed else 1
+    ids = [LORA_MIXED_IDS[i % L] for i in range(R // bm)] if mixed \
+        else [0] * (R // bm)
+    gid = torch.tensor(ids, dtype=torch.int32, device="cuda")
     x = torch.randn(R, K, device="cuda", generator=gen).to(dtype)
-    w = (torch.randn(1, *((N, K) if trans else (K, N)), device="cuda",
+    w = (torch.randn(L, *((N, K) if trans else (K, N)), device="cuda",
                      generator=gen) / K ** 0.5).to(dtype)
 
     def kernel():
@@ -1309,29 +1433,43 @@ def check_lora_grouped(ops, case, dtype, dtype_name, gen):
     def plain():
         return ops.grouped_linear_act_ref(x, wk, None, block_group=gid)
 
-    def lib_fn():
-        return torch.mm(x, wk[0])
+    if mixed:
+        wb = wk[gid.long()]                     # [blocks, K, N]
+
+        def lib_fn():
+            return torch.bmm(x.view(-1, bm, K), wb).view(R, N)
+    else:
+        def lib_fn():
+            return torch.mm(x, wk[0])
     got, want = kernel(), plain()
     torch.cuda.synchronize()
+    if not torch.equal(got, kernel()):
+        fail(f"grouped_matmul {dtype_name} {case}: two runs on the same "
+             f"inputs differ")
     err, rel, ok = compare(got, want, dtype_name)
     lib_err = compare(lib_fn(), want, dtype_name)[0]
     isz = x.element_size()
-    bms, by = bound((R * K + N * K + R * N) * isz, 2 * R * K * N,
+    bms, by = bound((R * K + L * N * K + R * N) * isz, 2 * R * K * N,
                     dtype_name)
     return dict(
         err=err, rel=rel, ok=ok,
-        shape=(f"{case}: x[{R},{K}] (bm {bm}, one adapter) "
-               f"w[1,{w.shape[1]},{w.shape[2]}]"
+        shape=(f"{case}: x[{R},{K}] (bm {bm}, "
+               + (f"blocks cycling over adapters {list(LORA_MIXED_IDS)}"
+                  if mixed else "one adapter")
+               + f") w[{L},{w.shape[1]},{w.shape[2]}]"
                + (" read transposed" if trans else "")),
-        note=f"library: torch.mm, vs plain max abs err {lib_err:.3e}",
+        note=(f"library: {'torch.bmm over the blocks' if mixed else 'torch.mm'}"
+              f", vs plain max abs err {lib_err:.3e}"),
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
         library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
 
 
 def check_lora_dw(ops, case, dtype, dtype_name, gen):
     """Row 14b at one of `LORA_DW_CASES` (x [8192, K], dz [8192, N], one
-    adapter) against its plain version, as a column sum (`SUM_TOL`).
-    Library yardstick: ``torch.mm(x^T, dz)``."""
+    adapter: the rows split into `grouped_dw_slices` slices) against its
+    plain version, as a column sum (`SUM_TOL`), and a second run
+    bit-identical to the first.  Library yardstick: ``torch.mm(x^T,
+    dz)``."""
     import torch
     K, N = LORA_DW_CASES[case]
     R = LORA_BWD_ROWS
@@ -1351,6 +1489,9 @@ def check_lora_dw(ops, case, dtype, dtype_name, gen):
     got, want = kernel(), plain()
     abs_sum = ops.grouped_dw_ref(x.abs(), dz.abs(), gid, 1).float()
     torch.cuda.synchronize()
+    if not torch.equal(got, kernel()):
+        fail(f"grouped_matmul_dw {dtype_name} {case}: two runs on the same "
+             f"inputs differ")
     err, ok, _ = compare_sum(got, want, abs_sum, dtype_name)
     rel = compare(got, want, dtype_name)[1]
     lib_err = compare(lib_fn(), want[0], dtype_name)[0]
@@ -1730,6 +1871,14 @@ def phase_kernels(ops, budgets):
         r = check_grouped_dw(ops, "train", dtype, dtype_name, gen_moe)
         report("grouped_matmul_dw", dtype_name, r)
         results[("grouped_matmul_dw", dtype_name, "train")] = r
+        if dtype == torch.float32:
+            rep = check_grouped_repeats(ops)
+            if rep["kernel_misses"] or rep["autograd_misses"] \
+                    or rep["kernel_differs_from_first"] \
+                    or rep["autograd_differs_from_first"] \
+                    or rep["out_changed_by_backward"]:
+                fail("grouped f32 repeats: a repetition missed or differed")
+            results["grouped_repeats"] = rep
         torch.cuda.empty_cache()
         for case in (*LORA_CASES, *LORA_TRAIN_CASES):
             rows = LORA_BWD_ROWS if case in LORA_TRAIN_CASES \
@@ -3036,7 +3185,8 @@ def phase_multilora_serving(pt, ops):
     store's hit rate and spills, peak memory, launches per step, one
     profiled burst.  Then the same trace without adapters on a LoRA-free
     engine (the base twin): its numbers, and the greedy match ratio of
-    the base-model rows (reported: fc1 runs another kernel there)."""
+    the base-model rows (reported: fc1 runs another kernel there).
+    Returns (launch counts, summary, each twin's generated tokens)."""
     import torch
     from paddle_tpu_torch.inference.serving import lora
     cfg = multilora_cfg(pt)
@@ -3125,7 +3275,7 @@ def phase_multilora_serving(pt, ops):
         f"rows' greedy match ratio {match:.4f} (reported, not gated: fc1 "
         f"runs cuBLAS + the SGMV epilogue there, the matmul epilogue in "
         f"the twin)")
-    return counts, summary
+    return counts, summary, generated
 
 
 def lora_finetune_model(pt, cfg, device=None, dtype=None, seed=SEED):
@@ -3402,7 +3552,8 @@ def kernels_line(results, counts):
             else RMS_SHAPES if name.startswith("rms_norm") \
             else dict.fromkeys(("out", "fc1", "fc2", *LORA_TRAIN_CASES)) \
             if name == "lora_sgmv" \
-            else dict.fromkeys(("w2", "train_dx", *LORA_BWD_CASES)) \
+            else dict.fromkeys(("w2", "decode", "decode_w2", "train_dx",
+                                *LORA_BWD_CASES)) \
             if name == "grouped_matmul" \
             else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" else {}
         served = any(d in info for d in ("serve", "serve_int8", "serve_moe",
@@ -3448,7 +3599,6 @@ def main():
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
     card = card_line()
     say(f"[0] card: {card}")
 
@@ -3460,7 +3610,8 @@ def main():
     cuda_lib.library()
     say(f"[1] build: {time.perf_counter() - t0:.2f} s -> "
         f"{path.relative_to(ROOT)}")
-    flash_resources = kernel_resources(cuda_lib, path, FLASH_KERNEL_NAMES)
+    resources = kernel_resources(cuda_lib, path,
+                                 FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES)
 
     say("[2] kernels vs plain versions at the main path's shapes")
     # the serving drive's token budget: chunk 256 + 7 rows of block_q
@@ -3565,7 +3716,7 @@ def main():
 
     say("[22] multi-LoRA serving: bench_gpt_multilora recipe, 24 layers, "
         "bf16, 64 adapters over 16 slots; base twin")
-    lora_serve_counts, lora_serving = phase_multilora_serving(pt, ops)
+    lora_serve_counts, lora_serving, _ = phase_multilora_serving(pt, ops)
     free_device_memory()
 
     say("[23] LoRA fine-tuning parity: multilora width, 2 layers, f32, "
@@ -3610,7 +3761,8 @@ def main():
                     "multi_lora_serving": lora_serving,
                     "lora_training_parity": lora_train_parity,
                     "lora_training": lora_training, "paged_decode": paged,
-                    "flash_resources": flash_resources}))
+                    "grouped_repeats": results["grouped_repeats"],
+                    "resources": resources}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

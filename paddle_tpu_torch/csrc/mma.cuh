@@ -21,7 +21,10 @@
 // rows of one logical chunk: those land on 8 different chunk positions
 // of an aligned group of 8, 4 banks each, so every read is free of bank
 // conflicts, and so are the 16-byte `cp.async` writes of 8 neighbouring
-// chunks of a row.
+// chunks of a row.  Narrow tiles (kW 16 or 32: 2 or 4 chunks a row, so
+// 4 or 2 rows a 128-byte line) XOR the chunk with the row's line number
+// instead, which spreads any 8 consecutive rows of one chunk over the
+// same 8 distinct positions.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,8 +37,14 @@ namespace mma {
 // element offset of (row r, chunk c) in a swizzled tile of kW columns
 template <int kW>
 __device__ __forceinline__ int swz(int r, int c) {
-  static_assert(kW % 64 == 0, "swizzled tiles are 64-value multiples wide");
-  return r * kW + ((c ^ (r & 7)) << 3);
+  static_assert(kW % 64 == 0 || kW == 16 || kW == 32,
+                "swizzled tiles are 16, 32 or a multiple of 64 values wide");
+  if constexpr (kW % 64 == 0) {
+    return r * kW + ((c ^ (r & 7)) << 3);
+  } else {
+    constexpr int kChunks = kW / 8;  // chunks a row: 2 or 4
+    return r * kW + ((c ^ ((r / (8 / kChunks)) & (kChunks - 1))) << 3);
+  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -132,6 +141,14 @@ __device__ __forceinline__ int frag_b(int n0, int kk, int lane) {
 template <int kW>
 __device__ __forceinline__ int frag_bt(int k0, int dj, int lane) {
   return swz<kW>(k0 + a_row(lane), 2 * dj + (lane >> 4));
+}
+//  * the A fragment of rows m0..m0+15 (m0 a multiple of 8) at depth
+//    d0..d0+15 of a tile stored [depth][row] (x^T of a row-major x),
+//    read with ldmatrix_x4_trans.
+template <int kW>
+__device__ __forceinline__ int frag_at(int d0, int m0, int lane) {
+  return swz<kW>(d0 + (lane & 7) + ((lane >> 4) << 3),
+                 (m0 >> 3) + ((lane >> 3) & 1));
 }
 
 }  // namespace mma

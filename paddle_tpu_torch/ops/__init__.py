@@ -45,7 +45,7 @@ from .flash_attention import (flash_attention, flash_attention_bwd_ref,
                               fused_flash_attention_fwd)
 from .grouped import (fused_grouped_dw, fused_grouped_linear_act,
                       group_segments, grouped_block_rows, grouped_dw_ref,
-                      grouped_layout, grouped_linear_act,
+                      grouped_dw_slices, grouped_layout, grouped_linear_act,
                       grouped_linear_act_ref, num_group_blocks)
 from .layer_norm import (fused_layer_norm, fused_layer_norm_bwd,
                          fused_layer_norm_residual, layer_norm,
@@ -84,8 +84,9 @@ __all__ = ["fused_layer_norm", "fused_layer_norm_bwd", "layer_norm",
            "ragged_paged_attention_int8", "fused_layer_norm_residual",
            "layer_norm_residual", "layer_norm_residual_ref",
            "fused_grouped_dw", "fused_grouped_linear_act", "group_segments",
-           "grouped_block_rows", "grouped_dw_ref", "grouped_layout",
-           "grouped_linear_act", "grouped_linear_act_ref", "num_group_blocks",
+           "grouped_block_rows", "grouped_dw_ref", "grouped_dw_slices",
+           "grouped_layout", "grouped_linear_act", "grouped_linear_act_ref",
+           "num_group_blocks",
            "fused_lora_segment_epilogue", "lora_rank_pad",
            "lora_segment_epilogue", "lora_segment_epilogue_ref",
            "MAX_HEAD_DIM", "paged_attention", "paged_attention_ref",

@@ -72,8 +72,9 @@ _SIGNATURES = {
                                     _I),
     "ptt_grouped_matmul_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _P), _I),
-    "ptt_grouped_matmul_dw": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P), _I),
+    "ptt_grouped_matmul_dw_slices": ((_I, _I, _I, _I, _I, _I), _I),
+    "ptt_grouped_matmul_dw": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P), _I),
     "ptt_lora_sgmv_fwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _P), _I),
     "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

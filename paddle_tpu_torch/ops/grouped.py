@@ -41,7 +41,7 @@ from .tiles import min_rows
 __all__ = ["num_group_blocks", "group_segments", "grouped_block_rows",
            "grouped_layout", "grouped_linear_act_ref", "grouped_dw_ref",
            "fused_grouped_linear_act", "fused_grouped_dw",
-           "grouped_linear_act"]
+           "grouped_dw_slices", "grouped_linear_act"]
 
 
 def num_group_blocks(total_rows, num_groups, block_rows):
@@ -181,9 +181,9 @@ def fused_grouped_linear_act(x, w, b, block_group, act="none",
     """``act(x_blk @ w[e] + b[e])`` over the grouped rows: x ``[R, K]``,
     w ``[E, K, N]`` (with ``transpose_w``, ``[E, N, K]``: the product
     reads it transposed, as the backward's dx needs), b ``[E, N]`` or
-    None (no bias), block_group ``[R / block_rows]`` int32.  With
-    ``return_z`` also the pre-activation (the training path saves it).
-    Null blocks give zeros."""
+    None (no bias), block_group ``[R / block_rows]`` int32, in any order.
+    With ``return_z`` also the pre-activation (the training path saves
+    it).  Null blocks give zeros."""
     _check_act(act)
     E, K, N, bm = _check_layout(x, w, b, block_group, transpose_w)
     if x.device.type == "cpu":
@@ -215,6 +215,18 @@ def fused_grouped_linear_act(x, w, b, block_group, act="none",
     return (out, z) if return_z else out
 
 
+def grouped_dw_slices(x, dz, num_experts):
+    """Row slices the dw kernel splits each expert's rows into for x
+    ``[R, K]``, dz ``[R, N]`` on x's card: enough for two blocks an SM
+    where the output tiles alone would not fill the card, each slice a
+    few hundred rows; 1 on the CPU."""
+    if x.device.type != "cuda":
+        return 1
+    return cuda_lib.library().ptt_grouped_matmul_dw_slices(
+        x.shape[0], x.shape[1], dz.shape[1], num_experts,
+        cuda_lib.dtype_code(x.dtype), x.device.index)
+
+
 def fused_grouped_dw(x, dz, block_group, num_experts):
     """``dw[e] = sum over expert e's blocks of x_blk^T @ dz_blk`` in f32,
     ``[E, K, N]`` in ``x``'s type; exact zeros for an expert with no block.
@@ -223,7 +235,10 @@ def fused_grouped_dw(x, dz, block_group, num_experts):
     null blocks last), as `group_segments` builds it: the kernel finds an
     expert's run by binary search.  A caller that groups rows by another
     key (LoRA's backward groups blocks by adapter) sorts its blocks by
-    that key first."""
+    that key first.  Where the output tiles alone would not fill the
+    card, each expert's rows split into `grouped_dw_slices` slices whose
+    f32 partials (a scratch allocated here) a second launch sums in a
+    fixed order: one call, counted once."""
     nb = block_group.shape[0]
     if x.dim() != 2 or dz.dim() != 2 or x.shape[0] != dz.shape[0] \
             or nb == 0 or x.shape[0] % nb:
@@ -242,10 +257,14 @@ def fused_grouped_dw(x, dz, block_group, num_experts):
     N = dz.shape[1]
     dw = torch.empty(num_experts, K, N, dtype=x.dtype, device=x.device)
     if dw.numel():
+        S = grouped_dw_slices(x, dz, num_experts)
+        part = torch.empty(S, num_experts, K, N, dtype=torch.float32,
+                           device=x.device) if S > 1 else None
         rc = cuda_lib.library().ptt_grouped_matmul_dw(
             x.data_ptr(), dz.data_ptr(), block_group.data_ptr(),
-            dw.data_ptr(), R, K, N, num_experts, R // nb, code,
-            x.device.index, cuda_lib.stream_handle(x.device))
+            dw.data_ptr(), part.data_ptr() if part is not None else None,
+            R, K, N, num_experts, R // nb, S, code, x.device.index,
+            cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "grouped_matmul_dw")
         fused_grouped_dw.launches += 1
     return dw

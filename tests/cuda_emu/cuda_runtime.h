@@ -38,6 +38,7 @@ extern uint3v blockIdx, blockDim, gridDim;
 struct float2 {
   float x, y;
 };
+inline float2 make_float2(float a, float b) { return {a, b}; }
 struct float4 {
   float x, y, z, w;
 };
@@ -86,6 +87,13 @@ inline cudaError_t cudaGetLastError() {
 }
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+// the stand-in's devices: device 0 has as many SMs as an H100, device d > 0
+// has d (so that a test picks a grid-dependent launch by the device index)
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int d) {
+  *v = d > 0 ? d : 132;
+  return cudaSuccess;
+}
 template <class T>
 cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int bytes) {
   return bytes <= static_cast<int>(sizeof(emu.dyn)) ? cudaSuccess

@@ -19,23 +19,24 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
   gridDim = {grid.x, grid.y, grid.z};
   blockDim = {block.x, 1, 1};
   const int nt = static_cast<int>(block.x);
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      blockIdx = {bx, by, 0};
-      std::memset(emu.dyn, 0xAB, sizeof(emu.dyn));  // stale, not zeros
-      std::barrier<> bar(nt);
-      std::vector<std::unique_ptr<std::barrier<>>> warps;
-      for (int w = 0; w < nt / 32; ++w) {
-        warps.push_back(std::make_unique<std::barrier<>>(32));
-        emu.warp_bar[w] = warps.back().get();
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        blockIdx = {bx, by, bz};
+        std::memset(emu.dyn, 0xAB, sizeof(emu.dyn));  // stale, not zeros
+        std::barrier<> bar(nt);
+        std::vector<std::unique_ptr<std::barrier<>>> warps;
+        for (int w = 0; w < nt / 32; ++w) {
+          warps.push_back(std::make_unique<std::barrier<>>(32));
+          emu.warp_bar[w] = warps.back().get();
+        }
+        emu.block_bar = &bar;
+        std::vector<std::thread> threads;
+        for (int t = 0; t < nt; ++t)
+          threads.emplace_back([t, &f] {
+            threadIdx = {static_cast<unsigned>(t), 0, 0};
+            f();
+          });
+        for (auto& t : threads) t.join();
       }
-      emu.block_bar = &bar;
-      std::vector<std::thread> threads;
-      for (int t = 0; t < nt; ++t)
-        threads.emplace_back([t, &f] {
-          threadIdx = {static_cast<unsigned>(t), 0, 0};
-          f();
-        });
-      for (auto& t : threads) t.join();
-    }
 }

@@ -38,7 +38,12 @@ bit-identical from run to run, and the tensor-core fragments of
 ``csrc/mma.cuh`` are held exactly to ``torch.mm`` on their own.  The grouped-expert matmul's
 forward (both weight layouts) and dw kernels are held to their plain
 versions at block rows 8, 16 and 128 with empty experts and an all-null
-buffer (exact zeros there), dw as a column sum.  The LoRA SGMV epilogue
+buffer (exact zeros there), dw as a column sum; the bf16 forward also
+with row tiles spanning blocks of 16 (one id, unsorted alternating ids,
+null blocks inside) at grids that pick each of its tiles, at N or K of
+16 and 70, the dw with its rows split into slices (an expert of one
+block, an empty one), and both rows 100 times bit-identical at the
+f32 gradient test's layout and LoRA's dA shape.  The LoRA SGMV epilogue
 is held to its plain version (out and the saved sum) over blocks mixing
 adapters, null blocks (which give act(z), and s = z exactly) and an
 adapter with no block, at N off the 64-column tile and at ranks 8-64;
@@ -705,6 +710,128 @@ def test_grouped_linear_act_gradients_on_the_card(gen, dtype):
                                    rtol=_TOL[dtype],
                                    msg=lambda m, name=name: f"{name}: {m}")
     assert not grads["cuda"][2][1].any() and not grads["cuda"][3][1].any()
+
+
+def _ids_buffer(ids, bm, K, gen, dtype, E):
+    """x [len(ids) * bm, K] over blocks with the given ids (in any order;
+    an id >= E is a null block, its rows zero) and the int32 ids."""
+    gid = torch.tensor(ids, dtype=torch.int32, device="cuda")
+    x = torch.randn(len(ids) * bm, K, device="cuda", generator=gen)
+    x[(gid >= E).repeat_interleave(bm)] = 0
+    return x.to(dtype), gid
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("pattern", ["uniform", "alternating", "nulls"])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("grid", ["mid", "wide", "wide2"])
+def test_grouped_matmul_spanned_tiles(gen, dtype, pattern, trans, grid):
+    """Blocks of 16 rows, so a bf16 row tile of 128 spans 8 blocks:
+    one id for all, ids alternating over 4 experts in unsorted order (a
+    thread block per id of a tile, each storing its own rows), and null
+    blocks inside spanned tiles; K 200 and N 130 off the tile.  The rows
+    make grids of 128 x 128 tiles that pick each bf16 tile: under one
+    tile an SM (128 x 64), one to two (128 x 128), two or more (128 x 128
+    at two blocks an SM)."""
+    sms = torch.cuda.get_device_properties("cuda").multi_processor_count
+    row_tiles = {"mid": 3, "wide": -(-sms // 2), "wide2": sms}[grid]
+    E, bm, K, N, nb = 4, 16, 200, 130, row_tiles * 8
+    ids = {"uniform": [2] * nb,
+           "alternating": [(3, 0, 2, 1)[i % 4] for i in range(nb)],
+           "nulls": [E if i % 5 in (1, 3) else (i * 7) % E
+                     for i in range(nb)]}[pattern]
+    x, gid = _ids_buffer(ids, bm, K, gen, dtype, E)
+    shape = (E, N, K) if trans else (E, K, N)
+    w = (torch.randn(*shape, device="cuda", generator=gen) / 14).to(dtype)
+    b = None if trans else torch.randn(E, N, device="cuda",
+                                       generator=gen).to(dtype)
+    out, z = ops.fused_grouped_linear_act(x, w, b, gid, "gelu_tanh",
+                                          return_z=True, transpose_w=trans)
+    wk = w.transpose(1, 2) if trans else w
+    _close(out, ops.grouped_linear_act_ref(x, wk, b, block_group=gid,
+                                           act="gelu_tanh"), dtype)
+    _close(z, ops.grouped_linear_act_ref(x, wk, b, block_group=gid), dtype)
+    null = (gid >= E).repeat_interleave(bm)
+    assert not out[null].any() and not z[null].any()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("K,N", [(1024, 16), (70, 16), (16, 1024),
+                                 (16, 70), (16, 16)])
+@pytest.mark.parametrize("trans", [False, True])
+def test_grouped_matmul_narrow(gen, dtype, K, N, trans):
+    """N = 16 (LoRA's u and t: the 16-column tile) and K = 16 (dx: one
+    step at depth 16), each also off the 16-byte grid (70), both weight
+    layouts, over unsorted adapter ids with a null block."""
+    E = 3
+    bm = 16 if dtype == torch.bfloat16 else 8
+    ids = [1, 0, 3, 2, 2, 0, 1, 1, 3, 0, 2]
+    x, gid = _ids_buffer(ids, bm, K, gen, dtype, E)
+    shape = (E, N, K) if trans else (E, K, N)
+    w = (torch.randn(*shape, device="cuda", generator=gen) / 5).to(dtype)
+    out = ops.fused_grouped_linear_act(x, w, None, gid, transpose_w=trans)
+    wk = w.transpose(1, 2) if trans else w
+    _close(out, ops.grouped_linear_act_ref(x, wk, None, block_group=gid),
+           dtype)
+    assert not out[(gid >= E).repeat_interleave(bm)].any()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("K,N", [(64, 16), (16, 64), (64, 64), (70, 130)])
+def test_grouped_dw_row_split(gen, dtype, K, N):
+    """Few output tiles over many rows: each expert's rows split into S > 1
+    slices whose f32 partials a second launch sums in a fixed order (one
+    call, one launch counted).  Expert 1 owns a single block, expert 2
+    none (exact zeros)."""
+    counts, bm, E = [8000, 16, 0, 300], 16, 4
+    x, gid = _grouped_buffer(counts, bm, K, gen, dtype)
+    dz = torch.randn(x.shape[0], N, device="cuda", generator=gen).to(dtype)
+    assert ops.grouped_dw_slices(x, dz, E) > 1
+    n0 = ops.fused_grouped_dw.launches
+    dw = ops.fused_grouped_dw(x, dz, gid, E)
+    assert ops.fused_grouped_dw.launches == n0 + 1
+    want = ops.grouped_dw_ref(x, dz, gid, E)
+    torch.testing.assert_close(dw.float(), want.float(),
+                               atol=_sum_tol(dtype, max(counts)),
+                               rtol=_TOL[dtype])
+    assert not dw[2].any()
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("layout", ["card_test", "lora_dA"])
+def test_grouped_kernels_are_deterministic(gen, dtype, layout):
+    """Rows 14a and 14b, 100 runs each on the same inputs, every output
+    bit-identical to the first: at the layout of
+    `test_grouped_linear_act_gradients_on_the_card` (counts [37, 0, 80,
+    11], blocks of 32, K 96, N 160, gelu_tanh, z saved) and at LoRA's dA
+    shape (8192 rows of 1024 against rank 16, one adapter: the forward's
+    t = x @ A and the dw over x and u with its rows split)."""
+    if layout == "card_test":
+        counts, bm, K, N, E = [37, 0, 80, 11], 32, 96, 160, 4
+        x, gid = _grouped_buffer(counts, bm, K, gen, dtype)
+        act = "gelu_tanh"
+    else:
+        bm, K, N, E, R = (16 if dtype == torch.bfloat16 else 8), 1024, 16, \
+            1, 8192
+        gid = torch.zeros(R // bm, dtype=torch.int32, device="cuda")
+        x = torch.randn(R, K, device="cuda", generator=gen).to(dtype)
+        act = "none"
+    w = (torch.randn(E, K, N, device="cuda", generator=gen) / 10).to(dtype)
+    b = torch.randn(E, N, device="cuda", generator=gen).to(dtype)
+    dz = torch.randn(x.shape[0], N, device="cuda", generator=gen).to(dtype)
+    if layout == "lora_dA":
+        assert ops.grouped_dw_slices(x, dz, E) > 1
+
+    def run():
+        out, z = ops.fused_grouped_linear_act(x, w, b, gid, act,
+                                              return_z=True)
+        return out, z, ops.fused_grouped_dw(x, dz, gid, E)
+    first = run()
+    _close(first[0], ops.grouped_linear_act_ref(x, w, b, block_group=gid,
+                                                act=act), dtype)
+    for _ in range(99):
+        again = run()
+        assert all(torch.equal(a, c) for a, c in zip(again, first))
 
 
 # ---------------------------------------------------------------------
