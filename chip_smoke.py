@@ -10,7 +10,12 @@ phase fails.  Phases:
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed); the registers and stack/local
-   bytes of every flash attention and grouped matmul instantiation;
+   bytes of every flash attention, grouped matmul and ``wgmma`` kernel
+   instantiation; the ``wgmma`` kernels (the bf16 matmul epilogue, rows
+   3 and 11, and ``csrc/wgmma_check.cu``) must not spill and their SASS
+   must hold HGMMA; then the ``wgmma`` self-check: one TMA-loaded,
+   transpose-B product of small integers, and the same product staged by
+   the threads, each exactly equal to ``torch.mm``;
 2. kernels: one untimed launch of every kernel first, then each kernel
    against its plain PyTorch version on the card, at the shapes the
    serving and the training drives give it (flash attention: the flash
@@ -25,9 +30,15 @@ phase fails.  Phases:
    errors against stated tolerances and CUDA-event times of the kernel,
    the plain version and (where one PyTorch call computes the same
    function) the library call, beside the least time the card could take
-   (``bound_ms``); the int8 serving kernels at the serving drive's shapes
-   too (the int8 matmul epilogue at fc1's 368 x 2048 @ 2048 x 8192 with
-   gelu_tanh, int8 ragged attention at the mixed step with int8 pools);
+   (``bound_ms``); the matmul epilogue (row 3) at the serving step's
+   fc1 (368 x 2048 @ 2048 x 8192, gelu_tanh), a decode step's 4 rows and
+   the training drive's 4096 rows with z saved, each run twice and held
+   bit-identical; the int8 serving kernels at the serving drive's shapes
+   too (the int8 matmul epilogue at GPT_1P3B's qkv, out, fc1 and fc2 on
+   368 rows, each run twice and held bit-identical, beside
+   ``torch._weight_int8pack_mm`` and the float twin, the same GEMM with
+   bias and activation on a bf16 copy of the dequantized weight; int8
+   ragged attention at the mixed step with int8 pools);
    and the grouped-expert matmul's forward and dw kernels at the MoE
    drives' shapes with skewed expert counts (one expert empty, one
    holding almost everything): the serving step's 736 assignments (368
@@ -64,7 +75,9 @@ phase fails.  Phases:
    prefix plus a 4-64 token tail, 64 greedy tokens each (the
    ``gpt_decode`` trace of bench.py at the 1.3B width).  Every kernel's
    launch count is set to 0 just before and read just after; each must
-   equal its launches per step times the steps.  A second, profiled
+   equal its launches per step times the steps, and every bf16 matmul
+   epilogue launch must have taken the TMA staging route (the same in
+   every serving and training drive: `check_routes`).  A second, profiled
    burst (8 of the prompts, 16 tokens) then splits device time by
    kernel and gives the device's idle share (``torch.profiler``);
 5. training parity: GPT at full width cut to 2 layers, f32, no AMP,
@@ -199,18 +212,27 @@ phase fails.  Phases:
     and 16 greedy steps through ``PagedCacheView("decode")`` give the
     same tokens on the card and the CPU; then GPT_1P3B in bf16 on phase
     9's prompts (4 x 128) and weights, 64 decode steps: ms per decode step
-    beside phase 9's dense cache and the token match against phase 9.
+    beside phase 9's dense cache and the token match against phase 9;
+26. bf16 parity: GPT_1P3B's width cut to 2 layers, numpy weights, f32
+    master weights under ``auto_cast(bf16, O1)`` with flash attention and
+    recompute: 3 AdamW steps on the card and on the CPU (plain versions),
+    losses within ``BF16_LOSS_RTOL`` (2e-2 relative) of each other, step-1
+    gradients and final parameters reported; then the engine with bf16
+    weights on phase 3's 4 requests, 16 greedy tokens each, the token
+    match ratio card vs CPU reported.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
 training, generate, the three LLaMA, the int8 serving, the two BERT, the
-ERNIE, the four MoE, the four LoRA and the paged decode summaries, the
-grouped f32 repetitions and the kernels' resources) and the card's
+ERNIE, the four MoE, the four LoRA, the paged decode and the bf16 parity
+summaries, the grouped f32 repetitions, the wgmma self-check and the
+kernels' resources) and the card's
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -390,50 +412,95 @@ def check_layer_norm(ops, rows, dtype, dtype_name, gen):
         bound_ms=bms, bound_by=by)
 
 
-def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen):
+def repeat_equal(fn, first):
+    """Run ``fn`` again; True when every output is bit-identical to
+    ``first`` (a tensor or a tuple of them)."""
+    import torch
+    again = fn()
+    pairs = zip(first, again) if isinstance(first, tuple) \
+        else ((first, again),)
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in pairs)
+
+
+#: the matmul epilogue's timed cases beside the serving step's fc1
+#: (rows: the token budget): a decode step's 4 rows, and the training
+#: drive's rows with z saved (as its forward saves it)
+ME_DECODE_ROWS = 4
+
+
+def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen, with_z=False):
+    """Row 3 at fc1's shape (K 2048, N 8192, gelu_tanh) for ``rows`` rows,
+    with z written where ``with_z`` (training); run twice, bit-identical."""
     import torch
     K, N = HIDDEN, FFN
     x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
     w = (torch.randn(K, N, device="cuda", generator=gen)
          / K ** 0.5).to(dtype)
     b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dtype)
-    out = ops.fused_linear_act(x, w, b, "gelu_tanh")
-    ref = ops.linear_act_ref(x, w, b, "gelu_tanh")
+
+    def kernel():
+        return ops.fused_linear_act(x, w, b, "gelu_tanh", return_z=with_z)
+    got = kernel()
+    ref = ops.linear_act_ref(x, w, b, "gelu_tanh", return_z=with_z)
     torch.cuda.synchronize()
-    err, rel, ok = compare(out, ref, dtype_name)
+    if with_z:
+        (err, rel, ok), z_err = compare(got[0], ref[0], dtype_name), \
+            compare(got[1], ref[1], dtype_name)
+        ok, err = ok and z_err[2], max(err, z_err[0])
+    else:
+        err, rel, ok = compare(got, ref, dtype_name)
+    same = repeat_equal(kernel, got)
     # the library call: one cuBLASLt GEMM with a bias + tanh-GELU epilogue
     # (its CUDA fallback also applies gelu(approximate="tanh")); timed and
     # compared here only, the port never calls it
     def library():
         return torch._addmm_activation(b, x, w, use_gelu=True)
-    lib_err = compare(library(), ref, dtype_name)[0]
+    lib_err = compare(library(), ref[0] if with_z else ref, dtype_name)[0]
     isz = x.element_size()
-    nbytes = (rows * K + K * N + N + rows * N) * isz
+    nbytes = (rows * K + K * N + N + (2 if with_z else 1) * rows * N) * isz
     bms, by = bound(nbytes, 2 * rows * K * N + 12 * rows * N, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok, shape=f"x[{rows},{K}] w[{K},{N}]",
-        note=f"library vs plain max abs err {lib_err:.3e}",
-        ms=time_ms(lambda: ops.fused_linear_act(x, w, b, "gelu_tanh")),
-        plain_ms=time_ms(lambda: ops.linear_act_ref(x, w, b, "gelu_tanh")),
+        err=err, rel=rel, ok=ok and same, repeat_identical=same,
+        shape=f"x[{rows},{K}] w[{K},{N}]" + (" z" if with_z else ""),
+        note=f"library vs plain max abs err {lib_err:.3e}; second run "
+             f"bit-identical {same}",
+        ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: ops.linear_act_ref(
+            x, w, b, "gelu_tanh", return_z=with_z)),
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
-def check_matmul_epilogue_int8(ops, rows, dtype, dtype_name, gen):
-    """The int8-weight epilogue at fc1's serving shape: x [rows, 2048] in
-    ``dtype``, per-channel int8 codes [2048, 8192] with f32 scales, a bias
-    in x's type, gelu_tanh."""
+#: the int8 epilogue's shapes on the serving step's rows (GPT_1P3B: qkv,
+#: out, fc1 and fc2): (K, N, activation)
+INT8_CASES = {"qkv": (HIDDEN, 3 * HIDDEN, "none"),
+              "out": (HIDDEN, HIDDEN, "none"),
+              "fc1": (HIDDEN, FFN, "gelu_tanh"),
+              "fc2": (FFN, HIDDEN, "none")}
+
+
+def check_matmul_epilogue_int8(ops, rows, dtype, dtype_name, gen,
+                               case="fc1"):
+    """The int8-weight epilogue at one of `INT8_CASES`: x [rows, K] in
+    ``dtype``, per-channel int8 codes [K, N] with f32 scales, a bias in
+    x's type; run twice, bit-identical.  Two yardsticks: the library call
+    ``torch._weight_int8pack_mm`` (no bias or activation), and the float
+    twin, one cuBLASLt GEMM with the bias and activation on a bf16 copy of
+    the dequantized weight (what an operations-bound int8 launch should
+    match)."""
     import torch
     from paddle_tpu_torch.quantization import quantize_weight_int8
-    K, N = HIDDEN, FFN
+    K, N, act = INT8_CASES[case]
     x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
     w_q, scale = quantize_weight_int8(
         torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5, axis=1)
     b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dtype)
-    args = (x, w_q, scale, b, "gelu_tanh")
+    args = (x, w_q, scale, b, act)
     out = ops.fused_linear_act_int8(*args)
     ref = ops.linear_act_int8_ref(*args)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
+    same = repeat_equal(lambda: ops.fused_linear_act_int8(*args), out)
     # the library call: torch._weight_int8pack_mm computes x @ (w_q * s)^T
     # from [N, K] codes, without the bias and the activation; timed here
     # only, the port never calls it
@@ -451,12 +518,25 @@ def check_matmul_epilogue_int8(ops, rows, dtype, dtype_name, gen):
         library_ms = None
         note = (f"library: none, torch._weight_int8pack_mm refused these "
                 f"inputs ({str(exc).splitlines()[0][:120]})")
+    w_twin = (w_q.float() * scale).to(dtype)
+
+    def twin():
+        if act == "gelu_tanh":
+            return torch._addmm_activation(b, x, w_twin, use_gelu=True)
+        return torch.addmm(b, x, w_twin)
+    twin_err = compare(twin(), ref, dtype_name)[0]
+    twin_ms = time_ms(twin)
+    twin_call = "_addmm_activation" if act != "none" else "addmm"
     isz = x.element_size()
     nbytes = rows * K * isz + K * N + 4 * N + N * isz + rows * N * isz
     bms, by = bound(nbytes, 2 * rows * K * N + 12 * rows * N, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok, note=note,
-        shape=f"x[{rows},{K}] w_q[{K},{N}] int8",
+        err=err, rel=rel, ok=ok and same, repeat_identical=same,
+        note=f"{note}; float twin ({twin_call} on the dequantized weight "
+             f"in {dtype_name}) {twin_ms:.4f} ms, max abs err vs plain "
+             f"{twin_err:.3e}; second run bit-identical {same}",
+        twin_ms=twin_ms,
+        shape=f"x[{rows},{K}] w_q[{K},{N}] int8 {act}",
         ms=time_ms(lambda: ops.fused_linear_act_int8(*args)),
         plain_ms=time_ms(lambda: ops.linear_act_int8_ref(*args)),
         library_ms=library_ms, bound_ms=bms, bound_by=by)
@@ -884,6 +964,68 @@ def kernel_resources(cuda_lib, lib_path, names):
         say(f"  {name}: {reg} registers a thread, stack {stack} B, local "
             f"{local} B")
     return res
+
+
+#: the kernels built on `wgmma` (phase 1: no spills, HGMMA in their SASS)
+WGMMA_KERNEL_NAMES = ("me_fwd_wgmma", "wgmma_check_kernel")
+
+
+def check_wgmma_kernels(cuda_lib, lib_path, resources):
+    """Phase 1's gate on the `wgmma` kernels: every instantiation named in
+    `WGMMA_KERNEL_NAMES` uses no stack or local memory (no spills) and its
+    SASS (``cuobjdump -sass``) holds HGMMA, the warpgroup tensor-core
+    instruction.  Returns {mangled name: holds HGMMA}."""
+    import re
+    if resources is None:
+        fail("phase 1: no cuobjdump to check the wgmma kernels with")
+    spills = [n for n, r in resources.items()
+              if any(k in n for k in WGMMA_KERNEL_NAMES)
+              and (r["stack"] or r["local"])]
+    if spills:
+        fail(f"phase 1: wgmma kernels spill to stack or local memory: "
+             f"{spills}")
+    tool = Path(cuda_lib._nvcc()).parent / "cuobjdump"
+    dump = subprocess.run([str(tool), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=600)
+    found = {}
+    for sec in re.split(r"\n\s*Function : ", dump.stdout)[1:]:
+        name = sec.split("\n", 1)[0].strip()
+        if any(k in name for k in WGMMA_KERNEL_NAMES):
+            found[name] = "HGMMA" in sec
+    missing = [n for n, ok in found.items() if not ok]
+    say(f"  SASS: {len(found)} wgmma kernel instantiations, HGMMA in "
+        f"{len(found) - len(missing)}; none spills")
+    if not found:
+        fail("phase 1: no wgmma kernel in the library's SASS")
+    if missing:
+        fail(f"phase 1: no HGMMA in the SASS of {missing}")
+    return found
+
+
+def check_wgmma_product(cuda_lib):
+    """`csrc/wgmma_check.cu` on the card: a [64, 64] x [64, 128] product
+    of small integers in bf16 through TMA (w as stored, the transpose-B
+    form) and through the threads' own swizzled staging, each held
+    exactly (bit for bit) against torch.mm."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = torch.randint(-3, 4, (64, 64), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    b = torch.randint(-3, 4, (64, 128), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    c = torch.full((2, 64, 128), float("nan"), device="cuda")
+    cuda_lib.check(cuda_lib.library().ptt_wgmma_check(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), 0,
+        cuda_lib.stream_handle(a.device)), "wgmma_check")
+    torch.cuda.synchronize()
+    want = torch.mm(a.float(), b.float())
+    diffs = [int((c[i] != want).sum()) for i in range(2)]
+    say(f"  wgmma self-check (TMA, MN-major B; thread-staged): "
+        f"{diffs[0]} and {diffs[1]} of {want.numel()} values differ from "
+        f"torch.mm (exact required)")
+    if any(diffs):
+        fail("phase 1: the wgmma self-check differs from torch.mm")
+    return dict(tma_differ=diffs[0], staged_differ=diffs[1])
 
 
 def visible_pairs(sq, sk, causal):
@@ -1811,7 +1953,8 @@ def phase_kernels(ops, budgets):
              "layer_norm": check_layer_norm,
              "matmul_epilogue": check_matmul_epilogue}
     train = {"layer_norm": (check_layer_norm, TRAIN_ROWS),
-             "matmul_epilogue": (check_matmul_epilogue, TRAIN_ROWS),
+             "matmul_epilogue": (functools.partial(check_matmul_epilogue,
+                                                   with_z=True), TRAIN_ROWS),
              "layer_norm_bwd": (check_layer_norm_bwd, TRAIN_ROWS),
              "matmul_epilogue_bwd": (check_matmul_epilogue_bwd, TRAIN_ROWS),
              "softmax_xent_fwd": (check_softmax_xent_fwd, XENT_ROWS),
@@ -1824,6 +1967,7 @@ def phase_kernels(ops, budgets):
     gen8 = torch.Generator(device="cuda").manual_seed(SEED + 8)
     gen_moe = torch.Generator(device="cuda").manual_seed(SEED + 17)
     gen_lora = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    gen_me = torch.Generator(device="cuda").manual_seed(SEED + 3)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -1833,6 +1977,10 @@ def phase_kernels(ops, budgets):
             r = check(ops, arg, dtype, dtype_name, gen)
             report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        r = check_matmul_epilogue(ops, ME_DECODE_ROWS, dtype, dtype_name,
+                                  gen_me)
+        report("matmul_epilogue", dtype_name, r)
+        results[("matmul_epilogue", dtype_name, "decode")] = r
         for name, (check, rows) in train.items():
             r = check(ops, rows, dtype, dtype_name, gen)
             report(name, dtype_name, r)
@@ -1861,6 +2009,12 @@ def phase_kernels(ops, budgets):
                            f"{twin['ms']:.4f} ms")))
             report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        for case in INT8_CASES:
+            if case != "fc1":
+                r = check_matmul_epilogue_int8(ops, budgets[dtype_name],
+                                               dtype, dtype_name, gen8, case)
+                report("matmul_epilogue_int8", dtype_name, r)
+                results[("matmul_epilogue_int8", dtype_name, case)] = r
         torch.cuda.empty_cache()
         for case in GROUPED_CASES:
             r = check_grouped(ops, case, dtype, dtype_name, gen_moe)
@@ -1937,6 +2091,22 @@ def numpy_weights(model, seed):
 def reset_launches(ops):
     for fn in ops.KERNELS.values():
         fn.launches = 0
+    for fn in (ops.fused_linear_act, ops.fused_linear_act_int8):
+        fn.tma_launches = fn.elementwise_launches = 0
+
+
+def check_routes(phase, ops):
+    """The bf16 matmul epilogue launches of a drive by staging route (the
+    counters `reset_launches` zeroed): every model shape must take TMA."""
+    counts = {name: (fn.tma_launches, fn.elementwise_launches) for name, fn
+              in (("matmul_epilogue", ops.fused_linear_act),
+                  ("matmul_epilogue_int8", ops.fused_linear_act_int8))}
+    say("  bf16 epilogue launches by staging route (TMA, element-wise): "
+        + ", ".join(f"{n} {c}" for n, c in counts.items()))
+    if any(c[1] for c in counts.values()):
+        fail(f"{phase}: a model-shape epilogue launch staged element by "
+             f"element: {counts}")
+    return counts
 
 
 def launches(ops):
@@ -2121,6 +2291,7 @@ def phase_serving(pt, ops, int8=False, base=None, moe=False):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
+    routes = check_routes(phase, ops)
     for h in hooks:
         h.remove()
 
@@ -2147,7 +2318,7 @@ def phase_serving(pt, ops, int8=False, base=None, moe=False):
         f"bytes at hbm_fraction 0.3")
     check_counts(phase, counts, steps, cfg.num_hidden_layers, drive)
     generated = [list(r.generated) for r in reqs]
-    summary.update(tokens_per_s=tokens / elapsed,
+    summary.update(epilogue_routes=routes, tokens_per_s=tokens / elapsed,
                    median_ttft_ms=ttft[len(ttft) // 2],
                    prefix_hit_rate=hit, steps=steps, elapsed_s=elapsed,
                    ms_per_step=elapsed / steps * 1e3, peak_memory_gib=peak)
@@ -2233,7 +2404,7 @@ _PROFILE_GROUPS = (("lora_sgmv", "lora_sgmv_kernel"),
                     ("ragged_attn_kernel<float, signed char>",
                      "ragged_attn_kernel<__nv_bfloat16, signed char>")),
                    ("matmul_epilogue_int8",
-                    ("me_fwd_wmma_bf16<signed char",
+                    ("me_fwd_wgmma<signed char",
                      "me_fwd_fma<float, signed char",
                      "me_fwd_fma<__nv_bfloat16, signed char")),
                    ("ragged_attention", "ragged_attn_kernel"),
@@ -2548,6 +2719,7 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
+    routes = check_routes(phase, ops)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     step_ms = elapsed / TRAIN_STEPS * 1e3
@@ -2570,7 +2742,7 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
         fail(f"{phase}: the loss did not fall on a repeated batch: "
              f"{losses}")
     check_counts(phase, counts, TRAIN_STEPS, L, drive)
-    summary = dict(n_params=n_params, batch=B, seq=S,
+    summary = dict(n_params=n_params, batch=B, seq=S, epilogue_routes=routes,
                    steps=TRAIN_STEPS, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    peak_memory_gib=peak_gib, losses=losses)
@@ -3493,6 +3665,99 @@ def phase_paged(pt, ops, gen_keep, gen_summary):
                         parity_tokens_identical=True)
 
 
+# ---------------------------------------------------------------------
+# phase 26: bf16 parity, GPT at full width, 2 layers
+# ---------------------------------------------------------------------
+#: bf16 O1 losses, card against the CPU's plain run: relative 2e-2, about
+#: 2.5 bf16 ulps (2^-7 = 0.0078 relative each).  The two sides round to
+#: bf16 at the same ops (O1's white list) but sum in other orders, and
+#: the card's flash kernels round P and dS to bf16 where the plain
+#: version keeps f32, so agreement is to bf16 precision, not f32's.
+BF16_LOSS_RTOL = 2e-2
+
+
+def phase_bf16_parity(pt, ops):
+    """GPT_1P3B's width cut to 2 layers in bf16 on the card against the
+    port's CPU plain run (which tier-1 holds to the reference) from the
+    same numpy weights and inputs: 3 AdamW steps with f32 master weights
+    under ``auto_cast(bf16, O1)``, flash attention and recompute (phase
+    8's path), losses held to `BF16_LOSS_RTOL`; then the engine with bf16
+    weights on phase 3's 4 requests, 16 greedy tokens each, the token
+    match ratio reported."""
+    import numpy as np
+    import torch
+    phase = "bf16 parity"
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2,
+                              use_flash_attention=True, use_recompute=True))
+    crit = pt.GPTPretrainingCriterion()
+
+    def loss_of(model, x, y):
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            return crit(model(x), y)
+
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100
+    params = numpy_weights(pt.GPTForCausalLM(cfg, device="cpu"), SEED + 2)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = train_parity_run(
+            pt, ops, lambda dev: pt.GPTForCausalLM(cfg, device=dev),
+            loss_of, params, ids, labels, device)
+        torch.cuda.empty_cache()
+    (l_gpu, g_gpu, p_gpu, counts, _), (l_cpu, g_cpu, p_cpu, _, _) = \
+        runs["cuda"], runs["cpu"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    grad_err, grad_at = max(
+        (float((g_gpu[n] - g_cpu[n]).abs().max())
+         / max(float(g_cpu[n].abs().max()), 1e-30), n) for n in g_cpu)
+    param_err = max(float((p_gpu[n] - p_cpu[n]).abs().max()) for n in p_cpu)
+    say(f"  losses card {l_gpu}, CPU {l_cpu}: max rel err {loss_err:.3e} "
+        f"(tolerance {BF16_LOSS_RTOL:g}); reported: step-1 grads max err / "
+        f"max |grad| {grad_err:.3e} at {grad_at}, params after 3 steps max "
+        f"|err| {param_err:.3e}")
+    if loss_err > BF16_LOSS_RTOL:
+        fail(f"{phase}: losses {l_gpu} on the card vs {l_cpu} on the CPU")
+    check_counts(phase, counts, 3, cfg.num_hidden_layers, "train_flash")
+
+    serve_cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
+    rng = np.random.default_rng(SEED + 1)
+    shared = list(rng.integers(1, serve_cfg.vocab_size, size=48))
+    prompts = [shared + list(rng.integers(1, serve_cfg.vocab_size, size=n))
+               for n in (5, 9, 12, 7)]
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = pt.GPTForCausalLM(serve_cfg, device=device,
+                                  dtype=torch.bfloat16)
+        pt.load_reference_state(model, params)
+        eng = pt.GenerationEngine(model, device=device, max_batch=4,
+                                  prefill_chunk=64, max_model_len=256,
+                                  num_blocks=128)
+        reset_launches(ops)
+        outs[device] = eng.generate(prompts, max_new_tokens=16)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            serve_counts, steps = launches(ops), eng.stats()["steps"]
+        del eng, model
+        torch.cuda.empty_cache()
+    new = [(o[len(p):], c[len(p):]) for o, c, p in
+           zip(outs["cuda"], outs["cpu"], prompts)]
+    if not all(len(a) == len(b) == 16 for a, b in new):
+        fail(f"{phase}: a request did not return 16 tokens")
+    same = sum(int(x == y) for a, b in new for x, y in zip(a, b))
+    match = same / (16 * len(prompts))
+    say(f"  greedy tokens, bf16 weights: {same} of {16 * len(prompts)} "
+        f"positions equal on the card and the CPU (match ratio "
+        f"{match:.4f}, reported)")
+    check_counts(phase, serve_counts, steps, serve_cfg.num_hidden_layers,
+                 "serve")
+    return dict(losses_cuda=l_gpu, losses_cpu=l_cpu,
+                loss_max_rel_err=loss_err, loss_rtol=BF16_LOSS_RTOL,
+                grad_max_rel_err=grad_err, param_max_abs_err=param_err,
+                greedy_match_ratio=match)
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -3504,10 +3769,13 @@ def free_device_memory():
 
 
 def kernel_entry(r):
-    return dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-                library_ms=r["library_ms"], shape=r["shape"],
-                note=r.get("note", ""))
+    entry = dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                 bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                 library_ms=r["library_ms"], shape=r["shape"],
+                 note=r.get("note", ""))
+    if "twin_ms" in r:
+        entry["float_twin_ms"] = r["twin_ms"]
+    return entry
 
 
 #: the dtype each kernel runs in on its main path (serving: bf16; the
@@ -3555,7 +3823,10 @@ def kernels_line(results, counts):
             else dict.fromkeys(("w2", "decode", "decode_w2", "train_dx",
                                 *LORA_BWD_CASES)) \
             if name == "grouped_matmul" \
-            else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" else {}
+            else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" \
+            else {"decode": None} if name == "matmul_epilogue" \
+            else dict.fromkeys(("qkv", "out", "fc2")) \
+            if name == "matmul_epilogue_int8" else {}
         served = any(d in info for d in ("serve", "serve_int8", "serve_moe",
                                          "serve_lora", "paged_decode"))
         key = (name,) if served else (name, "train")
@@ -3610,8 +3881,11 @@ def main():
     cuda_lib.library()
     say(f"[1] build: {time.perf_counter() - t0:.2f} s -> "
         f"{path.relative_to(ROOT)}")
-    resources = kernel_resources(cuda_lib, path,
-                                 FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES)
+    resources = kernel_resources(
+        cuda_lib, path,
+        FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES)
+    check_wgmma_kernels(cuda_lib, path, resources)
+    wgmma_check = check_wgmma_product(cuda_lib)
 
     say("[2] kernels vs plain versions at the main path's shapes")
     # the serving drive's token budget: chunk 256 + 7 rows of block_q
@@ -3732,6 +4006,11 @@ def main():
     say("[25] paged decode view: parity at GPT_1P3B width, 2 layers, f32; "
         "GPT_1P3B bf16 decode beside phase 9")
     paged_counts, paged = phase_paged(pt, ops, gen_keep, generate)
+    free_device_memory()
+
+    say("[26] bf16 parity: full width, 2 layers, bf16 O1 flash + recompute, "
+        "3 AdamW steps, CUDA vs CPU; bf16 greedy tokens")
+    bf16_parity = phase_bf16_parity(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -3761,6 +4040,7 @@ def main():
                     "multi_lora_serving": lora_serving,
                     "lora_training_parity": lora_train_parity,
                     "lora_training": lora_training, "paged_decode": paged,
+                    "bf16_parity": bf16_parity, "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))
     say(card)

@@ -99,31 +99,4 @@ __device__ __forceinline__ float apply_act(float z, int act) {
   }
 }
 
-// Stage rows x cols of a row-major bf16 matrix (leading dimension
-// `ld_src`, `rows_total` x `cols_total`) at (row0, col0) into shared
-// memory, eight values (16 bytes) per copy where they are in bounds and
-// `vec` says the rows are 16-byte aligned; element by element, with zero
-// fill, at the ragged edge.
-template <int kRows, int kCols>
-__device__ __forceinline__ void stage_tile(
-    __nv_bfloat16* __restrict__ dst, int ld_dst,
-    const __nv_bfloat16* __restrict__ src, int ld_src, int row0, int col0,
-    int rows_total, int cols_total, bool vec) {
-  constexpr int kChunks = kCols / 8;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int e = threadIdx.x; e < kRows * kChunks; e += blockDim.x) {
-    const int r = e / kChunks, c = (e % kChunks) * 8;
-    const int gr = row0 + r, gc = col0 + c;
-    __nv_bfloat16* d = dst + r * ld_dst + c;
-    const __nv_bfloat16* s = src + static_cast<size_t>(gr) * ld_src + gc;
-    if (vec && gr < rows_total && gc + 8 <= cols_total) {
-      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        d[j] = (gr < rows_total && gc + j < cols_total) ? s[j] : zero;
-    }
-  }
-}
-
 }  // namespace ptt

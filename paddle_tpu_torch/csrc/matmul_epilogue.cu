@@ -1,77 +1,96 @@
-// Matmul with a fused bias + activation epilogue: out = act(x @ w + b).
+// Matmul with a fused bias + activation epilogue: out = act(x @ w + b),
+// and its weight-only int8 twin out = act((x @ w_q) * scale + b).
 //
 // Replaces: paddle_tpu/ops/pallas_fused.py `_me_fwd_kernel` (:266, called
 // at :315), the Pallas matmul-epilogue forward that keeps the bias add and
 // the activation out of device memory and optionally saves the
-// pre-activation z for the backward.
+// pre-activation z for the backward; and `_me_int8_fwd_kernel` (:406,
+// called at :444 by `fused_linear_act_int8` :516), its int8-weight form:
+// w_q [K, N] int8 codes, scale [N] f32 (one per output channel) applied
+// to the f32 accumulator after the dot, then the bias (:413-414).
 //
-// x is [M, K], w is [K, N] (Paddle's [in, out] layout), b is [N]; all
-// three share one type.  z is written only when its pointer is not null:
-// serving runs without gradients and passes none.
+// x is [M, K], w is [K, N] as stored (Paddle's [in, out] layout, never
+// transposed by a copy), b is [N] (x's type, or f32 for int8 weights).
+// z is written only when its pointer is not null: serving passes none.
 //
-// What bounds it on the H100: operations, by a hair.  At the main path's
-// fc1 shape (M = 368 tokens, K = 2048, N = 8192, bf16) the product is
-// 12.35 GFLOP against 41 MB of traffic (the 33.5 MB weight dominates),
-// about 301 flops per byte: just above the ~295 at which the tensor
-// cores, not the memory, become the limit.  Both bounds are ~12.4 us.
-//
-// Design, kept simple and right first (TMA and wgmma come later):
-//  * bf16: one block of four warps per 64x64 output tile.  The block
-//    stages a 64x32 slice of x and a 32x64 slice of w in shared memory
-//    with 16-byte copies, and each warp multiplies its 32x32 quarter on the tensor cores with
-//    WMMA 16x16x16 bf16 fragments, accumulating in f32.  Shared rows are
-//    padded (40, 72, 68 elements) to spread banks while keeping every
-//    fragment pointer 32-byte aligned.
-//  * f32: the tensor cores would round the operands to TF32, so the f32
-//    path multiplies on the CUDA cores: 256 threads per 64x64 tile, each
-//    accumulating a 4x4 micro-tile in registers from 16-deep shared
-//    slices, with fmaf in f32.
-//  * epilogue, both: the accumulator plus the bias goes through the
-//    activation in f32 (the formulas and constants of the TPU kernel's
-//    `_act_f32`, pallas_fused.py:55) and is cast once to the output type.
-// Edges in M, N and K are zero-filled on load and masked on store, so any
-// shape is legal.
-//
-// Split-K: when the M x N tiles are too few to fill the card (a serving
-// step's 368 rows against N = 2048 give 192 tiles for 132 SMs), the
-// caller splits K into `splits` chunks of whole 32-deep slices: block
-// (bx, by, bz) sums its tile over chunk bz and writes the f32 partial to
-// `partial` [splits, M, N]; `splitk_epilogue_kernel` then adds the chunks
+// What bounds it on the H100 at the main path's shapes:
+//  * training (M = 4096-8192 rows, K = 2048, N = 8192, bf16): operations,
+//    0.14-0.28 ms of tensor-core work a launch at 989 TFLOP/s;
+//  * serving fc1 (M = 368, K = 2048, N = 8192): both, ~12.5 us: 12.35
+//    GFLOP against 41 MB of traffic (the 33.5 MB weight), ~301 flops a
+//    byte, just past the ~295 at which the tensor cores become the
+//    limit; int8 codes halve the weight bytes, not that bound;
+//  * a decode step (4-8 rows): bytes, the weight streamed once (~10 us
+//    for fc1's 33.5 MB at 3.35 TB/s).
+// The full tensor-core rate is reached only through `wgmma` fed by TMA;
+// the design (bf16 x, `csrc/wgmma.cuh`):
+//  * a persistent block an SM, of three warpgroups, walks over 128 x 128
+//    output tiles (and, under split-K, K chunks).  The producer
+//    warpgroup keeps a ring of stages in flight (as many as fit: 6 for
+//    bf16 weights, 5 with int8 codes), each a 128 x 64 slice of x and a
+//    64 x 128 slice of w (two [64][64] boxes), 128-byte swizzled; each
+//    stage has a full and an empty mbarrier.  The two consumer
+//    warpgroups run `wgmma` m64n128k16 on their 64 rows of a stage that
+//    has arrived (x K-major, w MN-major through the instruction's
+//    transpose-B form), f32 accumulators in registers, and release the
+//    stage once the next stage's products are issued (one group in
+//    flight).  The ring runs on across tiles, so the next tile's slices
+//    load while the consumers finish this one's epilogue, and the bias
+//    and scale load behind the products;
+//  * what bounds the loop at the training shapes is the L2 traffic of
+//    the stages (a 128 x 128 tile moves 32 KB a 64-deep slice for 2.1
+//    MFLOP) and the epilogue, during which the tensor cores wait: trial
+//    builds with the loads, the products or the epilogue taken out each
+//    ran well short of the whole kernel's time.  Tiles of 256 x 128 (two
+//    64-row blocks a warpgroup) and 128 x 256 (m64n256k16) move less a
+//    product but measured slower end to end in those trials, and are not
+//    used;
+//  * two staging routes, chosen at launch (`tma_route`): TMA tile loads
+//    where TMA can describe both operands (16-byte aligned bases and row
+//    strides: K and N multiples of 8, of 16 for int8 codes: every model
+//    shape), else the producer threads stage element by element, zero
+//    past the edges, into the same swizzled layout (N = 130 or 9, K =
+//    17), followed by the proxy fence;
+//  * int8 weights: `wgmma` has no bf16 x int8 form, so the codes become
+//    bf16 before the product.  One producer thread loads x's slice and
+//    the int8 tile (64 x 128 codes, a ring beside the stages) by TMA as
+//    far ahead as the ring allows; producer warps 1-3 widen each tile
+//    into the stage's swizzled bf16 w slice, fence and arrive (the full
+//    barrier counts their 96 arrivals beside x's bytes).  Widening in
+//    shared memory keeps the consumers' code the bf16 path's; swapping
+//    the operands to widen in registers would put the weight in the A
+//    slot as its transpose, which the instruction does not read from
+//    registers.  The widening is exact (|code| <= 127: a float's upper
+//    half, built with byte permutes and one subtract, `widen4`), so every
+//    product is the reference's; only the order of the sum differs;
+//  * the epilogue from the accumulators: (* scale, rounded on its own,
+//    never fused into an fma), + bias, z cast once and staged, then the
+//    activation in f32 (the reference's `_act_f32`, pallas_fused.py:55;
+//    tanh-GELU's tanh by the hardware's approximation, `epilogue_act`)
+//    and one cast; each warp stages its 16 rows, 64 columns at a time, in
+//    its own shared rows and they leave with 16-byte stores, element by
+//    element only where N is off a multiple of 8;
+//  * the tiles go in groups of 8 row tiles, each group sweeping the
+//    columns, so the w columns the card reads at once stay in L2.
+// Where the 128 x 128 tiles do not fill the card's SMs (serving's N =
+// 2048 GEMMs: 48 tiles; decode steps: 16-64), the caller splits K
+// (`ops/matmul_epilogue.py` `split_k`): work item (tile, z) sums its tile
+// over the z-th chunk of whole 64-deep slices and writes the f32 partial
+// to `partial` [splits, M, N]; `splitk_epilogue_kernel` adds the chunks
 // in order (no atomics: the same sums every run) and applies the same
-// epilogue.  With one chunk the tile's own epilogue runs, as before.
+// epilogue.
 //
-// int8 weights: out = act((x @ w_q) * scale + b).
-//
-// Replaces: paddle_tpu/ops/pallas_fused.py `_me_int8_fwd_kernel` (:406,
-// called at :444 by `fused_linear_act_int8` :516), the weight-only int8
-// forward: w_q is [K, N] int8 codes, scale [N] f32, one per output
-// channel.  x stays float (bf16 or f32): it is never quantized.  b is [N]
-// in x's type or f32.  z is not written (serving passes none).
-//
-// What bounds it on the H100: operations.  At the serving step's fc1
-// shape (M = 368, K = 2048, N = 8192, bf16 x) the 12.35 GFLOP take 12.5
-// us at 989 TFLOP/s, while x, the 16.8 MB of codes and the output take
-// 7.3 us at 3.35 TB/s: int8 codes halve the weight bytes, not the bound.
-//
-// Design: the float kernels with the weight slice staged as int8.
-//  * bf16 x: the same 64x64 tiles, four warps and WMMA 16x16x16 bf16
-//    fragments with f32 accumulators.  The 32x64 w_q slice is read with
-//    16-byte loads (16 codes each, one per thread) and widened to bf16 in
-//    shared memory.  The widening is exact (|code| <= 127 fits bf16's
-//    8-bit significand), so every product is the reference's, which
-//    widens the codes to f32; only the order of the sum differs.
-//  * f32 x: the CUDA-core f32 tiles, with the codes widened to f32 as
-//    they are staged (TF32 would round x).
-//  * epilogue, both: the scale multiplies the f32 accumulator AFTER the
-//    dot, then the bias is added, as the reference orders it
-//    (pallas_fused.py:413-414), each rounded on its own (no fused
-//    multiply-add), then the activation in f32 and one cast.
-#include <mma.h>
-
+// f32 x (the parity runs): the tensor cores would round the operands to
+// TF32, so the f32 path multiplies on the CUDA cores: 256 threads per
+// 64x64 tile, each accumulating a 4x4 micro-tile in registers from
+// 16-deep shared slices with fmaf in f32, int8 codes widened to f32 as
+// they are staged, split-K over 32-deep slices.
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -83,7 +102,6 @@ using ptt::kActGeluTanh;
 using ptt::kActNone;
 using ptt::kActRelu;
 using ptt::kActSilu;
-using ptt::stage_tile;
 
 // z = acc (* scale, int8 weights) + b; out = act(z).  The scale's product
 // is rounded before the bias is added (__fmul_rn is never fused into an
@@ -114,117 +132,407 @@ __device__ __forceinline__ void store_or_split(float acc, float* partial,
     store_epilogue(acc, scale, b, out, z, gm, gn, N, act);
 }
 
-// ---- bf16: WMMA tensor-core tiles ---------------------------------------
-constexpr int kBM = 64, kBN = 64, kBK = 32;
 
-// `ptt::stage_tile` (common.cuh) for an int8 source, widened to bf16
-// (exactly) on the way into shared memory: sixteen codes (16 bytes) per
-// copy where they are in bounds and `vec` says the rows are 16-byte
-// aligned.
-template <int kRows, int kCols>
-__device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
-                                           int ld_dst,
-                                           const int8_t* __restrict__ src,
-                                           int ld_src, int row0, int col0,
-                                           int rows_total, int cols_total,
-                                           bool vec) {
-  constexpr int kChunks = kCols / 16;
-  for (int e = threadIdx.x; e < kRows * kChunks; e += blockDim.x) {
-    const int r = e / kChunks, c = (e % kChunks) * 16;
-    const int gr = row0 + r, gc = col0 + c;
-    const int8_t* s = src + static_cast<size_t>(gr) * ld_src + gc;
-    alignas(16) int8_t v[16];
-    if (vec && gr < rows_total && gc + 16 <= cols_total) {
-      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(s);
-    } else {
+// ---- bf16: warpgroup tensor cores fed by TMA -----------------------------
+namespace wg {
+
+using namespace ptt::wgmma;
+
+constexpr int kBM = 128;       // tile rows: 64 a consumer warpgroup
+constexpr int kBN = 128;       // tile columns: one m64n128k16 a 16-deep step
+constexpr int kBK = 64;        // one 128-byte swizzled row of bf16
+constexpr int kThreads = 384;  // the producer warpgroup, then two consumers
+constexpr int kConsumers = 256;
+constexpr int kWideners = 96;  // int8 codes: producer warps 1-3 widen
+constexpr int kBoxBytes = kBK * 128;  // one [64 depth][64 columns] w box
+constexpr int kSmemMax = 232448;      // 227 KB a block
+constexpr int kOutLd = 64 + 8;        // a staged half row: 144 bytes
+
+// Byte offsets in the block's shared memory (from a 1024-byte aligned
+// base): the x stages, the w stages, the int8 code
+// stages (int8 weights only), each consumer warp's staged output rows
+// (16 rows, one 64-column half at a time), the tile's bias and scale in
+// two buffers (a tile's, the next tile's), then the barriers.
+template <bool kInt8>
+struct Layout {
+  static constexpr int kABytes = kBM * kBK * 2;
+  static constexpr int kBBytes = kBK * kBN * 2;
+  static constexpr int kRawBytes = kInt8 ? kBK * kBN : 0;
+  static constexpr int kOutWarpBytes = 16 * kOutLd * 2;
+  static constexpr int kFixed = (kConsumers / 32) * kOutWarpBytes +
+                                2 * 2 * kBN * 4 + 1024 + 256;
+  // as many stages as fit beside the rest
+  static constexpr int kStages =
+      (kSmemMax - kFixed) / (kABytes + kBBytes + kRawBytes) < 8
+          ? (kSmemMax - kFixed) / (kABytes + kBBytes + kRawBytes)
+          : 8;
+  static constexpr int kA = 0;
+  static constexpr int kB = kA + kStages * kABytes;
+  static constexpr int kRaw = kB + kStages * kBBytes;
+  static constexpr int kOut = kRaw + kStages * kRawBytes;
+  static constexpr int kBias = kOut + (kConsumers / 32) * kOutWarpBytes;
+  static constexpr int kBar = kBias + 2 * 2 * kBN * 4;
+  static constexpr int kBytes = kBar + 3 * kStages * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  static_assert(kStages >= 2 && kAlloc <= kSmemMax,
+                "at most 227 KB of shared memory");
+};
+
+__device__ __forceinline__ bf16 to_bf16(bf16 v) { return v; }
+__device__ __forceinline__ bf16 to_bf16(int8_t v) {
+  return __float2bfloat16(static_cast<float>(v));
+}
+
+// Four int8 codes (one word, lowest first) as four bf16 values (two
+// words), exactly: code + 128 goes into the low byte of 2^23's float,
+// 2^23 + 128 is subtracted, and the upper half of each float is its bf16
+// (a value of at most 8 significant bits has zeros below).
+__device__ __forceinline__ uint2 widen4(uint32_t q) {
+  const uint32_t u = q ^ 0x80808080u;
+  float f[4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
-        v[j] = (gr < rows_total && gc + j < cols_total) ? s[j] : 0;
-    }
-    alignas(16) __nv_bfloat162 w2[8];
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + i)) -
+           8388736.f;
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// A stage's 64 x kBN int8 codes (row-major, as TMA left them) widened
+// into its swizzled bf16 w boxes by widening thread u (of kWideners).
+__device__ __forceinline__ void widen_tile(uint8_t* __restrict__ b_tile,
+                                           const uint8_t* __restrict__ raw,
+                                           int u) {
+  constexpr int kChunks = kBN / 16;  // 16 codes a load
+#pragma unroll 2
+  for (int c = u; c < kBK * kChunks; c += kWideners) {
+    const int k = c / kChunks, n = (c % kChunks) * 16;
+    const uint4 q = *reinterpret_cast<const uint4*>(raw + k * kBN + n);
+    const uint2 w0 = widen4(q.x), w1 = widen4(q.y), w2 = widen4(q.z),
+                w3 = widen4(q.w);
+    uint8_t* box = b_tile + (n / 64) * kBoxBytes;
+    const int col = n % 64;
+    *reinterpret_cast<uint4*>(box + sw128(k * 128 + col * 2)) =
+        make_uint4(w0.x, w0.y, w1.x, w1.y);
+    *reinterpret_cast<uint4*>(box + sw128(k * 128 + (col + 8) * 2)) =
+        make_uint4(w2.x, w2.y, w3.x, w3.y);
+  }
+}
+
+// The element-wise route: one stage's x slice (128 rows x 64 deep) and w
+// slice (64 deep x kBN) written by the producer warpgroup's thread t into
+// the swizzled layout TMA would give, eight values a 16-byte store, zero
+// past M, K and N.
+template <typename TW>
+__device__ __forceinline__ void stage_elements(
+    uint8_t* __restrict__ a_tile, uint8_t* __restrict__ b_tile,
+    const bf16* __restrict__ x, const TW* __restrict__ w, int m0, int n0,
+    int k0, int M, int K, int N, int t) {
+  const bf16 zero = __float2bfloat16(0.f);
+  alignas(16) bf16 v[8];
+  for (int c = t; c < kBM * 8; c += 128) {
+    const int r = c >> 3, ch = c & 7;
+    const int gm = m0 + r, gk = k0 + 8 * ch;
+    const bf16* s = x + static_cast<size_t>(gm) * K + gk;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      w2[j] = __floats2bfloat162_rn(static_cast<float>(v[2 * j]),
-                                    static_cast<float>(v[2 * j + 1]));
-    uint4* d = reinterpret_cast<uint4*>(dst + r * ld_dst + c);
-    d[0] = *reinterpret_cast<const uint4*>(&w2[0]);
-    d[1] = *reinterpret_cast<const uint4*>(&w2[4]);
+      v[j] = gm < M && gk + j < K ? s[j] : zero;
+    *reinterpret_cast<uint4*>(a_tile + sw128(r * 128 + ch * 16)) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  constexpr int kChunks = kBN / 8;
+  for (int c = t; c < kBK * kChunks; c += 128) {
+    const int k = c / kChunks, ch = c % kChunks;
+    const int gk = k0 + k, gn = n0 + 8 * ch;
+    const TW* s = w + static_cast<size_t>(gk) * N + gn;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = gk < K && gn + j < N ? to_bf16(s[j]) : zero;
+    *reinterpret_cast<uint4*>(b_tile + (ch / 8) * kBoxBytes +
+                              sw128(k * 128 + (ch % 8) * 16)) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
-constexpr int kALd = kBK + 8;  // 80-byte rows
-constexpr int kBLd = kBN + 8;  // 144-byte rows
-constexpr int kCLd = kBN + 4;  // 272-byte rows
 
-// TW: the weight's type (bf16, or int8 codes with a per-column `scale`);
-// TB: the bias's (bf16, or f32 for int8 weights).
-template <typename TW, typename TB>
-__global__ void __launch_bounds__(128)
-    me_fwd_wmma_bf16(const bf16* __restrict__ x, const TW* __restrict__ w,
-                     const float* __restrict__ scale,
-                     const TB* __restrict__ b, bf16* __restrict__ out,
-                     bf16* __restrict__ z, float* __restrict__ partial,
-                     int M, int K, int N, int kchunk, int act) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[kBM * kALd];
-  __shared__ __align__(128) bf16 Bs[kBK * kBLd];
-  __shared__ __align__(128) float Cs[kBM * kCLd];
+// The epilogue's activation: `ptt::apply_act` (the reference's
+// `_act_f32`, its formulas and constants), but for tanh-GELU, the main
+// path's, the tanh by the hardware's approximation (`fast_tanh`, within
+// 2^-10.7 relative, under the half ulp, 2^-9, of the bf16 the value is
+// rounded to); the f32 kernel keeps the exact tanhf.
+__device__ __forceinline__ float epilogue_act(float z, int act) {
+  if (act == kActGeluTanh)
+    return 0.5f * z *
+           (1.f + fast_tanh(0.7978845608028654f *
+                            (z + 0.044715f * z * z * z)));
+  return apply_act(z, act);
+}
 
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32;  // this warp's 32x32 quarter
-  const int wn = (warp & 1) * 32;
-  // 16-byte copies need 16-byte aligned rows
-  const bool x_vec = K % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
-  const bool w_vec = N % (16 / sizeof(TW)) == 0 &&
-                     (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+// One warp's 16 x kBN values (its accumulator fragment, `acc`) rounded
+// to bf16 and written to rows row0.. of dst [M, N]: each 64-column half
+// staged in the warp's shared rows, then 16 bytes a store (element by
+// element where N is off a multiple of 8 or the tile's edge).
+__device__ __forceinline__ void store_rows(const float (&acc)[kBN / 2],
+                                           bf16* __restrict__ stage,
+                                           bf16* __restrict__ dst,
+                                           int row0, int n0, int M, int N) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const bool vec = N % 8 == 0 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int half = 0; half < 2; ++half) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // this block's K chunk (all of K without split-K)
-  const int k_end = min(K, static_cast<int>(blockIdx.z + 1) * kchunk);
-  for (int k0 = blockIdx.z * kchunk; k0 < k_end; k0 += kBK) {
-    stage_tile<kBM, kBK>(As, kALd, x, K, m0, k0, M, k_end, x_vec);
-    stage_tile<kBK, kBN>(Bs, kBLd, w, N, k0, n0, k_end, N, w_vec);
-    __syncthreads();
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (8 * half + j) + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8 * h) * kOutLd +
+                                           8 * j + 2 * q) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    __syncwarp();
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm + 16 * i) * kALd + kk, kALd);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kBLd + wn + 16 * j, kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int c = lane; c < 16 * 8; c += 32) {
+      const int r = c >> 3, ch = c & 7;
+      const int gm = row0 + r, gn = n0 + 64 * half + 8 * ch;
+      if (gm < M && gn < N) {
+        const bf16* s = stage + r * kOutLd + 8 * ch;
+        bf16* d = dst + static_cast<size_t>(gm) * N + gn;
+        if (vec) {
+          *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+        } else {
+          for (int e = 0; e < 8 && gn + e < N; ++e) d[e] = s[e];
+        }
+      }
     }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + 16 * i) * kCLd + wn + 16 * j,
-                              acc[i][j], kCLd, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBM * kBN; e += blockDim.x) {
-    const int r = e / kBN, c = e % kBN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N)
-      store_or_split(Cs[r * kCLd + c], partial, scale, b, out, z, gm, gn, M,
-                     N, act);
+    __syncwarp();
   }
 }
+
+// Work item `wi` (a tile and, under split-K, a K chunk): the tile's first
+// row and column and its 64-deep slices [kt0, kt0 + nk).  Tiles go in
+// groups of 8 row tiles, each group sweeping the columns, so the w
+// columns the card reads at once stay in L2.
+__device__ __forceinline__ void work_item(int wi, int M, int N, int K,
+                                          int chunk_tiles, int& m0, int& n0,
+                                          int& kt0, int& nk) {
+  const int tiles_n = (N + kBN - 1) / kBN, tiles_m = (M + kBM - 1) / kBM;
+  const int tiles = tiles_m * tiles_n;
+  const int z = wi / tiles, tile = wi % tiles;
+  const int per_group = 8 * tiles_n;
+  const int first_m = tile / per_group * 8;
+  const int group_m = min(tiles_m - first_m, 8);
+  const int in_group = tile % per_group;
+  m0 = (first_m + in_group % group_m) * kBM;
+  n0 = in_group / group_m * kBN;
+  kt0 = z * chunk_tiles;
+  nk = max(0, min((K + kBK - 1) / kBK, kt0 + chunk_tiles) - kt0);
+}
+
+// TW: the weight's type (bf16, or int8 codes with a per-column
+// `scale`); TB: the bias's (bf16, or f32 for int8 weights); kTma: the
+// staging route.  Persistent: block b takes work items b, b + gridDim.x,
+// ... of the `works` (tiles x K chunks); the stage ring runs on across
+// them, so the producer loads the next tile while the consumers finish
+// this one's epilogue.  Block: kThreads.
+template <typename TW, typename TB, bool kTma>
+__global__ void __launch_bounds__(kThreads, 1)
+    me_fwd_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w,
+                 const bf16* __restrict__ x, const TW* __restrict__ w,
+                 const float* __restrict__ scale, const TB* __restrict__ b,
+                 bf16* __restrict__ out, bf16* __restrict__ z,
+                 float* __restrict__ partial, int M, int K, int N,
+                 int chunk_tiles, int works, int act) {
+  constexpr bool kInt8 = std::is_same<TW, int8_t>::value;
+  using L = Layout<kInt8>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* raw_full = empty + kStages;
+
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      // full: TMA's single arrival with its bytes, plus the widening
+      // threads for int8 codes; the element route's 128 threads
+      mbar_init(&full[s], kTma ? (kInt8 ? 1 + kWideners : 1) : 128);
+      mbar_init(&empty[s], kConsumers);
+      mbar_init(&raw_full[s], 1);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (t < 128) {
+    // ---- the producer warpgroup: the same sequence of slices as the
+    // consumers, `it` counting them across the work items
+    uint8_t* a_st = smem + L::kA;
+    uint8_t* b_st = smem + L::kB;
+    uint8_t* raw = smem + L::kRaw;
+    if (kTma && t != 0 && (!kInt8 || t < 32)) return;
+    uint32_t it = 0;
+    for (int wi = blockIdx.x; wi < works; wi += gridDim.x) {
+      int m0, n0, kt0, nk;
+      work_item(wi, M, N, K, chunk_tiles, m0, n0, kt0, nk);
+      for (int i = 0; i < nk; ++i, ++it) {
+        const int s = it % kStages;
+        const uint32_t ph = (it / kStages) & 1;
+        const int k0 = (kt0 + i) * kBK;
+        mbar_wait(&empty[s], ph ^ 1);
+        if constexpr (kTma && !kInt8) {
+          mbar_arrive_expect_tx(&full[s], L::kABytes + L::kBBytes);
+          tma_load_2d(a_st + s * L::kABytes, &tm_x, &full[s], k0, m0);
+#pragma unroll
+          for (int j = 0; j < kBN / 64; ++j)
+            tma_load_2d(b_st + s * L::kBBytes + j * kBoxBytes, &tm_w,
+                        &full[s], n0 + 64 * j, k0);
+        } else if constexpr (kTma) {
+          if (t == 0) {
+            // the loader: x's slice and the codes, as far ahead as the
+            // ring lets it
+            mbar_arrive_expect_tx(&full[s], L::kABytes);
+            tma_load_2d(a_st + s * L::kABytes, &tm_x, &full[s], k0, m0);
+            mbar_arrive_expect_tx(&raw_full[s], L::kRawBytes);
+            tma_load_2d(raw + s * L::kRawBytes, &tm_w, &raw_full[s], n0, k0);
+          } else {
+            // the wideners (warps 1-3): the codes into the bf16 slice
+            mbar_wait(&raw_full[s], ph);
+            widen_tile(b_st + s * L::kBBytes, raw + s * L::kRawBytes,
+                       t - 32);
+            fence_proxy_async();
+            mbar_arrive(&full[s]);
+          }
+        } else {
+          stage_elements(a_st + s * L::kABytes, b_st + s * L::kBBytes,
+                              x, w, m0, n0, k0, M, K, N, t);
+          fence_proxy_async();
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: rows 64 * cw.. of each tile
+  const int cw = t / 128 - 1, ct = t - 128;
+  const int warp = (t >> 5) & 3, lane = t & 31, g = lane >> 2, q = lane & 3;
+  const uint32_t a_base = smem_u32(smem + L::kA) + cw * 64 * 128;
+  const uint32_t b_base = smem_u32(smem + L::kB);
+  bf16* stage = reinterpret_cast<bf16*>(smem + L::kOut +
+                                        (ct / 32) * L::kOutWarpBytes);
+  uint32_t it = 0, item = 0;
+  for (int wi = blockIdx.x; wi < works; wi += gridDim.x, ++item) {
+    int m0, n0, kt0, nk;
+    work_item(wi, M, N, K, chunk_tiles, m0, n0, kt0, nk);
+    // this tile's bias (consumer threads 0-127) and scale (128-255), in
+    // f32: loaded now, stored to shared memory after the products, so
+    // the load's latency hides behind them
+    float pre = 0.f;
+    if (partial == nullptr) {
+      const int gn = n0 + ct % kBN;
+      if (ct < kBN)
+        pre = gn < N ? ptt::to_float(b[gn]) : 0.f;
+      else
+        pre = scale != nullptr && gn < N ? scale[gn] : 1.f;
+    }
+    float acc[kBN / 2];
+#pragma unroll
+    for (int r = 0; r < kBN / 2; ++r) acc[r] = 0.f;
+    for (int i = 0; i < nk; ++i, ++it) {
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+#pragma unroll
+      for (int r = 0; r < kBN / 2; ++r) fence_operand(acc[r]);
+      fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        mma<kBN>(acc, desc_k_major(a_base + s * L::kABytes + kk * 32),
+                 desc_mn_major(b_base + s * L::kBBytes + kk * 16 * 128,
+                               kBoxBytes),
+                 1);
+      commit();
+      wait<1>();
+#pragma unroll
+      for (int r = 0; r < kBN / 2; ++r) fence_operand(acc[r]);
+      // the previous slice's products are done: hand its stage back
+      if (i > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+    }
+    wait<0>();
+#pragma unroll
+    for (int r = 0; r < kBN / 2; ++r) fence_operand(acc[r]);
+    if (nk > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+
+    const int row0 = m0 + 64 * cw + 16 * warp;
+    if (partial != nullptr) {
+      // split-K: this chunk's f32 sums
+      float* p = partial + static_cast<size_t>(kt0 / chunk_tiles) * M * N;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gm = row0 + g + 8 * h, gn = n0 + 8 * j + 2 * q;
+          if (gm >= M) continue;
+          float* pr = p + static_cast<size_t>(gm) * N;
+          if (gn < N) pr[gn] = acc[4 * j + 2 * h];
+          if (gn + 1 < N) pr[gn + 1] = acc[4 * j + 2 * h + 1];
+        }
+      continue;
+    }
+    // two buffers: the next tile's cannot overwrite a slow warp's reads
+    // of this one's
+    float* bias_s = reinterpret_cast<float*>(smem + L::kBias) +
+                    (item & 1) * 2 * kBN;
+    bias_s[ct] = pre;
+    named_barrier(1, kConsumers);
+    // z = acc (* scale) + b, the scale's product rounded on its own
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * q + e;
+        const float bias = bias_s[col], sc = bias_s[kBN + col];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& a = acc[4 * j + 2 * h + e];
+          a = (scale != nullptr ? __fmul_rn(a, sc) : a) + bias;
+        }
+      }
+    if (z != nullptr) store_rows(acc, stage, z, row0, n0, M, N);
+#pragma unroll
+    for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
+    store_rows(acc, stage, out, row0, n0, M, N);
+  }
+}
+
+// TMA describes both operands: 16-byte aligned bases and row strides
+template <typename TW>
+bool tma_route(const void* x, const void* w, int K, int N) {
+  return tma_ok(x, K, 2) && tma_ok(w, N, sizeof(TW));
+}
+
+// A persistent grid: one block an SM (at most one a work item).
+template <typename TW, typename TB, bool kTma>
+cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
+                   const bf16* x, const TW* w, const float* scale,
+                   const TB* b, bf16* out, bf16* z, float* partial, int M,
+                   int K, int N, int chunk_tiles, int chunks, int act,
+                   int sms, cudaStream_t s) {
+  constexpr int kSmem = Layout<std::is_same<TW, int8_t>::value>::kAlloc;
+  const cudaError_t e = cudaFuncSetAttribute(
+      me_fwd_wgmma<TW, TB, kTma>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (e != cudaSuccess) return e;
+  const int works = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) * chunks;
+  me_fwd_wgmma<TW, TB, kTma><<<min(works, sms), kThreads, kSmem, s>>>(
+      tx, tw, x, w, scale, b, out, z, partial, M, K, N, chunk_tiles, works,
+      act);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
 
 // ---- f32: CUDA-core register tiles --------------------------------------
 constexpr int kFM = 64, kFN = 64, kFK = 16;
@@ -410,39 +718,89 @@ extern "C" int ptt_matmul_epilogue_bwd(const void* z, const void* g, void* dz,
   return static_cast<int>(e);
 }
 
+
 namespace {
 
-// The forward over a (N/64, M/64, chunks) grid and, under split-K
+// bf16 x: the wgmma forward over (tiles, 1, chunks) and, under split-K
 // (splits > 1, `partial` [splits, M, N] f32 scratch), the second pass.
-// K is cut into chunks of whole 32-deep slices, so only the last chunk is
-// ragged; `chunks` (at most `splits`) is how many that gives.
-template <typename T, typename TW, typename TB>
-cudaError_t me_fwd(const void* x, const void* w, const float* scale,
-                   const void* b, void* out, void* z, void* partial,
-                   int splits, int M, int K, int N, int act,
-                   cudaStream_t s) {
-  const int kchunk =
-      splits > 1 ? ((K + splits - 1) / splits + kBK - 1) / kBK * kBK : K;
-  const int chunks = splits > 1 ? (K + kchunk - 1) / kchunk : 1;
-  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
-  const T* xt = static_cast<const T*>(x);
+// K is cut into chunks of whole 64-deep slices, so only the last chunk
+// is ragged; `chunks` (at most `splits`) is how many that gives.
+template <typename TW, typename TB>
+cudaError_t me_fwd_bf16(const void* x, const void* w, const float* scale,
+                        const void* b, void* out, void* z, void* partial,
+                        int splits, int M, int K, int N, int act, int device,
+                        cudaStream_t s) {
+  constexpr bool kInt8 = std::is_same<TW, int8_t>::value;
+  const int k_tiles = (K + wg::kBK - 1) / wg::kBK;
+  const bool split = splits > 1 && k_tiles > 0;
+  const int chunk_tiles =
+      split ? (k_tiles + splits - 1) / splits : (k_tiles > 0 ? k_tiles : 1);
+  const int chunks = split ? (k_tiles + chunk_tiles - 1) / chunk_tiles : 1;
+  float* part = split ? static_cast<float*>(partial) : nullptr;
+  const bf16* xt = static_cast<const bf16*>(x);
   const TW* wt = static_cast<const TW*>(w);
   const TB* bt = static_cast<const TB*>(b);
-  T* o = static_cast<T*>(out);
-  T* zt = static_cast<T*>(z);
-  if constexpr (std::is_same<T, bf16>::value) {
-    const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM, chunks);
-    me_fwd_wmma_bf16<TW, TB><<<grid, 128, 0, s>>>(xt, wt, scale, bt, o, zt,
-                                                  part, M, K, N, kchunk, act);
+  bf16* o = static_cast<bf16*>(out);
+  bf16* zt = static_cast<bf16*>(z);
+  CUtensorMap tx, tw;
+  std::memset(&tx, 0, sizeof(tx));
+  std::memset(&tw, 0, sizeof(tw));
+  cudaError_t e;
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
+          cudaSuccess ||
+      sms < 1)
+    return cudaErrorInvalidValue;
+  if (wg::tma_route<TW>(x, w, K, N)) {
+    const bool maps =
+        ptt::wgmma::make_tmap_2d(&tx, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                 M, K, wg::kBM, wg::kBK, true) &&
+        (kInt8 ? ptt::wgmma::make_tmap_2d(&tw, w,
+                                          CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, K,
+                                          N, wg::kBK, wg::kBN, false)
+               : ptt::wgmma::make_tmap_2d(&tw, w,
+                                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                          K, N, wg::kBK, 64, true));
+    if (!maps) return cudaErrorInvalidValue;
+    e = wg::launch<TW, TB, true>(tx, tw, xt, wt, scale, bt, o, zt, part, M, K,
+                                 N, chunk_tiles, chunks, act, sms, s);
   } else {
-    const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM, chunks);
-    me_fwd_fma<T, TW, TB><<<grid, 256, 0, s>>>(xt, wt, scale, bt, o, zt,
-                                               part, M, K, N, kchunk, act);
+    e = wg::launch<TW, TB, false>(tx, tw, xt, wt, scale, bt, o, zt, part, M,
+                                  K, N, chunk_tiles, chunks, act, sms, s);
   }
+  if (e != cudaSuccess || part == nullptr) return e;
+  const size_t total = static_cast<size_t>(M) * N;
+  splitk_epilogue_kernel<bf16, TB><<<(total + 255) / 256, 256, 0, s>>>(
+      part, chunks, scale, bt, o, zt, M, N, act);
+  return cudaGetLastError();
+}
+
+// f32 x: the CUDA-core forward over a (N/64, M/64, chunks) grid, K cut
+// into chunks of whole 32-deep slices, and the same second pass.
+constexpr int kF32Slice = 32;
+
+template <typename TW, typename TB>
+cudaError_t me_fwd_f32(const void* x, const void* w, const float* scale,
+                       const void* b, void* out, void* z, void* partial,
+                       int splits, int M, int K, int N, int act,
+                       cudaStream_t s) {
+  const int kchunk =
+      splits > 1
+          ? ((K + splits - 1) / splits + kF32Slice - 1) / kF32Slice * kF32Slice
+          : K;
+  const int chunks = splits > 1 ? (K + kchunk - 1) / kchunk : 1;
+  float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
+  const TB* bt = static_cast<const TB*>(b);
+  float* o = static_cast<float*>(out);
+  float* zt = static_cast<float*>(z);
+  const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM, chunks);
+  me_fwd_fma<float, TW, TB><<<grid, 256, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const TW*>(w), scale, bt, o,
+      zt, part, M, K, N, kchunk, act);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || part == nullptr) return e;
   const size_t total = static_cast<size_t>(M) * N;
-  splitk_epilogue_kernel<T, TB><<<(total + 255) / 256, 256, 0, s>>>(
+  splitk_epilogue_kernel<float, TB><<<(total + 255) / 256, 256, 0, s>>>(
       part, chunks, scale, bt, o, zt, M, N, act);
   return cudaGetLastError();
 }
@@ -467,11 +825,11 @@ extern "C" int ptt_matmul_epilogue_fwd(const void* x, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == PTT_DTYPE_BF16)
-    e = me_fwd<bf16, bf16, bf16>(x, w, nullptr, b, out, z, partial, splits,
-                                 M, K, N, act, s);
+    e = me_fwd_bf16<bf16, bf16>(x, w, nullptr, b, out, z, partial, splits, M,
+                                K, N, act, device, s);
   else if (dtype == PTT_DTYPE_F32)
-    e = me_fwd<float, float, float>(x, w, nullptr, b, out, z, partial,
-                                    splits, M, K, N, act, s);
+    e = me_fwd_f32<float, float>(x, w, nullptr, b, out, z, partial, splits,
+                                 M, K, N, act, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -497,18 +855,26 @@ extern "C" int ptt_matmul_epilogue_int8_fwd(const void* x, const void* w_q,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype == PTT_DTYPE_BF16)
-    e = b_f32 ? me_fwd<bf16, int8_t, float>(x, w_q, sc, b, out, nullptr,
-                                            partial, splits, M, K, N, act, s)
-              : me_fwd<bf16, int8_t, bf16>(x, w_q, sc, b, out, nullptr,
-                                           partial, splits, M, K, N, act, s);
+    e = b_f32 ? me_fwd_bf16<int8_t, float>(x, w_q, sc, b, out, nullptr,
+                                           partial, splits, M, K, N, act,
+                                           device, s)
+              : me_fwd_bf16<int8_t, bf16>(x, w_q, sc, b, out, nullptr,
+                                          partial, splits, M, K, N, act,
+                                          device, s);
   else if (dtype == PTT_DTYPE_F32)
-    e = b_f32 ? me_fwd<float, int8_t, float>(x, w_q, sc, b, out, nullptr,
-                                             partial, splits, M, K, N, act,
-                                             s)
-              : me_fwd<float, int8_t, bf16>(x, w_q, sc, b, out, nullptr,
-                                            partial, splits, M, K, N, act,
-                                            s);
+    e = b_f32 ? me_fwd_f32<int8_t, float>(x, w_q, sc, b, out, nullptr,
+                                          partial, splits, M, K, N, act, s)
+              : me_fwd_f32<int8_t, bf16>(x, w_q, sc, b, out, nullptr,
+                                         partial, splits, M, K, N, act, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
+}
+
+// Which staging route a bf16 forward with these operands takes: 1 TMA,
+// 0 element by element (w_bytes: 2 for bf16 weights, 1 for int8 codes).
+extern "C" int ptt_matmul_epilogue_tma_route(const void* x, const void* w,
+                                             int K, int N, int w_bytes) {
+  return w_bytes == 1 ? wg::tma_route<int8_t>(x, w, K, N)
+                      : wg::tma_route<bf16>(x, w, K, N);
 }

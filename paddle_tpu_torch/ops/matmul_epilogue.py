@@ -3,8 +3,9 @@
 Port of ``paddle_tpu/ops/pallas_fused.py`` ``fused_linear_act`` (:379),
 whose bodies ``_me_fwd_kernel`` (:266) and ``_me_bwd_kernel`` (:278)
 become ``paddle_tpu_torch/csrc/matmul_epilogue.cu``.  The forward's
-product runs inside that kernel (WMMA tensor-core tiles for bf16,
-CUDA-core f32 tiles for f32, with split-K when the output tiles are too
+product runs inside that kernel (bf16: ``wgmma`` fed by TMA through an
+mbarrier ring, or by element-wise staging where TMA cannot describe the
+operands; f32: CUDA-core tiles; split-K where the output tiles are too
 few to fill the card, see `split_k`); no library GEMM stands in for it.  The
 backward kernel computes ``dz = g * act'(z)`` and the bias gradient;
 ``dx = dz @ w^T`` and ``dw = x^T @ dz`` are plain ``torch.matmul``, as
@@ -96,10 +97,13 @@ def linear_act_ref(x, w, b, act="none", return_z=False):
     return (out, z.to(x.dtype)) if return_z else out
 
 
-#: the forward kernels' output tile (64 x 64), the depth of a K slice
-#: (32), the tiles an SM holds at once (6: registers), the least slices a
+#: the forward kernels' output tile, the depth of a K slice and the tiles
+#: an SM holds at once: f32 (CUDA cores) 64 x 64, 32, 6 (registers);
+#: bf16 (wgmma) 128 x 128, 64, 1 (shared memory); the least slices a
 #: split-K chunk sums (4) and the most chunks (16)
-_TILE, _SLICE, _TILES_PER_SM, _MIN_SLICES, _MAX_SPLITS = 64, 32, 6, 4, 16
+_F32_TILE, _F32_SLICE, _F32_TILES_PER_SM = 64, 32, 6
+_WG_TILE, _WG_SLICE, _WG_TILES_PER_SM = 128, 64, 1
+_MIN_SLICES, _MAX_SPLITS = 4, 16
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,25 +111,47 @@ def _sm_count(index):
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_k(M, K, N, sm_count):
+def split_k(M, K, N, sm_count, wgmma=False):
     """How many K chunks a forward launch sums separately (split-K): 1
-    when its 64x64 output tiles fill the card's ``sm_count`` SMs, else
-    enough chunks for about one full wave of blocks, each chunk at least
-    128 deep.  A serving step's 368 rows give 192 tiles at N = 2048
-    (4 chunks on 132 SMs) and 768 at fc1's N = 8192 (1)."""
-    tiles = -(-M // _TILE) * -(-N // _TILE)
-    slices = -(-K // _SLICE)
-    return max(1, min(_TILES_PER_SM * sm_count // max(tiles, 1),
+    when its output tiles fill the card's ``sm_count`` SMs, else enough
+    chunks for about one full wave of blocks (never more), each chunk at
+    least 4 slices deep.  f32 (64x64 tiles, 6 an SM, slices of 32): a
+    serving step's 368 rows give 192 tiles at N = 2048 (4 chunks on 132
+    SMs) and 768 at fc1's N = 8192 (1).  bf16 (``wgmma``: 128x128 tiles,
+    one an SM, slices of 64): 48 tiles at N = 2048 (2 chunks), 192 at
+    fc1's (1); a decode step's 4 rows 64 at N = 8192 (2), 16 at N = 2048
+    (8)."""
+    tile, slice_, per_sm = ((_WG_TILE, _WG_SLICE, _WG_TILES_PER_SM)
+                            if wgmma else
+                            (_F32_TILE, _F32_SLICE, _F32_TILES_PER_SM))
+    tiles = -(-M // tile) * -(-N // tile)
+    slices = -(-K // slice_)
+    return max(1, min(per_sm * sm_count // max(tiles, 1),
                       slices // _MIN_SLICES, _MAX_SPLITS))
 
 
-def _split_scratch(M, K, N, device):
+def _split_scratch(M, K, N, device, dtype):
     """(chunks, f32 partial-sum scratch [chunks, M, N] or None)."""
-    splits = split_k(M, K, N, _sm_count(device.index))
+    splits = split_k(M, K, N, _sm_count(device.index),
+                     wgmma=dtype == torch.bfloat16)
     if splits == 1:
         return 1, None
     return splits, torch.empty(splits, M, N, dtype=torch.float32,
                                device=device)
+
+
+def _count_route(wrapper, x, w, K, N):
+    """Count a bf16 launch under the staging route the kernel takes (the
+    library's own rule): TMA tile loads, or element by element where TMA
+    cannot describe x or w (a row stride or base off 16 bytes)."""
+    if x.dtype != torch.bfloat16:
+        return
+    tma = cuda_lib.library().ptt_matmul_epilogue_tma_route(
+        x.data_ptr(), w.data_ptr(), K, N, w.element_size())
+    if tma:
+        wrapper.tma_launches += 1
+    else:
+        wrapper.elementwise_launches += 1
 
 
 def fused_linear_act(x, w, b, act="none", return_z=False):
@@ -157,7 +183,7 @@ def fused_linear_act(x, w, b, act="none", return_z=False):
     out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
     z = torch.empty_like(out) if return_z else None
     if M and N:
-        splits, partial = _split_scratch(M, K, N, x.device)
+        splits, partial = _split_scratch(M, K, N, x.device, x.dtype)
         rc = cuda_lib.library().ptt_matmul_epilogue_fwd(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
             z.data_ptr() if z is not None else None,
@@ -166,6 +192,7 @@ def fused_linear_act(x, w, b, act="none", return_z=False):
             cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "matmul_epilogue")
         fused_linear_act.launches += 1
+        _count_route(fused_linear_act, x, w, K, N)
     return (out, z) if return_z else out
 
 
@@ -306,7 +333,7 @@ def fused_linear_act_int8(x, w_q, scale, b, act="none"):
     M = math.prod(x.shape[:-1])
     out = torch.empty(*x.shape[:-1], N, dtype=x.dtype, device=x.device)
     if M and N:
-        splits, partial = _split_scratch(M, K, N, x.device)
+        splits, partial = _split_scratch(M, K, N, x.device, x.dtype)
         rc = cuda_lib.library().ptt_matmul_epilogue_int8_fwd(
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), b.data_ptr(),
             out.data_ptr(),
@@ -315,10 +342,16 @@ def fused_linear_act_int8(x, w_q, scale, b, act="none"):
             cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "matmul_epilogue_int8")
         fused_linear_act_int8.launches += 1
+        _count_route(fused_linear_act_int8, x, w_q, K, N)
     return out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them); the
+#: bf16 forwards' also by staging route
 fused_linear_act.launches = 0
 fused_linear_act_bwd.launches = 0
 fused_linear_act_int8.launches = 0
+for _fn in (fused_linear_act, fused_linear_act_int8):
+    _fn.tma_launches = 0
+    _fn.elementwise_launches = 0
+del _fn

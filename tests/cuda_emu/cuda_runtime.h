@@ -1,20 +1,27 @@
 // A CPU stand-in for the parts of the CUDA runtime and device language
-// that the port's flash attention kernels and `csrc/mma.cuh` use, so that
-// their CUDA source compiles with g++ and runs on the CPU at tiny shapes
-// (tests/test_torch_flash_emulated.py).  One std::thread per CUDA thread;
+// that the port's tensor-core kernels, `csrc/mma.cuh` and `csrc/wgmma.cuh`
+// use, so that their CUDA source compiles with g++ and runs on the CPU at
+// tiny shapes (tests/test_torch_flash_emulated.py and the tests that
+// import its source rewriting).  One std::thread per CUDA thread;
 // __syncthreads is a block barrier and every warp-wide operation
-// (shuffles, ldmatrix, mma.sync) a warp barrier around an exchange area.
-// Blocks run one after another.  cp.async copies synchronously, so the
-// emulation checks layouts and arithmetic, not the asynchronous schedule.
+// (shuffles, ldmatrix, mma.sync) a warp barrier around an exchange area;
+// mbarriers (wgmma_emu.h) are counted under one lock.  Blocks run one
+// after another.  cp.async, TMA and wgmma act synchronously, so the
+// emulation checks layouts, barrier counts and arithmetic, not the
+// asynchronous schedule.
 #pragma once
 
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <mutex>
+#include <unordered_map>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
 #include <functional>
+#include <memory>
 
 using std::max;
 using std::min;
@@ -25,6 +32,7 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -45,6 +53,13 @@ struct float4 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
 
 // per-warp exchange area of the warp-wide operations
 struct WarpX {
@@ -55,9 +70,22 @@ struct Emu {
   std::barrier<>* block_bar = nullptr;
   std::barrier<>* warp_bar[32] = {};
   WarpX wx[32];
-  alignas(16) unsigned char dyn[232448];  // dynamic shared memory
+  alignas(1024) unsigned char dyn[232448];  // dynamic shared memory
 };
 extern Emu emu;
+// the block's mbarriers by shared address and its named barriers by id
+// (cleared for every block)
+struct EmuMbar {
+  long long expected = 0, pending = 0, tx = 0;
+  unsigned phase = 0;
+};
+struct EmuMbars {
+  std::mutex mu;
+  std::condition_variable cv;
+  std::unordered_map<uint32_t, EmuMbar> bars;
+  std::unordered_map<int, std::unique_ptr<std::barrier<>>> named;
+};
+extern EmuMbars emu_mbars;
 
 inline int emu_lane() { return threadIdx.x & 31; }
 inline int emu_warp() { return threadIdx.x >> 5; }
@@ -74,7 +102,13 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   emu_warp_sync();
   return r;
 }
-inline size_t __cvta_generic_to_shared(const void*) { return 0; }
+// a pointer into dynamic shared memory as its shared-space address (its
+// offset); anything else as 0
+inline size_t __cvta_generic_to_shared(const void* p) {
+  const unsigned char* c = static_cast<const unsigned char*>(p);
+  return c >= emu.dyn && c < emu.dyn + sizeof(emu.dyn) ? size_t(c - emu.dyn)
+                                                       : 0;
+}
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
@@ -100,6 +134,33 @@ cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int bytes) {
                                                     : cudaErrorInvalidValue;
 }
 
+// the driver entry point the kernels ask the runtime for (wgmma_emu.h)
+typedef int cudaDriverEntryPointQueryResult;
+enum { cudaDriverEntryPointSuccess = 0, cudaDriverEntryPointSymbolNotFound };
+enum { cudaEnableDefault = 0 };
+cudaError_t cudaGetDriverEntryPoint(const char* symbol, void** fn,
+                                    unsigned long long flags,
+                                    cudaDriverEntryPointQueryResult* found);
+
+inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u;
+  std::memcpy(&u, &f, 4);
+  return u;
+}
+// byte i of the result is byte (s >> 4i) & 7 of the eight bytes of (x, y)
+inline uint32_t __byte_perm(uint32_t x, uint32_t y, uint32_t s) {
+  const uint64_t v = uint64_t(x) | (uint64_t(y) << 32);
+  uint32_t r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= uint32_t((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+inline float __fmul_rn(float a, float b) { return a * b; }
 inline float expf(float x) { return std::exp(x); }
 inline float logf(float x) { return std::log(x); }
 inline float fmaf(float a, float b, float c) { return std::fma(a, b, c); }

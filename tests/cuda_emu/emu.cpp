@@ -1,14 +1,16 @@
 // The CPU stand-in's launch: blocks one after another, one std::thread
-// per CUDA thread of the block.
+// per CUDA thread of the block; and the driver entry point of TMA's maps.
 #include <memory>
 #include <thread>
 #include <vector>
 
+#include "cuda.h"
 #include "cuda_runtime.h"
 
 thread_local uint3v threadIdx;
 uint3v blockIdx, blockDim, gridDim;
 Emu emu;
+EmuMbars emu_mbars;
 cudaError_t emu_error = cudaSuccess;
 
 void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
@@ -24,6 +26,8 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         blockIdx = {bx, by, bz};
         std::memset(emu.dyn, 0xAB, sizeof(emu.dyn));  // stale, not zeros
+        emu_mbars.bars.clear();
+        emu_mbars.named.clear();
         std::barrier<> bar(nt);
         std::vector<std::unique_ptr<std::barrier<>>> warps;
         for (int w = 0; w < nt / 32; ++w) {
@@ -39,4 +43,42 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
           });
         for (auto& t : threads) t.join();
       }
+}
+
+// cuTensorMapEncodeTiled's stand-in: the checks the driver makes on a 2-D
+// tiled map, then its fields kept as an EmuTensorMap
+static CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                                 cuuint32_t rank, void* base,
+                                 const cuuint64_t* dims,
+                                 const cuuint64_t* strides,
+                                 const cuuint32_t* box,
+                                 const cuuint32_t* elem_strides,
+                                 CUtensorMapInterleave,
+                                 CUtensorMapSwizzle swizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill) {
+  const uint32_t esize = type == CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 ? 2 : 1;
+  const bool swz = swizzle == CU_TENSOR_MAP_SWIZZLE_128B;
+  if (rank != 2 || (reinterpret_cast<uintptr_t>(base) & 15) != 0 ||
+      dims[0] == 0 || dims[1] == 0 || strides[0] % 16 != 0 || box[0] == 0 ||
+      box[1] == 0 || box[0] > 256 || box[1] > 256 ||
+      (box[0] * esize) % 16 != 0 || (swz && box[0] * esize > 128) ||
+      elem_strides[0] != 1 || elem_strides[1] != 1)
+    return CUDA_ERROR_INVALID_VALUE;
+  EmuTensorMap m{base, dims[0], dims[1], strides[0], box[0], box[1], esize,
+                 swz ? 1u : 0u};
+  static_assert(sizeof(EmuTensorMap) <= sizeof(CUtensorMap));
+  std::memcpy(map, &m, sizeof(m));
+  return CUDA_SUCCESS;
+}
+
+cudaError_t cudaGetDriverEntryPoint(const char* symbol, void** fn,
+                                    unsigned long long,
+                                    cudaDriverEntryPointQueryResult* found) {
+  const bool ok = std::strcmp(symbol, "cuTensorMapEncodeTiled") == 0;
+  *fn = ok ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  if (found != nullptr)
+    *found = ok ? cudaDriverEntryPointSuccess
+                : cudaDriverEntryPointSymbolNotFound;
+  return ok ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -35,7 +35,13 @@ of 129 (misaligned rows: the element-wise staging), on the views
 ``qkv.unbind(2)`` gives at S = 1024 (many key tiles through the double
 buffer), and at BERT-base's non-causal shape; its backward is
 bit-identical from run to run, and the tensor-core fragments of
-``csrc/mma.cuh`` are held exactly to ``torch.mm`` on their own.  The grouped-expert matmul's
+``csrc/mma.cuh`` are held exactly to ``torch.mm`` on their own, as is
+``csrc/wgmma.cuh``'s TMA-fed, transpose-B ``wgmma`` product.  The bf16
+matmul epilogue (``wgmma``) and its int8 twin are also held at the
+GPT_1P3B paths' shapes (serving fc1, decode steps of 4 and 8 rows, the
+training drive's 4096 rows with z; int8 qkv, out, fc1 and fc2), counted
+by staging route (TMA, or element by element for rows off 16 bytes), and
+100 repeats are bit-identical.  The grouped-expert matmul's
 forward (both weight layouts) and dw kernels are held to their plain
 versions at block rows 8, 16 and 128 with empty experts and an all-null
 buffer (exact zeros there), dw as a column sum; the bf16 forward also
@@ -524,6 +530,127 @@ def test_matmul_epilogue_int8_kernel(gen, dtype, act, M, K, N):
         _close(out, want, dtype)
         # the dead channel: act(b) in every row
         _close(out[:, 0], act_f32(b[0].float().expand(M), act), dtype)
+
+
+def test_wgmma_check_matches_torch_mm(gen):
+    """`csrc/wgmma.cuh` on its own (``csrc/wgmma_check.cu``): one
+    warpgroup multiplies a [64, 64] tile by a [64, 128] one (w as stored,
+    [K, N]: the MN-major transpose-B form), once TMA-loaded and once
+    staged by the threads; small integers keep every sum exact, so both
+    equal torch.mm bit for bit."""
+    from paddle_tpu_torch.ops import cuda_lib
+    a = torch.randint(-3, 4, (64, 64), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    b = torch.randint(-3, 4, (64, 128), device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    c = torch.full((2, 64, 128), float("nan"), device="cuda")
+    rc = cuda_lib.library().ptt_wgmma_check(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), a.device.index,
+        cuda_lib.stream_handle(a.device))
+    cuda_lib.check(rc, "wgmma_check")
+    want = torch.mm(a.float(), b.float())
+    assert torch.equal(c[0], want) and torch.equal(c[1], want)
+
+
+def _routes(fn):
+    return fn.tma_launches, fn.elementwise_launches
+
+
+#: row 3 at the model shapes (M, K, N, z): serving fc1 (the token budget's
+#: 368 rows), two decode steps (split-K), the training drive's 4096 rows
+_ME_MODEL_SHAPES = [(368, 2048, 8192, False), (4, 2048, 8192, False),
+                    (8, 2048, 8192, False), (4096, 2048, 8192, True)]
+
+
+@pytest.mark.parametrize("M,K,N,with_z", _ME_MODEL_SHAPES)
+def test_matmul_epilogue_model_shapes(gen, M, K, N, with_z):
+    """The bf16 forward at the GPT_1P3B paths' shapes, through TMA."""
+    x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
+    w = (torch.randn(K, N, device="cuda", generator=gen)
+         / K ** 0.5).to(torch.bfloat16)
+    b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(
+        torch.bfloat16)
+    r0 = _routes(ops.fused_linear_act)
+    got = ops.fused_linear_act(x, w, b, "gelu_tanh", return_z=with_z)
+    want = ops.linear_act_ref(x, w, b, "gelu_tanh", return_z=with_z)
+    assert _routes(ops.fused_linear_act) == (r0[0] + 1, r0[1])
+    for g_, w_ in zip(*((got, want) if with_z else ((got,), (want,)))):
+        _close(g_, w_, torch.bfloat16)
+
+
+#: row 11 at the serving step's 368 rows: qkv, out, fc1 and fc2 (K, N, act)
+_ME_INT8_SHAPES = [(2048, 6144, "none"), (2048, 2048, "none"),
+                   (2048, 8192, "gelu_tanh"), (8192, 2048, "none")]
+
+
+@pytest.mark.parametrize("K,N,act", _ME_INT8_SHAPES)
+def test_matmul_epilogue_int8_model_shapes(gen, K, N, act):
+    """The int8-weight forward at GPT_1P3B's serving shapes, through TMA
+    (the codes widened in shared memory), bias in f32."""
+    x = torch.randn(368, K, device="cuda", generator=gen).to(torch.bfloat16)
+    w_q, scale = _int8_weight(K, N, gen)
+    b = 0.1 * torch.randn(N, device="cuda", generator=gen)
+    r0 = _routes(ops.fused_linear_act_int8)
+    out = ops.fused_linear_act_int8(x, w_q, scale, b, act)
+    assert _routes(ops.fused_linear_act_int8) == (r0[0] + 1, r0[1])
+    _close(out, ops.linear_act_int8_ref(x, w_q, scale, b, act),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_matmul_epilogue_staging_routes(gen, int8):
+    """Each bf16 launch counts under the route it takes: TMA where x and
+    w have 16-byte aligned rows (N = 128), element by element where they
+    do not (N = 130; for int8 codes N = 136 too) or x's base is off 16
+    bytes; both give the plain version's values."""
+    x = torch.randn(70, 200, device="cuda", generator=gen).to(torch.bfloat16)
+    xv = torch.randn(70 * 200 + 1, device="cuda", generator=gen).to(
+        torch.bfloat16)[1:].view(70, 200)
+    fn = ops.fused_linear_act_int8 if int8 else ops.fused_linear_act
+    cases = [(x, 128, "tma"), (x, 130, "elementwise"),
+             (xv, 128, "elementwise")]
+    if int8:
+        cases.append((x, 136, "elementwise"))
+    for xi, N, route in cases:
+        b = torch.randn(N, device="cuda", generator=gen).to(torch.bfloat16)
+        r0 = _routes(fn)
+        if int8:
+            w_q, scale = _int8_weight(200, N, gen)
+            out = fn(xi, w_q, scale, b, "gelu")
+            want = ops.linear_act_int8_ref(xi, w_q, scale, b, "gelu")
+        else:
+            w = (torch.randn(200, N, device="cuda", generator=gen)
+                 / 14).to(torch.bfloat16)
+            out = fn(xi, w, b, "gelu")
+            want = ops.linear_act_ref(xi, w, b, "gelu")
+        tma, elem = _routes(fn)
+        assert (tma - r0[0], elem - r0[1]) == (
+            (1, 0) if route == "tma" else (0, 1)), (N, route)
+        _close(out, want, torch.bfloat16)
+
+
+def test_matmul_epilogue_deterministic(gen):
+    """100 repeats bit-identical: the serving fc1 and a split-K decode
+    step (fixed-order second pass), bf16 weights with z and int8."""
+    from paddle_tpu_torch.ops.matmul_epilogue import split_k
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert split_k(8, 2048, 8192, sms, wgmma=True) > 1
+    for M in (368, 8):
+        x = torch.randn(M, 2048, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        w = (torch.randn(2048, 8192, device="cuda", generator=gen)
+             / 45).to(torch.bfloat16)
+        b = torch.randn(8192, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w_q, scale = _int8_weight(2048, 8192, gen)
+        first = ops.fused_linear_act(x, w, b, "gelu_tanh", return_z=True)
+        first8 = ops.fused_linear_act_int8(x, w_q, scale, b, "gelu_tanh")
+        for _ in range(100):
+            out, z = ops.fused_linear_act(x, w, b, "gelu_tanh",
+                                          return_z=True)
+            assert torch.equal(out, first[0]) and torch.equal(z, first[1])
+            assert torch.equal(ops.fused_linear_act_int8(
+                x, w_q, scale, b, "gelu_tanh"), first8)
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)

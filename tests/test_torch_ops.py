@@ -189,6 +189,24 @@ def test_matmul_epilogue_split_k_choice():
         assert got == 1 or -(-k // 32) // got >= 4
 
 
+def test_matmul_epilogue_split_k_choice_wgmma():
+    """bf16 (the wgmma kernel: 128x128 tiles, one an SM, slices of 64):
+    split-K only where those tiles cannot fill 132 SMs -- a serving
+    step's out and fc2 GEMMs (48 tiles) take 2 chunks, decode steps 2-8,
+    qkv and fc1 (144 and 192 tiles) and the training shape none; every
+    chunk sums at least 4 slices of 64."""
+    from paddle_tpu_torch.ops.matmul_epilogue import split_k
+    cases = {(368, 2048, 6144): 1, (368, 2048, 2048): 2,
+             (368, 2048, 8192): 1, (368, 8192, 2048): 2,
+             (4096, 2048, 8192): 1, (4, 2048, 8192): 2, (4, 2048, 2048): 8,
+             (8, 8192, 2048): 8, (70, 200, 130): 1, (5, 17, 9): 1,
+             (88, 8192, 2048): 8, (1, 1 << 20, 64): 16}
+    for (m, k, n), want in cases.items():
+        got = split_k(m, k, n, 132, wgmma=True)
+        assert got == want, (m, k, n, got)
+        assert got == 1 or -(-k // 64) // got >= 4
+
+
 def test_wrappers_refuse_other_devices():
     x = torch.zeros(2, 4, device="meta")
     with pytest.raises(RuntimeError):
