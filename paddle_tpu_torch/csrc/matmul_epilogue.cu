@@ -68,8 +68,11 @@
 //    activation in f32 (the reference's `_act_f32`, pallas_fused.py:55;
 //    tanh-GELU's tanh by the hardware's approximation, `epilogue_act`)
 //    and one cast; each warp stages its 16 rows, 64 columns at a time, in
-//    its own shared rows and they leave with 16-byte stores, element by
-//    element only where N is off a multiple of 8;
+//    its own shared buffers: on the TMA route 128-byte swizzled and
+//    written by one TMA store (two buffers, so the next half is staged
+//    while the last is stored; the consumers go on to the next tile's
+//    products without waiting for the stores), else leaving with 16-byte
+//    stores, element by element only where N is off a multiple of 8;
 //  * the tiles go in groups of 8 row tiles, each group sweeping the
 //    columns, so the w columns the card reads at once stay in L2.
 // Where the 128 x 128 tiles do not fill the card's SMs (serving's N =
@@ -146,19 +149,20 @@ constexpr int kConsumers = 256;
 constexpr int kWideners = 96;  // int8 codes: producer warps 1-3 widen
 constexpr int kBoxBytes = kBK * 128;  // one [64 depth][64 columns] w box
 constexpr int kSmemMax = 232448;      // 227 KB a block
-constexpr int kOutLd = 64 + 8;        // a staged half row: 144 bytes
+constexpr int kOutLd = 64 + 8;        // element route: a staged half row
+constexpr int kHalfBytes = 16 * 128;  // TMA route: a warp's 16 x 64 half
 
 // Byte offsets in the block's shared memory (from a 1024-byte aligned
-// base): the x stages, the w stages, the int8 code
-// stages (int8 weights only), each consumer warp's staged output rows
-// (16 rows, one 64-column half at a time), the tile's bias and scale in
-// two buffers (a tile's, the next tile's), then the barriers.
+// base): the x stages, the w stages, the int8 code stages (int8 weights
+// only), each consumer warp's staged output rows (two 1024-byte aligned
+// buffers of 16 rows x 64 columns), the tile's bias and scale in two
+// buffers (a tile's, the next tile's), then the barriers.
 template <bool kInt8>
 struct Layout {
   static constexpr int kABytes = kBM * kBK * 2;
   static constexpr int kBBytes = kBK * kBN * 2;
   static constexpr int kRawBytes = kInt8 ? kBK * kBN : 0;
-  static constexpr int kOutWarpBytes = 16 * kOutLd * 2;
+  static constexpr int kOutWarpBytes = 2 * kHalfBytes;  // >= 16 * kOutLd * 2
   static constexpr int kFixed = (kConsumers / 32) * kOutWarpBytes +
                                 2 * 2 * kBN * 4 + 1024 + 256;
   // as many stages as fit beside the rest
@@ -268,10 +272,11 @@ __device__ __forceinline__ float epilogue_act(float z, int act) {
   return apply_act(z, act);
 }
 
-// One warp's 16 x kBN values (its accumulator fragment, `acc`) rounded
-// to bf16 and written to rows row0.. of dst [M, N]: each 64-column half
-// staged in the warp's shared rows, then 16 bytes a store (element by
-// element where N is off a multiple of 8 or the tile's edge).
+// The element route's store of one warp's 16 x kBN values (its
+// accumulator fragment, `acc`) rounded to bf16, to rows row0.. of dst
+// [M, N]: each 64-column half staged in the warp's shared rows, then 16
+// bytes a store (element by element where N is off a multiple of 8 or
+// the tile's edge).
 __device__ __forceinline__ void store_rows(const float (&acc)[kBN / 2],
                                            bf16* __restrict__ stage,
                                            bf16* __restrict__ dst,
@@ -308,6 +313,39 @@ __device__ __forceinline__ void store_rows(const float (&acc)[kBN / 2],
   }
 }
 
+// The TMA route's store of one warp's 16 x kBN values: each 64-column
+// half rounded to bf16 into one of the warp's two buffers, 128-byte
+// swizzled (bank-conflict free), fenced, then written by one bulk
+// tensor store from lane 0 (rows and columns past M and N left out by
+// TMA).  A buffer is rewritten only once its previous store has read it.
+__device__ __forceinline__ void tma_store_rows(const float (&acc)[kBN / 2],
+                                               uint8_t* __restrict__ bufs,
+                                               const CUtensorMap* map,
+                                               int row0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint8_t* buf = bufs + half * kHalfBytes;
+    if (lane == 0) bulk_wait_read<1>();
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * (8 * half + j) + 2 * h;
+        *reinterpret_cast<__nv_bfloat162*>(
+            buf + sw128((g + 8 * h) * 128 + 16 * j + 4 * q)) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
+      }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) {
+      tma_store_2d(map, buf, n0 + 64 * half, row0);
+      bulk_commit();
+    }
+  }
+}
+
 // Work item `wi` (a tile and, under split-K, a K chunk): the tile's first
 // row and column and its 64-deep slices [kt0, kt0 + nk).  Tiles go in
 // groups of 8 row tiles, each group sweeping the columns, so the w
@@ -338,6 +376,8 @@ template <typename TW, typename TB, bool kTma>
 __global__ void __launch_bounds__(kThreads, 1)
     me_fwd_wgmma(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_w,
+                 const __grid_constant__ CUtensorMap tm_out,
+                 const __grid_constant__ CUtensorMap tm_z,
                  const bf16* __restrict__ x, const TW* __restrict__ w,
                  const float* __restrict__ scale, const TB* __restrict__ b,
                  bf16* __restrict__ out, bf16* __restrict__ z,
@@ -421,8 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = (t >> 5) & 3, lane = t & 31, g = lane >> 2, q = lane & 3;
   const uint32_t a_base = smem_u32(smem + L::kA) + cw * 64 * 128;
   const uint32_t b_base = smem_u32(smem + L::kB);
-  bf16* stage = reinterpret_cast<bf16*>(smem + L::kOut +
-                                        (ct / 32) * L::kOutWarpBytes);
+  uint8_t* stage = smem + L::kOut + (ct / 32) * L::kOutWarpBytes;
   uint32_t it = 0, item = 0;
   for (int wi = blockIdx.x; wi < works; wi += gridDim.x, ++item) {
     int m0, n0, kt0, nk;
@@ -500,11 +539,21 @@ __global__ void __launch_bounds__(kThreads, 1)
           a = (scale != nullptr ? __fmul_rn(a, sc) : a) + bias;
         }
       }
-    if (z != nullptr) store_rows(acc, stage, z, row0, n0, M, N);
+    if constexpr (kTma) {
+      if (z != nullptr) tma_store_rows(acc, stage, &tm_z, row0, n0);
 #pragma unroll
-    for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
-    store_rows(acc, stage, out, row0, n0, M, N);
+      for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
+      tma_store_rows(acc, stage, &tm_out, row0, n0);
+    } else {
+      bf16* st = reinterpret_cast<bf16*>(stage);
+      if (z != nullptr) store_rows(acc, st, z, row0, n0, M, N);
+#pragma unroll
+      for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
+      store_rows(acc, st, out, row0, n0, M, N);
+    }
   }
+  // the stores are done before the block's shared memory goes
+  if (kTma && lane == 0) bulk_wait_all();
 }
 
 // TMA describes both operands: 16-byte aligned bases and row strides
@@ -516,6 +565,7 @@ bool tma_route(const void* x, const void* w, int K, int N) {
 // A persistent grid: one block an SM (at most one a work item).
 template <typename TW, typename TB, bool kTma>
 cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
+                   const CUtensorMap& tout, const CUtensorMap& tz,
                    const bf16* x, const TW* w, const float* scale,
                    const TB* b, bf16* out, bf16* z, float* partial, int M,
                    int K, int N, int chunk_tiles, int chunks, int act,
@@ -527,8 +577,8 @@ cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
   if (e != cudaSuccess) return e;
   const int works = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) * chunks;
   me_fwd_wgmma<TW, TB, kTma><<<min(works, sms), kThreads, kSmem, s>>>(
-      tx, tw, x, w, scale, b, out, z, partial, M, K, N, chunk_tiles, works,
-      act);
+      tx, tw, tout, tz, x, w, scale, b, out, z, partial, M, K, N,
+      chunk_tiles, works, act);
   return cudaGetLastError();
 }
 
@@ -742,9 +792,8 @@ cudaError_t me_fwd_bf16(const void* x, const void* w, const float* scale,
   const TB* bt = static_cast<const TB*>(b);
   bf16* o = static_cast<bf16*>(out);
   bf16* zt = static_cast<bf16*>(z);
-  CUtensorMap tx, tw;
-  std::memset(&tx, 0, sizeof(tx));
-  std::memset(&tw, 0, sizeof(tw));
+  CUtensorMap tx, tw, tout, tz;
+  for (CUtensorMap* m : {&tx, &tw, &tout, &tz}) std::memset(m, 0, sizeof(*m));
   cudaError_t e;
   int sms = 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
@@ -760,13 +809,21 @@ cudaError_t me_fwd_bf16(const void* x, const void* w, const float* scale,
                                           N, wg::kBK, wg::kBN, false)
                : ptt::wgmma::make_tmap_2d(&tw, w,
                                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                                          K, N, wg::kBK, 64, true));
+                                          K, N, wg::kBK, 64, true)) &&
+        (split || ptt::wgmma::make_tmap_2d(&tout, out,
+                                           CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                                           2, M, N, 16, 64, true)) &&
+        (split || z == nullptr ||
+         ptt::wgmma::make_tmap_2d(&tz, z, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                  M, N, 16, 64, true));
     if (!maps) return cudaErrorInvalidValue;
-    e = wg::launch<TW, TB, true>(tx, tw, xt, wt, scale, bt, o, zt, part, M, K,
-                                 N, chunk_tiles, chunks, act, sms, s);
+    e = wg::launch<TW, TB, true>(tx, tw, tout, tz, xt, wt, scale, bt, o, zt,
+                                 part, M, K, N, chunk_tiles, chunks, act, sms,
+                                 s);
   } else {
-    e = wg::launch<TW, TB, false>(tx, tw, xt, wt, scale, bt, o, zt, part, M,
-                                  K, N, chunk_tiles, chunks, act, sms, s);
+    e = wg::launch<TW, TB, false>(tx, tw, tout, tz, xt, wt, scale, bt, o, zt,
+                                  part, M, K, N, chunk_tiles, chunks, act,
+                                  sms, s);
   }
   if (e != cudaSuccess || part == nullptr) return e;
   const size_t total = static_cast<size_t>(M) * N;

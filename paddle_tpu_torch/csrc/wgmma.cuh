@@ -1,12 +1,12 @@
 // Hopper's warpgroup tensor-core path for sm_90a, as inline PTX: `wgmma`
 // (m64nNk16, bf16 x bf16 -> f32, A and B from shared memory), its
 // shared-memory matrix descriptors, `mbarrier`s with transaction counts,
-// TMA tile loads (`cp.async.bulk.tensor.2d`), the proxy fence between
-// threads' shared-memory writes and the tensor cores' reads, a named
-// barrier for the warps of some warpgroups, the special-function unit's
-// tanh, and on the host the TMA tensor maps, encoded through the
-// runtime's driver entry point (the library is not linked against
-// libcuda).
+// TMA tile loads and stores (`cp.async.bulk.tensor.2d`, bulk groups),
+// the proxy fence between threads' shared-memory writes and the tensor
+// cores' or TMA's reads, a named barrier for the warps of some
+// warpgroups, the special-function unit's tanh, and on the host the TMA
+// tensor maps, encoded through the runtime's driver entry point (the
+// library is not linked against libcuda).
 //
 // The 128-byte swizzle.  A tile row of 128 bytes (64 bf16 values) is
 // eight 16-byte chunks; in every 1024-byte aligned group of 8 rows, chunk
@@ -187,6 +187,30 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
 // reads by the tensor cores or TMA (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// shared `src` into the box at (c0 innermost, c1) of `map` (TMA store;
+// what falls outside the tensor is not written), in this thread's
+// current bulk group
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, "
+      "%3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// until all of this thread's bulk groups are complete
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ---- named barriers, fast tanh ------------------------------------------

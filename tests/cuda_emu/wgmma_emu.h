@@ -1,6 +1,7 @@
 // The stand-ins for the inline PTX of `csrc/wgmma.cuh` on the CPU
 // (cuda_runtime.h): mbarriers with arrival and transaction counts and
-// phases, TMA 2-D tile loads with zero fill and the 128-byte swizzle, and
+// phases, TMA 2-D tile loads with zero fill and stores that leave out
+// what falls outside the tensor, both with the 128-byte swizzle, and
 // `wgmma` m64nNk16 reading its operands through decoded descriptors.
 //
 // Shared addresses are offsets into the stand-in's dynamic shared memory
@@ -131,6 +132,33 @@ inline void emu_tma_load_2d(void* dst, const CUtensorMap* map, void* bar,
         std::memset(emu.dyn + off, 0, m.esize);
     }
   emu_mbar_complete_tx(bar, m.box0 * m.box1 * m.esize);
+}
+
+// shared `src` into the box at (c0, c1) of `map`, leaving out what falls
+// outside the tensor; synchronous (bulk groups complete at once)
+inline void emu_tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                             int c1) {
+  EmuTensorMap m;
+  std::memcpy(&m, map, sizeof(m));
+  const uint32_t base = emu_smem_off(src);
+  if ((base & 15) != 0 || (m.swizzle128 && (base & 1023) != 0)) {
+    std::fprintf(stderr, "cuda_emu: TMA store source %u misaligned\n", base);
+    std::abort();
+  }
+  for (uint32_t r = 0; r < m.box1; ++r)
+    for (uint32_t c = 0; c < m.box0; ++c) {
+      const long long gx = static_cast<long long>(c0) + c;
+      const long long gy = static_cast<long long>(c1) + r;
+      if (gx < 0 || gy < 0 || uint64_t(gx) >= m.dim0 ||
+          uint64_t(gy) >= m.dim1)
+        continue;
+      uint32_t off = base + (r * m.box0 + c) * m.esize;
+      if (m.swizzle128) off = emu_sw128(off);
+      std::memcpy(const_cast<unsigned char*>(
+                      static_cast<const unsigned char*>(m.base)) +
+                      gy * m.stride1 + gx * m.esize,
+                  emu.dyn + off, m.esize);
+    }
 }
 
 inline float emu_smem_bf16(uint32_t off) {

@@ -54,7 +54,10 @@ _STANDINS = (
     ("mbarrier.arrive.expect_tx", "emu_mbar_arrive(bar, bytes);"),
     ("mbarrier.arrive", "emu_mbar_arrive(bar, 0);"),
     ("mbarrier.try_wait", "ok = emu_mbar_wait(bar, parity);"),
-    ("cp.async.bulk.tensor", "emu_tma_load_2d(dst, map, bar, c0, c1);"),
+    ("tensor.2d.shared::cluster", "emu_tma_load_2d(dst, map, bar, c0, c1);"),
+    ("tensor.2d.global.shared", "emu_tma_store_2d(map, src, c0, c1);"),
+    ("cp.async.bulk.commit_group", ";"),
+    ("cp.async.bulk.wait_group", ";"),
     ("fence.proxy.async", ";"),
     ("wgmma.mma_async", None),
     ("wgmma.fence", ";"),
@@ -78,7 +81,7 @@ def _emulated_wgmma_header(text):
                 return standin + "\n"
         raise AssertionError(f"no stand-in for {asm[:80]!r}")
     out, n = re.subn(r"asm volatile\(.*?\);\n", sub, text, flags=re.S)
-    assert n == 14, f"wgmma.cuh has {n} asm statements, the stand-in knows 14"
+    assert n == 18, f"wgmma.cuh has {n} asm statements, the stand-in knows 18"
     return out.replace("#include <cstdint>\n",
                        '#include <cstdint>\n\n#include "wgmma_emu.h"\n', 1)
 
