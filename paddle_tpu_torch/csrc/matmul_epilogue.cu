@@ -26,8 +26,8 @@
 // the design (bf16 x, `csrc/wgmma.cuh`):
 //  * a persistent block an SM, of three warpgroups, walks over 128 x 128
 //    output tiles (and, under split-K, K chunks).  The producer
-//    warpgroup keeps a ring of stages in flight (as many as fit: 6 for
-//    bf16 weights, 5 with int8 codes), each a 128 x 64 slice of x and a
+//    warpgroup keeps a ring of stages in flight (as many as fit: 5 for
+//    bf16 weights, 4 with int8 codes), each a 128 x 64 slice of x and a
 //    64 x 128 slice of w (two [64][64] boxes), 128-byte swizzled; each
 //    stage has a full and an empty mbarrier.  The two consumer
 //    warpgroups run `wgmma` m64n128k16 on their 64 rows of a stage that
