@@ -24,11 +24,12 @@
 //    for fc1's 33.5 MB at 3.35 TB/s).
 // The full tensor-core rate is reached only through `wgmma` fed by TMA;
 // the design (bf16 x, `csrc/wgmma.cuh`):
-//  * a persistent block an SM, of three warpgroups, walks over 128 x 128
-//    output tiles (and, under split-K, K chunks).  The producer
-//    warpgroup keeps a ring of stages in flight (as many as fit: 5 for
-//    bf16 weights, 4 with int8 codes), each a 128 x 64 slice of x and a
-//    64 x 128 slice of w (two [64][64] boxes), 128-byte swizzled; each
+//  * a persistent block an SM, of three warpgroups (four with int8
+//    codes), walks over 128 x 128 output tiles (and, under split-K, K
+//    chunks).  The producer keeps a ring of stages in flight (as many as
+//    fit: 5 for bf16 weights, 4 with int8 codes), each a 128 x 64 slice
+//    of x and a 64 x 128 slice of w (two [64][64] boxes), 128-byte
+//    swizzled; each
 //    stage has a full and an empty mbarrier.  The two consumer
 //    warpgroups run `wgmma` m64n128k16 on their 64 rows of a stage that
 //    has arrived (x K-major, w MN-major through the instruction's
@@ -54,9 +55,10 @@
 //  * int8 weights: `wgmma` has no bf16 x int8 form, so the codes become
 //    bf16 before the product.  One producer thread loads x's slice and
 //    the int8 tile (64 x 128 codes, a ring beside the stages) by TMA as
-//    far ahead as the ring allows; producer warps 1-3 widen each tile
-//    into the stage's swizzled bf16 w slice, fence and arrive (the full
-//    barrier counts their 96 arrivals beside x's bytes).  Widening in
+//    far ahead as the ring allows; seven more producer warps (a second
+//    producer warpgroup: 512 threads a block) widen each tile into the
+//    stage's swizzled bf16 w slice, fence and arrive (the full barrier
+//    counts their 224 arrivals beside x's bytes).  Widening in
 //    shared memory keeps the consumers' code the bf16 path's; swapping
 //    the operands to widen in registers would put the weight in the A
 //    slot as its transpose, which the instruction does not read from
@@ -144,9 +146,12 @@ using namespace ptt::wgmma;
 constexpr int kBM = 128;       // tile rows: 64 a consumer warpgroup
 constexpr int kBN = 128;       // tile columns: one m64n128k16 a 16-deep step
 constexpr int kBK = 64;        // one 128-byte swizzled row of bf16
-constexpr int kThreads = 384;  // the producer warpgroup, then two consumers
 constexpr int kConsumers = 256;
-constexpr int kWideners = 96;  // int8 codes: producer warps 1-3 widen
+// The producer threads: one warpgroup (one thread of it loads by TMA, or
+// all 128 stage element by element); two for int8 codes by TMA, whose
+// warps 1-7 widen the codes.  The two consumer warpgroups follow.
+template <bool kWiden>
+constexpr int kProducers = kWiden ? 256 : 128;
 constexpr int kBoxBytes = kBK * 128;  // one [64 depth][64 columns] w box
 constexpr int kSmemMax = 232448;      // 227 KB a block
 constexpr int kOutLd = 64 + 8;        // element route: a staged half row
@@ -205,11 +210,12 @@ __device__ __forceinline__ uint2 widen4(uint32_t q) {
 
 // A stage's 64 x kBN int8 codes (row-major, as TMA left them) widened
 // into its swizzled bf16 w boxes by widening thread u (of kWideners).
+template <int kWideners>
 __device__ __forceinline__ void widen_tile(uint8_t* __restrict__ b_tile,
                                            const uint8_t* __restrict__ raw,
                                            int u) {
   constexpr int kChunks = kBN / 16;  // 16 codes a load
-#pragma unroll 2
+#pragma unroll
   for (int c = u; c < kBK * kChunks; c += kWideners) {
     const int k = c / kChunks, n = (c % kChunks) * 16;
     const uint4 q = *reinterpret_cast<const uint4*>(raw + k * kBN + n);
@@ -371,9 +377,9 @@ __device__ __forceinline__ void work_item(int wi, int M, int N, int K,
 // staging route.  Persistent: block b takes work items b, b + gridDim.x,
 // ... of the `works` (tiles x K chunks); the stage ring runs on across
 // them, so the producer loads the next tile while the consumers finish
-// this one's epilogue.  Block: kThreads.
-template <typename TW, typename TB, bool kTma>
-__global__ void __launch_bounds__(kThreads, 1)
+// this one's epilogue.  Block: kBlock = kProducers + kConsumers threads.
+template <typename TW, typename TB, bool kTma, int kBlock>
+__global__ void __launch_bounds__(kBlock, 1)
     me_fwd_wgmma(const __grid_constant__ CUtensorMap tm_x,
                  const __grid_constant__ CUtensorMap tm_w,
                  const __grid_constant__ CUtensorMap tm_out,
@@ -385,6 +391,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                  int chunk_tiles, int works, int act) {
   constexpr bool kInt8 = std::is_same<TW, int8_t>::value;
   using L = Layout<kInt8>;
+  constexpr int kProd = kBlock - kConsumers;
+  static_assert(kProd == kProducers<kTma && kInt8>, "the block's producers");
+  constexpr int kWideners = kProd - 32;
   constexpr int kStages = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem =
@@ -406,7 +415,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  if (t < 128) {
+  if (t < kProd) {
     // ---- the producer warpgroup: the same sequence of slices as the
     // consumers, `it` counting them across the work items
     uint8_t* a_st = smem + L::kA;
@@ -438,10 +447,10 @@ __global__ void __launch_bounds__(kThreads, 1)
             mbar_arrive_expect_tx(&raw_full[s], L::kRawBytes);
             tma_load_2d(raw + s * L::kRawBytes, &tm_w, &raw_full[s], n0, k0);
           } else {
-            // the wideners (warps 1-3): the codes into the bf16 slice
+            // the wideners (warps 1-7): the codes into the bf16 slice
             mbar_wait(&raw_full[s], ph);
-            widen_tile(b_st + s * L::kBBytes, raw + s * L::kRawBytes,
-                       t - 32);
+            widen_tile<kWideners>(b_st + s * L::kBBytes,
+                                  raw + s * L::kRawBytes, t - 32);
             fence_proxy_async();
             mbar_arrive(&full[s]);
           }
@@ -457,7 +466,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // ---- the consumer warpgroups: rows 64 * cw.. of each tile
-  const int cw = t / 128 - 1, ct = t - 128;
+  const int ct = t - kProd, cw = ct / 128;
   const int warp = (t >> 5) & 3, lane = t & 31, g = lane >> 2, q = lane & 3;
   const uint32_t a_base = smem_u32(smem + L::kA) + cw * 64 * 128;
   const uint32_t b_base = smem_u32(smem + L::kB);
@@ -571,12 +580,14 @@ cudaError_t launch(const CUtensorMap& tx, const CUtensorMap& tw,
                    int K, int N, int chunk_tiles, int chunks, int act,
                    int sms, cudaStream_t s) {
   constexpr int kSmem = Layout<std::is_same<TW, int8_t>::value>::kAlloc;
+  constexpr int kBlock =
+      kProducers<kTma && std::is_same<TW, int8_t>::value> + kConsumers;
   const cudaError_t e = cudaFuncSetAttribute(
-      me_fwd_wgmma<TW, TB, kTma>,
+      me_fwd_wgmma<TW, TB, kTma, kBlock>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (e != cudaSuccess) return e;
   const int works = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN) * chunks;
-  me_fwd_wgmma<TW, TB, kTma><<<min(works, sms), kThreads, kSmem, s>>>(
+  me_fwd_wgmma<TW, TB, kTma, kBlock><<<min(works, sms), kBlock, kSmem, s>>>(
       tx, tw, tout, tz, x, w, scale, b, out, z, partial, M, K, N,
       chunk_tiles, works, act);
   return cudaGetLastError();
