@@ -215,9 +215,11 @@ phase fails.  Phases:
     beside phase 9's dense cache and the token match against phase 9;
 26. bf16 parity: GPT_1P3B's width cut to 2 layers, numpy weights, f32
     master weights under ``auto_cast(bf16, O1)`` with flash attention and
-    recompute: 3 AdamW steps on the card and on the CPU (plain versions),
-    losses within ``BF16_LOSS_RTOL`` (2e-2 relative) of each other, step-1
-    gradients and final parameters reported; then the engine with bf16
+    recompute: 3 AdamW steps on the card and on the CPU (plain versions):
+    losses, step-1 gradients and the 3 steps' parameter updates within
+    ``BF16_PARITY_TOL`` of the CPU's, each gate set between this run's
+    reading and the control's (the same card run with fc1's bias
+    dropped), which must fail every gate; then the engine with bf16
     weights on phase 3's 4 requests, 16 greedy tokens each, the token
     match ratio card vs CPU reported.
 
@@ -3668,12 +3670,42 @@ def phase_paged(pt, ops, gen_keep, gen_summary):
 # ---------------------------------------------------------------------
 # phase 26: bf16 parity, GPT at full width, 2 layers
 # ---------------------------------------------------------------------
-#: bf16 O1 losses, card against the CPU's plain run: relative 2e-2, about
-#: 2.5 bf16 ulps (2^-7 = 0.0078 relative each).  The two sides round to
-#: bf16 at the same ops (O1's white list) but sum in other orders, and
-#: the card's flash kernels round P and dS to bf16 where the plain
-#: version keeps f32, so agreement is to bf16 precision, not f32's.
-BF16_LOSS_RTOL = 2e-2
+#: bf16 O1 on the card against the CPU's plain run: the losses' largest
+#: relative error, the step-1 gradients' largest error over that
+#: gradient's largest magnitude, and the error norm of the 3 AdamW steps'
+#: parameter updates over the updates' norm, all parameters together (Adam
+#: moves each element by about lr a step, so an element's largest error
+#: says only whether its sign flipped: the qkv biases' key slices, whose
+#: gradient is 0 in exact arithmetic, flip on either side).  The two
+#: sides round to bf16 at the same ops (O1's white list) but sum in other
+#: orders, and the card's flash kernels round P and dS to bf16 where the
+#: plain version keeps f32, so agreement is to bf16 precision.  Each gate
+#: lies between this run's reading and the control's, the card run with
+#: fc1's bias dropped (its weights zeroed: what an epilogue that lost the
+#: bias would compute), which must fail every gate.  Readings on an H100
+#: 80GB HBM3 at 700 W: 7.15e-5, 7.25e-3, 2.42e-2; control 4.40e-4,
+#: 9.31e-2, 0.113.
+BF16_PARITY_TOL = dict(loss=2e-4, grad=2.5e-2, update=5e-2)
+
+
+def bf16_parity_readings(run, cpu, start, cpu_start):
+    """`BF16_PARITY_TOL`'s readings of a card run against the CPU's (the
+    updates each from its own starting weights), and the largest
+    parameter error."""
+    import torch
+    (l_a, g_a, p_a), (l_b, g_b, p_b) = run[:3], cpu[:3]
+    loss = max(abs(a - b) / abs(b) for a, b in zip(l_a, l_b))
+    grad = max((float((g_a[n] - g_b[n]).abs().max())
+                / max(float(g_b[n].abs().max()), 1e-30), n) for n in g_b)
+    du = uu = 0.0
+    for n in p_b:
+        u_a = p_a[n] - torch.from_numpy(start[n])
+        u_b = p_b[n] - torch.from_numpy(cpu_start[n])
+        du += float((u_a - u_b).square().sum())
+        uu += float(u_b.square().sum())
+    param = max(float((p_a[n] - p_b[n]).abs().max()) for n in p_b)
+    return dict(loss=loss, grad=grad[0], grad_at=grad[1],
+                update=(du / uu) ** 0.5, param_max_abs_err=param)
 
 
 def phase_bf16_parity(pt, ops):
@@ -3681,9 +3713,10 @@ def phase_bf16_parity(pt, ops):
     port's CPU plain run (which tier-1 holds to the reference) from the
     same numpy weights and inputs: 3 AdamW steps with f32 master weights
     under ``auto_cast(bf16, O1)``, flash attention and recompute (phase
-    8's path), losses held to `BF16_LOSS_RTOL`; then the engine with bf16
-    weights on phase 3's 4 requests, 16 greedy tokens each, the token
-    match ratio reported."""
+    8's path), held to `BF16_PARITY_TOL`, and the control (the card run
+    with fc1's bias dropped) shown to fail each gate; then the engine
+    with bf16 weights on phase 3's 4 requests, 16 greedy tokens each, the
+    token match ratio reported."""
     import numpy as np
     import torch
     phase = "bf16 parity"
@@ -3700,25 +3733,35 @@ def phase_bf16_parity(pt, ops):
     labels = ids.copy()
     labels[0, :3] = -100
     params = numpy_weights(pt.GPTForCausalLM(cfg, device="cpu"), SEED + 2)
+    no_bias = {n: np.zeros_like(a) if n.endswith("mlp.fc1.bias") else a
+               for n, a in params.items()}
     runs = {}
-    for device in ("cuda", "cpu"):
-        runs[device] = train_parity_run(
+    for name, device, start in (("control", "cuda", no_bias),
+                                ("card", "cuda", params),
+                                ("cpu", "cpu", params)):
+        runs[name] = train_parity_run(
             pt, ops, lambda dev: pt.GPTForCausalLM(cfg, device=dev),
-            loss_of, params, ids, labels, device)
+            loss_of, start, ids, labels, device)
         torch.cuda.empty_cache()
-    (l_gpu, g_gpu, p_gpu, counts, _), (l_cpu, g_cpu, p_cpu, _, _) = \
-        runs["cuda"], runs["cpu"]
-    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
-    grad_err, grad_at = max(
-        (float((g_gpu[n] - g_cpu[n]).abs().max())
-         / max(float(g_cpu[n].abs().max()), 1e-30), n) for n in g_cpu)
-    param_err = max(float((p_gpu[n] - p_cpu[n]).abs().max()) for n in p_cpu)
-    say(f"  losses card {l_gpu}, CPU {l_cpu}: max rel err {loss_err:.3e} "
-        f"(tolerance {BF16_LOSS_RTOL:g}); reported: step-1 grads max err / "
-        f"max |grad| {grad_err:.3e} at {grad_at}, params after 3 steps max "
-        f"|err| {param_err:.3e}")
-    if loss_err > BF16_LOSS_RTOL:
-        fail(f"{phase}: losses {l_gpu} on the card vs {l_cpu} on the CPU")
+    counts = runs["card"][3]
+    got = bf16_parity_readings(runs["card"], runs["cpu"], params, params)
+    ctl = bf16_parity_readings(runs["control"], runs["cpu"], no_bias,
+                               params)
+    say(f"  losses card {runs['card'][0]}, CPU {runs['cpu'][0]}, control "
+        f"(fc1's bias dropped) {runs['control'][0]}")
+    for key in BF16_PARITY_TOL:
+        where = f" at {got[key + '_at']} (control at {ctl[key + '_at']})" \
+            if key + "_at" in got else ""
+        say(f"  {key}: {got[key]:.3e}, control {ctl[key]:.3e}, tolerance "
+            f"{BF16_PARITY_TOL[key]:g}{where}")
+    say(f"  params after 3 steps max |err| {got['param_max_abs_err']:.3e} "
+        f"(control {ctl['param_max_abs_err']:.3e}), reported")
+    for key, tol in BF16_PARITY_TOL.items():
+        if got[key] > tol:
+            fail(f"{phase}: {key} reading {got[key]:.3e} over {tol:g}")
+        if ctl[key] <= tol:
+            fail(f"{phase}: the control's {key} reading {ctl[key]:.3e} is "
+                 f"within {tol:g}: the gate cannot see fc1's bias dropped")
     check_counts(phase, counts, 3, cfg.num_hidden_layers, "train_flash")
 
     serve_cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
@@ -3752,9 +3795,9 @@ def phase_bf16_parity(pt, ops):
         f"{match:.4f}, reported)")
     check_counts(phase, serve_counts, steps, serve_cfg.num_hidden_layers,
                  "serve")
-    return dict(losses_cuda=l_gpu, losses_cpu=l_cpu,
-                loss_max_rel_err=loss_err, loss_rtol=BF16_LOSS_RTOL,
-                grad_max_rel_err=grad_err, param_max_abs_err=param_err,
+    return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
+                losses_control=runs["control"][0], readings=got,
+                control=ctl, tolerance=BF16_PARITY_TOL,
                 greedy_match_ratio=match)
 
 

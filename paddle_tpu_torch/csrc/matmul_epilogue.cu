@@ -67,8 +67,8 @@
 //    product is the reference's; only the order of the sum differs;
 //  * the epilogue from the accumulators: (* scale, rounded on its own,
 //    never fused into an fma), + bias, z cast once and staged, then the
-//    activation in f32 (the reference's `_act_f32`, pallas_fused.py:55;
-//    tanh-GELU's tanh by the hardware's approximation, `epilogue_act`)
+//    activation in f32 (the reference's `_act_f32`, pallas_fused.py:55,
+//    `ptt::apply_act`, as the split-K pass and the f32 kernel apply it)
 //    and one cast; each warp stages its 16 rows, 64 columns at a time, in
 //    its own shared buffers: on the TMA route 128-byte swizzled and
 //    written by one TMA store (two buffers, so the next half is staged
@@ -263,19 +263,6 @@ __device__ __forceinline__ void stage_elements(
                               sw128(k * 128 + (ch % 8) * 16)) =
         *reinterpret_cast<const uint4*>(v);
   }
-}
-
-// The epilogue's activation: `ptt::apply_act` (the reference's
-// `_act_f32`, its formulas and constants), but for tanh-GELU, the main
-// path's, the tanh by the hardware's approximation (`fast_tanh`, within
-// 2^-10.7 relative, under the half ulp, 2^-9, of the bf16 the value is
-// rounded to); the f32 kernel keeps the exact tanhf.
-__device__ __forceinline__ float epilogue_act(float z, int act) {
-  if (act == kActGeluTanh)
-    return 0.5f * z *
-           (1.f + fast_tanh(0.7978845608028654f *
-                            (z + 0.044715f * z * z * z)));
-  return apply_act(z, act);
 }
 
 // The element route's store of one warp's 16 x kBN values (its
@@ -551,13 +538,13 @@ __global__ void __launch_bounds__(kBlock, 1)
     if constexpr (kTma) {
       if (z != nullptr) tma_store_rows(acc, stage, &tm_z, row0, n0);
 #pragma unroll
-      for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
+      for (int r = 0; r < kBN / 2; ++r) acc[r] = apply_act(acc[r], act);
       tma_store_rows(acc, stage, &tm_out, row0, n0);
     } else {
       bf16* st = reinterpret_cast<bf16*>(stage);
       if (z != nullptr) store_rows(acc, st, z, row0, n0, M, N);
 #pragma unroll
-      for (int r = 0; r < kBN / 2; ++r) acc[r] = epilogue_act(acc[r], act);
+      for (int r = 0; r < kBN / 2; ++r) acc[r] = apply_act(acc[r], act);
       store_rows(acc, st, out, row0, n0, M, N);
     }
   }

@@ -4,7 +4,7 @@
 // TMA tile loads and stores (`cp.async.bulk.tensor.2d`, bulk groups),
 // the proxy fence between threads' shared-memory writes and the tensor
 // cores' or TMA's reads, a named barrier for the warps of some
-// warpgroups, the special-function unit's tanh, and on the host the TMA
+// warpgroups, and on the host the TMA
 // tensor maps, encoded through the runtime's driver entry point (the
 // library is not linked against libcuda).
 //
@@ -213,18 +213,11 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// ---- named barriers, fast tanh ------------------------------------------
+// ---- named barriers ------------------------------------------------------
 // a barrier of `count` threads (whole warps) on hardware barrier `id`
 // (0 is __syncthreads')
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-// tanh by the special-function unit (one instruction; relative error
-// at most 2^-10.7)
-__device__ __forceinline__ float fast_tanh(float v) {
-  float r;
-  asm volatile("tanh.approx.f32 %0, %1;\n" : "=f"(r) : "f"(v));
-  return r;
 }
 
 // ---- host: tensor maps ---------------------------------------------------

@@ -33,7 +33,7 @@ import torch
 from . import cuda_lib
 
 __all__ = ["ACTIVATIONS", "act_f32", "act_grad_f32", "linear_act_ref",
-           "split_k", "fused_linear_act", "linear_act_bwd_ref",
+           "split_k", "tma_route", "fused_linear_act", "linear_act_bwd_ref",
            "fused_linear_act_bwd", "linear_act", "linear_act_int8_ref",
            "fused_linear_act_int8"]
 
@@ -140,15 +140,21 @@ def _split_scratch(M, K, N, device, dtype):
                                device=device)
 
 
+def tma_route(x, w, K, N):
+    """Whether a bf16 forward stages x ``[M, K]`` and w ``[K, N]`` by TMA
+    tile loads: the kernel's rule (``ptt_matmul_epilogue_tma_route``),
+    16-byte aligned bases and row strides for both; else element by
+    element."""
+    return (K > 0 and N > 0 and x.data_ptr() % 16 == 0
+            and K * x.element_size() % 16 == 0 and w.data_ptr() % 16 == 0
+            and N * w.element_size() % 16 == 0)
+
+
 def _count_route(wrapper, x, w, K, N):
-    """Count a bf16 launch under the staging route the kernel takes (the
-    library's own rule): TMA tile loads, or element by element where TMA
-    cannot describe x or w (a row stride or base off 16 bytes)."""
+    """Count a bf16 launch under the staging route the kernel takes."""
     if x.dtype != torch.bfloat16:
         return
-    tma = cuda_lib.library().ptt_matmul_epilogue_tma_route(
-        x.data_ptr(), w.data_ptr(), K, N, w.element_size())
-    if tma:
+    if tma_route(x, w, K, N):
         wrapper.tma_launches += 1
     else:
         wrapper.elementwise_launches += 1

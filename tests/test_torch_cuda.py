@@ -41,7 +41,8 @@ matmul epilogue (``wgmma``) and its int8 twin are also held at the
 GPT_1P3B paths' shapes (serving fc1, decode steps of 4 and 8 rows, the
 training drive's 4096 rows with z; int8 qkv, out, fc1 and fc2), counted
 by staging route (TMA, or element by element for rows off 16 bytes), and
-100 repeats are bit-identical.  The grouped-expert matmul's
+100 repeats are bit-identical; tanh-GELU's negative tail (z in [-6, -1],
+exact products) within two bf16 ulps of the plain version.  The grouped-expert matmul's
 forward (both weight layouts) and dw kernels are held to their plain
 versions at block rows 8, 16 and 128 with empty experts and an all-null
 buffer (exact zeros there), dw as a column sum; the bf16 forward also
@@ -627,6 +628,47 @@ def test_matmul_epilogue_staging_routes(gen, int8):
         assert (tma - r0[0], elem - r0[1]) == (
             (1, 0) if route == "tma" else (0, 1)), (N, route)
         _close(out, want, torch.bfloat16)
+
+
+#: (weights, M, K, N): serving fc1 (TMA), a decode step's 4 rows
+#: (split-K's second pass), N = 130 (element-wise staging)
+_GELU_TAIL_CASES = [("bf16", 368, 2048, 8192), ("bf16", 4, 2048, 8192),
+                    ("bf16", 70, 200, 130), ("int8", 368, 2048, 8192),
+                    ("int8", 4, 2048, 8192)]
+
+
+@pytest.mark.parametrize("weights,M,K,N", _GELU_TAIL_CASES)
+def test_matmul_epilogue_gelu_tanh_tail(gen, weights, M, K, N):
+    """tanh-GELU for z in [-6, -1], where 1 + tanh cancels, within two
+    bf16 ulps of the plain version (`assert_gelu_tail`; the products
+    exact, so both sides see the same z): an approximate tanh shows
+    here, not under the 2e-2 gate."""
+    from test_torch_matmul_epilogue_emulated import (assert_gelu_tail,
+                                                     gelu_tail_inputs)
+    x, w, b, z = gelu_tail_inputs(M, K, N, weights == "int8", gen, "cuda")
+    if weights == "int8":
+        out = ops.fused_linear_act_int8(x, *w, b, "gelu_tanh")
+        want = ops.linear_act_int8_ref(x, *w, b, "gelu_tanh")
+    else:
+        out = ops.fused_linear_act(x, w, b, "gelu_tanh")
+        want = ops.linear_act_ref(x, w, b, "gelu_tanh")
+    assert_gelu_tail(out, want, z)
+
+
+def test_matmul_epilogue_route_rule_matches_the_kernel(gen):
+    """The wrappers count routes by `tma_route`, a Python copy of the
+    kernel's rule: both answer the same on card tensors."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.matmul_epilogue import tma_route
+    from test_torch_matmul_epilogue_emulated import (ROUTE_CASES,
+                                                     route_operands)
+    lib = cuda_lib.library()
+    for case in ROUTE_CASES:
+        x, w = route_operands(*case[:-1], device="cuda")
+        K, N = w.shape
+        assert tma_route(x, w, K, N) == case[-1], case
+        assert lib.ptt_matmul_epilogue_tma_route(
+            x.data_ptr(), w.data_ptr(), K, N, w.element_size()) == case[-1]
 
 
 def test_matmul_epilogue_deterministic(gen):
