@@ -10,12 +10,13 @@ phase fails.  Phases:
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed); the registers and stack/local
-   bytes of every flash attention, grouped matmul and ``wgmma`` kernel
-   instantiation; the ``wgmma`` kernels (the bf16 matmul epilogue, rows
-   3 and 11, and ``csrc/wgmma_check.cu``) must not spill and their SASS
-   must hold HGMMA; then the ``wgmma`` self-check: one TMA-loaded,
-   transpose-B product of small integers, and the same product staged by
-   the threads, each exactly equal to ``torch.mm``;
+   bytes of every flash attention, grouped matmul, ``wgmma`` and
+   layer-norm vector-route kernel instantiation; the ``wgmma`` kernels
+   (the bf16 matmul epilogue, rows 3 and 11, and ``csrc/wgmma_check.cu``)
+   must not spill and their SASS must hold HGMMA; then the ``wgmma``
+   self-check: one TMA-loaded, transpose-B product of small integers,
+   and the same product staged by the threads, each exactly equal to
+   ``torch.mm``;
 2. kernels: one untimed launch of every kernel first, then each kernel
    against its plain PyTorch version on the card, at the shapes the
    serving and the training drives give it (flash attention: the flash
@@ -30,15 +31,18 @@ phase fails.  Phases:
    errors against stated tolerances and CUDA-event times of the kernel,
    the plain version and (where one PyTorch call computes the same
    function) the library call, beside the least time the card could take
-   (``bound_ms``); the matmul epilogue (row 3) at the serving step's
-   fc1 (368 x 2048 @ 2048 x 8192, gelu_tanh), a decode step's 4 rows and
-   the training drive's 4096 rows with z saved, each run twice and held
-   bit-identical; the int8 serving kernels at the serving drive's shapes
-   too (the int8 matmul epilogue at GPT_1P3B's qkv, out, fc1 and fc2 on
-   368 rows, each run twice and held bit-identical, beside
-   ``torch._weight_int8pack_mm`` and the float twin, the same GEMM with
-   bias and activation on a bf16 copy of the dequantized weight; int8
-   ragged attention at the mixed step with int8 pools);
+   (``bound_ms``); layer norm forward and backward (rows 2 and 6) also
+   at the flash drive's 8192 rows and the BERT drive's [8192, 768], each
+   run twice and held bit-identical; the matmul epilogue (row 3) at the
+   serving step's fc1 (368 x 2048 @ 2048 x 8192, gelu_tanh), a decode
+   step's 4 rows and the training drive's 4096 rows with z saved, each
+   run twice and held bit-identical; the int8 serving kernels at the
+   serving drive's shapes too (the int8 matmul epilogue at GPT_1P3B's
+   qkv, out, fc1 and fc2 on 368 rows, each run twice and held
+   bit-identical, beside ``torch._weight_int8pack_mm`` and the float
+   twin, the same GEMM with bias and activation on a bf16 copy of the
+   dequantized weight; int8 ragged attention at the mixed step with int8
+   pools);
    and the grouped-expert matmul's forward and dw kernels at the MoE
    drives' shapes with skewed expert counts (one expert empty, one
    holding almost everything): the serving step's 736 assignments (368
@@ -75,11 +79,13 @@ phase fails.  Phases:
    prefix plus a 4-64 token tail, 64 greedy tokens each (the
    ``gpt_decode`` trace of bench.py at the 1.3B width).  Every kernel's
    launch count is set to 0 just before and read just after; each must
-   equal its launches per step times the steps, and every bf16 matmul
-   epilogue launch must have taken the TMA staging route (the same in
-   every serving and training drive: `check_routes`).  A second, profiled
-   burst (8 of the prompts, 16 tokens) then splits device time by
-   kernel and gives the device's idle share (``torch.profiler``);
+   equal its launches per step times the steps; every bf16 matmul
+   epilogue launch since phase 2 must have taken the TMA staging route
+   and every layer-norm launch (forward and backward) the vector route
+   (checked after every drive and parity run: `check_routes`, run by
+   `check_counts`).  A second, profiled burst (8 of the prompts, 16
+   tokens) then splits device time by kernel and gives the device's idle
+   share (``torch.profiler``);
 5. training parity: GPT at full width cut to 2 layers, f32, no AMP,
    ``use_flash_attention=False``, weights from a numpy seed, B=2, S=128:
    3 AdamW steps on the card (kernels) and on the CPU (plain versions)
@@ -390,23 +396,26 @@ def compare(got, want, dtype_name, atol=None, rtol=None):
 # ---------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------
-def check_layer_norm(ops, rows, dtype, dtype_name, gen):
+def check_layer_norm(ops, rows, dtype, dtype_name, gen, n=HIDDEN):
+    """Row 2 on x [rows, n]; run twice, bit-identical."""
     import torch
-    n = HIDDEN
     x = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
     b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
-    out, mu, rstd = ops.fused_layer_norm(x, g, b)
+    first = ops.fused_layer_norm(x, g, b)
+    out, mu, rstd = first
     ref, mu_ref, rstd_ref = ops.layer_norm_ref(x, g, b)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
     ok = ok and compare(mu, mu_ref, "float32")[2] \
         and compare(rstd, rstd_ref, "float32")[2]
+    same = repeat_equal(lambda: ops.fused_layer_norm(x, g, b), first)
     isz = x.element_size()
     nbytes = 2 * rows * n * isz + 2 * n * isz + 2 * rows * 4
     bms, by = bound(nbytes, 8 * rows * n, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok, shape=f"x[{rows},{n}]",
+        err=err, rel=rel, ok=ok and same, shape=f"x[{rows},{n}]",
+        note=f"second run bit-identical: {same}",
         ms=time_ms(lambda: ops.fused_layer_norm(x, g, b)),
         plain_ms=time_ms(lambda: ops.layer_norm_ref(x, g, b)),
         library_ms=time_ms(lambda: torch.nn.functional.layer_norm(
@@ -643,10 +652,10 @@ def compare_sum(got, want, abs_sum, dtype_name):
     return err, ok, atol
 
 
-def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
-    """The training drive's layer-norm backward: x, do [4096, 2048]."""
+def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen, n=HIDDEN):
+    """Row 6 on x, do [rows, n] (the training drive's: [4096, 2048]); run
+    twice, bit-identical."""
     import torch
-    n = HIDDEN
     x = (torch.randn(rows, n, device="cuda", generator=gen)
          + 0.5).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
@@ -654,10 +663,12 @@ def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
     do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     _, mu, rstd = ops.layer_norm_ref(x, g, b)
     args = (x, g, mu, rstd, do)
-    dx, dg, db = ops.fused_layer_norm_bwd(*args)
+    first = ops.fused_layer_norm_bwd(*args)
+    dx, dg, db = first
     dx_r, dg_r, db_r = ops.layer_norm_bwd_ref(*args)
     torch.cuda.synchronize()
     err, rel, ok = compare(dx, dx_r, dtype_name)
+    same = repeat_equal(lambda: ops.fused_layer_norm_bwd(*args), first)
     xhat = (x.float() - mu[:, None]) * rstd[:, None]
     dg_err, dg_ok, dg_tol = compare_sum(
         dg, dg_r, (do.float() * xhat).abs().sum(0), dtype_name)
@@ -673,10 +684,11 @@ def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
         return torch.ops.aten.native_layer_norm_backward(
             do, x, [n], mean, rs, g, b, [True, True, True])
     return dict(
-        err=max(err, dg_err, db_err), rel=rel, ok=ok and dg_ok and db_ok,
-        shape=f"x[{rows},{n}]",
+        err=max(err, dg_err, db_err), rel=rel,
+        ok=ok and dg_ok and db_ok and same, shape=f"x[{rows},{n}]",
         note=(f"dx max abs err {err:.3e}; dgamma {dg_err:.3e} (atol "
-              f"{dg_tol:.3e}), dbeta {db_err:.3e} (atol {db_tol:.3e})"),
+              f"{dg_tol:.3e}), dbeta {db_err:.3e} (atol {db_tol:.3e}); "
+              f"second run bit-identical: {same}"),
         ms=time_ms(lambda: ops.fused_layer_norm_bwd(*args)),
         plain_ms=time_ms(lambda: ops.layer_norm_bwd_ref(*args)),
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
@@ -685,6 +697,11 @@ def check_layer_norm_bwd(ops, rows, dtype, dtype_name, gen):
 #: the BERT training drive's residual stream (B=64, S=128, hidden 768):
 #: 8192 token rows, f32 under O1 (fused_residual_layer_norm is black-listed)
 BERT_ROWS, BERT_HIDDEN = 8192, 768
+
+#: rows 2 and 6 beyond the serving and training drives' shapes: the flash
+#: drive's 8192 rows (B=8, S=1024) and the BERT drive's [8192, 768]
+#: (row 13's backward is row 6's kernel)
+LN_CASES = {"train8192": (8192, HIDDEN), "bert": (BERT_ROWS, BERT_HIDDEN)}
 
 
 def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
@@ -930,6 +947,9 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel")
 GROUPED_KERNEL_NAMES = ("gmm_fwd_mma", "gmm_fwd_fma", "gmm_dw_mma",
                         "gmm_dw_fma")
+#: the layer norm's vector routes and its backward's second pass
+LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel",
+                   "ln_bwd_sum_kernel")
 
 
 def kernel_resources(cuda_lib, lib_path, names):
@@ -1851,7 +1871,9 @@ def per_step(drive, layers):
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
 
-def check_counts(phase, counts, steps, layers, drive):
+def check_counts(phase, ops, counts, steps, layers, drive):
+    """Each kernel's launches in a drive against its launches per step
+    times the steps; then `check_routes`."""
     want = per_step(drive, layers)
     say(f"  launches {counts}; per step {want}")
     for name, n in counts.items():
@@ -1860,6 +1882,7 @@ def check_counts(phase, counts, steps, layers, drive):
         if n != want[name] * steps:
             fail(f"{phase}: {name} launched {n} times in {steps} steps, "
                  f"expected {want[name]} per step")
+    check_routes(phase, ops)
 
 
 def report(name, dtype_name, r):
@@ -1970,6 +1993,7 @@ def phase_kernels(ops, budgets):
     gen_moe = torch.Generator(device="cuda").manual_seed(SEED + 17)
     gen_lora = torch.Generator(device="cuda").manual_seed(SEED + 21)
     gen_me = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    gen_ln = torch.Generator(device="cuda").manual_seed(SEED + 12)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -1987,6 +2011,13 @@ def phase_kernels(ops, budgets):
             r = check(ops, rows, dtype, dtype_name, gen)
             report(name, dtype_name, r)
             results[(name, dtype_name, "train")] = r
+            torch.cuda.empty_cache()
+        for case, (rows, n) in LN_CASES.items():
+            for name, check in (("layer_norm", check_layer_norm),
+                                ("layer_norm_bwd", check_layer_norm_bwd)):
+                r = check(ops, rows, dtype, dtype_name, gen_ln, n=n)
+                report(name, dtype_name, r)
+                results[(name, dtype_name, case)] = r
             torch.cuda.empty_cache()
         for shape_key in FLASH_SHAPES:
             for name, r in check_flash(ops, shape_key, dtype, dtype_name,
@@ -2055,6 +2086,7 @@ def phase_kernels(ops, budgets):
         report("paged_attention", dtype_name, r)
         results[("paged_attention", dtype_name)] = r
         torch.cuda.empty_cache()
+    reset_routes(ops)       # the drives' launches are counted from here
     return results
 
 
@@ -2093,22 +2125,39 @@ def numpy_weights(model, seed):
 def reset_launches(ops):
     for fn in ops.KERNELS.values():
         fn.launches = 0
+
+
+def reset_routes(ops):
+    """Zero the launch counts by route (`check_routes`)."""
     for fn in (ops.fused_linear_act, ops.fused_linear_act_int8):
         fn.tma_launches = fn.elementwise_launches = 0
+    for fn in (ops.fused_layer_norm, ops.fused_layer_norm_bwd):
+        fn.vector_launches = fn.scalar_launches = 0
 
 
 def check_routes(phase, ops):
-    """The bf16 matmul epilogue launches of a drive by staging route (the
-    counters `reset_launches` zeroed): every model shape must take TMA."""
-    counts = {name: (fn.tma_launches, fn.elementwise_launches) for name, fn
-              in (("matmul_epilogue", ops.fused_linear_act),
-                  ("matmul_epilogue_int8", ops.fused_linear_act_int8))}
-    say("  bf16 epilogue launches by staging route (TMA, element-wise): "
-        + ", ".join(f"{n} {c}" for n, c in counts.items()))
-    if any(c[1] for c in counts.values()):
+    """The launches by route since `reset_routes` (at the end of phase 2,
+    so every launch counted is a drive's, at a model shape): every bf16
+    matmul epilogue launch must have staged by TMA and every layer-norm
+    launch, forward and backward, must have taken the vector route."""
+    epilogue = {name: (fn.tma_launches, fn.elementwise_launches)
+                for name, fn in
+                (("matmul_epilogue", ops.fused_linear_act),
+                 ("matmul_epilogue_int8", ops.fused_linear_act_int8))}
+    norm = {name: (fn.vector_launches, fn.scalar_launches) for name, fn in
+            (("layer_norm", ops.fused_layer_norm),
+             ("layer_norm_bwd", ops.fused_layer_norm_bwd))}
+    say("  launches by route since phase 2: bf16 epilogue (TMA, "
+        "element-wise) "
+        + ", ".join(f"{n} {c}" for n, c in epilogue.items())
+        + "; layer norm (vector, scalar) "
+        + ", ".join(f"{n} {c}" for n, c in norm.items()))
+    if any(c[1] for c in epilogue.values()):
         fail(f"{phase}: a model-shape epilogue launch staged element by "
-             f"element: {counts}")
-    return counts
+             f"element: {epilogue}")
+    if any(c[1] for c in norm.values()):
+        fail(f"{phase}: a model-shape layer-norm launch took the scalar "
+             f"route: {norm}")
 
 
 def launches(ops):
@@ -2167,7 +2216,7 @@ def phase_parity(pt, ops, int8=False):
         fail(f"{phase}: a request did not return 16 tokens")
     say(f"  greedy tokens identical on CUDA and CPU for {len(prompts)} "
         f"requests x 16 tokens")
-    check_counts(phase, counts, steps, cfg.num_hidden_layers,
+    check_counts(phase, ops, counts, steps, cfg.num_hidden_layers,
                  "serve_int8" if int8 else "serve")
 
 
@@ -2293,7 +2342,6 @@ def phase_serving(pt, ops, int8=False, base=None, moe=False):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
-    routes = check_routes(phase, ops)
     for h in hooks:
         h.remove()
 
@@ -2318,9 +2366,9 @@ def phase_serving(pt, ops, int8=False, base=None, moe=False):
         f"{summary['weight_gib_bf16']:.3f}); {summary['kv_dtype']} KV pool "
         f"of {summary['kv_blocks']} blocks x {summary['bytes_per_block']} "
         f"bytes at hbm_fraction 0.3")
-    check_counts(phase, counts, steps, cfg.num_hidden_layers, drive)
+    check_counts(phase, ops, counts, steps, cfg.num_hidden_layers, drive)
     generated = [list(r.generated) for r in reqs]
-    summary.update(epilogue_routes=routes, tokens_per_s=tokens / elapsed,
+    summary.update(tokens_per_s=tokens / elapsed,
                    median_ttft_ms=ttft[len(ttft) // 2],
                    prefix_hit_rate=hit, steps=steps, elapsed_s=elapsed,
                    ms_per_step=elapsed / steps * 1e3, peak_memory_gib=peak)
@@ -2394,8 +2442,10 @@ def routing_summary(ops, routed, layers, steps):
 
 #: device-time groups of the profile, by kernel-name substring (first
 #: match wins: the int8 kernels' instantiations, whose pool or weight type
-#: is int8_t, "signed char", come before their float twins); column_sum
-#: is the second pass of both backward kernels' column sums, and
+#: is int8_t, "signed char", come before their float twins); layer_norm
+#: and layer_norm_bwd hold both routes of each and the backward's second
+#: pass; column_sum is the second pass of the other column sums (rows 7,
+#: 12 and 14b), and
 #: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
 #: float: its instantiations do not say which)
 _PROFILE_GROUPS = (("lora_sgmv", "lora_sgmv_kernel"),
@@ -2411,8 +2461,11 @@ _PROFILE_GROUPS = (("lora_sgmv", "lora_sgmv_kernel"),
                      "me_fwd_fma<__nv_bfloat16, signed char")),
                    ("ragged_attention", "ragged_attn_kernel"),
                    ("layer_norm_residual", "layer_norm_residual_fwd_kernel"),
-                   ("layer_norm", "layer_norm_fwd_kernel"),
-                   ("layer_norm_bwd", "layer_norm_bwd_kernel"),
+                   ("layer_norm", ("ln_fwd_vec_kernel",
+                                   "layer_norm_fwd_kernel")),
+                   ("layer_norm_bwd", ("ln_bwd_vec_kernel",
+                                       "layer_norm_bwd_kernel",
+                                       "ln_bwd_sum_kernel")),
                    ("matmul_epilogue", "me_fwd_"),
                    ("matmul_epilogue_bwd", "me_bwd_kernel"),
                    ("column_sum", "column_sum_kernel"),
@@ -2625,7 +2678,7 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
     if worst > atol:
         fail(f"{phase}: parameter {worst_at} differs after 3 "
              f"steps by {worst:.3e} past {rtol:g}*|p|")
-    check_counts(phase, counts, 3, layers, drive)
+    check_counts(phase, ops, counts, 3, layers, drive)
     return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
                 param_max_excess=worst, losses_cuda=l_gpu,
                 losses_cpu=l_cpu)
@@ -2721,7 +2774,6 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
-    routes = check_routes(phase, ops)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     step_ms = elapsed / TRAIN_STEPS * 1e3
@@ -2743,8 +2795,8 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     if not losses[-1] < losses[0]:
         fail(f"{phase}: the loss did not fall on a repeated batch: "
              f"{losses}")
-    check_counts(phase, counts, TRAIN_STEPS, L, drive)
-    summary = dict(n_params=n_params, batch=B, seq=S, epilogue_routes=routes,
+    check_counts(phase, ops, counts, TRAIN_STEPS, L, drive)
+    summary = dict(n_params=n_params, batch=B, seq=S,
                    steps=TRAIN_STEPS, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    peak_memory_gib=peak_gib, losses=losses)
@@ -2820,7 +2872,7 @@ def generate_parity(pt, ops, phase, make_model, vocab, layers, drive):
     say(f"  greedy tokens identical on CUDA and CPU for "
         f"{len(GEN_PARITY_LENS)} prompts of {list(GEN_PARITY_LENS)} "
         f"tokens x {GEN_PARITY_NEW}")
-    check_counts(phase, counts, GEN_PARITY_NEW, layers, drive)
+    check_counts(phase, ops, counts, GEN_PARITY_NEW, layers, drive)
     return rng
 
 
@@ -2863,7 +2915,7 @@ def generate_drive(ops, model, rng, what, phase, drive, keep=None):
         f"{prefill_s * 1e3:.1f} ms, {decode_ms:.2f} ms per decode step, "
         f"{GEN_B * GEN_NEW / total_s:.1f} tokens/s, peak memory "
         f"{peak_gib:.2f} GiB")
-    check_counts(phase, counts, GEN_NEW, cfg.num_hidden_layers, drive)
+    check_counts(phase, ops, counts, GEN_NEW, cfg.num_hidden_layers, drive)
     return counts, dict(batch=GEN_B, prompt=GEN_PROMPT, new_tokens=GEN_NEW,
                         total_s=total_s, prefill_ms=prefill_s * 1e3,
                         decode_ms_per_step=decode_ms,
@@ -3049,7 +3101,7 @@ def phase_ernie(pt, ops):
     say(f"  card vs CPU max abs err: MLM logits {errs[0]:.3e}, pooled "
         f"{errs[1]:.3e}, class logits {errs[2]:.3e} (tolerance "
         f"{TOL['float32'][0]:g} + {TOL['float32'][1]:g}*|cpu|)")
-    check_counts("ernie parity", counts, 1, cfg.num_hidden_layers,
+    check_counts("ernie parity", ops, counts, 1, cfg.num_hidden_layers,
                  "ernie_eval")
 
     cfg = pt.ErnieConfig()
@@ -3080,7 +3132,7 @@ def phase_ernie(pt, ops):
     say(f"  ErnieForSequenceClassification bf16, {cfg.num_hidden_layers} "
         f"layers, B={BERT_B} S={BERT_S}: {ms:.2f} ms per forward, "
         f"{BERT_B / ms * 1e3:.1f} sequences/s, peak memory {peak:.2f} GiB")
-    check_counts("ernie eval", counts, ERNIE_FORWARDS,
+    check_counts("ernie eval", ops, counts, ERNIE_FORWARDS,
                  cfg.num_hidden_layers, "ernie_eval")
     summary = dict(parity_max_abs_err=dict(zip(
         ("mlm_logits", "pooled", "class_logits"), errs)),
@@ -3176,7 +3228,8 @@ def phase_moe_parity(pt, ops):
         fail(f"{phase}: a request did not return 16 tokens")
     say(f"  greedy tokens identical on CUDA and CPU for {len(prompts)} "
         f"requests x 16 tokens")
-    check_counts(phase, counts, steps, cfg.num_hidden_layers, "serve_moe")
+    check_counts(phase, ops, counts, steps, cfg.num_hidden_layers,
+                 "serve_moe")
     return dict(steps=steps, first_step_rows=rows, choices_identical=True,
                 tokens_identical=True)
 
@@ -3344,7 +3397,8 @@ def phase_lora_parity(pt, ops):
         f"{'equal' if base_same else 'differ'}")
     if not moved:
         fail(f"{phase}: no adapter changed its request's tokens")
-    check_counts(phase, counts, steps, cfg.num_hidden_layers, "serve_lora")
+    check_counts(phase, ops, counts, steps, cfg.num_hidden_layers,
+                 "serve_lora")
     return dict(steps=steps, tokens_identical=True, adapter_rows_moved=moved,
                 base_rows_equal_lora_free=base_same)
 
@@ -3424,7 +3478,7 @@ def phase_multilora_serving(pt, ops):
             f"(median {out['median_ttft_ms']:.1f}), {steps} steps "
             f"({out['ms_per_step']:.2f} ms/step), peak memory "
             f"{out['peak_memory_gib']:.2f} GiB{note}")
-        check_counts(phase, c, steps, L,
+        check_counts(phase, ops, c, steps, L,
                      "serve_lora" if twin == "lora" else "serve")
         if twin == "lora":
             counts = c
@@ -3635,7 +3689,7 @@ def phase_paged(pt, ops, gen_keep, gen_summary):
              f"tokens {toks['cpu'].tolist()}")
     say(f"  greedy tokens identical on CUDA and CPU for 4 prompts x "
         f"{PAGED_PARITY_PROMPT} tokens, {PAGED_PARITY_STEPS} decode steps")
-    check_counts("paged parity", counts, PAGED_PARITY_STEPS,
+    check_counts("paged parity", ops, counts, PAGED_PARITY_STEPS,
                  cfg.num_hidden_layers, "paged_decode")
     cfg = pt.GPTConfig(**pt.GPT_1P3B)
     model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED).eval()
@@ -3653,7 +3707,7 @@ def phase_paged(pt, ops, gen_keep, gen_summary):
         f"at {ms:.2f} ms/step (phase 9's dense cache: "
         f"{gen_summary['decode_ms_per_step']:.2f}), peak memory {peak:.2f} "
         f"GiB; greedy match against phase 9's tokens {match:.4f} (reported)")
-    check_counts("paged decode", counts, GEN_NEW, cfg.num_hidden_layers,
+    check_counts("paged decode", ops, counts, GEN_NEW, cfg.num_hidden_layers,
                  "paged_decode")
     prof = paged_generate(pt, ops, model, prompts, PAGED_PROFILE_STEPS,
                           "cuda", profile=True)[4]
@@ -3762,7 +3816,7 @@ def phase_bf16_parity(pt, ops):
         if ctl[key] <= tol:
             fail(f"{phase}: the control's {key} reading {ctl[key]:.3e} is "
                  f"within {tol:g}: the gate cannot see fc1's bias dropped")
-    check_counts(phase, counts, 3, cfg.num_hidden_layers, "train_flash")
+    check_counts(phase, ops, counts, 3, cfg.num_hidden_layers, "train_flash")
 
     serve_cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
     rng = np.random.default_rng(SEED + 1)
@@ -3793,7 +3847,7 @@ def phase_bf16_parity(pt, ops):
     say(f"  greedy tokens, bf16 weights: {same} of {16 * len(prompts)} "
         f"positions equal on the card and the CPU (match ratio "
         f"{match:.4f}, reported)")
-    check_counts(phase, serve_counts, steps, serve_cfg.num_hidden_layers,
+    check_counts(phase, ops, serve_counts, steps, serve_cfg.num_hidden_layers,
                  "serve")
     return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
                 losses_control=runs["control"][0], readings=got,
@@ -3869,7 +3923,8 @@ def kernels_line(results, counts):
             else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" \
             else {"decode": None} if name == "matmul_epilogue" \
             else dict.fromkeys(("qkv", "out", "fc2")) \
-            if name == "matmul_epilogue_int8" else {}
+            if name == "matmul_epilogue_int8" \
+            else LN_CASES if name in ("layer_norm", "layer_norm_bwd") else {}
         served = any(d in info for d in ("serve", "serve_int8", "serve_moe",
                                          "serve_lora", "paged_decode"))
         key = (name,) if served else (name, "train")
@@ -3926,7 +3981,8 @@ def main():
         f"{path.relative_to(ROOT)}")
     resources = kernel_resources(
         cuda_lib, path,
-        FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES)
+        FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES
+        + LN_KERNEL_NAMES)
     check_wgmma_kernels(cuda_lib, path, resources)
     wgmma_check = check_wgmma_product(cuda_lib)
 

@@ -16,6 +16,7 @@ launch (too many threads, too much shared memory) never passes silently.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +25,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["ARCH_FLAGS", "build", "library", "check", "dtype_code",
-           "stream_handle"]
+           "stream_handle", "sm_count"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -80,6 +81,7 @@ _SIGNATURES = {
     "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _I, _I, _P), _I),
     "ptt_matmul_epilogue_tma_route": ((_P, _P, _I, _I, _I), _I),
+    "ptt_layer_norm_vector_route": ((_P, _P, _P, _P, _I, _I), _I),
     "ptt_mma_check": ((_P, _P, _P, _I, _P), _I),
     "ptt_wgmma_check": ((_P, _P, _P, _I, _P), _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
@@ -194,3 +196,10 @@ def stream_handle(device):
     """PyTorch's current stream on ``device`` as a C pointer value."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index):
+    """The SMs of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -16,7 +16,11 @@ points: ``torch.autograd.Function``s whose backward is the backward
 kernel.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  The forward and the backward kernels have two routes
+each (`vector_route`): rows in 16-byte vectors held in registers, or, for
+rows off 16 bytes and rows wider than `VECTOR_MAX_WIDTH`, one value at a
+time; the wrappers count their launches by route (``vector_launches``,
+``scalar_launches``).
 """
 from __future__ import annotations
 
@@ -26,11 +30,36 @@ from . import cuda_lib
 
 __all__ = ["layer_norm_ref", "fused_layer_norm", "layer_norm_bwd_ref",
            "fused_layer_norm_bwd", "layer_norm", "layer_norm_residual_ref",
-           "fused_layer_norm_residual", "layer_norm_residual"]
+           "fused_layer_norm_residual", "layer_norm_residual",
+           "vector_route", "VECTOR_MAX_WIDTH"]
 
-#: row blocks of the backward's first pass (each leaves one f32 row of
-#: dgamma/dbeta partial sums for the second pass)
-_BWD_BLOCKS = 512
+#: first-pass blocks of the backward an SM at most (each leaves one f32
+#: row of dgamma/dbeta partial sums for the second pass): the scratch's
+#: rows; the vector route runs as many as the SMs hold at once (3 an SM
+#: in f32 and 2 in bf16 at 2048 on the H100), the scalar route this many
+_BWD_BLOCKS_PER_SM = 4
+#: the widest row the vector routes hold in registers
+#: (``csrc/layer_norm.cu`` ``kMaxVectorWidth``)
+VECTOR_MAX_WIDTH = 8192
+
+
+def vector_route(n, *tensors):
+    """Whether a layer-norm kernel on rows of ``n`` values takes the vector
+    route: the kernels' rule (``ptt_layer_norm_vector_route``), rows of
+    16-byte multiples no wider than `VECTOR_MAX_WIDTH` and every pointer
+    (forward: x, gamma, beta, out; backward: x, gamma, dout, dx) 16-byte
+    aligned; else the scalar route."""
+    isz = tensors[0].element_size()
+    return (0 < n <= VECTOR_MAX_WIDTH and n * isz % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+def _count_route(wrapper, n, *tensors):
+    """Count a launch under the route the kernel takes."""
+    if vector_route(n, *tensors):
+        wrapper.vector_launches += 1
+    else:
+        wrapper.scalar_launches += 1
 
 
 def layer_norm_ref(x, gamma, beta, eps=1e-5):
@@ -83,6 +112,7 @@ def fused_layer_norm(x, gamma, beta, eps=1e-5):
             cuda_lib.stream_handle(x.device))
         cuda_lib.check(code, "layer_norm")
         fused_layer_norm.launches += 1
+        _count_route(fused_layer_norm, n, x, gamma, beta, out)
     return out, mu, rstd
 
 
@@ -132,7 +162,8 @@ def fused_layer_norm_bwd(x, gamma, mu, rstd, dout):
     dgamma = torch.zeros(n, dtype=gamma.dtype, device=x.device)
     dbeta = torch.zeros(n, dtype=gamma.dtype, device=x.device)
     if rows and n:
-        nblk = min(rows, _BWD_BLOCKS)
+        nblk = min(rows, _BWD_BLOCKS_PER_SM
+                   * cuda_lib.sm_count(x.device.index))
         partial = torch.empty(2, nblk, n, dtype=torch.float32,
                               device=x.device)
         rc = cuda_lib.library().ptt_layer_norm_bwd(
@@ -142,6 +173,7 @@ def fused_layer_norm_bwd(x, gamma, mu, rstd, dout):
             x.device.index, cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "layer_norm_bwd")
         fused_layer_norm_bwd.launches += 1
+        _count_route(fused_layer_norm_bwd, n, x, gamma, dout, dx)
     return dx, dgamma, dbeta
 
 
@@ -255,7 +287,10 @@ def layer_norm_residual(x, residual, gamma, beta, eps=1e-5):
     return fused_layer_norm_residual(x, residual, gamma, beta, eps)[0]
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them), and
+#: the forward's and backward's by route
 fused_layer_norm.launches = 0
 fused_layer_norm_bwd.launches = 0
 fused_layer_norm_residual.launches = 0
+for _fn in (fused_layer_norm, fused_layer_norm_bwd):
+    _fn.vector_launches = _fn.scalar_launches = 0

@@ -25,7 +25,6 @@ kernel or raises.
 """
 from __future__ import annotations
 
-import functools
 import math
 
 import torch
@@ -106,11 +105,6 @@ _WG_TILE, _WG_SLICE, _WG_TILES_PER_SM = 128, 64, 1
 _MIN_SLICES, _MAX_SPLITS = 4, 16
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index):
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def split_k(M, K, N, sm_count, wgmma=False):
     """How many K chunks a forward launch sums separately (split-K): 1
     when its output tiles fill the card's ``sm_count`` SMs, else enough
@@ -132,7 +126,7 @@ def split_k(M, K, N, sm_count, wgmma=False):
 
 def _split_scratch(M, K, N, device, dtype):
     """(chunks, f32 partial-sum scratch [chunks, M, N] or None)."""
-    splits = split_k(M, K, N, _sm_count(device.index),
+    splits = split_k(M, K, N, cuda_lib.sm_count(device.index),
                      wgmma=dtype == torch.bfloat16)
     if splits == 1:
         return 1, None

@@ -1,8 +1,9 @@
 // A CPU stand-in for the parts of the CUDA runtime and device language
-// that the port's tensor-core kernels, `csrc/mma.cuh` and `csrc/wgmma.cuh`
-// use, so that their CUDA source compiles with g++ and runs on the CPU at
-// tiny shapes (tests/test_torch_flash_emulated.py and the tests that
-// import its source rewriting).  One std::thread per CUDA thread;
+// that the port's tensor-core kernels, `csrc/mma.cuh`, `csrc/wgmma.cuh`
+// and `csrc/layer_norm.cu` use, so that their CUDA source compiles with
+// g++ and runs on the CPU at tiny shapes (tests/test_torch_flash_emulated.py
+// and the tests that import its source rewriting).  One std::thread per
+// CUDA thread;
 // __syncthreads is a block barrier and every warp-wide operation
 // (shuffles, ldmatrix, mma.sync) a warp barrier around an exchange area;
 // mbarriers (wgmma_emu.h) are counted under one lock.  Blocks run one
@@ -56,6 +57,9 @@ struct uint4 {
 struct uint2 {
   unsigned x, y;
 };
+inline float4 make_float4(float a, float b, float c, float d) {
+  return {a, b, c, d};
+}
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
   return {a, b, c, d};
@@ -119,6 +123,9 @@ inline cudaError_t cudaGetLastError() {
   emu_error = cudaSuccess;
   return e;
 }
+inline const char* cudaGetErrorString(cudaError_t e) {
+  return e == cudaSuccess ? "no error" : "invalid argument";
+}
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
@@ -126,6 +133,14 @@ enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 // has d (so that a test picks a grid-dependent launch by the device index)
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int d) {
   *v = d > 0 ? d : 132;
+  return cudaSuccess;
+}
+// the stand-in holds one block of any kernel an SM (a persistent grid is
+// then as many blocks as the device index's SMs)
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T, int,
+                                                          size_t) {
+  *n = 1;
   return cudaSuccess;
 }
 template <class T>
@@ -167,6 +182,7 @@ inline float fmaf(float a, float b, float c) { return std::fma(a, b, c); }
 inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float erff(float x) { return std::erf(x); }
 inline float tanhf(float x) { return std::tanh(x); }
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 
 // kernel<<<grid, block, smem, stream>>>(args) is rewritten as
 // emu_launch(grid, block, smem, stream, [&] { kernel(args); })

@@ -8,8 +8,12 @@ imports torch and the port only, so it runs where JAX is not installed:
 
 Small shapes with ragged edges (rows not a multiple of a block, vocab
 50304 and odd vocabularies, all activations; RMS norm also at the LLaMA
-paths' shapes and on a misaligned view); the main path's shapes are
-covered by ``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
+paths' shapes and on a misaligned view; layer norm forward and backward
+at the drives' widths 768, 1024 and 2048, at 300, 7000 and 9000 and off
+16 bytes, each launch's route held to the Python rule, the library's and
+the wrapper's counts, a misaligned view on the scalar routes, 100 runs
+of each bit-identical); the main path's shapes are covered by
+``chip_smoke.py``.  Tolerances: f32 1e-4 abs + rel (sums
 in another order), bf16 2e-2 abs + rel (about two bf16 ulps at unit
 scale); column sums (dgamma, dbeta, db) f32 1e-4·sqrt(rows) abs, bf16
 2e-2; cross-entropy loss and lse (f32 whatever the logits' type) 1e-4
@@ -87,18 +91,94 @@ def _close(got, want, dtype):
                                rtol=tol)
 
 
+#: layer norm (rows 2 and 6): the drives' widths (BERT 768, LLaMA-sized
+#: and multi-LoRA 1024, GPT 2048; 368 rows: the serving step's budget),
+#: 300 (bf16 off 16 bytes), 7 (off 16 bytes in both), 7000 and 9000 (past
+#: the register route: the scalar route)
+_LN_SHAPES = [(37, 300), (5, 768), (1030, 1024), (368, 2048), (1030, 2048),
+              (3, 7000), (9, 7), (2, 9000)]
+
+
+def _ln_route(n, *tensors):
+    """The route the Python rule gives, held equal to the library's rule
+    and to the wrapper's count of the launch just made."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.layer_norm import vector_route
+    route = vector_route(n, *tensors)
+    assert bool(cuda_lib.library().ptt_layer_norm_vector_route(
+        *(t.data_ptr() for t in tensors), n, tensors[0].element_size())) \
+        == route
+    if n in (768, 1024, 2048):
+        assert route, "a model width must take the vector route"
+    return route
+
+
 @pytest.mark.parametrize("dtype", _DTYPES)
-def test_layer_norm_kernel(gen, dtype):
-    x = (3 * torch.randn(37, 300, device="cuda", generator=gen) + 1).to(dtype)
-    g = torch.randn(300, device="cuda", generator=gen).to(dtype)
-    b = torch.randn(300, device="cuda", generator=gen).to(dtype)
-    n0 = ops.fused_layer_norm.launches
+@pytest.mark.parametrize("rows,n", _LN_SHAPES)
+def test_layer_norm_kernel(gen, dtype, rows, n):
+    x = (3 * torch.randn(rows, n, device="cuda", generator=gen)
+         + 1).to(dtype)
+    g = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    b = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    fn = ops.fused_layer_norm
+    n0 = fn.launches, fn.vector_launches, fn.scalar_launches
     out, mu, rstd = ops.fused_layer_norm(x, g, b)
     want, mu_ref, rstd_ref = ops.layer_norm_ref(x, g, b)
-    assert ops.fused_layer_norm.launches == n0 + 1
+    assert ops.fused_layer_norm.launches == n0[0] + 1
+    vec = _ln_route(n, x, g, b, out)
+    assert (fn.vector_launches, fn.scalar_launches) == \
+        (n0[1] + vec, n0[2] + (not vec))
     _close(out, want, dtype)
     _close(mu, mu_ref, torch.float32)
     _close(rstd, rstd_ref, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_layer_norm_misaligned_view(gen, dtype):
+    """x one element past a 16-byte boundary at a model width: the scalar
+    routes, forward and backward, still right."""
+    buf = (2 * torch.randn(64 * 2048 + 1, device="cuda", generator=gen)
+           + 1).to(dtype)
+    x = buf[1:].view(64, 2048)
+    assert x.data_ptr() % 16 != 0
+    g = (1 + 0.1 * torch.randn(2048, device="cuda", generator=gen)).to(dtype)
+    b = torch.randn(2048, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(64, 2048, device="cuda", generator=gen).to(dtype)
+    s0 = ops.fused_layer_norm.scalar_launches, \
+        ops.fused_layer_norm_bwd.scalar_launches
+    out, mu, rstd = ops.fused_layer_norm(x, g, b)
+    want, mu_ref, rstd_ref = ops.layer_norm_ref(x, g, b)
+    _close(out, want, dtype)
+    _close(rstd, rstd_ref, torch.float32)
+    dx, dg, db = ops.fused_layer_norm_bwd(x, g, mu, rstd, do)
+    ref = ops.layer_norm_bwd_ref(x, g, mu, rstd, do)
+    _close(dx, ref[0], dtype)
+    for got, r in ((dg, ref[1]), (db, ref[2])):
+        torch.testing.assert_close(got.float(), r.float(),
+                                   atol=_sum_tol(dtype, 64),
+                                   rtol=_TOL[dtype])
+    assert (ops.fused_layer_norm.scalar_launches,
+            ops.fused_layer_norm_bwd.scalar_launches) == \
+        (s0[0] + 1, s0[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,n", [(368, 2048), (4096, 2048), (8192, 768)])
+def test_layer_norm_kernels_repeat_bit_identical(gen, dtype, rows, n):
+    """100 runs of the forward and of the backward (its dgamma/dbeta
+    summed in two passes without atomics) equal the first bit for bit."""
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
+         + 0.5).to(dtype)
+    g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    b = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
+    first = ops.fused_layer_norm(x, g, b)
+    first_bwd = ops.fused_layer_norm_bwd(x, g, first[1], first[2], do)
+    for _ in range(100):
+        again = ops.fused_layer_norm(x, g, b)
+        assert all(torch.equal(a, f) for a, f in zip(again, first))
+        again = ops.fused_layer_norm_bwd(x, g, first[1], first[2], do)
+        assert all(torch.equal(a, f) for a, f in zip(again, first_bwd))
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -180,17 +260,21 @@ def _sum_tol(dtype, rows):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("rows,n", [(37, 300), (1030, 2048), (3, 7000)])
+@pytest.mark.parametrize("rows,n", _LN_SHAPES + [(8192, 768)])
 def test_layer_norm_bwd_kernel(gen, dtype, rows, n):
     x = (2 * torch.randn(rows, n, device="cuda", generator=gen) + 1).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
     b = torch.randn(n, device="cuda", generator=gen).to(dtype)
     do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     _, mu, rstd = ops.fused_layer_norm(x, g, b)
-    n0 = ops.fused_layer_norm_bwd.launches
+    fn = ops.fused_layer_norm_bwd
+    n0 = fn.launches, fn.vector_launches, fn.scalar_launches
     dx, dg, db = ops.fused_layer_norm_bwd(x, g, mu, rstd, do)
     want = ops.layer_norm_bwd_ref(x, g, mu, rstd, do)
-    assert ops.fused_layer_norm_bwd.launches == n0 + 1
+    assert ops.fused_layer_norm_bwd.launches == n0[0] + 1
+    vec = _ln_route(n, x, g, do, dx)
+    assert (fn.vector_launches, fn.scalar_launches) == \
+        (n0[1] + vec, n0[2] + (not vec))
     _close(dx, want[0], dtype)
     tol = _sum_tol(dtype, rows)
     for got, ref in ((dg, want[1]), (db, want[2])):
