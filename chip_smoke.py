@@ -55,8 +55,11 @@ phase fails.  Phases:
    loop of ``torch._addmm_activation`` / ``addmm`` / ``mm``, named in
    each row's note; the LoRA SGMV epilogue at the multi-LoRA serving
    step's qkv, out, fc1 (gelu_tanh) and fc2 (the token budget's rows, 4
-   adapters of 16 slots mixed with null blocks, rank 16; no library
-   call), the grouped kernels at LoRA's backward shapes (8192 rows, one
+   adapters of 16 slots mixed with null blocks, rank 16) and the
+   fine-tuning drive's qkv, out and fc2 (8192 rows, one adapter), each
+   run twice and held bit-identical, bf16 on the tensor-core route (no
+   library call; a one-adapter ``mm`` + ``addmm`` composite timed in the
+   note), the grouped kernels at LoRA's backward shapes (8192 rows, one
    adapter: u and dx through the transposed read with N or K = 16, dA and
    dB; yardstick ``torch.mm``; and u's shape over blocks cycling over 4
    adapters in unsorted order, ``lora_u_mixed``, against ``torch.bmm``),
@@ -80,12 +83,12 @@ phase fails.  Phases:
    ``gpt_decode`` trace of bench.py at the 1.3B width).  Every kernel's
    launch count is set to 0 just before and read just after; each must
    equal its launches per step times the steps; every bf16 matmul
-   epilogue launch since phase 2 must have taken the TMA staging route
-   and every layer-norm launch (forward and backward) the vector route
-   (checked after every drive and parity run: `check_routes`, run by
-   `check_counts`).  A second, profiled burst (8 of the prompts, 16
-   tokens) then splits device time by kernel and gives the device's idle
-   share (``torch.profiler``);
+   epilogue launch since phase 2 must have taken the TMA staging route,
+   every layer-norm launch (forward and backward) the vector route and
+   no LoRA SGMV launch the element-wise route (checked after every drive
+   and parity run: `check_routes`, run by `check_counts`).  A second,
+   profiled burst (8 of the prompts, 16 tokens) then splits device time
+   by kernel and gives the device's idle share (``torch.profiler``);
 5. training parity: GPT at full width cut to 2 layers, f32, no AMP,
    ``use_flash_attention=False``, weights from a numpy seed, B=2, S=128:
    3 AdamW steps on the card (kernels) and on the CPU (plain versions)
@@ -227,7 +230,10 @@ phase fails.  Phases:
     reading and the control's (the same card run with fc1's bias
     dropped), which must fail every gate; then the engine with bf16
     weights on phase 3's 4 requests, 16 greedy tokens each, the token
-    match ratio card vs CPU reported.
+    match ratio card vs CPU reported; then phase 23's LoRA fine-tuning
+    model (multi-LoRA width, 2 layers, base frozen, rank 16) the same way
+    under O1, held to ``BF16_LORA_PARITY_TOL`` against a control with
+    qkv's B factors zeroed, the frozen base bit-unchanged.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
@@ -1495,16 +1501,40 @@ def lora_block_ids(nb, slots):
     return [slots if i % 3 == 2 else (0, 3, 6, 9)[i % 4] for i in range(nb)]
 
 
+def lora_route(ops, n0):
+    """The route of the SGMV launch made since the counts ``n0`` (a tuple
+    of `lora_route_counts`): "mma", "f32" or "elementwise"."""
+    fn = ops.fused_lora_segment_epilogue
+    now = lora_route_counts(ops)
+    moved = [name for name, a, b in zip(("mma", "f32", "elementwise"),
+                                        n0, now) if b != a]
+    if len(moved) != 1:
+        fail(f"lora_sgmv: route counts {n0} -> {now} after one launch "
+             f"({fn.launches} launches)")
+    return moved[0]
+
+
+def lora_route_counts(ops):
+    fn = ops.fused_lora_segment_epilogue
+    return fn.mma_launches, fn.f32_launches, fn.elementwise_launches
+
+
 def check_lora(ops, case, dtype, dtype_name, gen, rows):
     """The SGMV epilogue at one of `LORA_CASES` (the serving step's mixed
     blocks over `LORA_SLOTS` slots) or `LORA_TRAIN_CASES` (one adapter
     owning every block, as fine-tuning's single-adapter path runs it)
     against its plain version (out; the saved sum against the plain
-    version without activation, and equal to z on null rows).  No single
-    PyTorch call computes it.  Bound: z read and out and s written for
-    every row, x read for the adapter blocks' rows, the factors of the
-    adapters in use."""
+    version without activation, and equal to z on null rows); run twice,
+    bit-identical; bf16 must take the tensor-core route, f32 its own.  No
+    single PyTorch call computes it; the note times a one-adapter
+    composite (``torch.mm`` for x @ A, ``torch.addmm`` adding t @ B to z,
+    the activation) as a yardstick.  Bound: z read and s written for
+    every row (and out where act is not "none": with "none" out is s),
+    x read for the adapter blocks' rows, the factors of the adapters in
+    use; the note also gives the bound with out written as a third
+    stream, as earlier runs counted it."""
     import torch
+    from paddle_tpu_torch.ops import cuda_lib
     train = case in LORA_TRAIN_CASES
     K, N, act = (LORA_TRAIN_CASES if train else LORA_CASES)[case]
     bm = ops.ragged_q_block(dtype)
@@ -1526,25 +1556,50 @@ def check_lora(ops, case, dtype, dtype_name, gen, rows):
     def plain(act=act):
         return ops.lora_segment_epilogue_ref(z, x, a, b, block_adapter=gid,
                                              act=act)
-    (out, s), want, s_want = kernel(), plain(), plain("none")
+
+    def composite():
+        s = torch.addmm(z, torch.mm(x, a[0]), b[0])
+        return s if act == "none" else ops.matmul_epilogue.act_f32(
+            s.float(), act).to(dtype)
+    n0 = lora_route_counts(ops)
+    first = kernel()
+    route = lora_route(ops, n0)
+    want, s_want = plain(), plain("none")
     torch.cuda.synchronize()
+    out, s = first
     err, rel, ok = compare(out, want, dtype_name)
     s_err, _, s_ok = compare(s, s_want, dtype_name)
     null = (gid == slots).repeat_interleave(bm)
-    ok = ok and s_ok and bool(torch.equal(s[null], z[null]))
+    null_same = bool(torch.equal(s[null], z[null]))
+    same = repeat_equal(kernel, first)
+    want_route = "mma" if dtype == torch.bfloat16 else "f32"
+    ok = ok and s_ok and null_same and same and route == want_route
+    spans = cuda_lib.library().ptt_lora_sgmv_spans(nb, N, x.device.index) \
+        if route == "mma" else None
     used = sorted(set(aid) - {slots})
     real_rows = (nb - aid.count(slots)) * bm
     isz = x.element_size()
-    nbytes = (3 * rows * N + real_rows * K + len(used) * r * (K + N)) * isz
-    bms, by = bound(nbytes, 2 * real_rows * r * (K + N), dtype_name)
+    streams = 2 if act == "none" else 3
+    rest = real_rows * K + len(used) * r * (K + N)
+    flops = 2 * real_rows * r * (K + N)
+    bms, by = bound((streams * rows * N + rest) * isz, flops, dtype_name)
+    bms3 = bound((3 * rows * N + rest) * isz, flops, dtype_name)[0]
     return dict(
         err=err, rel=rel, ok=ok,
         shape=(f"{case}: z[{rows},{N}] x[{rows},{K}] (bm {bm}, "
                f"{aid.count(slots)} of {nb} blocks null, adapters "
                f"{used} of {slots} slots) r {r} {act}"),
-        note=(f"s vs plain max abs err {s_err:.3e}, null rows' s == z; "
-              f"library: none, no single PyTorch call applies each row "
-              f"block's own adapter"),
+        note=(f"route {route} (want {want_route})"
+              + (f", {spans} column spans" if spans else "")
+              + f"; s vs plain max abs err {s_err:.3e}, null rows' s == z: "
+              f"{null_same}; second run bit-identical: {same}; "
+              f"{'out is s, ' if out is s else ''}bound with out as a "
+              f"third stream {bms3:.4f} ms; library: none, no single "
+              f"PyTorch call applies each row block's own adapter; "
+              f"one-adapter composite (mm, addmm"
+              f"{'' if act == 'none' else ', ' + act}) "
+              f"{time_ms(composite):.4f} ms"),
+        route=route, spans=spans, bound_ms_three_streams=bms3,
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
         library_ms=None, bound_ms=bms, bound_by=by)
 
@@ -2133,13 +2188,17 @@ def reset_routes(ops):
         fn.tma_launches = fn.elementwise_launches = 0
     for fn in (ops.fused_layer_norm, ops.fused_layer_norm_bwd):
         fn.vector_launches = fn.scalar_launches = 0
+    fn = ops.fused_lora_segment_epilogue
+    fn.mma_launches = fn.f32_launches = fn.elementwise_launches = 0
 
 
 def check_routes(phase, ops):
     """The launches by route since `reset_routes` (at the end of phase 2,
     so every launch counted is a drive's, at a model shape): every bf16
-    matmul epilogue launch must have staged by TMA and every layer-norm
-    launch, forward and backward, must have taken the vector route."""
+    matmul epilogue launch must have staged by TMA, every layer-norm
+    launch, forward and backward, must have taken the vector route, and
+    no LoRA SGMV launch the element-wise route (bf16 takes the tensor
+    cores, f32 its own route)."""
     epilogue = {name: (fn.tma_launches, fn.elementwise_launches)
                 for name, fn in
                 (("matmul_epilogue", ops.fused_linear_act),
@@ -2147,17 +2206,22 @@ def check_routes(phase, ops):
     norm = {name: (fn.vector_launches, fn.scalar_launches) for name, fn in
             (("layer_norm", ops.fused_layer_norm),
              ("layer_norm_bwd", ops.fused_layer_norm_bwd))}
+    lora = lora_route_counts(ops)
     say("  launches by route since phase 2: bf16 epilogue (TMA, "
         "element-wise) "
         + ", ".join(f"{n} {c}" for n, c in epilogue.items())
         + "; layer norm (vector, scalar) "
-        + ", ".join(f"{n} {c}" for n, c in norm.items()))
+        + ", ".join(f"{n} {c}" for n, c in norm.items())
+        + f"; lora_sgmv (mma, f32, element-wise) {lora}")
     if any(c[1] for c in epilogue.values()):
         fail(f"{phase}: a model-shape epilogue launch staged element by "
              f"element: {epilogue}")
     if any(c[1] for c in norm.values()):
         fail(f"{phase}: a model-shape layer-norm launch took the scalar "
              f"route: {norm}")
+    if lora[2]:
+        fail(f"{phase}: a model-shape LoRA SGMV launch took the "
+             f"element-wise route: {lora}")
 
 
 def launches(ops):
@@ -2444,11 +2508,13 @@ def routing_summary(ops, routed, layers, steps):
 #: match wins: the int8 kernels' instantiations, whose pool or weight type
 #: is int8_t, "signed char", come before their float twins); layer_norm
 #: and layer_norm_bwd hold both routes of each and the backward's second
-#: pass; column_sum is the second pass of the other column sums (rows 7,
-#: 12 and 14b), and
-#: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
-#: float: its instantiations do not say which)
-_PROFILE_GROUPS = (("lora_sgmv", "lora_sgmv_kernel"),
+#: pass, lora_sgmv its three (the element-wise and f32 routes share
+#: lora_sgmv_kernel); column_sum is the second pass of the other column
+#: sums (rows 7, 12 and 14b), and splitk_epilogue the second pass of a
+#: split-K matmul epilogue (int8 or float: its instantiations do not say
+#: which)
+_PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
+                                   "lora_sgmv_mma_kernel")),
                    ("paged_attention", "paged_attn_kernel"),
                    ("grouped_matmul", "gmm_fwd_"),
                    ("grouped_matmul_dw", "gmm_dw_"),
@@ -3762,6 +3828,97 @@ def bf16_parity_readings(run, cpu, start, cpu_start):
                 update=(du / uu) ** 0.5, param_max_abs_err=param)
 
 
+def hold_bf16_gates(phase, runs, start, control_start, tol, control):
+    """`bf16_parity_readings` of the card run (``runs["card"]``) and of the
+    control (``runs["control"]``, ``control`` naming what it drops)
+    against the CPU's: each reading within ``tol``, each of the control's
+    past it."""
+    got = bf16_parity_readings(runs["card"], runs["cpu"], start, start)
+    ctl = bf16_parity_readings(runs["control"], runs["cpu"], control_start,
+                               start)
+    say(f"  losses card {runs['card'][0]}, CPU {runs['cpu'][0]}, control "
+        f"({control}) {runs['control'][0]}")
+    for key in tol:
+        where = f" at {got[key + '_at']} (control at {ctl[key + '_at']})" \
+            if key + "_at" in got else ""
+        say(f"  {key}: {got[key]:.3e}, control {ctl[key]:.3e}, tolerance "
+            f"{tol[key]:g}{where}")
+    say(f"  params after 3 steps max |err| {got['param_max_abs_err']:.3e} "
+        f"(control {ctl['param_max_abs_err']:.3e}), reported")
+    for key, bound_ in tol.items():
+        if got[key] > bound_:
+            fail(f"{phase}: {key} reading {got[key]:.3e} over {bound_:g}")
+        if ctl[key] <= bound_:
+            fail(f"{phase}: the control's {key} reading {ctl[key]:.3e} is "
+                 f"within {bound_:g}: the gate cannot see {control}")
+    return got, ctl
+
+
+#: bf16 LoRA fine-tuning against the CPU (phase 26's second part): the
+#: readings of `BF16_PARITY_TOL` over phase 23's model (2 layers at the
+#: multi-LoRA width, base frozen, rank 16) under O1, where the LoRA
+#: factors are the only parameters that move.  Each gate lies between the
+#: card run's reading and the control's (near their geometric mean), the
+#: card run with qkv's B factors zeroed (what an epilogue that lost the
+#: adapter term would compute), which must fail every gate.  Readings on
+#: an H100 80GB HBM3 at 700 W: 1.08e-4, 6.41e-3, 3.31e-2; control
+#: 9.71e-4, 1.0 (its qkv A gets no gradient at step 1), 0.540.
+BF16_LORA_PARITY_TOL = dict(loss=3e-4, grad=8e-2, update=0.13)
+
+
+def bf16_lora_parity(pt, ops):
+    """Phase 23's model in bf16 on the card against the port's CPU plain
+    run from the same numpy weights (A and B too) and inputs: 3 AdamW
+    steps with f32 master weights under ``auto_cast(bf16, O1)``, held to
+    `BF16_LORA_PARITY_TOL` with the control shown to fail each gate; the
+    frozen base ends bit-unchanged on every run."""
+    import numpy as np
+    import torch
+    phase = "bf16 lora parity"
+    cfg = multilora_cfg(pt, num_hidden_layers=2)
+    crit = pt.GPTPretrainingCriterion()
+
+    def make(device):
+        return lora_finetune_model(pt, cfg, device=device)
+
+    def loss_of(model, x, y):
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            return crit(model(x), y)
+
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100
+    params = numpy_weights(make("cpu"), SEED + 2)
+    no_qkv = {n: np.zeros_like(a) if n.endswith("qkv_proj.lora_B") else a
+              for n, a in params.items()}
+    runs = {}
+    for name, device, start in (("control", "cuda", no_qkv),
+                                ("card", "cuda", params),
+                                ("cpu", "cpu", params)):
+        runs[name] = train_parity_run(pt, ops, make, loss_of, start, ids,
+                                      labels, device)
+        torch.cuda.empty_cache()
+        frozen = [n for n in runs[name][2] if ".lora_" not in n]
+        changed = [n for n in frozen if not torch.equal(
+            runs[name][2][n], torch.from_numpy(start[n]))]
+        if not frozen or changed:
+            fail(f"{phase}: frozen parameters changed on the {name} run: "
+                 f"{changed[:8]}")
+    say(f"  {len(frozen)} frozen parameters bit-unchanged on every run; "
+        f"{len(runs['cpu'][1])} factors got a gradient")
+    if set(runs["card"][1]) != set(runs["cpu"][1]):
+        fail(f"{phase}: gradients on one side only: "
+             f"{sorted(set(runs['card'][1]) ^ set(runs['cpu'][1]))}")
+    got, ctl = hold_bf16_gates(phase, runs, params, no_qkv,
+                               BF16_LORA_PARITY_TOL, "qkv's B zeroed")
+    check_counts(phase, ops, runs["card"][3], 3, cfg.num_hidden_layers,
+                 "lora_train")
+    return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
+                losses_control=runs["control"][0], readings=got,
+                control=ctl, tolerance=BF16_LORA_PARITY_TOL)
+
+
 def phase_bf16_parity(pt, ops):
     """GPT_1P3B's width cut to 2 layers in bf16 on the card against the
     port's CPU plain run (which tier-1 holds to the reference) from the
@@ -3770,7 +3927,7 @@ def phase_bf16_parity(pt, ops):
     8's path), held to `BF16_PARITY_TOL`, and the control (the card run
     with fc1's bias dropped) shown to fail each gate; then the engine
     with bf16 weights on phase 3's 4 requests, 16 greedy tokens each, the
-    token match ratio reported."""
+    token match ratio reported; then `bf16_lora_parity`."""
     import numpy as np
     import torch
     phase = "bf16 parity"
@@ -3798,24 +3955,8 @@ def phase_bf16_parity(pt, ops):
             loss_of, start, ids, labels, device)
         torch.cuda.empty_cache()
     counts = runs["card"][3]
-    got = bf16_parity_readings(runs["card"], runs["cpu"], params, params)
-    ctl = bf16_parity_readings(runs["control"], runs["cpu"], no_bias,
-                               params)
-    say(f"  losses card {runs['card'][0]}, CPU {runs['cpu'][0]}, control "
-        f"(fc1's bias dropped) {runs['control'][0]}")
-    for key in BF16_PARITY_TOL:
-        where = f" at {got[key + '_at']} (control at {ctl[key + '_at']})" \
-            if key + "_at" in got else ""
-        say(f"  {key}: {got[key]:.3e}, control {ctl[key]:.3e}, tolerance "
-            f"{BF16_PARITY_TOL[key]:g}{where}")
-    say(f"  params after 3 steps max |err| {got['param_max_abs_err']:.3e} "
-        f"(control {ctl['param_max_abs_err']:.3e}), reported")
-    for key, tol in BF16_PARITY_TOL.items():
-        if got[key] > tol:
-            fail(f"{phase}: {key} reading {got[key]:.3e} over {tol:g}")
-        if ctl[key] <= tol:
-            fail(f"{phase}: the control's {key} reading {ctl[key]:.3e} is "
-                 f"within {tol:g}: the gate cannot see fc1's bias dropped")
+    got, ctl = hold_bf16_gates(phase, runs, params, no_bias,
+                               BF16_PARITY_TOL, "fc1's bias dropped")
     check_counts(phase, ops, counts, 3, cfg.num_hidden_layers, "train_flash")
 
     serve_cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2))
@@ -3849,10 +3990,11 @@ def phase_bf16_parity(pt, ops):
         f"{match:.4f}, reported)")
     check_counts(phase, ops, serve_counts, steps, serve_cfg.num_hidden_layers,
                  "serve")
+    lora = bf16_lora_parity(pt, ops)
     return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
                 losses_control=runs["control"][0], readings=got,
                 control=ctl, tolerance=BF16_PARITY_TOL,
-                greedy_match_ratio=match)
+                greedy_match_ratio=match, lora=lora)
 
 
 def free_device_memory():
@@ -3872,6 +4014,9 @@ def kernel_entry(r):
                  note=r.get("note", ""))
     if "twin_ms" in r:
         entry["float_twin_ms"] = r["twin_ms"]
+    for key in ("route", "bound_ms_three_streams"):
+        if key in r:
+            entry[key + "_taken" if key == "route" else key] = r[key]
     return entry
 
 
@@ -4108,7 +4253,8 @@ def main():
     free_device_memory()
 
     say("[26] bf16 parity: full width, 2 layers, bf16 O1 flash + recompute, "
-        "3 AdamW steps, CUDA vs CPU; bf16 greedy tokens")
+        "3 AdamW steps, CUDA vs CPU; bf16 greedy tokens; LoRA fine-tuning "
+        "at the multilora width, 2 layers, bf16 O1")
     bf16_parity = phase_bf16_parity(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,

@@ -78,6 +78,9 @@ _SIGNATURES = {
                                _I, _I, _P), _I),
     "ptt_lora_sgmv_fwd": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _P), _I),
+    "ptt_lora_sgmv_mma_route": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
+                                _I),
+    "ptt_lora_sgmv_spans": ((_I, _I, _I), _I),
     "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _F, _I, _I, _P), _I),
     "ptt_matmul_epilogue_tma_route": ((_P, _P, _I, _I, _I), _I),

@@ -28,7 +28,12 @@ each group's run of blocks by binary search, so ids must be
 nondecreasing).  Adapters that own no block get exact zeros.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.
+or raises.  The kernel has three routes (`mma_route`): bf16 with 16-byte
+rows on the tensor cores, f32, and bf16 rows off 16 bytes element by
+element; the wrapper counts its launches by route (``mma_launches``,
+``f32_launches``, ``elementwise_launches``).  With ``act="none"`` out
+equals s bit for bit, so the kernel writes s alone and the wrapper
+returns it as both (on the CPU too).
 """
 from __future__ import annotations
 
@@ -40,7 +45,17 @@ from .matmul_epilogue import ACTIVATIONS, act_f32, act_grad_f32
 from .tiles import min_rows
 
 __all__ = ["lora_rank_pad", "lora_segment_epilogue_ref",
-           "fused_lora_segment_epilogue", "lora_segment_epilogue"]
+           "fused_lora_segment_epilogue", "lora_segment_epilogue",
+           "mma_route", "MMA_MAX_RANK"]
+
+#: the widest rank the tensor-core route takes (``csrc/lora_sgmv.cu``
+#: ``kMaxRank``: t's accumulators for 16 rows, r / 2 a lane)
+MMA_MAX_RANK = 128
+#: entries of t, block_rows x r, that the kernel takes: the f32 and
+#: element-wise route keeps at most 8 of them a thread of 256 in
+#: registers; the tensor-core route holds t [block_rows, r] f32 in shared
+#: memory (8 KB at the limit), computed 16 rows at a time
+_MAX_T_ENTRIES = 2048
 
 
 def lora_rank_pad(rank, dtype) -> int:
@@ -85,6 +100,18 @@ def _check_layout(z, x, a, b, block_adapter):
     return L, K, r, N, bm
 
 
+def mma_route(K, N, r, *tensors):
+    """Whether the kernel on these tensors (z, x, a_stack, b_stack, out or
+    None, s) takes the tensor-core route: the kernel's rule
+    (``ptt_lora_sgmv_mma_route``), bf16 with K, N and r multiples of 8
+    (16-byte rows), r at most `MMA_MAX_RANK`, every pointer 16-byte
+    aligned; else f32 or the element-wise route."""
+    return (tensors[1].dtype == torch.bfloat16 and K > 0 and K % 8 == 0
+            and N % 8 == 0 and 0 < r <= MMA_MAX_RANK and r % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors
+                    if t is not None))
+
+
 def _sgmv_ref(z, x, a, b, aid, act):
     """(out, s) of the plain epilogue: per block, the full-K f32 dot of
     its rows with its adapter's A, the f32 expansion through B (both zero
@@ -121,11 +148,12 @@ def fused_lora_segment_epilogue(z, x, a_stack, b_stack, block_adapter,
     """``(out, s)``: the SGMV epilogue and the saved pre-activation sum
     ``s = z + (x_blk @ A[a]) @ B[a]``, both ``[R, N]`` in ``x``'s type.
     A null block (``block_adapter == L``) gives ``s = z`` and
-    ``out = act(z)``."""
+    ``out = act(z)``.  With ``act="none"`` ``out is s``."""
     _check_act(act)
     L, K, r, N, bm = _check_layout(z, x, a_stack, b_stack, block_adapter)
     if x.device.type == "cpu":
-        return _sgmv_ref(z, x, a_stack, b_stack, block_adapter, act)
+        out, s = _sgmv_ref(z, x, a_stack, b_stack, block_adapter, act)
+        return (s, s) if act == "none" else (out, s)
     if x.device.type != "cuda":
         raise RuntimeError(f"lora epilogue: no kernel for device {x.device}")
     for name, t in (("z", z), ("x", x), ("a_stack", a_stack),
@@ -147,22 +175,26 @@ def fused_lora_segment_epilogue(z, x, a_stack, b_stack, block_adapter,
         raise ValueError(f"lora epilogue: block_rows {bm} x rank {r} exceeds "
                          f"the kernel's {_MAX_T_ENTRIES} low-rank entries")
     R = x.shape[0]
-    out = torch.empty(R, N, dtype=x.dtype, device=x.device)
-    s = torch.empty_like(out)
+    s = torch.empty(R, N, dtype=x.dtype, device=x.device)
+    out = s if act == "none" else torch.empty_like(s)
     if R and N:
+        wrapper = fused_lora_segment_epilogue
+        out_arg = None if out is s else out
         rc = cuda_lib.library().ptt_lora_sgmv_fwd(
             z.data_ptr(), x.data_ptr(), a_stack.data_ptr(),
-            b_stack.data_ptr(), block_adapter.data_ptr(), out.data_ptr(),
-            s.data_ptr(), R, K, N, r, L, bm, ACTIVATIONS.index(act), code,
-            x.device.index, cuda_lib.stream_handle(x.device))
+            b_stack.data_ptr(), block_adapter.data_ptr(),
+            None if out_arg is None else out_arg.data_ptr(), s.data_ptr(),
+            R, K, N, r, L, bm, ACTIVATIONS.index(act), code, x.device.index,
+            cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "lora_sgmv")
-        fused_lora_segment_epilogue.launches += 1
+        wrapper.launches += 1
+        if mma_route(K, N, r, z, x, a_stack, b_stack, out_arg, s):
+            wrapper.mma_launches += 1
+        elif x.dtype == torch.float32:
+            wrapper.f32_launches += 1
+        else:
+            wrapper.elementwise_launches += 1
     return out, s
-
-
-#: the kernel keeps a block's [block_rows, r] low-rank product in
-#: registers, at most 8 entries a thread of 256 (lora_sgmv.cu)
-_MAX_T_ENTRIES = 2048
 
 
 class _LoraSegmentEpilogue(torch.autograd.Function):
@@ -229,5 +261,9 @@ def lora_segment_epilogue(z, x, a_stack, b_stack, *, block_adapter,
     return fused_lora_segment_epilogue(z, x, a_stack, b_stack, aid, act)[0]
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them), and
+#: the same by route
 fused_lora_segment_epilogue.launches = 0
+fused_lora_segment_epilogue.mma_launches = 0
+fused_lora_segment_epilogue.f32_launches = 0
+fused_lora_segment_epilogue.elementwise_launches = 0

@@ -57,8 +57,11 @@ block, an empty one), and both rows 100 times bit-identical at the
 f32 gradient test's layout and LoRA's dA shape.  The LoRA SGMV epilogue
 is held to its plain version (out and the saved sum) over blocks mixing
 adapters, null blocks (which give act(z), and s = z exactly) and an
-adapter with no block, at N off the 64-column tile and at ranks 8-64;
-its autograd function (the grouped kernels on the adapter stacks, read
+adapter with no block, at N off the 64-column tile and at ranks 8-64,
+each launch counted by route (the tensor-core route for bf16 with
+16-byte rows), and at the serving and fine-tuning drives' shapes (100
+runs bit-identical); with act "none" the wrapper returns s as out; its
+autograd function (the grouped kernels on the adapter stacks, read
 transposed, with N = r = 16 under the tile) against the same function on
 the CPU.  Paged decode attention is held to its plain version with a
 context-0 row, padded table entries and contexts off the page, at head
@@ -1099,20 +1102,45 @@ def _lora_case(gen, dtype, K, N, r, aid, bm, L=4):
     return z, x, a, b, torch.tensor(aid, dtype=torch.int32, device="cuda")
 
 
+def _lora_routes():
+    fn = ops.fused_lora_segment_epilogue
+    return (fn.launches, fn.mma_launches, fn.f32_launches,
+            fn.elementwise_launches)
+
+
+def _lora_route(n0, K, N, r, *tensors):
+    """The route the Python rule gives for the launch just made, held
+    equal to the library's rule and to the wrapper's counts since
+    ``n0`` (`_lora_routes`)."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.lora import mma_route
+    mma = mma_route(K, N, r, *tensors)
+    assert bool(cuda_lib.library().ptt_lora_sgmv_mma_route(
+        *(None if t is None else t.data_ptr() for t in tensors), K, N, r,
+        cuda_lib.dtype_code(tensors[1].dtype))) == mma
+    f32 = tensors[1].dtype == torch.float32
+    assert _lora_routes() == (n0[0] + 1, n0[1] + mma, n0[2] + f32,
+                              n0[3] + (not mma and not f32))
+    return mma
+
+
 @pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("act", ops.ACTIVATIONS)
 @pytest.mark.parametrize("K,N,r", [(200, 130, 16), (1024, 3072, 16),
                                    (64, 16, 8), (96, 70, 64)])
 def test_lora_sgmv_kernel(gen, dtype, act, K, N, r):
     """Blocks [0, null, 2, 2, null, 0, 3]: adapter 1 owns none.  Ragged
-    K and N off the 64-column tile; r = 64 at block rows 16 fills the
-    kernel's 1024 low-rank entries from 256 threads."""
+    K and N (130 and 70: bf16's element-wise route); r = 64 at block rows
+    16 fills the f32 and element-wise kernel's 1024 low-rank entries from
+    256 threads; r = 8 pads the tensor-core route's t to 16 columns.  Each
+    launch counted under the route the rule gives."""
     bm = 16 if dtype == torch.bfloat16 else 8
     aid = [0, 4, 2, 2, 4, 0, 3]
     z, x, a, b, gid = _lora_case(gen, dtype, K, N, r, aid, bm)
-    n0 = ops.fused_lora_segment_epilogue.launches
+    n0 = _lora_routes()
     out, s = ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
-    assert ops.fused_lora_segment_epilogue.launches == n0 + 1
+    mma = _lora_route(n0, K, N, r, z, x, a, b, None if out is s else out, s)
+    assert mma == (dtype == torch.bfloat16 and N % 8 == 0)
     want, s_ref = ops.lora.fused_lora_segment_epilogue(
         z.cpu(), x.cpu(), a.cpu(), b.cpu(), gid.cpu(), act)
     _close(out.cpu(), want, dtype)
@@ -1152,6 +1180,72 @@ def test_lora_segment_gradients_on_the_card(gen, dtype):
     assert not grads["cuda"][3][1].any() and not grads["cuda"][4][1].any()
 
 
+#: the SGMV epilogue at the drives' shapes (chip_smoke.py's LORA_CASES and
+#: LORA_TRAIN_CASES): (rows, K, N, act, slots); the serving step's 368
+#: rows (23 blocks of 16) over 16 slots, adapters 0, 3, 6, 9 in turn and a
+#: null block every third; fine-tuning's 8192 rows, one adapter
+_LORA_DRIVE = {"serve_qkv": (368, 1024, 3072, "none", 16),
+               "serve_out": (368, 1024, 1024, "none", 16),
+               "serve_fc1": (368, 1024, 4096, "gelu_tanh", 16),
+               "serve_fc2": (368, 4096, 1024, "none", 16),
+               "train_qkv": (8192, 1024, 3072, "none", 1),
+               "train_out": (8192, 1024, 1024, "none", 1),
+               "train_fc2": (8192, 4096, 1024, "none", 1)}
+
+
+@pytest.mark.parametrize("case", list(_LORA_DRIVE))
+def test_lora_sgmv_drive_shapes(gen, case):
+    """bf16 rank 16 at each drive shape: the tensor-core route, within 2e-2
+    of the plain version, s = z bit for bit on null rows, and 100 runs
+    bit-identical to the first."""
+    rows, K, N, act, slots = _LORA_DRIVE[case]
+    dtype, bm = torch.bfloat16, 16
+    nb = rows // bm
+    aid = [0] * nb if slots == 1 else \
+        [slots if i % 3 == 2 else (0, 3, 6, 9)[i % 4] for i in range(nb)]
+    z, x, a, b, gid = _lora_case(gen, dtype, K, N, 16, aid, bm, L=slots)
+    n0 = _lora_routes()
+    first = ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
+    out, s = first
+    assert _lora_route(n0, K, N, 16, z, x, a, b,
+                       None if out is s else out, s)
+    want, s_want = ops.lora.fused_lora_segment_epilogue(
+        z.cpu(), x.cpu(), a.cpu(), b.cpu(), gid.cpu(), act)
+    _close(out.cpu(), want, dtype)
+    _close(s.cpu(), s_want, dtype)
+    null = (gid == slots).repeat_interleave(bm)
+    assert torch.equal(s[null], z[null])
+    for _ in range(100):
+        again = ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
+        assert all(torch.equal(u, v) for u, v in zip(again, first))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_lora_out_is_s_on_the_card(gen, dtype):
+    """act "none": the kernel writes s alone and the wrapper returns it as
+    out (another activation: two tensors); the autograd function on the
+    saved alias gives the CPU's gradients."""
+    bm = 16 if dtype == torch.bfloat16 else 8
+    aid = [3, 0, 4, 3, 3, 0, 4, 2]
+    z, x, a, b, gid = _lora_case(gen, dtype, 64, 136, 16, aid, bm)
+    for act in ops.ACTIVATIONS:
+        out, s = ops.fused_lora_segment_epilogue(z, x, a, b, gid, act)
+        assert (out is s) == (act == "none"), act
+    g = torch.randn(z.shape, device="cuda", generator=gen).to(dtype)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (z, x, a, b)]
+        out = ops.lora_segment_epilogue(*leaves, block_adapter=gid.to(dev),
+                                        act="none")
+        out.backward(g.to(dev))
+        grads[dev] = [out.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for name, got, want in zip(("out", "dz", "dx", "dA", "dB"),
+                               grads["cuda"], grads["cpu"]):
+        tol = _TOL[dtype] * (10 if name in ("dA", "dB") else 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=_TOL[dtype], msg=name)
+
+
 def test_lora_wrapper_refuses_bad_inputs(gen):
     z, x, a, b, gid = _lora_case(gen, torch.float32, 32, 40, 8, [0, 4], 8)
     with pytest.raises(ValueError, match="int32"):
@@ -1163,11 +1257,16 @@ def test_lora_wrapper_refuses_bad_inputs(gen):
         ops.fused_lora_segment_epilogue(*h)
     with pytest.raises(ValueError, match="on cpu"):
         ops.fused_lora_segment_epilogue(z, x, a.cpu(), b, gid)
+    # more than 2048 entries of t (block rows x r): f32, and bf16's
+    # tensor-core route (r = 144 at block rows 16)
     with pytest.raises(ValueError, match="exceeds"):
         big_a = torch.zeros(4, 32, 512, device="cuda")
         ops.fused_lora_segment_epilogue(z, x, big_a,
                                         torch.zeros(4, 512, 40,
                                                     device="cuda"), gid)
+    h = _lora_case(gen, torch.bfloat16, 32, 40, 144, [0, 4], 16)
+    with pytest.raises(ValueError, match="exceeds"):
+        ops.fused_lora_segment_epilogue(*h)
 
 
 # ---------------------------------------------------------------------

@@ -618,3 +618,28 @@ def test_lora_finetune_matches_reference_training(pair):
                                    rtol=1e-4, err_msg=name)
     for name, p in base.items():
         assert torch.equal(own[name], p), name   # the base is untouched
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_out_is_s_only_without_activation(dtype):
+    """``fused_lora_segment_epilogue`` returns s itself as out exactly when
+    act is "none" (out equals s bit for bit there; the kernel writes s
+    alone), and the autograd function saving that one tensor gives the
+    gradients of the plain composite differentiated by autograd."""
+    z, x, a, b, g, aid, _ = _sgmv_case(dtype, seed=5)
+    td = _TORCH[dtype]
+    tz, tx, ta, tb = (torch.from_numpy(v).to(td) for v in (z, x, a, b))
+    taid = torch.from_numpy(aid)
+    for act in tops.ACTIVATIONS:
+        out, s = tops.fused_lora_segment_epilogue(tz, tx, ta, tb, taid, act)
+        assert (out is s) == (act == "none"), act
+    grads = []
+    for fn in (tops.lora_segment_epilogue, tops.lora_segment_epilogue_ref):
+        leaves = [t.clone().requires_grad_() for t in (tz, tx, ta, tb)]
+        out = fn(*leaves, block_adapter=taid, act="none")
+        out.backward(torch.from_numpy(g).to(td))
+        grads.append([t.grad.float() for t in leaves])
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, got, want in zip(("dz", "dx", "dA", "dB"), *grads):
+        torch.testing.assert_close(got, want, atol=tol * want.abs().max(),
+                                   rtol=tol, msg=name)
