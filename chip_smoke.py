@@ -10,10 +10,12 @@ phase fails.  Phases:
 0. the card's name and power limit (``nvidia-smi``);
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed); the registers and stack/local
-   bytes of every flash attention, grouped matmul, ``wgmma`` and
-   layer-norm vector-route kernel instantiation; the ``wgmma`` kernels
-   (the bf16 matmul epilogue, rows 3 and 11, and ``csrc/wgmma_check.cu``)
-   must not spill and their SASS must hold HGMMA; then the ``wgmma``
+   bytes of every flash attention, grouped matmul, ``wgmma``,
+   layer-norm vector-route and ragged attention tensor-core kernel
+   instantiation; the ``wgmma`` kernels (the bf16 matmul epilogue, rows
+   3 and 11, and ``csrc/wgmma_check.cu``) must not spill and their SASS
+   must hold HGMMA, the four ragged attention tensor-core instantiations
+   (rows 1 and 10) must not spill; then the ``wgmma``
    self-check: one TMA-loaded, transpose-B product of small integers,
    and the same product staged by the threads, each exactly equal to
    ``torch.mm``;
@@ -42,7 +44,11 @@ phase fails.  Phases:
    bit-identical, beside ``torch._weight_int8pack_mm`` and the float
    twin, the same GEMM with bias and activation on a bf16 copy of the
    dequantized weight; int8 ragged attention at the mixed step with int8
-   pools);
+   pools); ragged attention, float and int8 pools, at the mixed step, a
+   decode-only step (8 rows at contexts 577-640, padded with null
+   q-blocks to the token budget) and the mixed step at heads of 64 (the
+   multi-LoRA drive's), each run twice and held bit-identical, bf16 on
+   the tensor-core route and f32 on its own;
    and the grouped-expert matmul's forward and dw kernels at the MoE
    drives' shapes with skewed expert counts (one expert empty, one
    holding almost everything): the serving step's 736 assignments (368
@@ -85,7 +91,8 @@ phase fails.  Phases:
    equal its launches per step times the steps; every bf16 matmul
    epilogue launch since phase 2 must have taken the TMA staging route,
    every layer-norm launch (forward and backward) the vector route and
-   no LoRA SGMV launch the element-wise route (checked after every drive
+   no LoRA SGMV or ragged attention launch the element-wise route
+   (checked after every drive
    and parity run: `check_routes`, run by `check_counts`).  A second,
    profiled burst (8 of the prompts, 16 tokens) then splits device time
    by kernel and gives the device's idle share (``torch.profiler``);
@@ -571,21 +578,44 @@ def quantize_pool(pool):
     return codes.to(torch.int8), scale[..., None].contiguous()
 
 
-def check_ragged_int8(ops, block_q, dtype, dtype_name, gen):
+def check_ragged_int8(ops, block_q, dtype, dtype_name, gen, case="mixed"):
     """`check_ragged` over int8 pools with per-slot scales."""
-    return check_ragged(ops, block_q, dtype, dtype_name, gen, int8=True)
+    return check_ragged(ops, block_q, dtype, dtype_name, gen, int8=True,
+                        case=case)
 
 
-def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False):
-    """A mixed step of the serving drive: one 256-token prefill chunk
-    (positions 256..511) plus seven decode rows at contexts 520-622.
-    With ``int8`` the pools hold per-slot int8 codes and scales."""
+#: ragged attention's cases (query lengths, context lengths, heads, head
+#: dim): "mixed", a mixed step of the serving drive, one 256-token
+#: prefill chunk (positions 256..511) plus seven decode rows at contexts
+#: 520-622; "decode", a decode-only step, most of the serving trace's
+#: steps: 8 decode rows at contexts 577-640; "d64", the mixed step at the
+#: multi-LoRA serving drive's 16 heads of 64.  Each is padded with null
+#: q-blocks to the engine's token budget (chunk 256 + 7 q-blocks).
+RAGGED_CASES = {
+    "mixed": ([1] * 7 + [256], [520 + 17 * i for i in range(7)] + [512],
+              16, 128),
+    "decode": ([1] * 8, [577 + 9 * i for i in range(8)], 16, 128),
+    "d64": ([1] * 7 + [256], [520 + 17 * i for i in range(7)] + [512],
+            16, 64),
+}
+
+
+def ragged_route_counts(ops, int8):
+    fn = ops.ragged_paged_attention_int8 if int8 \
+        else ops.ragged_paged_attention
+    return fn.mma_launches, fn.f32_launches, fn.elementwise_launches
+
+
+def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False,
+                 case="mixed"):
+    """Ragged attention at one of `RAGGED_CASES`; with ``int8`` the pools
+    hold per-slot int8 codes and scales.  Run twice, bit-identical; bf16
+    must take the tensor-core route, f32 its own."""
     import numpy as np
     import torch
-    H, D, bs, W, S = 16, 128, 16, 128, 8
-    qlens = [1] * 7 + [256]
-    ctxs = [520 + 17 * i for i in range(7)] + [512]
-    nqb = 7 + 256 // block_q
+    qlens, ctxs, H, D = RAGGED_CASES[case]
+    bs, W, S = 16, 128, len(qlens)
+    nqb = 256 // block_q + 7
     sid, qs, qv, _, _ = ops.ragged_segments(qlens, ctxs, block_q,
                                             num_q_blocks=nqb, num_seqs=S)
     rng = np.random.default_rng(SEED)
@@ -607,11 +637,23 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False):
     ints = [torch.from_numpy(a).cuda() for a in
             (tables, np.asarray(ctxs, np.int32), sid, qs, qv)]
     args = (q, kp, vp, *ints)
-    out = ops.ragged_paged_attention(*args, **kw)
+
+    def kernel():
+        return ops.ragged_paged_attention(*args, **kw)
+    n0 = ragged_route_counts(ops, int8)
+    out = kernel()
+    moved = [name for name, a, b in zip(("mma", "f32", "elementwise"), n0,
+                                        ragged_route_counts(ops, int8))
+             if b != a]
+    route = moved[0] if len(moved) == 1 else f"counts moved: {moved}"
+    want_route = "mma" if dtype == torch.bfloat16 else "f32"
     ref = ops.ragged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
-    note = ""
+    same = repeat_equal(kernel, out)
+    ok = ok and same and route == want_route
+    note = (f"route {route} (want {want_route}); second run "
+            f"bit-identical: {same}")
     if dtype == torch.bfloat16:
         pools32 = (kp, vp) if int8 else (kp.float(), vp.float())
         ref32 = ops.ragged_attention_ref(q.float(), *pools32, *ints, **kw)
@@ -619,9 +661,9 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False):
         rms = float(ref32.pow(2).mean().sqrt())
         err32, _, ok32 = compare(out, ref32, dtype_name, k_rms * rms, k_rel)
         ok = ok and ok32
-        note = (f"vs plain with f32 probabilities max abs err {err32:.3e} "
-                f"(tolerance {k_rms * rms:.3e} + {k_rel:g}*|plain|, "
-                f"RMS {rms:.3e})")
+        note += (f"; vs plain with f32 probabilities max abs err "
+                 f"{err32:.3e} (tolerance {k_rms * rms:.3e} + "
+                 f"{k_rel:g}*|plain|, RMS {rms:.3e})")
         del ref32
     # work this data needs: visible (row, key) pairs, KV blocks touched
     pairs, touched = 0, set()
@@ -641,10 +683,11 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False):
               + 4 * (tables.size + len(ctxs) + 3 * nqb))
     bms, by = bound(nbytes, 4 * D * H * pairs, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok, note=note,
-        shape=(f"q[{q.shape[0]},{H},{D}] pool[{nb},{H},{bs},{D}] "
+        err=err, rel=rel, ok=ok, note=note, route=route,
+        repeat_identical=same,
+        shape=(f"{case}: q[{q.shape[0]},{H},{D}] pool[{nb},{H},{bs},{D}] "
                f"{dtype_name if not int8 else 'int8'} W={W}"),
-        ms=time_ms(lambda: ops.ragged_paged_attention(*args, **kw)),
+        ms=time_ms(kernel),
         plain_ms=time_ms(lambda: ops.ragged_attention_ref(*args, **kw),
                          iters=5),
         library_ms=None, bound_ms=bms, bound_by=by)
@@ -992,6 +1035,28 @@ def kernel_resources(cuda_lib, lib_path, names):
         say(f"  {name}: {reg} registers a thread, stack {stack} B, local "
             f"{local} B")
     return res
+
+
+#: ragged attention's tensor-core route (phase 1: no spills)
+RAGGED_MMA_KERNEL_NAMES = ("ragged_attn_mma_kernel",)
+
+
+def check_ragged_mma_kernels(resources):
+    """Phase 1's gate on ragged attention's tensor-core instantiations
+    (bf16 and int8 pools, heads of 64 and 128): all four are in the
+    library and none uses stack or local memory (no spills)."""
+    if resources is None:
+        fail("phase 1: no cuobjdump to check the ragged mma kernels with")
+    found = {n: r for n, r in resources.items()
+             if any(k in n for k in RAGGED_MMA_KERNEL_NAMES)}
+    spills = [n for n, r in found.items() if r["stack"] or r["local"]]
+    say(f"  ragged attention mma: {len(found)} instantiations, "
+        f"{len(spills)} spill")
+    if len(found) != 4:
+        fail(f"phase 1: {len(found)} ragged mma instantiations, want 4")
+    if spills:
+        fail(f"phase 1: ragged mma kernels spill to stack or local "
+             f"memory: {spills}")
 
 
 #: the kernels built on `wgmma` (phase 1: no spills, HGMMA in their SASS)
@@ -2026,7 +2091,9 @@ def phase_kernels(ops, budgets):
     qkv, else ("lora_sgmv", dtype, case)), the grouped kernels at LoRA's backward shapes (keys
     (name, dtype, case) of `LORA_BWD_CASES` and `LORA_DW_CASES`) and
     paged decode attention (key ("paged_attention", dtype)), from a
-    generator of their own."""
+    generator of their own; ragged attention, float and int8, at the
+    other `RAGGED_CASES` (keys (name, dtype, case)), from a generator of
+    their own."""
     import torch
     warm_up(ops)
     serve = {"ragged_attention": check_ragged,
@@ -2049,6 +2116,7 @@ def phase_kernels(ops, budgets):
     gen_lora = torch.Generator(device="cuda").manual_seed(SEED + 21)
     gen_me = torch.Generator(device="cuda").manual_seed(SEED + 3)
     gen_ln = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    gen_rg = torch.Generator(device="cuda").manual_seed(SEED + 14)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -2058,6 +2126,12 @@ def phase_kernels(ops, budgets):
             r = check(ops, arg, dtype, dtype_name, gen)
             report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        for case in RAGGED_CASES:
+            if case != "mixed":
+                r = check_ragged(ops, block_q, dtype, dtype_name, gen_rg,
+                                 case=case)
+                report("ragged_attention", dtype_name, r)
+                results[("ragged_attention", dtype_name, case)] = r
         r = check_matmul_epilogue(ops, ME_DECODE_ROWS, dtype, dtype_name,
                                   gen_me)
         report("matmul_epilogue", dtype_name, r)
@@ -2097,6 +2171,15 @@ def phase_kernels(ops, budgets):
                            f"{twin['ms']:.4f} ms")))
             report(name, dtype_name, r)
             results[(name, dtype_name)] = r
+        for case in RAGGED_CASES:
+            if case != "mixed":
+                r = check_ragged_int8(ops, block_q, dtype, dtype_name,
+                                      gen_rg, case=case)
+                twin = results[("ragged_attention", dtype_name, case)]
+                r["note"] += (f"; the float kernel at this shape "
+                              f"{twin['ms']:.4f} ms")
+                report("ragged_attention_int8", dtype_name, r)
+                results[("ragged_attention_int8", dtype_name, case)] = r
         for case in INT8_CASES:
             if case != "fc1":
                 r = check_matmul_epilogue_int8(ops, budgets[dtype_name],
@@ -2188,8 +2271,9 @@ def reset_routes(ops):
         fn.tma_launches = fn.elementwise_launches = 0
     for fn in (ops.fused_layer_norm, ops.fused_layer_norm_bwd):
         fn.vector_launches = fn.scalar_launches = 0
-    fn = ops.fused_lora_segment_epilogue
-    fn.mma_launches = fn.f32_launches = fn.elementwise_launches = 0
+    for fn in (ops.fused_lora_segment_epilogue, ops.ragged_paged_attention,
+               ops.ragged_paged_attention_int8):
+        fn.mma_launches = fn.f32_launches = fn.elementwise_launches = 0
 
 
 def check_routes(phase, ops):
@@ -2197,8 +2281,9 @@ def check_routes(phase, ops):
     so every launch counted is a drive's, at a model shape): every bf16
     matmul epilogue launch must have staged by TMA, every layer-norm
     launch, forward and backward, must have taken the vector route, and
-    no LoRA SGMV launch the element-wise route (bf16 takes the tensor
-    cores, f32 its own route)."""
+    no LoRA SGMV launch and no ragged attention launch, float or int8,
+    the element-wise route (bf16 takes the tensor cores, f32 its own
+    route)."""
     epilogue = {name: (fn.tma_launches, fn.elementwise_launches)
                 for name, fn in
                 (("matmul_epilogue", ops.fused_linear_act),
@@ -2207,12 +2292,16 @@ def check_routes(phase, ops):
             (("layer_norm", ops.fused_layer_norm),
              ("layer_norm_bwd", ops.fused_layer_norm_bwd))}
     lora = lora_route_counts(ops)
+    ragged = {name: ragged_route_counts(ops, int8) for name, int8 in
+              (("ragged_attention", False), ("ragged_attention_int8", True))}
     say("  launches by route since phase 2: bf16 epilogue (TMA, "
         "element-wise) "
         + ", ".join(f"{n} {c}" for n, c in epilogue.items())
         + "; layer norm (vector, scalar) "
         + ", ".join(f"{n} {c}" for n, c in norm.items())
-        + f"; lora_sgmv (mma, f32, element-wise) {lora}")
+        + f"; lora_sgmv (mma, f32, element-wise) {lora}; ragged "
+        "attention (mma, f32, element-wise) "
+        + ", ".join(f"{n} {c}" for n, c in ragged.items()))
     if any(c[1] for c in epilogue.values()):
         fail(f"{phase}: a model-shape epilogue launch staged element by "
              f"element: {epilogue}")
@@ -2222,6 +2311,9 @@ def check_routes(phase, ops):
     if lora[2]:
         fail(f"{phase}: a model-shape LoRA SGMV launch took the "
              f"element-wise route: {lora}")
+    if any(c[2] for c in ragged.values()):
+        fail(f"{phase}: a model-shape bf16 ragged attention launch took "
+             f"the element-wise route: {ragged}")
 
 
 def launches(ops):
@@ -2520,12 +2612,14 @@ _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
                    ("grouped_matmul_dw", "gmm_dw_"),
                    ("ragged_attention_int8",
                     ("ragged_attn_kernel<float, signed char>",
-                     "ragged_attn_kernel<__nv_bfloat16, signed char>")),
+                     "ragged_attn_kernel<__nv_bfloat16, signed char>",
+                     "ragged_attn_mma_kernel<signed char")),
                    ("matmul_epilogue_int8",
                     ("me_fwd_wgmma<signed char",
                      "me_fwd_fma<float, signed char",
                      "me_fwd_fma<__nv_bfloat16, signed char")),
-                   ("ragged_attention", "ragged_attn_kernel"),
+                   ("ragged_attention", ("ragged_attn_kernel",
+                                         "ragged_attn_mma_kernel")),
                    ("layer_norm_residual", "layer_norm_residual_fwd_kernel"),
                    ("layer_norm", ("ln_fwd_vec_kernel",
                                    "layer_norm_fwd_kernel")),
@@ -4066,6 +4160,8 @@ def kernels_line(results, counts):
                                 *LORA_BWD_CASES)) \
             if name == "grouped_matmul" \
             else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" \
+            else dict.fromkeys(c for c in RAGGED_CASES if c != "mixed") \
+            if name.startswith("ragged_attention") \
             else {"decode": None} if name == "matmul_epilogue" \
             else dict.fromkeys(("qkv", "out", "fc2")) \
             if name == "matmul_epilogue_int8" \
@@ -4127,8 +4223,9 @@ def main():
     resources = kernel_resources(
         cuda_lib, path,
         FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES
-        + LN_KERNEL_NAMES)
+        + LN_KERNEL_NAMES + RAGGED_MMA_KERNEL_NAMES)
     check_wgmma_kernels(cuda_lib, path, resources)
+    check_ragged_mma_kernels(resources)
     wgmma_check = check_wgmma_product(cuda_lib)
 
     say("[2] kernels vs plain versions at the main path's shapes")

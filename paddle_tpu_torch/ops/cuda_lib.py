@@ -64,6 +64,8 @@ _SIGNATURES = {
     "ptt_ragged_attention_int8_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                        _F, _I, _I, _P), _I),
+    "ptt_ragged_attention_mma_route": ((_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I), _I),
     "ptt_flash_attention_fwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _LL, _F, _I, _I, _I, _P), _I),
     "ptt_flash_attention_bwd_dq": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -28,6 +28,13 @@ the same block tables; the gathered tiles are dequantized to f32 before
 the score and output products.  `ragged_paged_attention` sends them to
 `ragged_paged_attention_int8`, the int8 kernel's wrapper, which counts
 its launches apart from the float kernel's.
+
+The kernel has three routes (`mma_route`): bf16 queries with heads of 64
+or 128, 16-row q-blocks, pages a multiple of 16 slots and 16-byte aligned
+bases on the tensor cores (row 1, and row 10 over int8 pools); f32
+queries on the CUDA cores; other bf16 layouts element by element on the
+CUDA cores.  Both wrappers count their launches by route
+(``mma_launches``, ``f32_launches``, ``elementwise_launches``).
 """
 from __future__ import annotations
 
@@ -39,11 +46,43 @@ from .tiles import NEG_INF, STAT_LANES, min_rows
 
 __all__ = ["KV_SCALE_LANES", "ragged_q_block", "ragged_segments",
            "ragged_attention_ref", "ragged_paged_attention",
-           "ragged_paged_attention_int8"]
+           "ragged_paged_attention_int8", "mma_route"]
 
 #: lane width of the int8 pools' per-slot scale tables (pallas_ragged.py
 #: :64): one f32 per slot, shared by every head
 KV_SCALE_LANES = 1
+
+
+#: head dims of the tensor-core route's instantiations
+_MMA_HEAD_DIMS = (64, 128)
+#: rows of a q-block and keys of a page slice on the tensor-core route
+_MMA_ROWS = 16
+
+
+def mma_route(q, k_pool, v_pool, out, block_q, k_scales=None,
+              v_scales=None):
+    """Whether the kernel on these tensors takes the tensor-core route:
+    the kernel's rule (``ptt_ragged_attention_mma_route``), bf16 queries
+    with D in `_MMA_HEAD_DIMS`, ``block_q`` 16, pages of a multiple of 16
+    slots and every base 16-byte aligned; else the f32 route or the
+    element-wise route."""
+    bs = k_pool.shape[2]
+    return (q.dtype == torch.bfloat16 and q.shape[2] in _MMA_HEAD_DIMS
+            and bs > 0 and bs % _MMA_ROWS == 0 and block_q == _MMA_ROWS
+            and all(t.data_ptr() % 16 == 0 for t in
+                    (q, k_pool, v_pool, k_scales, v_scales, out)
+                    if t is not None))
+
+
+def _count(wrapper, route, dtype):
+    """One launch of ``wrapper``, counted by route."""
+    wrapper.launches += 1
+    if route:
+        wrapper.mma_launches += 1
+    elif dtype == torch.float32:
+        wrapper.f32_launches += 1
+    else:
+        wrapper.elementwise_launches += 1
 
 
 def ragged_q_block(dtype) -> int:
@@ -233,7 +272,8 @@ def ragged_paged_attention(q, k_pool, v_pool, block_tables, context_lens,
             W, block_q, float(scale), code, q.device.index,
             cuda_lib.stream_handle(q.device))
         cuda_lib.check(rc, "ragged_attention")
-        ragged_paged_attention.launches += 1
+        _count(ragged_paged_attention,
+               mma_route(q, k_pool, v_pool, out, block_q), q.dtype)
     return out
 
 
@@ -267,10 +307,19 @@ def ragged_paged_attention_int8(q, k_pool, v_pool, k_scales, v_scales,
             W, block_q, float(scale), code, q.device.index,
             cuda_lib.stream_handle(q.device))
         cuda_lib.check(rc, "ragged_attention_int8")
-        ragged_paged_attention_int8.launches += 1
+        _count(ragged_paged_attention_int8,
+               mma_route(q, k_pool, v_pool, out, block_q, k_scales,
+                         v_scales), q.dtype)
     return out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them), and
+#: the same by route
 ragged_paged_attention.launches = 0
+ragged_paged_attention.mma_launches = 0
+ragged_paged_attention.f32_launches = 0
+ragged_paged_attention.elementwise_launches = 0
 ragged_paged_attention_int8.launches = 0
+ragged_paged_attention_int8.mma_launches = 0
+ragged_paged_attention_int8.f32_launches = 0
+ragged_paged_attention_int8.elementwise_launches = 0

@@ -26,7 +26,13 @@ which averages out over the sum), so they stay within the same gate of
 about two bf16 ulps at unit scale.  bf16
 ragged attention is also held to the plain version run in f32, which
 keeps the probabilities in f32 as the kernel does, within one bf16 ulp
-(rtol 2^-7) plus 2^-8 of the output's RMS.  The int8 kernels (int8
+(rtol 2^-7) plus 2^-8 of the output's RMS; also at the serving drives'
+steps (a mixed step and a decode-only step, 16 heads of 128 and of 64,
+33-40 pages a sequence, bf16 and int8 pools) on the tensor-core route,
+each small case's route read from the wrappers' counters (bf16 at D 64
+or 128 on the tensor cores, D = 40 element by element, f32 its own) and
+held to the Python and the library's rule, and the mixed step 100 times
+bit-identical.  The int8 kernels (int8
 weights of the matmul epilogue, int8 KV pools of ragged attention) are
 held to their plain versions with the same tolerances, on shapes off the
 16-byte grid and off the tile, with an all-zero weight channel and with
@@ -215,13 +221,25 @@ def test_matmul_epilogue_split_k_kernel(gen, dtype, M, K, N):
     _close(z, z_ref, dtype)
 
 
-@pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("qlens,ctxs,pad", [
+#: ragged attention's small cases (query lengths, context lengths, null
+#: q-blocks padded on): float pools at D = 64, and int8 pools at a D each
+_RAGGED_CASES = [
     ([1, 1, 1], [60, 17, 5], 0),
     ([20], [20], 0),
     ([12, 1, 1], [30, 25, 9], 1),
     ([1, 0], [25, 0], 2),
-])
+]
+_RAGGED_INT8_CASES = [
+    ([1, 1, 1], [60, 17, 5], 0, 64),
+    ([20], [20], 0, 64),
+    ([12, 1, 1], [30, 25, 9], 1, 128),
+    ([1, 0], [25, 0], 2, 64),
+    ([3, 1], [40, 9], 0, 40),              # D off the 16-byte grid
+]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("qlens,ctxs,pad", _RAGGED_CASES)
 def test_ragged_attention_kernel(gen, dtype, qlens, ctxs, pad):
     H, D, bs, W = 4, 64, 16, 4
     block_q = ops.ragged_q_block(dtype)
@@ -783,13 +801,7 @@ def test_matmul_epilogue_deterministic(gen):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("qlens,ctxs,pad,D", [
-    ([1, 1, 1], [60, 17, 5], 0, 64),
-    ([20], [20], 0, 64),
-    ([12, 1, 1], [30, 25, 9], 1, 128),
-    ([1, 0], [25, 0], 2, 64),
-    ([3, 1], [40, 9], 0, 40),              # D off the 16-byte grid
-])
+@pytest.mark.parametrize("qlens,ctxs,pad,D", _RAGGED_INT8_CASES)
 def test_ragged_attention_int8_kernel(gen, dtype, qlens, ctxs, pad, D):
     from paddle_tpu_torch.inference.serving.attention import \
         _quantize_tokens
@@ -836,6 +848,139 @@ def test_ragged_attention_int8_kernel(gen, dtype, qlens, ctxs, pad, D):
                                    rtol=2 ** -7)
     if pad:
         assert float(out[-pad * block_q:].abs().sum()) == 0.0
+
+
+def _ragged_step(gen, qlens, ctxs, H, D, dtype, int8, pad=0, bs=16,
+                 nqb=None):
+    """A ragged step on the card: descriptors of (qlens, ctxs) padded to
+    ``nqb`` q-blocks (or by ``pad``) with the null segment, block tables
+    scattered over the pool, bf16 or f32 pools, or int8 codes with a
+    scale per slot.  Returns (args, kwargs) of the wrappers."""
+    block_q = ops.ragged_q_block(dtype)
+    S = len(qlens)
+    if nqb is None:
+        nqb = len(ops.ragged_segments(qlens, ctxs, block_q)[0]) + pad
+    sid, qs, qv, _, _ = ops.ragged_segments(qlens, ctxs, block_q,
+                                            num_q_blocks=nqb, num_seqs=S)
+    W = max(1, max(-(-c // bs) for c in ctxs))
+    nb = 1 + S * W
+    perm = 1 + np.random.default_rng(S * 100 + D).permutation(nb - 1)
+    tables = np.zeros((S, W), np.int32)
+    for s, c in enumerate(ctxs):
+        n = -(-c // bs)
+        tables[s, :n] = perm[s * W:s * W + n]
+    q = torch.randn(nqb * block_q, H, D, device="cuda",
+                    generator=gen).to(dtype)
+    kw = dict(block_q=block_q)
+    pools = []
+    for side in ("k_scales", "v_scales"):
+        f = torch.randn(nb, H, bs, D, device="cuda", generator=gen)
+        if int8:
+            f = f * (0.1 + 3 * torch.rand(nb, 1, bs, 1, device="cuda",
+                                          generator=gen))
+            amax = f.abs().amax(dim=(1, 3))
+            sc = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+            pools.append(torch.clamp(torch.round(
+                f / sc[:, None, :, None]), -127, 127).to(torch.int8))
+            kw[side] = sc[..., None].contiguous()
+        else:
+            pools.append(f.to(dtype))
+    ints = [torch.from_numpy(a).cuda() for a in
+            (tables, np.asarray(ctxs, np.int32), sid, qs, qv)]
+    return (q, *pools, *ints), kw
+
+
+def _ragged_route(args, kw, int8):
+    """Run the wrapper once; the route its counters moved ("mma", "f32"
+    or "elementwise"), held equal to the Python rule and to the library's
+    rule.  Returns (route, out)."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.ragged import mma_route
+    fn = ops.ragged_paged_attention_int8 if int8 \
+        else ops.ragged_paged_attention
+    names = ("mma_launches", "f32_launches", "elementwise_launches")
+    n0 = [getattr(fn, a) for a in names]
+    out = ops.ragged_paged_attention(*args, **kw)
+    moved = [a.split("_")[0] for a, b in zip(names, n0)
+             if getattr(fn, a) != b]
+    assert len(moved) == 1, moved
+    q, k, v = args[:3]
+    ks, vs = kw.get("k_scales"), kw.get("v_scales")
+    rule = mma_route(q, k, v, out, kw["block_q"], ks, vs)
+    assert rule == bool(cuda_lib.library().ptt_ragged_attention_mma_route(
+        *(None if t is None else t.data_ptr() for t in (q, k, v, ks, vs,
+                                                        out)),
+        q.shape[2], k.shape[2], kw["block_q"],
+        cuda_lib.dtype_code(q.dtype)))
+    assert moved[0] == ("mma" if rule else "f32"
+                        if q.dtype == torch.float32 else "elementwise")
+    return moved[0], out
+
+
+def _ragged_gates(out, args, kw):
+    """The card's gates of ragged attention: the plain version within
+    `_TOL`, and in bf16 the plain version with f32 probabilities within
+    2^-8 of its RMS + 2^-7 relative."""
+    q, pools, ints = args[0], args[1:3], args[3:]
+    _close(out, ops.ragged_attention_ref(*args, **kw), q.dtype)
+    if q.dtype == torch.bfloat16:
+        pools32 = pools if "k_scales" in kw else [p.float() for p in pools]
+        want32 = ops.ragged_attention_ref(q.float(), *pools32, *ints, **kw)
+        rms = float(want32.pow(2).mean().sqrt())
+        torch.testing.assert_close(out.float(), want32, atol=2 ** -8 * rms,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("qlens,ctxs,pad,D,int8",
+                         [(*c, 64, False) for c in _RAGGED_CASES]
+                         + [(*c, True) for c in _RAGGED_INT8_CASES])
+def test_ragged_attention_routes(gen, dtype, qlens, ctxs, pad, D, int8):
+    """The small cases' routes, read from the wrappers' counters: every
+    bf16 case at D 64 or 128 on the tensor cores, D = 40 element by
+    element, f32 on its own route."""
+    args, kw = _ragged_step(gen, qlens, ctxs, 4, D, dtype, int8, pad=pad)
+    route, out = _ragged_route(args, kw, int8)
+    want = "f32" if dtype == torch.float32 else \
+        "mma" if D in (64, 128) else "elementwise"
+    assert route == want
+    _ragged_gates(out, args, kw)
+
+
+#: the drives' steps: the serving drive's mixed step (a 256-token prefill
+#: chunk at positions 256..511 and seven decode rows at contexts 520-622:
+#: 33-39 pages), and a decode-only step (8 rows at contexts 577-640),
+#: each padded to the token budget's 23 q-blocks
+_RAGGED_DRIVE = {"mixed": ([1] * 7 + [256],
+                           [520 + 17 * i for i in range(7)] + [512]),
+                 "decode": ([1] * 8, [577 + 9 * i for i in range(8)])}
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("D", [128, 64])
+@pytest.mark.parametrize("case", list(_RAGGED_DRIVE))
+def test_ragged_attention_drive_shapes(gen, case, D, int8):
+    """Rows 1 and 10 at the serving drives' shapes (16 heads of 128, the
+    multi-LoRA drive's 16 of 64), bf16 queries: the tensor-core route,
+    within the gates."""
+    args, kw = _ragged_step(gen, *_RAGGED_DRIVE[case], 16, D,
+                            torch.bfloat16, int8, nqb=23)
+    route, out = _ragged_route(args, kw, int8)
+    assert route == "mma"
+    _ragged_gates(out, args, kw)
+    null = (args[5] == len(_RAGGED_DRIVE[case][0])).repeat_interleave(16)
+    assert float(out[null].abs().sum()) == 0.0     # the null q-blocks
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_ragged_attention_repeats(gen, int8):
+    """The mixed step 100 times: every output equal to the first bit for
+    bit (the partial states merge in warp order, no atomics)."""
+    args, kw = _ragged_step(gen, *_RAGGED_DRIVE["mixed"], 16, 128,
+                            torch.bfloat16, int8, nqb=23)
+    first = ops.ragged_paged_attention(*args, **kw)
+    for _ in range(100):
+        assert torch.equal(ops.ragged_paged_attention(*args, **kw), first)
 
 
 def test_int8_wrappers_refuse_missing_scales(gen):
