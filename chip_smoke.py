@@ -11,11 +11,13 @@ phase fails.  Phases:
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed); the registers and stack/local
    bytes of every flash attention, grouped matmul, ``wgmma``,
-   layer-norm vector-route and ragged attention tensor-core kernel
-   instantiation; the ``wgmma`` kernels (the bf16 matmul epilogue, rows
-   3 and 11, and ``csrc/wgmma_check.cu``) must not spill and their SASS
-   must hold HGMMA, the four ragged attention tensor-core instantiations
-   (rows 1 and 10) must not spill; then the ``wgmma``
+   layer-norm vector-route, ragged attention tensor-core, paged
+   attention and epilogue-backward vector-route and sliced column-sum
+   kernel instantiation; the ``wgmma`` kernels (the bf16 matmul
+   epilogue, rows 3 and 11, and ``csrc/wgmma_check.cu``) must not spill
+   and their SASS must hold HGMMA, the four ragged attention tensor-core
+   instantiations (rows 1 and 10) must not spill, nor may the vector
+   routes of rows 7 and 9 or the sliced column sum; then the ``wgmma``
    self-check: one TMA-loaded, transpose-B product of small integers,
    and the same product staged by the threads, each exactly equal to
    ``torch.mm``;
@@ -38,7 +40,11 @@ phase fails.  Phases:
    run twice and held bit-identical; the matmul epilogue (row 3) at the
    serving step's fc1 (368 x 2048 @ 2048 x 8192, gelu_tanh), a decode
    step's 4 rows and the training drive's 4096 rows with z saved, each
-   run twice and held bit-identical; the int8 serving kernels at the
+   run twice and held bit-identical; its backward (row 7) at the training
+   drive's [4096, 8192] and at the fc1 shapes of phases 8 ([8192, 8192]),
+   24 ([8192, 4096]) and 15 ([8192, 3072] and the MLM head's [8192, 768]),
+   each run twice and held bit-identical on the vector route, beside
+   ``aten.gelu_backward`` (dz alone); the int8 serving kernels at the
    serving drive's shapes too (the int8 matmul epilogue at GPT_1P3B's
    qkv, out, fc1 and fc2 on 368 rows, each run twice and held
    bit-identical, beside ``torch._weight_int8pack_mm`` and the float
@@ -74,7 +80,9 @@ phase fails.  Phases:
    whole autograd forward and backward, each bit-identical to the first
    and within 1e-4 of the CPU), and paged decode attention at phase 25's
    decode shape (4 sequences at contexts 129-192 and one at 0, 16 heads
-   of 128, pages of 16; no library call);
+   of 128, pages of 16) and at a long decode (4 sequences of 4096 keys),
+   each run twice and held bit-identical on the vector route (no library
+   call);
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
@@ -91,8 +99,8 @@ phase fails.  Phases:
    equal its launches per step times the steps; every bf16 matmul
    epilogue launch since phase 2 must have taken the TMA staging route,
    every layer-norm launch (forward and backward) the vector route and
-   no LoRA SGMV or ragged attention launch the element-wise route
-   (checked after every drive
+   no LoRA SGMV, ragged attention, paged attention or epilogue backward
+   launch the element-wise route (checked after every drive
    and parity run: `check_routes`, run by `check_counts`).  A second,
    profiled burst (8 of the prompts, 16 tokens) then splits device time
    by kernel and gives the device's idle share (``torch.profiler``);
@@ -805,27 +813,53 @@ def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
-def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen):
-    """The training drive's fc1 epilogue backward: z, g [4096, 8192],
-    gelu_tanh."""
+#: row 7 at the other drives' fc1 shapes (rows, N), all tanh-GELU: phase
+#: 8's GPT_1P3B at B=8 S=1024, phase 24's multi-LoRA GPT (hidden 1024) at
+#: B=8 S=1024, phase 15's BERT-base fc1 and its MLM head transform at
+#: B=64 S=128; the serving-width training drive's [4096, 8192] is the
+#: "train" row
+ME_BWD_CASES = {"flash": (8192, FFN), "lora_train": (8192, 4 * 1024),
+                "bert_fc1": (BERT_ROWS, 4 * BERT_HIDDEN),
+                "bert_head": (BERT_ROWS, BERT_HIDDEN)}
+
+
+def epilogue_bwd_routes(ops):
+    fn = ops.fused_linear_act_bwd
+    return fn.vector_launches, fn.elementwise_launches
+
+
+def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen, n=FFN):
+    """The fc1 epilogue backward, gelu_tanh, z and g [rows, n] (the
+    training drive's [4096, 8192] by default); run twice, bit-identical;
+    it must take the vector route."""
     import torch
-    N = FFN
+    N = n
     z = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
     g = (0.1 * torch.randn(rows, N, device="cuda", generator=gen)).to(dtype)
-    dz, db = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+    n0 = epilogue_bwd_routes(ops)
+    first = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+    moved = [name for name, a, b in zip(("vector", "elementwise"), n0,
+                                        epilogue_bwd_routes(ops)) if b != a]
+    route = moved[0] if len(moved) == 1 else f"counts moved: {moved}"
+    dz, db = first
     dz_r, db_r = ops.linear_act_bwd_ref(z, g, "gelu_tanh")
     torch.cuda.synchronize()
     err, rel, ok = compare(dz, dz_r, dtype_name)
     db_err, db_ok, db_tol = compare_sum(db, db_r, dz_r.float().abs().sum(0),
                                         dtype_name)
+    del dz_r, db_r
+    same = repeat_equal(lambda: ops.fused_linear_act_bwd(z, g, "gelu_tanh"),
+                        first)
     isz = z.element_size()
     nbytes = 3 * rows * N * isz + N * isz
     bms, by = bound(nbytes, 20 * rows * N, dtype_name)
     return dict(
-        err=max(err, db_err), rel=rel, ok=ok and db_ok,
+        err=max(err, db_err), rel=rel,
+        ok=ok and db_ok and same and route == "vector", route=route,
         shape=f"z[{rows},{N}] gelu_tanh",
         note=(f"dz max abs err {err:.3e}; db {db_err:.3e} (atol "
-              f"{db_tol:.3e}); the library call computes dz only"),
+              f"{db_tol:.3e}); route {route} (want vector); second run "
+              f"bit-identical: {same}; the library call computes dz only"),
         ms=time_ms(lambda: ops.fused_linear_act_bwd(z, g, "gelu_tanh")),
         plain_ms=time_ms(lambda: ops.linear_act_bwd_ref(z, g, "gelu_tanh")),
         library_ms=time_ms(lambda: torch.ops.aten.gelu_backward(
@@ -996,9 +1030,12 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel")
 GROUPED_KERNEL_NAMES = ("gmm_fwd_mma", "gmm_fwd_fma", "gmm_dw_mma",
                         "gmm_dw_fma")
-#: the layer norm's vector routes and its backward's second pass
-LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel",
-                   "ln_bwd_sum_kernel")
+#: the layer norm's vector routes
+LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel")
+#: the vector routes of paged attention and of the epilogue backward, and
+#: the sliced column sum (row 6's second pass; phase 1: no spills)
+VEC_KERNEL_NAMES = ("paged_attn_vec_kernel", "me_bwd_vec_kernel",
+                    "column_sum_sliced_kernel")
 
 
 def kernel_resources(cuda_lib, lib_path, names):
@@ -1057,6 +1094,27 @@ def check_ragged_mma_kernels(resources):
     if spills:
         fail(f"phase 1: ragged mma kernels spill to stack or local "
              f"memory: {spills}")
+
+
+def check_vec_kernels(resources):
+    """Phase 1's gate on the vector routes of rows 7 and 9 and the sliced
+    column sum: each is in the library (13 paged attention instantiations:
+    lanes a key row 1-32 in both types, two vectors a lane for f32 rows
+    past 128; the epilogue backward at 5 activations in both types; the
+    column sum in both) and none uses stack or local memory."""
+    if resources is None:
+        fail("phase 1: no cuobjdump to check the vector kernels with")
+    want = {"paged_attn_vec_kernel": 13, "me_bwd_vec_kernel": 10,
+            "column_sum_sliced_kernel": 2}
+    for name, n in want.items():
+        found = {k: r for k, r in resources.items() if name in k}
+        spills = [k for k, r in found.items() if r["stack"] or r["local"]]
+        say(f"  {name}: {len(found)} instantiations, {len(spills)} spill")
+        if len(found) != n:
+            fail(f"phase 1: {len(found)} {name} instantiations, want {n}")
+        if spills:
+            fail(f"phase 1: {name} spills to stack or local memory: "
+                 f"{spills}")
 
 
 #: the kernels built on `wgmma` (phase 1: no spills, HGMMA in their SASS)
@@ -1791,24 +1849,33 @@ def check_lora_dw(ops, case, dtype, dtype_name, gen):
         library_ms=time_ms(lib_fn), bound_ms=bms, bound_by=by)
 
 
-#: paged decode attention at phase 25's decode step (GPT_1P3B: 16 heads of
-#: 128, block 16): 4 sequences at contexts 129-192 plus one at context 0,
-#: tables 16 wide (padding entries point at block 0)
-PAGED_CTX, PAGED_H, PAGED_D, PAGED_BS, PAGED_W = (129, 150, 171, 192, 0), \
-    16, 128, 16, 16
+#: paged decode attention: "decode", phase 25's decode step (GPT_1P3B: 16
+#: heads of 128, block 16): 4 sequences at contexts 129-192 plus one at
+#: context 0, tables 16 wide (padding entries point at block 0); "long",
+#: a long decode: 4 sequences of 4096 keys, tables 256 wide.  (contexts,
+#: heads, head_dim, block_size, table width)
+PAGED_CASES = {"decode": ((129, 150, 171, 192, 0), 16, 128, 16, 16),
+               "long": ((4096,) * 4, 16, 128, 16, 256)}
 
 
-def check_paged(ops, dtype, dtype_name, gen):
-    """Paged decode attention against its plain version; bf16 also against
-    the plain version run in f32 (`RAGGED_BF16_F32P_TOL`: the kernel keeps
-    the probabilities in f32).  No single PyTorch call gathers the pages
-    and attends.  Bound: q and the visible keys' rows of K and V read
-    (not the rest of their last pages: the kernel reads only the rows
-    below the context length), the output written; 4 operations per
-    visible key element."""
+def paged_routes(ops):
+    fn = ops.paged_attention
+    return fn.vector_launches, fn.elementwise_launches
+
+
+def check_paged(ops, dtype, dtype_name, gen, case="decode"):
+    """Paged decode attention at one of `PAGED_CASES` against its plain
+    version; bf16 also against the plain version run in f32
+    (`RAGGED_BF16_F32P_TOL`: the kernel keeps the probabilities in f32).
+    Run twice, bit-identical; it must take the vector route.  No single
+    PyTorch call gathers the pages and attends.  Bound: q and the visible
+    keys' rows of K and V read (not the rest of their last pages: the
+    kernel reads only the rows below the context length), the output
+    written; 4 operations per visible key element."""
     import torch
-    B, H, D, bs, W = len(PAGED_CTX), PAGED_H, PAGED_D, PAGED_BS, PAGED_W
-    pages = [-(-c // bs) for c in PAGED_CTX]
+    ctxs, H, D, bs, W = PAGED_CASES[case]
+    B = len(ctxs)
+    pages = [-(-c // bs) for c in ctxs]
     nb = sum(pages) + 1
     q = torch.randn(B, 1, H, D, device="cuda", generator=gen).to(dtype)
     k = torch.randn(nb, H, bs, D, device="cuda", generator=gen).to(dtype)
@@ -1819,18 +1886,28 @@ def check_paged(ops, dtype, dtype_name, gen):
     for i, n in enumerate(pages):
         tables[i, :n] = perm[used:used + n]
         used += n
-    ctx = torch.tensor(PAGED_CTX, dtype=torch.int32, device="cuda")
+    ctx = torch.tensor(ctxs, dtype=torch.int32, device="cuda")
 
     def kernel():
         return ops.paged_attention(q, k, v, tables, ctx)
 
     def plain():
         return ops.paged_attention_ref(q, k, v, tables, ctx)
-    got, want = kernel(), plain()
+    n0 = paged_routes(ops)
+    got = kernel()
+    moved = [name for name, a, b in zip(("vector", "elementwise"), n0,
+                                        paged_routes(ops)) if b != a]
+    route = moved[0] if len(moved) == 1 else f"counts moved: {moved}"
+    want = plain()
     torch.cuda.synchronize()
     err, rel, ok = compare(got, want, dtype_name)
-    ok = ok and not bool(got[PAGED_CTX.index(0)].any())
-    note = ""
+    del want
+    if 0 in ctxs:
+        ok = ok and not bool(got[ctxs.index(0)].any())
+    same = repeat_equal(kernel, got)
+    ok = ok and same and route == "vector"
+    note = (f"route {route} (want vector); second run bit-identical: "
+            f"{same}; ")
     if dtype == torch.bfloat16:
         w32 = ops.paged_attention_ref(q.float(), k.float(), v.float(),
                                       tables, ctx)
@@ -1839,14 +1916,17 @@ def check_paged(ops, dtype, dtype_name, gen):
         e32 = float((got.float() - w32).abs().max())
         ok = ok and bool(((got.float() - w32).abs()
                           <= a * rms + r_ * w32.abs()).all())
-        note = f"vs plain in f32 max abs err {e32:.3e}; "
+        note += f"vs plain in f32 max abs err {e32:.3e}; "
+        del w32
     isz = q.element_size()
-    nbytes = (2 * B * H * D + 2 * sum(PAGED_CTX) * H * D) * isz
-    bms, by = bound(nbytes, 4 * sum(PAGED_CTX) * H * D, dtype_name)
+    nbytes = (2 * B * H * D + 2 * sum(ctxs) * H * D) * isz
+    bms, by = bound(nbytes, 4 * sum(ctxs) * H * D, dtype_name)
+    ctx_text = (f"{list(ctxs)}" if len(set(ctxs)) > 1
+                else f"{B} x {ctxs[0]}")
     return dict(
-        err=err, rel=rel, ok=ok,
-        shape=(f"q[{B},1,{H},{D}] pools[{nb},{H},{bs},{D}] contexts "
-               f"{list(PAGED_CTX)} tables [{B},{W}]"),
+        err=err, rel=rel, ok=ok, route=route,
+        shape=(f"{case}: q[{B},1,{H},{D}] pools[{nb},{H},{bs},{D}] "
+               f"contexts {ctx_text} tables [{B},{W}]"),
         note=note + "library: none, no single PyTorch call gathers the "
                     "pages and attends",
         ms=time_ms(kernel), plain_ms=time_ms(plain, iters=5),
@@ -2117,6 +2197,7 @@ def phase_kernels(ops, budgets):
     gen_me = torch.Generator(device="cuda").manual_seed(SEED + 3)
     gen_ln = torch.Generator(device="cuda").manual_seed(SEED + 12)
     gen_rg = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    gen_pg = torch.Generator(device="cuda").manual_seed(SEED + 15)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -2224,6 +2305,17 @@ def phase_kernels(ops, budgets):
         report("paged_attention", dtype_name, r)
         results[("paged_attention", dtype_name)] = r
         torch.cuda.empty_cache()
+        for case in PAGED_CASES:
+            if case != "decode":
+                r = check_paged(ops, dtype, dtype_name, gen_pg, case)
+                report("paged_attention", dtype_name, r)
+                results[("paged_attention", dtype_name, case)] = r
+        for case, (rows, n) in ME_BWD_CASES.items():
+            r = check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name,
+                                          gen_pg, n=n)
+            report("matmul_epilogue_bwd", dtype_name, r)
+            results[("matmul_epilogue_bwd", dtype_name, case)] = r
+            torch.cuda.empty_cache()
     reset_routes(ops)       # the drives' launches are counted from here
     return results
 
@@ -2274,6 +2366,8 @@ def reset_routes(ops):
     for fn in (ops.fused_lora_segment_epilogue, ops.ragged_paged_attention,
                ops.ragged_paged_attention_int8):
         fn.mma_launches = fn.f32_launches = fn.elementwise_launches = 0
+    for fn in (ops.paged_attention, ops.fused_linear_act_bwd):
+        fn.vector_launches = fn.elementwise_launches = 0
 
 
 def check_routes(phase, ops):
@@ -2283,7 +2377,8 @@ def check_routes(phase, ops):
     launch, forward and backward, must have taken the vector route, and
     no LoRA SGMV launch and no ragged attention launch, float or int8,
     the element-wise route (bf16 takes the tensor cores, f32 its own
-    route)."""
+    route), nor any paged attention or matmul epilogue backward launch
+    (both take the vector route at every model shape)."""
     epilogue = {name: (fn.tma_launches, fn.elementwise_launches)
                 for name, fn in
                 (("matmul_epilogue", ops.fused_linear_act),
@@ -2294,6 +2389,8 @@ def check_routes(phase, ops):
     lora = lora_route_counts(ops)
     ragged = {name: ragged_route_counts(ops, int8) for name, int8 in
               (("ragged_attention", False), ("ragged_attention_int8", True))}
+    vector = {"paged_attention": paged_routes(ops),
+              "matmul_epilogue_bwd": epilogue_bwd_routes(ops)}
     say("  launches by route since phase 2: bf16 epilogue (TMA, "
         "element-wise) "
         + ", ".join(f"{n} {c}" for n, c in epilogue.items())
@@ -2301,7 +2398,9 @@ def check_routes(phase, ops):
         + ", ".join(f"{n} {c}" for n, c in norm.items())
         + f"; lora_sgmv (mma, f32, element-wise) {lora}; ragged "
         "attention (mma, f32, element-wise) "
-        + ", ".join(f"{n} {c}" for n, c in ragged.items()))
+        + ", ".join(f"{n} {c}" for n, c in ragged.items())
+        + "; (vector, element-wise) "
+        + ", ".join(f"{n} {c}" for n, c in vector.items()))
     if any(c[1] for c in epilogue.values()):
         fail(f"{phase}: a model-shape epilogue launch staged element by "
              f"element: {epilogue}")
@@ -2314,6 +2413,9 @@ def check_routes(phase, ops):
     if any(c[2] for c in ragged.values()):
         fail(f"{phase}: a model-shape bf16 ragged attention launch took "
              f"the element-wise route: {ragged}")
+    if any(c[1] for c in vector.values()):
+        fail(f"{phase}: a model-shape paged attention or epilogue backward "
+             f"launch took the element-wise route: {vector}")
 
 
 def launches(ops):
@@ -2598,16 +2700,19 @@ def routing_summary(ops, routed, layers, steps):
 
 #: device-time groups of the profile, by kernel-name substring (first
 #: match wins: the int8 kernels' instantiations, whose pool or weight type
-#: is int8_t, "signed char", come before their float twins); layer_norm
-#: and layer_norm_bwd hold both routes of each and the backward's second
-#: pass, lora_sgmv its three (the element-wise and f32 routes share
-#: lora_sgmv_kernel); column_sum is the second pass of the other column
-#: sums (rows 7, 12 and 14b), and splitk_epilogue the second pass of a
-#: split-K matmul epilogue (int8 or float: its instantiations do not say
-#: which)
+#: is int8_t, "signed char", come before their float twins); layer_norm,
+#: layer_norm_bwd, paged_attention and matmul_epilogue_bwd hold both
+#: routes of each, lora_sgmv its three (the element-wise and f32 routes
+#: share lora_sgmv_kernel); column_sum is the second pass of the column
+#: sums that take one (`column_sum_sliced_kernel`: row 6;
+#: `column_sum_kernel`: rows 12 and 14b and row 7's element-wise route;
+#: row 7's vector route adds its own in its last blocks), and
+#: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
+#: float: its instantiations do not say which)
 _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
                                    "lora_sgmv_mma_kernel")),
-                   ("paged_attention", "paged_attn_kernel"),
+                   ("paged_attention", ("paged_attn_kernel",
+                                        "paged_attn_vec_kernel")),
                    ("grouped_matmul", "gmm_fwd_"),
                    ("grouped_matmul_dw", "gmm_dw_"),
                    ("ragged_attention_int8",
@@ -2624,11 +2729,12 @@ _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
                    ("layer_norm", ("ln_fwd_vec_kernel",
                                    "layer_norm_fwd_kernel")),
                    ("layer_norm_bwd", ("ln_bwd_vec_kernel",
-                                       "layer_norm_bwd_kernel",
-                                       "ln_bwd_sum_kernel")),
+                                       "layer_norm_bwd_kernel")),
                    ("matmul_epilogue", "me_fwd_"),
-                   ("matmul_epilogue_bwd", "me_bwd_kernel"),
-                   ("column_sum", "column_sum_kernel"),
+                   ("matmul_epilogue_bwd", ("me_bwd_kernel",
+                                            "me_bwd_vec_kernel")),
+                   ("column_sum", ("column_sum_kernel",
+                                   "column_sum_sliced_kernel")),
                    ("splitk_epilogue", "splitk_epilogue_kernel"),
                    ("softmax_xent_fwd", "xent_fwd_kernel"),
                    ("softmax_xent_bwd", "xent_bwd_kernel"),
@@ -4134,6 +4240,38 @@ TRAIN_DTYPE = {"layer_norm": "float32", "matmul_epilogue": "bfloat16",
                "grouped_matmul": "float32"}
 
 
+#: the CUDA kernels of each row, every route's, the main path's first;
+#: a column sum's second pass beside its first
+CUDA_KERNELS = {
+    "ragged_attention": ("ragged_attn_mma_kernel", "ragged_attn_kernel"),
+    "layer_norm": ("ln_fwd_vec_kernel", "layer_norm_fwd_kernel"),
+    "matmul_epilogue": ("me_fwd_wgmma", "me_fwd_fma",
+                        "splitk_epilogue_kernel"),
+    "layer_norm_bwd": ("ln_bwd_vec_kernel", "column_sum_sliced_kernel",
+                       "layer_norm_bwd_kernel"),
+    "matmul_epilogue_bwd": ("me_bwd_vec_kernel", "me_bwd_kernel",
+                            "column_sum_kernel"),
+    "softmax_xent_fwd": ("xent_fwd_kernel",),
+    "softmax_xent_bwd": ("xent_bwd_kernel",),
+    "flash_attention_fwd": ("flash_fwd_kernel_mma", "flash_fwd_kernel"),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel_mma",
+                               "flash_bwd_dq_kernel"),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel_mma",
+                                "flash_bwd_dkv_kernel"),
+    "rms_norm": ("rms_norm_fwd_kernel",),
+    "rms_norm_bwd": ("rms_norm_bwd_kernel", "column_sum_kernel"),
+    "ragged_attention_int8": ("ragged_attn_mma_kernel",
+                              "ragged_attn_kernel"),
+    "matmul_epilogue_int8": ("me_fwd_wgmma", "me_fwd_fma",
+                             "splitk_epilogue_kernel"),
+    "layer_norm_residual": ("layer_norm_residual_fwd_kernel",),
+    "grouped_matmul": ("gmm_fwd_mma", "gmm_fwd_fma"),
+    "grouped_matmul_dw": ("gmm_dw_mma", "gmm_dw_fma", "column_sum_kernel"),
+    "lora_sgmv": ("lora_sgmv_mma_kernel", "lora_sgmv_kernel"),
+    "paged_attention": ("paged_attn_vec_kernel", "paged_attn_kernel"),
+}
+
+
 def kernels_line(results, counts):
     """One entry per kernel: its main path's dtype and shapes (the
     serving drive's for the serving kernels, int8 ones included, the
@@ -4147,7 +4285,8 @@ def kernels_line(results, counts):
     ``main`` drive of `KERNEL_INFO`: the flash drive's, the LLaMA or BERT
     training drive's timed steps, the int8 serving drive's or the MoE
     drives');
-    ``launches_<drive>`` every drive's."""
+    ``launches_<drive>`` every drive's; ``cuda_kernels`` names the row's
+    kernels, every route's."""
     out = []
     for name, info in KERNEL_INFO.items():
         main = MAIN_DTYPE[name]
@@ -4163,6 +4302,9 @@ def kernels_line(results, counts):
             else dict.fromkeys(c for c in RAGGED_CASES if c != "mixed") \
             if name.startswith("ragged_attention") \
             else {"decode": None} if name == "matmul_epilogue" \
+            else dict(ME_BWD_CASES) if name == "matmul_epilogue_bwd" \
+            else {c: None for c in PAGED_CASES if c != "decode"} \
+            if name == "paged_attention" \
             else dict.fromkeys(("qkv", "out", "fc2")) \
             if name == "matmul_epilogue_int8" \
             else LN_CASES if name in ("layer_norm", "layer_norm_bwd") else {}
@@ -4172,6 +4314,7 @@ def kernels_line(results, counts):
         drive = info.get("main", "serve" if "serve" in info else "train")
         entry = dict(name=name, route="cuda", source=info["source"],
                      replaces=info["replaces"],
+                     cuda_kernels=list(CUDA_KERNELS[name]),
                      launches=counts[drive][name], dtype=main,
                      **kernel_entry(results[(key[0], main) + key[1:]]))
         for d, c in counts.items():
@@ -4223,9 +4366,10 @@ def main():
     resources = kernel_resources(
         cuda_lib, path,
         FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES
-        + LN_KERNEL_NAMES + RAGGED_MMA_KERNEL_NAMES)
+        + LN_KERNEL_NAMES + RAGGED_MMA_KERNEL_NAMES + VEC_KERNEL_NAMES)
     check_wgmma_kernels(cuda_lib, path, resources)
     check_ragged_mma_kernels(resources)
+    check_vec_kernels(resources)
     wgmma_check = check_wgmma_product(cuda_lib)
 
     say("[2] kernels vs plain versions at the main path's shapes")

@@ -56,11 +56,31 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return warp_sum(v);
 }
 
+// 16 bytes of T, moved as one aligned access.
+template <typename T>
+struct alignas(16) Vec16 {
+  static constexpr int kN = 16 / sizeof(T);
+  T v[kN];
+};
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The SMs of CUDA device `device` (1 where the query fails).
+inline int sm_count(int device) {
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device);
+  return v > 0 ? v : 1;
+}
+
 // out[c] = sum over p < nparts of partial[p * n + c], summed in order of p
 // and cast to T: the second pass of a column sum whose first pass left one
 // f32 row of partial sums per block.  The order is fixed, so the result is
 // the same on every run (float atomics would not be).  One thread per
-// column; neighbouring threads read neighbouring addresses.
+// column; neighbouring threads read neighbouring addresses.  Rows 12 and
+// 14b use it; `column_sum_sliced_kernel` below spreads the same sum over
+// more blocks.
 template <typename T>
 __global__ void __launch_bounds__(256)
     column_sum_kernel(const float* __restrict__ partial, T* __restrict__ out,
@@ -70,6 +90,42 @@ __global__ void __launch_bounds__(256)
   float s = 0.f;
   for (int p = 0; p < nparts; ++p) s += partial[static_cast<size_t>(p) * n + c];
   out[c] = from_float<T>(s);
+}
+
+// The second pass of a column sum, spread over the card: blockIdx.y picks
+// one of gridDim.y sums (out0 for 0, out1 for 1), each column the sum of
+// its `nparts` rows of partial [gridDim.y, nparts, n], cast to T.  A block
+// takes kSumCols columns; its kSumSlices slices of threads each add every
+// kSumSlices-th row in order, then one thread a column adds the slices in
+// order: a fixed order, so the same sums every run.  At n = 2048 that is
+// 128 blocks a sum where `column_sum_kernel` runs 8.  The grid is
+// (ceil(n / kSumCols), sums), kSumCols * kSumSlices threads a block.
+constexpr int kSumCols = 16, kSumSlices = 16;
+
+template <typename T>
+__global__ void __launch_bounds__(kSumCols * kSumSlices)
+    column_sum_sliced_kernel(const float* __restrict__ partial,
+                             T* __restrict__ out0, T* __restrict__ out1,
+                             int nparts, int n) {
+  __shared__ float red[kSumSlices][kSumCols + 1];
+  const int lc = threadIdx.x % kSumCols, slice = threadIdx.x / kSumCols;
+  const int col = blockIdx.x * kSumCols + lc;
+  const float* p =
+      partial + static_cast<size_t>(blockIdx.y) * nparts * n + col;
+  float s = 0.f;
+  if (col < n) {
+#pragma unroll 4
+    for (int k = slice; k < nparts; k += kSumSlices)
+      s += p[static_cast<size_t>(k) * n];
+  }
+  red[slice][lc] = s;
+  __syncthreads();
+  if (slice == 0 && col < n) {
+    float total = 0.f;
+#pragma unroll
+    for (int k = 0; k < kSumSlices; ++k) total += red[k][lc];
+    (blockIdx.y ? out1 : out0)[col] = from_float<T>(total);
+  }
 }
 
 // The activation codes of the reference's ACTIVATIONS (pallas_fused.py:47)

@@ -53,16 +53,9 @@ constexpr int kFwdThreads = 128;
 constexpr int kBwdLaneVectors = 4;
 constexpr int kBwdThreads = 128;
 
-// 16 bytes of T, moved as one aligned access.
-template <typename T>
-struct alignas(16) Vec16 {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
-};
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+using ptt::aligned16;
+using ptt::sm_count;
+using ptt::Vec16;
 
 // Whether rows of n values of `isz` bytes, at these four pointers, take
 // the vector route: 16-byte aligned rows no wider than kMaxVectorWidth.
@@ -87,12 +80,6 @@ __host__ __device__ constexpr int block_threads(int w, int threads) {
 }
 __host__ __device__ constexpr int block_rows(int w, int threads) {
   return block_threads(w, threads) / (32 * w);
-}
-
-int sm_count(int device) {
-  int v = 0;
-  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device);
-  return v > 0 ? v : 1;
 }
 
 // Sum of v over the W warps that share a row, returned to all of them:
@@ -413,11 +400,12 @@ cudaError_t layer_norm_residual_fwd(const void* x, const void* r,
 // its rows; at the end the row groups of a block add theirs in group order
 // through shared memory, and the block writes one row of `partial` [2,
 // grid, n]: ~400 rows at 2048 in f32, not 512, and no shared-memory
-// read-modify-write a value.  The second pass (`ln_bwd_sum_kernel`, one
-// launch for dgamma and dbeta) splits each column's sum over 16 slices of
-// threads and adds the slices in order, in blocks of 16 columns: 256
-// blocks at 2048, where the first design's two `ptt::column_sum_kernel`
-// launches (one thread a column) ran 8 blocks each.
+// read-modify-write a value.  The second pass
+// (`ptt::column_sum_sliced_kernel`, one launch for dgamma and dbeta)
+// splits each column's sum over 16 slices of threads and adds the slices
+// in order, in blocks of 16 columns: 256 blocks at 2048, where the first
+// design's two `ptt::column_sum_kernel` launches (one thread a column) ran
+// 8 blocks each.
 // Every sum has a fixed order, so the results are the same on every run.
 //
 // The scalar route (`layer_norm_bwd_kernel`) takes rows off 16 bytes and
@@ -643,44 +631,14 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// The second pass: dgamma (blockIdx.y 0) and dbeta (1), each column the
-// sum of its `nparts` rows of partial [2, nparts, n].  A block takes
-// kSumCols columns; its kSumSlices slices of threads each add every
-// kSumSlices-th row in order, then one thread a column adds the slices in
-// order.
-constexpr int kSumCols = 16, kSumSlices = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(kSumCols * kSumSlices)
-    ln_bwd_sum_kernel(const float* __restrict__ partial,
-                      T* __restrict__ dgamma, T* __restrict__ dbeta,
-                      int nparts, int n) {
-  __shared__ float red[kSumSlices][kSumCols + 1];
-  const int lc = threadIdx.x % kSumCols, slice = threadIdx.x / kSumCols;
-  const int col = blockIdx.x * kSumCols + lc;
-  const float* p =
-      partial + static_cast<size_t>(blockIdx.y) * nparts * n + col;
-  float s = 0.f;
-  if (col < n) {
-#pragma unroll 4
-    for (int k = slice; k < nparts; k += kSumSlices)
-      s += p[static_cast<size_t>(k) * n];
-  }
-  red[slice][lc] = s;
-  __syncthreads();
-  if (slice == 0 && col < n) {
-    float total = 0.f;
-#pragma unroll
-    for (int k = 0; k < kSumSlices; ++k) total += red[k][lc];
-    (blockIdx.y ? dbeta : dgamma)[col] = ptt::from_float<T>(total);
-  }
-}
-
+// The second pass: dgamma and dbeta, each column the sum of its `nparts`
+// rows of partial [2, nparts, n] (`ptt::column_sum_sliced_kernel`).
 template <typename T>
 cudaError_t ln_bwd_sum(const float* partial, void* dgamma, void* dbeta,
                        int nparts, int n, cudaStream_t s) {
-  const dim3 grid((n + kSumCols - 1) / kSumCols, 2);
-  ln_bwd_sum_kernel<T><<<grid, kSumCols * kSumSlices, 0, s>>>(
+  const dim3 grid((n + ptt::kSumCols - 1) / ptt::kSumCols, 2);
+  constexpr int kThreads = ptt::kSumCols * ptt::kSumSlices;
+  ptt::column_sum_sliced_kernel<T><<<grid, kThreads, 0, s>>>(
       partial, static_cast<T*>(dgamma), static_cast<T*>(dbeta), nparts, n);
   return cudaGetLastError();
 }

@@ -90,6 +90,7 @@
 // 64x64 tile, each accumulating a 4x4 micro-tile in registers from
 // 16-deep shared slices with fmaf in f32, int8 codes widened to f32 as
 // they are staged, split-K over 32-deep slices.
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
 #include <type_traits>
@@ -672,15 +673,48 @@ __global__ void __launch_bounds__(256)
 // GEMMs outside the kernel, as the reference leaves them to XLA.
 //
 // What bounds it on the H100: bytes (z and g read, dz written; ~20 flops
-// per element for the GELUs).
+// per element for the GELUs): 60 us for [4096, 8192] in bf16.  db is a sum
+// over every row: the TPU grid walks the row blocks of a column block in
+// order and accumulates into a revisited block, but CUDA blocks run in no
+// order and float atomics would give other sums on every run, so db takes
+// two passes, the first leaving f32 partial rows.
 //
-// Design: the TPU grid walks row blocks of one column block in order and
-// accumulates db into a revisited block; here block (bx, by) owns 256
-// columns and the by-th chunk of `rows_per_chunk` rows.  Each thread walks
-// its one column down the chunk, so a warp reads 32 neighbouring values
-// per row, and keeps its column's db partial in a register; the chunk's
-// partials land in row `by` of `partial` [nchunks, N], and
-// `column_sum_kernel` adds them in a fixed order (no float atomics).
+// Design, the vector route (`me_bwd_vec_kernel<T, ACT>`), rows of whole
+// 16-byte vectors at 16-byte aligned bases (every model's widths, bf16 and
+// f32):
+//  * the grid is (spans, slices): a block owns a span of 32 vectors of
+//    columns (256 bf16 or 128 f32 columns) and a contiguous slice of rows.
+//    The slices are as many as one wave of the card's resident blocks
+//    holds (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`), with at
+//    least two rows a warp;
+//  * each of the block's 16 warps reads 512 contiguous bytes of a row a
+//    load, a lane one 16-byte vector (8 bf16 or 4 f32 columns); warp w
+//    takes the slice's rows w, w + 16, ... and loads its next row before
+//    it computes this one; dz leaves in 16-byte stores;
+//  * the activation is a template parameter, so the inner loop carries no
+//    switch; `act_grad` keeps the reference's formulas (tanhf, erff, expf);
+//  * each lane adds its columns' f32 dz into registers over its rows; at
+//    the end the 16 warps' sums are added in warp order through shared
+//    memory into the block's one partial row, partial [slices, N];
+//  * the last block of a span to finish (a ticket: one atomic on the
+//    span's counter after a fence) adds the span's partial rows into db,
+//    its thread groups each over a contiguous run of slices in order, then
+//    the groups in order, and sets the counter back to 0.  That saves the
+//    second launch the first design made (`ptt::column_sum_kernel`, 32
+//    blocks of one thread a column at N = 8192).
+// Every sum runs in a fixed order whatever order the blocks finish in, so
+// reruns are bit-identical; no float atomics.  Trials with 8 and 32 warps
+// a block, rows unrolled 2-8, fewer registers, the next row not loaded
+// ahead, a second launch for db, 2-8 waves of blocks, or a block's warps
+// on one row's neighbouring spans were no faster
+// (`scripts/torch_decode_bwd_sweep.py`).
+//
+// The element-wise route (`me_bwd_kernel`), rows off 16 bytes: block
+// (bx, by) owns 256 columns and the by-th of kBwdChunks chunks of rows;
+// each thread walks its one column down the chunk, so a warp reads 32
+// neighbouring values a row, and keeps its column's db partial in a
+// register; the chunk's partials land in row `by` of `partial` [nchunks,
+// N], and `ptt::column_sum_kernel` adds them in a fixed order.
 __device__ __forceinline__ float act_grad(float z, int act) {
   // the reference's `_act_grad_f32` (pallas_fused.py:70-87), op for op
   switch (act) {
@@ -705,6 +739,180 @@ __device__ __forceinline__ float act_grad(float z, int act) {
   }
 }
 
+constexpr int kBwdWarps = 16;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kBwdChunks = 64;   // the element-wise route's row chunks
+
+// Whether a backward takes the vector route: rows of whole 16-byte
+// vectors, z, g and dz 16-byte aligned (ops/matmul_epilogue.py
+// `bwd_vector_route` is the Python copy).
+bool bwd_vec_route(const void* z, const void* g, const void* dz, int N,
+                   int isz) {
+  return N > 0 && (static_cast<long long>(N) * isz) % 16 == 0 &&
+         ptt::aligned16(z) && ptt::aligned16(g) && ptt::aligned16(dz);
+}
+
+template <typename T, int ACT>
+__global__ void __launch_bounds__(kBwdThreads)
+    me_bwd_vec_kernel(const T* __restrict__ z, const T* __restrict__ g,
+                      T* __restrict__ dz, T* __restrict__ dbias,
+                      float* __restrict__ partial, int* __restrict__ tickets,
+                      int M, int N, int rows_per_slice) {
+  using V = ptt::Vec16<T>;
+  constexpr int kN = V::kN;
+  constexpr int kSpan = 32 * kN;   // a block's columns
+  // the partial-row sums of each warp, then of each group of slices
+  __shared__ float red[kBwdWarps][kSpan];
+  __shared__ int last;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nv = N / kN;
+  const int vi = blockIdx.x * 32 + lane;   // this lane's vector of a row
+  const bool live = vi < nv;
+  const int r0 = blockIdx.y * rows_per_slice;
+  const int r1 = min(M, r0 + rows_per_slice);
+  const V* zv = reinterpret_cast<const V*>(z);
+  const V* gv = reinterpret_cast<const V*>(g);
+  V* dv = reinterpret_cast<V*>(dz);
+  float db[kN];
+#pragma unroll
+  for (int j = 0; j < kN; ++j) db[j] = 0.f;
+  // warp w takes rows r0 + w, r0 + w + kBwdWarps, ...
+  V a, b;
+  int r = r0 + warp;
+  if (live && r < r1) {
+    a = zv[static_cast<size_t>(r) * nv + vi];
+    b = gv[static_cast<size_t>(r) * nv + vi];
+  }
+  for (; r < r1; r += kBwdWarps) {
+    // the next row's loads in flight while this one is computed
+    V na, nb;
+    if (live && r + kBwdWarps < r1) {
+      na = zv[static_cast<size_t>(r + kBwdWarps) * nv + vi];
+      nb = gv[static_cast<size_t>(r + kBwdWarps) * nv + vi];
+    }
+    if (live) {
+      V o;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        const float d =
+            ptt::to_float(b.v[j]) * act_grad(ptt::to_float(a.v[j]), ACT);
+        o.v[j] = ptt::from_float<T>(d);
+        db[j] += d;
+      }
+      dv[static_cast<size_t>(r) * nv + vi] = o;
+    }
+    a = na;
+    b = nb;
+  }
+  // the block's partial row: its warps' sums added in warp order
+#pragma unroll
+  for (int j = 0; j < kN; ++j) red[warp][lane * kN + j] = db[j];
+  __syncthreads();
+  for (int c = threadIdx.x; c < kSpan; c += kBwdThreads) {
+    const int col = blockIdx.x * kSpan + c;
+    if (col < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdWarps; ++w) s += red[w][c];
+      partial[static_cast<size_t>(blockIdx.y) * N + col] = s;
+    }
+  }
+  // the span's last block to finish adds its slices' partial rows: the
+  // block's writes, then one thread's fence and ticket (a grid barrier's
+  // release pattern); the last resets the counter for the next launch
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(tickets + blockIdx.x, 1) == gridDim.y - 1;
+    if (last) tickets[blockIdx.x] = 0;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // kParts groups of threads each add a contiguous run of the slices in
+  // order, then the groups' sums are added in group order
+  constexpr int kParts = kBwdThreads > kSpan ? kBwdThreads / kSpan : 1;
+  const int nslice = gridDim.y;
+  const int per = (nslice + kParts - 1) / kParts;
+  for (int i = threadIdx.x; i < kParts * kSpan; i += kBwdThreads) {
+    const int c = i % kSpan, part = i / kSpan;
+    const int col = blockIdx.x * kSpan + c;
+    float s = 0.f;
+    if (col < N) {
+      const int s1 = min(nslice, (part + 1) * per);
+#pragma unroll 8
+      for (int k = part * per; k < s1; ++k)
+        s += __ldcg(partial + static_cast<size_t>(k) * N + col);
+    }
+    red[part][c] = s;
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < kSpan; c += kBwdThreads) {
+    const int col = blockIdx.x * kSpan + c;
+    if (col < N) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < kParts; ++k) s += red[k][c];
+      dbias[col] = ptt::from_float<T>(s);
+    }
+  }
+}
+
+// The row slices of the vector route's grid for [M, N] of T: as many as
+// one wave of the card's resident blocks holds beside the column spans,
+// each of at least two rows a warp.
+template <typename T>
+int bwd_vec_slices(int M, int N, int device) {
+  static const int per_sm = [] {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, me_bwd_vec_kernel<T, kActGeluTanh>, kBwdThreads, 0);
+    return n > 0 ? n : 1;
+  }();
+  const int spans = (N / ptt::Vec16<T>::kN + 31) / 32;
+  constexpr int kMinRows = 2 * kBwdWarps;
+  long long slices = static_cast<long long>(ptt::sm_count(device)) * per_sm /
+                     spans;
+  slices = std::min<long long>(slices, (M + kMinRows - 1) / kMinRows);
+  slices = std::min<long long>(slices, 65535);
+  return static_cast<int>(std::max<long long>(slices, 1));
+}
+
+template <typename T, int ACT>
+cudaError_t me_bwd_vec(const void* z, const void* g, void* dz, void* db,
+                       float* partial, int* tickets, int M, int N,
+                       int slices, cudaStream_t s) {
+  const int rows_per_slice = (M + slices - 1) / slices;
+  const dim3 grid((N / ptt::Vec16<T>::kN + 31) / 32, slices);
+  me_bwd_vec_kernel<T, ACT><<<grid, kBwdThreads, 0, s>>>(
+      static_cast<const T*>(z), static_cast<const T*>(g), static_cast<T*>(dz),
+      static_cast<T*>(db), partial, tickets, M, N, rows_per_slice);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t me_bwd_vec_act(const void* z, const void* g, void* dz, void* db,
+                           float* partial, int* tickets, int M, int N,
+                           int slices, int act, cudaStream_t s) {
+  switch (act) {
+    case kActRelu:
+      return me_bwd_vec<T, kActRelu>(z, g, dz, db, partial, tickets, M, N,
+                                     slices, s);
+    case kActGelu:
+      return me_bwd_vec<T, kActGelu>(z, g, dz, db, partial, tickets, M, N,
+                                     slices, s);
+    case kActGeluTanh:
+      return me_bwd_vec<T, kActGeluTanh>(z, g, dz, db, partial, tickets, M,
+                                         N, slices, s);
+    case kActSilu:
+      return me_bwd_vec<T, kActSilu>(z, g, dz, db, partial, tickets, M, N,
+                                     slices, s);
+    default:
+      return me_bwd_vec<T, kActNone>(z, g, dz, db, partial, tickets, M, N,
+                                     slices, s);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
     me_bwd_kernel(const T* __restrict__ z, const T* __restrict__ g,
@@ -717,7 +925,8 @@ __global__ void __launch_bounds__(256)
   float db = 0.f;
   for (int r = r0; r < r1; ++r) {
     const size_t idx = static_cast<size_t>(r) * N + col;
-    const float d = ptt::to_float(g[idx]) * act_grad(ptt::to_float(z[idx]), act);
+    const float d =
+        ptt::to_float(g[idx]) * act_grad(ptt::to_float(z[idx]), act);
     dz[idx] = ptt::from_float<T>(d);
     db += d;
   }
@@ -726,46 +935,81 @@ __global__ void __launch_bounds__(256)
 
 template <typename T>
 cudaError_t me_bwd(const void* z, const void* g, void* dz, void* db,
-                   void* partial, int M, int N, int nchunks, int act,
+                   float* partial, int M, int N, int nchunks, int act,
                    cudaStream_t s) {
   const int rows_per_chunk = (M + nchunks - 1) / nchunks;
   const dim3 grid((N + 255) / 256, nchunks);
-  float* part = static_cast<float*>(partial);
   me_bwd_kernel<T><<<grid, 256, 0, s>>>(
       static_cast<const T*>(z), static_cast<const T*>(g), static_cast<T*>(dz),
-      part, M, N, rows_per_chunk, act);
+      partial, M, N, rows_per_chunk, act);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   ptt::column_sum_kernel<T><<<(N + 255) / 256, 256, 0, s>>>(
-      part, static_cast<T*>(db), nchunks, N);
+      partial, static_cast<T*>(db), nchunks, N);
   return cudaGetLastError();
+}
+
+// The partial rows a backward uses: the vector route's slices, else the
+// element-wise route's row chunks.
+int bwd_parts(const void* z, const void* g, const void* dz, int M, int N,
+              int dtype, int device) {
+  if (M < 1 || N < 1) return 1;
+  const int isz = dtype == PTT_DTYPE_F32 ? 4 : 2;
+  if (!bwd_vec_route(z, g, dz, N, isz)) return std::min(M, kBwdChunks);
+  return dtype == PTT_DTYPE_F32 ? bwd_vec_slices<float>(M, N, device)
+                                : bwd_vec_slices<bf16>(M, N, device);
 }
 
 }  // namespace
 
 // dz has z's shape and type; db is [N] of z's type; partial is f32 scratch
-// of nchunks * N floats, 1 <= nchunks <= M.
+// of nparts * N floats, nparts = `ptt_matmul_epilogue_bwd_parts` for the
+// same call; tickets: at least ceil(N / 128) int32 counters that are 0
+// (each launch leaves them 0).
 extern "C" int ptt_matmul_epilogue_bwd(const void* z, const void* g, void* dz,
-                                       void* db, void* partial, int M, int N,
-                                       int nchunks, int act, int dtype,
-                                       int device, void* stream) {
+                                       void* db, void* partial, void* tickets,
+                                       int M, int N, int nparts, int act,
+                                       int dtype, int device, void* stream) {
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
-  if (act < kActNone || act > kActSilu || nchunks < 1 || nchunks > M ||
-      nchunks > 65535)
+  if (act < kActNone || act > kActSilu || M < 1 || N < 1 ||
+      (dtype != PTT_DTYPE_BF16 && dtype != PTT_DTYPE_F32) ||
+      nparts != bwd_parts(z, g, dz, M, N, dtype, device))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
   cudaError_t e;
-  if (dtype == PTT_DTYPE_BF16) {
-    e = me_bwd<bf16>(z, g, dz, db, partial, M, N, nchunks, act, s);
-  } else if (dtype == PTT_DTYPE_F32) {
-    e = me_bwd<float>(z, g, dz, db, partial, M, N, nchunks, act, s);
+  if (bwd_vec_route(z, g, dz, N, dtype == PTT_DTYPE_F32 ? 4 : 2)) {
+    int* tix = static_cast<int*>(tickets);
+    if (tix == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    e = dtype == PTT_DTYPE_BF16
+            ? me_bwd_vec_act<bf16>(z, g, dz, db, part, tix, M, N, nparts, act,
+                                   s)
+            : me_bwd_vec_act<float>(z, g, dz, db, part, tix, M, N, nparts,
+                                    act, s);
   } else {
-    e = cudaErrorInvalidValue;
+    e = dtype == PTT_DTYPE_BF16
+            ? me_bwd<bf16>(z, g, dz, db, part, M, N, nparts, act, s)
+            : me_bwd<float>(z, g, dz, db, part, M, N, nparts, act, s);
   }
   return static_cast<int>(e);
 }
 
+// The rows of f32 partial sums (of N floats each) a backward of [M, N] at
+// these pointers uses.
+extern "C" int ptt_matmul_epilogue_bwd_parts(const void* z, const void* g,
+                                             const void* dz, int M, int N,
+                                             int dtype, int device) {
+  return bwd_parts(z, g, dz, M, N, dtype, device);
+}
+
+// 1 where a backward takes the vector route, else 0.
+extern "C" int ptt_matmul_epilogue_bwd_vector_route(const void* z,
+                                                    const void* g,
+                                                    const void* dz, int N,
+                                                    int dtype) {
+  return bwd_vec_route(z, g, dz, N, dtype == PTT_DTYPE_F32 ? 4 : 2) ? 1 : 0;
+}
 
 namespace {
 

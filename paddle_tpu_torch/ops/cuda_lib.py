@@ -25,7 +25,7 @@ import threading
 from pathlib import Path
 
 __all__ = ["ARCH_FLAGS", "build", "library", "check", "dtype_code",
-           "stream_handle", "sm_count"]
+           "stream_handle", "sm_count", "tickets"]
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG_DIR / "csrc"
@@ -52,8 +52,10 @@ _SIGNATURES = {
                           _P), _I),
     "ptt_matmul_epilogue_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _P), _I),
-    "ptt_matmul_epilogue_bwd": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _I, _P), _I),
+    "ptt_matmul_epilogue_bwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _P), _I),
+    "ptt_matmul_epilogue_bwd_parts": ((_P, _P, _P, _I, _I, _I, _I), _I),
+    "ptt_matmul_epilogue_bwd_vector_route": ((_P, _P, _P, _I, _I), _I),
     "ptt_matmul_epilogue_int8_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                       _I, _I, _I, _I, _I, _P), _I),
     "ptt_softmax_xent_fwd": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
@@ -83,8 +85,10 @@ _SIGNATURES = {
     "ptt_lora_sgmv_mma_route": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I),
                                 _I),
     "ptt_lora_sgmv_spans": ((_I, _I, _I), _I),
-    "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                 _F, _I, _I, _P), _I),
+    "ptt_paged_attention_fwd": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _F, _I, _I, _P), _I),
+    "ptt_paged_attention_vector_route": ((_P, _P, _P, _P, _I, _I), _I),
+    "ptt_paged_attention_splits": ((_I, _I, _I, _I, _I, _I, _I), _I),
     "ptt_matmul_epilogue_tma_route": ((_P, _P, _I, _I, _I), _I),
     "ptt_layer_norm_vector_route": ((_P, _P, _P, _P, _I, _I), _I),
     "ptt_mma_check": ((_P, _P, _P, _I, _P), _I),
@@ -201,6 +205,25 @@ def stream_handle(device):
     """PyTorch's current stream on ``device`` as a C pointer value."""
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+#: int32 counters of the kernels whose last block to finish does a merge
+#: (paged attention, the epilogue backward), by (device, stream): each
+#: launch leaves the ones it used 0, so they are zeroed once, when made
+_tickets = {}
+
+
+def tickets(device, n):
+    """At least ``n`` zeroed int32 counters on ``device`` for launches on
+    its current stream (one buffer a stream: launches on one stream run
+    one after another)."""
+    import torch
+    key = (device.index, stream_handle(device))
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
 
 
 @functools.lru_cache(maxsize=None)

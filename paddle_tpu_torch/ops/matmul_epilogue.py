@@ -33,8 +33,8 @@ from . import cuda_lib
 
 __all__ = ["ACTIVATIONS", "act_f32", "act_grad_f32", "linear_act_ref",
            "split_k", "tma_route", "fused_linear_act", "linear_act_bwd_ref",
-           "fused_linear_act_bwd", "linear_act", "linear_act_int8_ref",
-           "fused_linear_act_int8"]
+           "bwd_vector_route", "fused_linear_act_bwd", "linear_act",
+           "linear_act_int8_ref", "fused_linear_act_int8"]
 
 #: the reference's activation names (pallas_fused.py:47), in the order of
 #: the kernel's activation codes
@@ -207,14 +207,19 @@ def linear_act_bwd_ref(z, g, act):
     return dz.to(z.dtype).reshape(z.shape), dz.sum(dim=0).to(z.dtype)
 
 
-#: row chunks of the backward's first pass (each leaves one f32 row of
-#: bias-gradient partial sums for the second pass)
-_BWD_CHUNKS = 64
+def bwd_vector_route(z, g, dz):
+    """Whether the backward kernel on these tensors takes the vector route:
+    the kernel's rule (``ptt_matmul_epilogue_bwd_vector_route``), rows of
+    whole 16-byte vectors and z, g and dz 16-byte aligned; else the
+    element-wise route."""
+    N = z.shape[-1]
+    return (N > 0 and N * z.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (z, g, dz)))
 
 
 def fused_linear_act_bwd(z, g, act):
     """``(dz, db)`` as in `linear_act_bwd_ref`, through the backward
-    kernel for CUDA tensors."""
+    kernel for CUDA tensors; its launches are also counted by route."""
     _check_act(act)
     if z.device.type == "cpu":
         return linear_act_bwd_ref(z, g, act)
@@ -231,17 +236,25 @@ def fused_linear_act_bwd(z, g, act):
     N = z.shape[-1]
     M = z.numel() // N if N else 0
     dz = torch.empty_like(z)
-    db = torch.zeros(N, dtype=z.dtype, device=z.device)
-    if M and N:
-        nchunks = min(M, _BWD_CHUNKS)
-        partial = torch.empty(nchunks, N, dtype=torch.float32,
-                              device=z.device)
-        rc = cuda_lib.library().ptt_matmul_epilogue_bwd(
-            z.data_ptr(), g.data_ptr(), dz.data_ptr(), db.data_ptr(),
-            partial.data_ptr(), M, N, nchunks, ACTIVATIONS.index(act), code,
-            z.device.index, cuda_lib.stream_handle(z.device))
-        cuda_lib.check(rc, "matmul_epilogue_bwd")
-        fused_linear_act_bwd.launches += 1
+    if not (M and N):
+        return dz, torch.zeros(N, dtype=z.dtype, device=z.device)
+    db = torch.empty(N, dtype=z.dtype, device=z.device)
+    lib = cuda_lib.library()
+    ptrs = (z.data_ptr(), g.data_ptr(), dz.data_ptr())
+    nparts = lib.ptt_matmul_epilogue_bwd_parts(*ptrs, M, N, code,
+                                               z.device.index)
+    partial = torch.empty(nparts, N, dtype=torch.float32, device=z.device)
+    tickets = cuda_lib.tickets(z.device, -(-N // 128))
+    rc = lib.ptt_matmul_epilogue_bwd(
+        *ptrs, db.data_ptr(), partial.data_ptr(), tickets.data_ptr(), M, N,
+        nparts, ACTIVATIONS.index(act), code, z.device.index,
+        cuda_lib.stream_handle(z.device))
+    cuda_lib.check(rc, "matmul_epilogue_bwd")
+    fused_linear_act_bwd.launches += 1
+    if bwd_vector_route(z, g, dz):
+        fused_linear_act_bwd.vector_launches += 1
+    else:
+        fused_linear_act_bwd.elementwise_launches += 1
     return dz, db
 
 
@@ -347,9 +360,11 @@ def fused_linear_act_int8(x, w_q, scale, b, act="none"):
 
 
 #: kernel launches since the last reset (chip_smoke.py reads them); the
-#: bf16 forwards' also by staging route
+#: bf16 forwards' also by staging route, the backward's by route
 fused_linear_act.launches = 0
 fused_linear_act_bwd.launches = 0
+fused_linear_act_bwd.vector_launches = 0
+fused_linear_act_bwd.elementwise_launches = 0
 fused_linear_act_int8.launches = 0
 for _fn in (fused_linear_act, fused_linear_act_int8):
     _fn.tma_launches = 0

@@ -21,6 +21,13 @@ The kernel's domain is the reference's Pallas domain
 (``_use_pallas_paged``, attention.py:202-211): head_dim <= 256,
 ``block_size % 8 == 0``, f32 or bf16.  On CUDA tensors outside it the
 wrapper raises, naming the shape; a CPU tensor takes the plain version.
+
+Two routes (see the source): the vector route (rows of whole 16-byte
+vectors at 16-byte aligned bases: every model's heads; `vector_route` is
+the Python copy of the kernel's rule), which splits each sequence's key
+walk over ``S`` blocks (``ptt_paged_attention_splits``) and merges their
+states in the last block to finish, and the element-wise route for the
+rest.  The wrapper counts launches by route.
 """
 from __future__ import annotations
 
@@ -29,7 +36,8 @@ import torch
 from . import cuda_lib
 from .tiles import NEG_INF
 
-__all__ = ["MAX_HEAD_DIM", "paged_attention_ref", "paged_attention"]
+__all__ = ["MAX_HEAD_DIM", "paged_attention_ref", "paged_attention",
+           "vector_route"]
 
 #: the largest head_dim the kernel (and the reference's Pallas path) takes
 MAX_HEAD_DIM = 256
@@ -64,6 +72,16 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, context_lens,
                         torch.zeros((), dtype=q.dtype, device=q.device))
     out = torch.einsum("bhqk,bhkd->bhqd", probs.float(), v.float())
     return out.to(q.dtype).transpose(1, 2)               # [B, 1, H, D]
+
+
+def vector_route(q, k_pool, v_pool, out):
+    """Whether the kernel on these tensors takes the vector route: the
+    kernel's rule (``ptt_paged_attention_vector_route``), rows of D values
+    that are whole 16-byte vectors and every base 16-byte aligned; else
+    the element-wise route."""
+    D = q.shape[-1]
+    return (0 < D <= MAX_HEAD_DIM and D * q.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool, out)))
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens):
@@ -117,15 +135,35 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
     B, H, D, bs, W = _check(q, k_pool, v_pool, block_tables, context_lens)
     out = torch.empty_like(q)
     if B and H:
-        rc = cuda_lib.library().ptt_paged_attention_fwd(
+        lib = cuda_lib.library()
+        code = cuda_lib.dtype_code(q.dtype)
+        dev = q.device.index
+        stream = cuda_lib.stream_handle(q.device)
+        vec = vector_route(q, k_pool, v_pool, out)
+        splits = lib.ptt_paged_attention_splits(B, H, D, bs, W, code, dev) \
+            if vec else 1
+        partial = tickets = None
+        if splits > 1:
+            partial = torch.empty(B * H * splits * (D + 2),
+                                  dtype=torch.float32, device=q.device)
+            tickets = cuda_lib.tickets(q.device, B * H)
+        rc = lib.ptt_paged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            B, H, D, bs, W, _scale(q, scale), cuda_lib.dtype_code(q.dtype),
-            q.device.index, cuda_lib.stream_handle(q.device))
+            partial.data_ptr() if partial is not None else None,
+            tickets.data_ptr() if tickets is not None else None,
+            B, H, D, bs, W, splits, _scale(q, scale), code, dev, stream)
         cuda_lib.check(rc, "paged_attention")
         paged_attention.launches += 1
+        if vec:
+            paged_attention.vector_launches += 1
+        else:
+            paged_attention.elementwise_launches += 1
     return out
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them), also
+#: by route
 paged_attention.launches = 0
+paged_attention.vector_launches = 0
+paged_attention.elementwise_launches = 0

@@ -7,12 +7,14 @@
 // __syncthreads is a block barrier and every warp-wide operation
 // (shuffles, ldmatrix, mma.sync) a warp barrier around an exchange area;
 // mbarriers (wgmma_emu.h) are counted under one lock.  Blocks run one
-// after another.  cp.async, TMA and wgmma act synchronously, so the
-// emulation checks layouts, barrier counts and arithmetic, not the
+// after another, in order or in a seeded random order
+// (`emu_set_block_order`).  cp.async, TMA and wgmma act synchronously, so
+// the emulation checks layouts, barrier counts and arithmetic, not the
 // asynchronous schedule.
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <condition_variable>
@@ -33,6 +35,9 @@ using std::min;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+// static shared memory of a kernel in a header (the .cu sources are
+// rewritten instead: `_emulated_source`)
+#define __shared__ static
 #define __grid_constant__
 
 struct dim3 {
@@ -96,6 +101,18 @@ inline int emu_warp() { return threadIdx.x >> 5; }
 inline void emu_warp_sync() { emu.warp_bar[emu_warp()]->arrive_and_wait(); }
 inline void __syncthreads() { emu.block_bar->arrive_and_wait(); }
 inline void __syncwarp() { emu_warp_sync(); }
+// cross-block hand-offs (a ticket taken by the block that arrives last):
+// one block runs at a time, so a fence orders nothing the stand-in needs
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
 inline float __shfl_xor_sync(unsigned, float v, int mask) {
   WarpX& x = emu.wx[emu_warp()];
   const int l = emu_lane();
@@ -183,6 +200,12 @@ inline float fmaxf(float a, float b) { return std::fmax(a, b); }
 inline float erff(float x) { return std::erf(x); }
 inline float tanhf(float x) { return std::tanh(x); }
 inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+
+// The order the stand-in runs a launch's blocks in: 0, in order of
+// blockIdx (x fastest); otherwise a permutation drawn from this seed, so
+// that a test can check that a result does not depend on the order in
+// which blocks finish.  Set through `emu_set_block_order` (emu.cpp).
+extern unsigned emu_block_order;
 
 // kernel<<<grid, block, smem, stream>>>(args) is rewritten as
 // emu_launch(grid, block, smem, stream, [&] { kernel(args); })

@@ -1,6 +1,7 @@
 // The CPU stand-in's launch: blocks one after another, one std::thread
 // per CUDA thread of the block; and the driver entry point of TMA's maps.
 #include <memory>
+#include <random>
 #include <thread>
 #include <vector>
 
@@ -12,6 +13,9 @@ uint3v blockIdx, blockDim, gridDim;
 Emu emu;
 EmuMbars emu_mbars;
 cudaError_t emu_error = cudaSuccess;
+unsigned emu_block_order = 0;
+
+extern "C" void emu_set_block_order(unsigned seed) { emu_block_order = seed; }
 
 void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
   if (smem > sizeof(emu.dyn) || block.x % 32 != 0 || block.x > 1024) {
@@ -21,28 +25,34 @@ void emu_launch(dim3 grid, dim3 block, size_t smem, std::function<void()> f) {
   gridDim = {grid.x, grid.y, grid.z};
   blockDim = {block.x, 1, 1};
   const int nt = static_cast<int>(block.x);
+  std::vector<uint3v> order;
   for (unsigned bz = 0; bz < grid.z; ++bz)
     for (unsigned by = 0; by < grid.y; ++by)
-      for (unsigned bx = 0; bx < grid.x; ++bx) {
-        blockIdx = {bx, by, bz};
-        std::memset(emu.dyn, 0xAB, sizeof(emu.dyn));  // stale, not zeros
-        emu_mbars.bars.clear();
-        emu_mbars.named.clear();
-        std::barrier<> bar(nt);
-        std::vector<std::unique_ptr<std::barrier<>>> warps;
-        for (int w = 0; w < nt / 32; ++w) {
-          warps.push_back(std::make_unique<std::barrier<>>(32));
-          emu.warp_bar[w] = warps.back().get();
-        }
-        emu.block_bar = &bar;
-        std::vector<std::thread> threads;
-        for (int t = 0; t < nt; ++t)
-          threads.emplace_back([t, &f] {
-            threadIdx = {static_cast<unsigned>(t), 0, 0};
-            f();
-          });
-        for (auto& t : threads) t.join();
-      }
+      for (unsigned bx = 0; bx < grid.x; ++bx) order.push_back({bx, by, bz});
+  if (emu_block_order != 0) {
+    std::mt19937 rng(emu_block_order);
+    std::shuffle(order.begin(), order.end(), rng);
+  }
+  for (const uint3v& idx : order) {
+    blockIdx = idx;
+    std::memset(emu.dyn, 0xAB, sizeof(emu.dyn));  // stale, not zeros
+    emu_mbars.bars.clear();
+    emu_mbars.named.clear();
+    std::barrier<> bar(nt);
+    std::vector<std::unique_ptr<std::barrier<>>> warps;
+    for (int w = 0; w < nt / 32; ++w) {
+      warps.push_back(std::make_unique<std::barrier<>>(32));
+      emu.warp_bar[w] = warps.back().get();
+    }
+    emu.block_bar = &bar;
+    std::vector<std::thread> threads;
+    for (int t = 0; t < nt; ++t)
+      threads.emplace_back([t, &f] {
+        threadIdx = {static_cast<unsigned>(t), 0, 0};
+        f();
+      });
+    for (auto& t : threads) t.join();
+  }
 }
 
 // cuTensorMapEncodeTiled's stand-in: the checks the driver makes on a 2-D

@@ -72,7 +72,14 @@ transposed, with N = r = 16 under the tile) against the same function on
 the CPU.  Paged decode attention is held to its plain version with a
 context-0 row, padded table entries and contexts off the page, at head
 dims 64-256 and pages of 8-32; outside its domain (head_dim 257, pages
-of 12, fp16) and on a CPU table it raises.
+of 12, fp16) and on a CPU table it raises; at the drives' decode steps
+(phase 25's and 4 x 4096 keys) on the vector route by the counters and
+both rules, 100 runs bit-identical; a page of NaNs behind every padding
+entry never reaching the output; a misaligned q on the element-wise
+route.  The epilogue backward at the drives' fc1 shapes ([4096, 8192],
+[8192, 8192], [8192, 4096], [8192, 3072], [8192, 768]) and every
+activation on the vector route by the counters and both rules, N = 130
+on the element-wise route, and 100 runs bit-identical.
 """
 import numpy as np
 import pytest
@@ -1484,3 +1491,139 @@ def test_paged_attention_refuses_outside_its_domain(gen):
         ops.paged_attention(q.expand(2, 2, 2, 64).contiguous(), k, v,
                             tables, ctx)
     assert ops.paged_attention.launches == n0
+
+
+# ---------------------------------------------------------------------
+# the vector routes of paged attention (row 9) and of the epilogue
+# backward (row 7)
+# ---------------------------------------------------------------------
+def _paged_route(args):
+    fn = ops.paged_attention
+    n0 = (fn.launches, fn.vector_launches, fn.elementwise_launches)
+    out = fn(*args)
+    moved = (fn.launches - n0[0], fn.vector_launches - n0[1],
+             fn.elementwise_launches - n0[2])
+    return out, moved
+
+
+#: the drives' decode steps: phase 25's (4 sequences at 129-192 keys and
+#: one at 0, tables 16 wide) and a long decode (4 x 4096 keys)
+_PAGED_DRIVE = {"decode": ([129, 150, 171, 192, 0], 16),
+                "long": ([4096] * 4, 256)}
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("case", list(_PAGED_DRIVE))
+def test_paged_attention_drive_shapes(gen, case, dtype):
+    """16 heads of 128, pages of 16: the vector route (by the counters
+    and the Python and library rules), 100 runs bit-identical."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.paged import vector_route
+    ctxs, W = _PAGED_DRIVE[case]
+    args = _paged_case(gen, dtype, len(ctxs), 16, 128, 16, ctxs, W)
+    out, moved = _paged_route(args)
+    assert moved == (1, 1, 0)
+    q, k, v = args[:3]
+    assert vector_route(q, k, v, out)
+    assert cuda_lib.library().ptt_paged_attention_vector_route(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 128,
+        cuda_lib.dtype_code(dtype)) == 1
+    _close(out, ops.paged_attention_ref(*args), dtype)
+    for _ in range(100):
+        assert torch.equal(ops.paged_attention(*args), out)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_paged_attention_never_reads_padding(gen, dtype):
+    """Page 0 of both pools holds NaNs and every padding entry of the
+    tables points at it; contexts 0, 1, 17 and 300 (several splits): no
+    NaN reaches the output, and the rest matches the plain version on the
+    pools with page 0 zeroed."""
+    ctxs = [0, 1, 17, 300]
+    q, k, v, tables, ctx = _paged_case(gen, dtype, 4, 4, 128, 16, ctxs, 24)
+    k[0], v[0] = float("nan"), float("nan")
+    out = ops.paged_attention(q, k, v, tables, ctx)
+    assert bool(torch.isfinite(out).all())
+    assert not out[0].any()
+    k[0], v[0] = 0.0, 0.0
+    _close(out, ops.paged_attention_ref(q, k, v, tables, ctx), dtype)
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_paged_attention_elementwise_route(gen, dtype):
+    """A q view one element off 16 bytes takes the element-wise route,
+    by the counters, and agrees with the plain version."""
+    q, k, v, tables, ctx = _paged_case(gen, dtype, 3, 4, 64, 16,
+                                       [20, 0, 70], 6)
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device="cuda")
+    qs = buf[1:].view(q.shape)
+    qs.copy_(q)
+    out, moved = _paged_route((qs, k, v, tables, ctx))
+    assert moved == (1, 0, 1)
+    _close(out, ops.paged_attention_ref(q, k, v, tables, ctx), dtype)
+
+
+#: the drives' fc1 backward shapes (rows, N), tanh-GELU: the training
+#: drive, phase 8's flash drive, phase 24's LoRA fine-tuning, BERT's fc1
+#: and MLM head transform
+_ME_BWD_DRIVE = [(4096, 8192), (8192, 8192), (8192, 4096), (8192, 3072),
+                 (8192, 768)]
+
+
+def _bwd_route(z, g, act):
+    fn = ops.fused_linear_act_bwd
+    n0 = (fn.launches, fn.vector_launches, fn.elementwise_launches)
+    dz, db = fn(z, g, act)
+    moved = (fn.launches - n0[0], fn.vector_launches - n0[1],
+             fn.elementwise_launches - n0[2])
+    return dz, db, moved
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("M,N", _ME_BWD_DRIVE)
+def test_matmul_epilogue_bwd_drive_shapes(gen, dtype, M, N):
+    """The vector route (by the counters and the Python and library
+    rules), dz and db against the plain version."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.matmul_epilogue import bwd_vector_route
+    z = (2 * torch.randn(M, N, device="cuda", generator=gen)).to(dtype)
+    g = torch.randn(M, N, device="cuda", generator=gen).to(dtype)
+    dz, db, moved = _bwd_route(z, g, "gelu_tanh")
+    assert moved == (1, 1, 0)
+    assert bwd_vector_route(z, g, dz)
+    assert cuda_lib.library().ptt_matmul_epilogue_bwd_vector_route(
+        z.data_ptr(), g.data_ptr(), dz.data_ptr(), N,
+        cuda_lib.dtype_code(dtype)) == 1
+    dz_ref, db_ref = ops.linear_act_bwd_ref(z, g, "gelu_tanh")
+    _close(dz, dz_ref, dtype)
+    torch.testing.assert_close(db.float(), db_ref.float(),
+                               atol=_sum_tol(dtype, M), rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("act", ops.ACTIVATIONS)
+def test_matmul_epilogue_bwd_vector_route_activations(gen, dtype, act):
+    """Every activation on the vector route at rows off the 4-row unroll
+    and a width of three column spans (768), and the element-wise route
+    (N = 130) by the counters."""
+    for M, N, want in ((131, 768, (1, 1, 0)), (70, 130, (1, 0, 1))):
+        z = (2 * torch.randn(M, N, device="cuda", generator=gen)).to(dtype)
+        g = torch.randn(M, N, device="cuda", generator=gen).to(dtype)
+        dz, db, moved = _bwd_route(z, g, act)
+        assert moved == want
+        dz_ref, db_ref = ops.linear_act_bwd_ref(z, g, act)
+        _close(dz, dz_ref, dtype)
+        torch.testing.assert_close(db.float(), db_ref.float(),
+                                   atol=_sum_tol(dtype, M),
+                                   rtol=_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_matmul_epilogue_bwd_repeats(gen, dtype):
+    """The training drive's [4096, 8192]: 100 runs bit-identical."""
+    z = (2 * torch.randn(4096, 8192, device="cuda", generator=gen)).to(dtype)
+    g = torch.randn(4096, 8192, device="cuda", generator=gen).to(dtype)
+    dz, db = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+    for _ in range(100):
+        dz2, db2 = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+        assert torch.equal(dz2, dz) and torch.equal(db2, db)

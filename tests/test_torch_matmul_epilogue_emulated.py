@@ -89,12 +89,13 @@ def _emulated_wgmma_header(text):
                        '#include <cstdint>\n\n#include "wgmma_emu.h"\n', 1)
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_emulated(out, sources):
+    """Compile ``sources`` ({file name: text}, .cu files of csrc, edited or
+    not) with the headers for the stand-in into ``out`` and load the
+    library with the entry points' signatures."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    out = tmp_path_factory.mktemp("cuda_emu_epilogue")
     for header in cuda_lib.SRC_DIR.glob("*.cuh"):
         text = header.read_text()
         if header.name == "mma.cuh":
@@ -103,9 +104,9 @@ def lib(tmp_path_factory):
             text = _emulated_wgmma_header(text)
         (out / header.name).write_text(text)
     cpps = []
-    for name in _SOURCES:
+    for name, text in sources.items():
         cpp = out / (Path(name).stem + ".cpp")
-        cpp.write_text(_emulated_source((cuda_lib.SRC_DIR / name).read_text()))
+        cpp.write_text(_emulated_source(text))
         cpps.append(str(cpp))
     so = out / "libemu_epilogue.so"
     build = subprocess.run(
@@ -120,6 +121,13 @@ def lib(tmp_path_factory):
         if fn is not None:
             fn.argtypes, fn.restype = list(argtypes), restype
     return lib
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build_emulated(
+        tmp_path_factory.mktemp("cuda_emu_epilogue"),
+        {name: (cuda_lib.SRC_DIR / name).read_text() for name in _SOURCES})
 
 
 def _ptr(t):
