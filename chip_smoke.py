@@ -11,11 +11,12 @@ phase fails.  Phases:
 1. build: every kernel of ``paddle_tpu_torch/csrc`` compiled by ``nvcc``
    for sm_90a into one library (timed); the registers and stack/local
    bytes of every flash attention, grouped matmul, ``wgmma``,
-   layer-norm vector-route, ragged attention tensor-core, paged
-   attention and epilogue-backward vector-route and sliced column-sum
-   kernel instantiation; the ``wgmma`` kernels (the bf16 matmul
-   epilogue, rows 3 and 11, and ``csrc/wgmma_check.cu``) must not spill
-   and their SASS must hold HGMMA, the four ragged attention tensor-core
+   vector-route layer norm, residual layer norm and RMS norm backward,
+   ragged attention tensor-core, paged attention and epilogue-backward
+   vector-route and sliced column-sum kernel instantiation; the
+   ``wgmma`` kernels (the bf16 matmul epilogue, rows 3 and 11, and
+   ``csrc/wgmma_check.cu``) must not spill and their SASS must hold
+   HGMMA, the four ragged attention tensor-core
    instantiations (rows 1 and 10) must not spill, nor may the vector
    routes of rows 7 and 9 or the sliced column sum; then the ``wgmma``
    self-check: one TMA-loaded, transpose-B product of small integers,
@@ -28,9 +29,12 @@ phase fails.  Phases:
    query against 640 keys; heads of 64 at the 0.35B width; BERT-base's
    B=64, S=128, 12 heads of 64, not causal; and heads of 256, causal and
    not; RMS norm: the LLaMA training drive's 8192 rows of 1024, LLaMA-2
-   7B's prefill of 512 rows and decode step of 4 rows of 4096; the fused
-   residual layer norm at the BERT drive's 8192 rows of 768, forward and,
-   through the layer-norm backward kernel, backward), in bf16 and in f32,
+   7B's prefill of 512 rows and decode step of 4 rows of 4096, its
+   backward run twice, each run held to the plain version, the second
+   bit-identical, on the vector route; the fused residual layer norm at
+   the BERT drive's 8192 rows of 768, forward (run twice in the same way,
+   on the vector route) and, through the layer-norm backward kernel,
+   backward), in bf16 and in f32,
    with
    errors against stated tolerances and CUDA-event times of the kernel,
    the plain version and (where one PyTorch call computes the same
@@ -98,7 +102,8 @@ phase fails.  Phases:
    launch count is set to 0 just before and read just after; each must
    equal its launches per step times the steps; every bf16 matmul
    epilogue launch since phase 2 must have taken the TMA staging route,
-   every layer-norm launch (forward and backward) the vector route and
+   every layer-norm launch (forward, backward, residual forward) and
+   every RMS norm backward launch the vector route and
    no LoRA SGMV, ragged attention, paged attention or epilogue backward
    launch the element-wise route (checked after every drive
    and parity run: `check_routes`, run by `check_counts`).  A second,
@@ -763,8 +768,10 @@ LN_CASES = {"train8192": (8192, HIDDEN), "bert": (BERT_ROWS, BERT_HIDDEN)}
 
 def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
     """The fused residual add + layer norm forward at the BERT drive's
-    [8192, 768], and its backward, the layer-norm backward kernel on the
-    saved sum (held and timed in the note)."""
+    [8192, 768], run twice: each run held to the plain version (out, s, mu,
+    rstd), the second bit-identical to the first, on the vector route; and
+    its backward, the layer-norm backward kernel on the saved sum (held
+    and timed in the note)."""
     import torch
     n = BERT_HIDDEN
     x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
@@ -772,17 +779,27 @@ def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
     r = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
     b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
-    out, s, mu, rstd = ops.fused_layer_norm_residual(x, r, g, b, 1e-12)
+    fn = ops.fused_layer_norm_residual
+    n0 = (fn.vector_launches, fn.scalar_launches)
+    runs = [fn(x, r, g, b, 1e-12)]
+    route = norm_route(fn, n0)
+    runs.append(fn(x, r, g, b, 1e-12))
     ref, s_r, mu_r, rstd_r = ops.layer_norm_residual_ref(x, r, g, b, 1e-12)
     do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     bargs = (s_r, g, mu_r, rstd_r, do)
     dx, dg, db = ops.fused_layer_norm_bwd(*bargs)
     dx_r, dg_r, db_r = ops.layer_norm_bwd_ref(*bargs)
     torch.cuda.synchronize()
-    err, rel, ok = compare(out, ref, dtype_name)
-    s_err, _, s_ok = compare(s, s_r, dtype_name)
-    stat_ok = compare(mu, mu_r, "float32")[2] \
-        and compare(rstd, rstd_r, "float32")[2]
+    err = rel = s_err = 0.0
+    ok = True
+    for out, s, mu, rstd in runs:
+        e, rl, o = compare(out, ref, dtype_name)
+        se, _, so = compare(s, s_r, dtype_name)
+        err, rel, s_err = max(err, e), max(rel, rl), max(s_err, se)
+        ok = ok and o and so and compare(mu, mu_r, "float32")[2] \
+            and compare(rstd, rstd_r, "float32")[2]
+    same = all(torch.equal(a, c) for a, c in zip(*runs))
+    del runs
     dx_err, _, dx_ok = compare(dx, dx_r, dtype_name)
     xhat = (s_r.float() - mu_r[:, None]) * rstd_r[:, None]
     dg_err, dg_ok, _ = compare_sum(dg, dg_r, (do.float() * xhat).abs().sum(0),
@@ -801,13 +818,15 @@ def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
         return torch.nn.functional.layer_norm(x + r, (n,), g, b, 1e-12)
     return dict(      # err: the forward kernel's (out, s); the rest in note
         err=max(err, s_err), rel=rel,
-        ok=ok and s_ok and stat_ok and dx_ok and dg_ok and db_ok,
+        ok=(ok and same and route == "vector" and dx_ok and dg_ok
+            and db_ok), route=route,
         shape=f"x, r[{rows},{n}]",
-        note=(f"out {err:.3e}, s {s_err:.3e}; backward (layer_norm_bwd on "
-              f"the saved s) dx {dx_err:.3e}, dgamma {dg_err:.3e}, dbeta "
-              f"{db_err:.3e}, {bwd_ms:.4f} ms; library: F.layer_norm(x + r), "
-              f"two calls"),
-        ms=time_ms(lambda: ops.fused_layer_norm_residual(x, r, g, b, 1e-12)),
+        note=(f"out {err:.3e}, s {s_err:.3e}, both runs; route {route} "
+              f"(want vector); second run bit-identical: {same}; backward "
+              f"(layer_norm_bwd on the saved s) dx {dx_err:.3e}, dgamma "
+              f"{dg_err:.3e}, dbeta {db_err:.3e}, {bwd_ms:.4f} ms; library: "
+              f"F.layer_norm(x + r), two calls"),
+        ms=time_ms(lambda: fn(x, r, g, b, 1e-12)),
         plain_ms=time_ms(lambda: ops.layer_norm_residual_ref(x, r, g, b,
                                                              1e-12)),
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
@@ -965,9 +984,20 @@ def check_rms_norm(ops, shape_key, dtype, dtype_name, gen):
         library_ms=library_ms, bound_ms=bms, bound_by=by)
 
 
+def norm_route(fn, n0):
+    """The route of the one launch of the norm wrapper ``fn`` since its
+    counts by route were ``n0`` (vector, scalar): "vector" or "scalar"."""
+    now = (fn.vector_launches, fn.scalar_launches)
+    moved = [name for name, a, b in zip(("vector", "scalar"), n0, now)
+             if b != a]
+    return moved[0] if len(moved) == 1 else f"counts moved: {moved}"
+
+
 def check_rms_norm_bwd(ops, shape_key, dtype, dtype_name, gen):
-    """dx and dgamma from the plain forward's rstd; dgamma held by the
-    column-sum rule (`compare_sum`)."""
+    """dx and dgamma from the plain forward's rstd, run twice: each run
+    held to the plain version (dgamma by the column-sum rule,
+    `compare_sum`), the second bit-identical to the first, on the vector
+    route."""
     import torch
     rows, n = RMS_SHAPES[shape_key]
     x = (torch.randn(rows, n, device="cuda", generator=gen) + 0.5).to(dtype)
@@ -975,13 +1005,23 @@ def check_rms_norm_bwd(ops, shape_key, dtype, dtype_name, gen):
     do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     _, rstd = ops.rms_norm_ref(x, g, RMS_EPS)
     args = (x, g, rstd, do)
-    dx, dg = ops.fused_rms_norm_bwd(*args)
+    fn = ops.fused_rms_norm_bwd
+    n0 = (fn.vector_launches, fn.scalar_launches)
+    runs = [fn(*args)]
+    route = norm_route(fn, n0)
+    runs.append(fn(*args))
     dx_r, dg_r = ops.rms_norm_bwd_ref(*args)
     torch.cuda.synchronize()
-    err, rel, ok = compare(dx, dx_r, dtype_name)
-    dg_err, dg_ok, dg_tol = compare_sum(
-        dg, dg_r, (do.float() * x.float() * rstd[:, None]).abs().sum(0),
-        dtype_name)
+    abs_sum = (do.float() * x.float() * rstd[:, None]).abs().sum(0)
+    err = rel = dg_err = 0.0
+    ok = True
+    for dx, dg in runs:
+        e, r, o = compare(dx, dx_r, dtype_name)
+        ge, go, dg_tol = compare_sum(dg, dg_r, abs_sum, dtype_name)
+        err, rel, dg_err = max(err, e), max(rel, r), max(dg_err, ge)
+        ok = ok and o and go
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
     isz = x.element_size()
     nbytes = 3 * rows * n * isz + 2 * n * isz + rows * 4
     bms, by = bound(nbytes, 8 * rows * n, dtype_name)
@@ -1000,11 +1040,13 @@ def check_rms_norm_bwd(ops, shape_key, dtype, dtype_name, gen):
         library_ms = None
         lib_note = f"library call failed: {str(exc).splitlines()[0][:160]}"
     return dict(
-        err=max(err, dg_err), rel=rel, ok=ok and dg_ok,
+        err=max(err, dg_err), rel=rel,
+        ok=ok and same and route == "vector", route=route,
         shape=f"x[{rows},{n}]",
         note=(f"dx max abs err {err:.3e}; dgamma {dg_err:.3e} (atol "
-              f"{dg_tol:.3e}); {lib_note}"),
-        ms=time_ms(lambda: ops.fused_rms_norm_bwd(*args)),
+              f"{dg_tol:.3e}), both runs; route {route} (want vector); "
+              f"second run bit-identical: {same}; {lib_note}"),
+        ms=time_ms(lambda: fn(*args)),
         plain_ms=time_ms(lambda: ops.rms_norm_bwd_ref(*args)),
         library_ms=library_ms, bound_ms=bms, bound_by=by)
 
@@ -1030,8 +1072,10 @@ FLASH_KERNEL_NAMES = ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                       "flash_bwd_dkv_kernel")
 GROUPED_KERNEL_NAMES = ("gmm_fwd_mma", "gmm_fwd_fma", "gmm_dw_mma",
                         "gmm_dw_fma")
-#: the layer norm's vector routes
-LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel")
+#: the vector routes of layer norm, the residual layer norm and the RMS
+#: norm backward (rows 2, 6, 13 and 12)
+LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel",
+                   "ln_res_fwd_vec_kernel", "rms_bwd_vec_kernel")
 #: the vector routes of paged attention and of the epilogue backward, and
 #: the sliced column sum (row 6's second pass; phase 1: no spills)
 VEC_KERNEL_NAMES = ("paged_attn_vec_kernel", "me_bwd_vec_kernel",
@@ -2357,11 +2401,21 @@ def reset_launches(ops):
         fn.launches = 0
 
 
+def norm_routed(ops):
+    """The norm kernels' wrappers that count launches by vector and scalar
+    route: layer norm forward and backward, the residual layer norm and
+    the RMS norm backward (rows 2, 6, 13 and 12)."""
+    return {"layer_norm": ops.fused_layer_norm,
+            "layer_norm_bwd": ops.fused_layer_norm_bwd,
+            "layer_norm_residual": ops.fused_layer_norm_residual,
+            "rms_norm_bwd": ops.fused_rms_norm_bwd}
+
+
 def reset_routes(ops):
     """Zero the launch counts by route (`check_routes`)."""
     for fn in (ops.fused_linear_act, ops.fused_linear_act_int8):
         fn.tma_launches = fn.elementwise_launches = 0
-    for fn in (ops.fused_layer_norm, ops.fused_layer_norm_bwd):
+    for fn in norm_routed(ops).values():
         fn.vector_launches = fn.scalar_launches = 0
     for fn in (ops.fused_lora_segment_epilogue, ops.ragged_paged_attention,
                ops.ragged_paged_attention_int8):
@@ -2374,7 +2428,8 @@ def check_routes(phase, ops):
     """The launches by route since `reset_routes` (at the end of phase 2,
     so every launch counted is a drive's, at a model shape): every bf16
     matmul epilogue launch must have staged by TMA, every layer-norm
-    launch, forward and backward, must have taken the vector route, and
+    launch (forward, backward and the residual forward) and every RMS
+    norm backward launch must have taken the vector route, and
     no LoRA SGMV launch and no ragged attention launch, float or int8,
     the element-wise route (bf16 takes the tensor cores, f32 its own
     route), nor any paged attention or matmul epilogue backward launch
@@ -2383,9 +2438,8 @@ def check_routes(phase, ops):
                 for name, fn in
                 (("matmul_epilogue", ops.fused_linear_act),
                  ("matmul_epilogue_int8", ops.fused_linear_act_int8))}
-    norm = {name: (fn.vector_launches, fn.scalar_launches) for name, fn in
-            (("layer_norm", ops.fused_layer_norm),
-             ("layer_norm_bwd", ops.fused_layer_norm_bwd))}
+    norm = {name: (fn.vector_launches, fn.scalar_launches)
+            for name, fn in norm_routed(ops).items()}
     lora = lora_route_counts(ops)
     ragged = {name: ragged_route_counts(ops, int8) for name, int8 in
               (("ragged_attention", False), ("ragged_attention_int8", True))}
@@ -2394,7 +2448,7 @@ def check_routes(phase, ops):
     say("  launches by route since phase 2: bf16 epilogue (TMA, "
         "element-wise) "
         + ", ".join(f"{n} {c}" for n, c in epilogue.items())
-        + "; layer norm (vector, scalar) "
+        + "; norms (vector, scalar) "
         + ", ".join(f"{n} {c}" for n, c in norm.items())
         + f"; lora_sgmv (mma, f32, element-wise) {lora}; ragged "
         "attention (mma, f32, element-wise) "
@@ -2405,8 +2459,8 @@ def check_routes(phase, ops):
         fail(f"{phase}: a model-shape epilogue launch staged element by "
              f"element: {epilogue}")
     if any(c[1] for c in norm.values()):
-        fail(f"{phase}: a model-shape layer-norm launch took the scalar "
-             f"route: {norm}")
+        fail(f"{phase}: a model-shape norm launch took the scalar route: "
+             f"{norm}")
     if lora[2]:
         fail(f"{phase}: a model-shape LoRA SGMV launch took the "
              f"element-wise route: {lora}")
@@ -2701,12 +2755,13 @@ def routing_summary(ops, routed, layers, steps):
 #: device-time groups of the profile, by kernel-name substring (first
 #: match wins: the int8 kernels' instantiations, whose pool or weight type
 #: is int8_t, "signed char", come before their float twins); layer_norm,
-#: layer_norm_bwd, paged_attention and matmul_epilogue_bwd hold both
-#: routes of each, lora_sgmv its three (the element-wise and f32 routes
-#: share lora_sgmv_kernel); column_sum is the second pass of the column
-#: sums that take one (`column_sum_sliced_kernel`: row 6;
-#: `column_sum_kernel`: rows 12 and 14b and row 7's element-wise route;
-#: row 7's vector route adds its own in its last blocks), and
+#: layer_norm_bwd, layer_norm_residual, rms_norm_bwd, paged_attention and
+#: matmul_epilogue_bwd hold both routes of each, lora_sgmv its three (the
+#: element-wise and f32 routes share lora_sgmv_kernel); column_sum is the
+#: second pass of the column sums that take one
+#: (`column_sum_sliced_kernel`: rows 6 and 12; `column_sum_kernel`: row
+#: 14b and row 7's element-wise route; row 7's vector route adds its own
+#: in its last blocks), and
 #: splitk_epilogue the second pass of a split-K matmul epilogue (int8 or
 #: float: its instantiations do not say which)
 _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
@@ -2725,7 +2780,8 @@ _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
                      "me_fwd_fma<__nv_bfloat16, signed char")),
                    ("ragged_attention", ("ragged_attn_kernel",
                                          "ragged_attn_mma_kernel")),
-                   ("layer_norm_residual", "layer_norm_residual_fwd_kernel"),
+                   ("layer_norm_residual", ("ln_res_fwd_vec_kernel",
+                                            "layer_norm_residual_fwd_kernel")),
                    ("layer_norm", ("ln_fwd_vec_kernel",
                                    "layer_norm_fwd_kernel")),
                    ("layer_norm_bwd", ("ln_bwd_vec_kernel",
@@ -2742,7 +2798,8 @@ _PROFILE_GROUPS = (("lora_sgmv", ("lora_sgmv_kernel",
                    ("flash_attention_bwd_dq", "flash_bwd_dq_kernel"),
                    ("flash_attention_bwd_dkv", "flash_bwd_dkv_kernel"),
                    ("rms_norm", "rms_norm_fwd_kernel"),
-                   ("rms_norm_bwd", "rms_norm_bwd_kernel"),
+                   ("rms_norm_bwd", ("rms_bwd_vec_kernel",
+                                     "rms_norm_bwd_kernel")),
                    ("cublas_gemm", ("gemm", "xmma", "nvjet", "cutlass",
                                     "cublas")),
                    ("softmax", ("softmax", "SoftMax")))
@@ -4259,12 +4316,14 @@ CUDA_KERNELS = {
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel_mma",
                                 "flash_bwd_dkv_kernel"),
     "rms_norm": ("rms_norm_fwd_kernel",),
-    "rms_norm_bwd": ("rms_norm_bwd_kernel", "column_sum_kernel"),
+    "rms_norm_bwd": ("rms_bwd_vec_kernel", "column_sum_sliced_kernel",
+                     "rms_norm_bwd_kernel"),
     "ragged_attention_int8": ("ragged_attn_mma_kernel",
                               "ragged_attn_kernel"),
     "matmul_epilogue_int8": ("me_fwd_wgmma", "me_fwd_fma",
                              "splitk_epilogue_kernel"),
-    "layer_norm_residual": ("layer_norm_residual_fwd_kernel",),
+    "layer_norm_residual": ("ln_res_fwd_vec_kernel",
+                            "layer_norm_residual_fwd_kernel"),
     "grouped_matmul": ("gmm_fwd_mma", "gmm_fwd_fma"),
     "grouped_matmul_dw": ("gmm_dw_mma", "gmm_dw_fma", "column_sum_kernel"),
     "lora_sgmv": ("lora_sgmv_mma_kernel", "lora_sgmv_kernel"),

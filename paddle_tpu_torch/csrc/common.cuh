@@ -67,20 +67,97 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// The SMs of CUDA device `device` (1 where the query fails).
+// The SMs of CUDA device `device` (1 where the query fails), asked of the
+// runtime once a device: the launches that size their grids by it call it
+// every time, and the query costs a few microseconds of host time.
 inline int sm_count(int device) {
+  constexpr int kCached = 64;
+  static int cache[kCached] = {};  // 0: not asked yet
+  if (device >= 0 && device < kCached && cache[device] > 0)
+    return cache[device];
   int v = 0;
   cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, device);
-  return v > 0 ? v : 1;
+  v = v > 0 ? v : 1;
+  if (device >= 0 && device < kCached) cache[device] = v;
+  return v;
+}
+
+// ---- rows held in registers (the vector routes of rows 2, 6, 12, 13) ----
+// W warps share a row of n values, a lane holding kC 16-byte vectors of it
+// (vector c * 32 * W + t of the row for lane t of the row's W * 32); a
+// block takes max(32 * W, threads) threads, so block_rows rows at a time.
+
+// The widest row the norms' vector routes hold in registers; wider rows
+// take their scalar routes.
+constexpr int kMaxVectorWidth = 8192;
+
+// Whether a norm kernel on rows of n values of `isz` bytes at these four
+// pointers takes its vector route: 16-byte aligned rows no wider than
+// kMaxVectorWidth.
+inline bool vector_route(int n, int isz, const void* a, const void* b,
+                         const void* c, const void* d) {
+  return n > 0 && n <= kMaxVectorWidth && (n * isz) % 16 == 0 &&
+         aligned16(a) && aligned16(b) && aligned16(c) && aligned16(d);
+}
+
+// The warps that share a row: the fewest (a power of two) whose lanes hold
+// n values at `per_lane` a lane.
+inline int row_warps(int n, int per_lane) {
+  int w = 1;
+  while (32 * w * per_lane < n) w *= 2;
+  return w;
+}
+
+// Threads of a block, and rows it takes at a time, for W warps a row
+// (host and device: nvcc refuses a host-only constexpr in device code).
+__host__ __device__ constexpr int block_threads(int w, int threads) {
+  return 32 * w > threads ? 32 * w : threads;
+}
+__host__ __device__ constexpr int block_rows(int w, int threads) {
+  return block_threads(w, threads) / (32 * w);
+}
+
+// Sum of v over the W warps that share a row, returned to all of them:
+// each warp's butterfly (every lane ends with the same value), then for
+// W > 1 the W warp sums added in warp order through `slot` [W] in shared
+// memory.  Every thread of the block calls it at the same point.
+template <int W>
+__device__ __forceinline__ float row_sum(float v, float* slot, int wr) {
+  v = warp_sum(v);
+  if constexpr (W == 1) {
+    return v;
+  } else {
+    if ((threadIdx.x & 31) == 0) slot[wr] = v;
+    __syncthreads();
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < W; ++i) s += slot[i];
+    return s;
+  }
+}
+
+// A lane's vectors of one row of `src` (row < rows, else none): vector
+// c * 32 * W + t of the row, for each c < kC that lies in the row.
+template <int W, int kC, typename V>
+__device__ __forceinline__ void load_row(V (&dst)[kC], const V* src,
+                                         size_t row, int rows, int nv,
+                                         int t) {
+  if (row >= static_cast<size_t>(rows)) return;
+  const V* r = src + row * nv;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int v = c * 32 * W + t;
+    if (v < nv) dst[c] = r[v];
+  }
 }
 
 // out[c] = sum over p < nparts of partial[p * n + c], summed in order of p
 // and cast to T: the second pass of a column sum whose first pass left one
 // f32 row of partial sums per block.  The order is fixed, so the result is
 // the same on every run (float atomics would not be).  One thread per
-// column; neighbouring threads read neighbouring addresses.  Rows 12 and
-// 14b use it; `column_sum_sliced_kernel` below spreads the same sum over
-// more blocks.
+// column; neighbouring threads read neighbouring addresses.  Row 14b uses
+// it; `column_sum_sliced_kernel` below spreads the same sum over more
+// blocks.
 template <typename T>
 __global__ void __launch_bounds__(256)
     column_sum_kernel(const float* __restrict__ partial, T* __restrict__ out,
@@ -99,7 +176,8 @@ __global__ void __launch_bounds__(256)
 // kSumSlices-th row in order, then one thread a column adds the slices in
 // order: a fixed order, so the same sums every run.  At n = 2048 that is
 // 128 blocks a sum where `column_sum_kernel` runs 8.  The grid is
-// (ceil(n / kSumCols), sums), kSumCols * kSumSlices threads a block.
+// (ceil(n / kSumCols), sums), kSumCols * kSumSlices threads a block.  Rows
+// 6 (dgamma and dbeta) and 12 (dgamma alone, out1 unused) use it.
 constexpr int kSumCols = 16, kSumSlices = 16;
 
 template <typename T>

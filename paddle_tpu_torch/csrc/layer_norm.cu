@@ -42,79 +42,27 @@
 
 namespace {
 
-// Widest row the vector routes take (both fit it in registers); wider rows
-// take the scalar routes.
-constexpr int kMaxVectorWidth = 8192;
-// The register budget of the vector routes: 16-byte vectors of a row a
-// lane holds at most (the warps a row takes follow from it), and the
-// threads of a block (`scripts/torch_layer_norm_sweep.py` times others).
+// The register budget of the vector routes (forward, backward, residual
+// forward): 16-byte vectors of a row a lane holds at most (the warps a row
+// takes follow from it), and the threads of a block
+// (`scripts/torch_layer_norm_sweep.py` times others).
 constexpr int kFwdLaneVectors = 2;
 constexpr int kFwdThreads = 128;
 constexpr int kBwdLaneVectors = 4;
 constexpr int kBwdThreads = 128;
+constexpr int kResLaneVectors = 3;
+constexpr int kResThreads = 128;
 
 using ptt::aligned16;
+using ptt::block_rows;
+using ptt::block_threads;
+using ptt::kMaxVectorWidth;
+using ptt::load_row;
+using ptt::row_sum;
+using ptt::row_warps;
 using ptt::sm_count;
 using ptt::Vec16;
-
-// Whether rows of n values of `isz` bytes, at these four pointers, take
-// the vector route: 16-byte aligned rows no wider than kMaxVectorWidth.
-bool vector_route(int n, int isz, const void* a, const void* b,
-                  const void* c, const void* d) {
-  return n > 0 && n <= kMaxVectorWidth && (n * isz) % 16 == 0 &&
-         aligned16(a) && aligned16(b) && aligned16(c) && aligned16(d);
-}
-
-// The warps that share a row: the fewest (a power of two) whose lanes hold
-// n values at `per_lane` a lane.
-int row_warps(int n, int per_lane) {
-  int w = 1;
-  while (32 * w * per_lane < n) w *= 2;
-  return w;
-}
-
-// Threads of a block, and rows it takes at a time, for W warps a row
-// (host and device: nvcc refuses a host-only constexpr in device code).
-__host__ __device__ constexpr int block_threads(int w, int threads) {
-  return 32 * w > threads ? 32 * w : threads;
-}
-__host__ __device__ constexpr int block_rows(int w, int threads) {
-  return block_threads(w, threads) / (32 * w);
-}
-
-// Sum of v over the W warps that share a row, returned to all of them:
-// each warp's butterfly (every lane ends with the same value), then for
-// W > 1 the W warp sums added in warp order through `slot` [W] in shared
-// memory.  Every thread of the block calls it at the same point.
-template <int W>
-__device__ __forceinline__ float row_sum(float v, float* slot, int wr) {
-  v = ptt::warp_sum(v);
-  if constexpr (W == 1) {
-    return v;
-  } else {
-    if ((threadIdx.x & 31) == 0) slot[wr] = v;
-    __syncthreads();
-    float s = 0.f;
-#pragma unroll
-    for (int i = 0; i < W; ++i) s += slot[i];
-    return s;
-  }
-}
-
-// A lane's vectors of one row of `src` (row < rows, else none): vector
-// c * 32 * W + t of the row, for each c < kC that lies in the row.
-template <int W, int kC, typename V>
-__device__ __forceinline__ void load_row(V (&dst)[kC], const V* src,
-                                         size_t row, int rows, int nv,
-                                         int t) {
-  if (row >= static_cast<size_t>(rows)) return;
-  const V* r = src + row * nv;
-#pragma unroll
-  for (int c = 0; c < kC; ++c) {
-    const int v = c * 32 * W + t;
-    if (v < nv) dst[c] = r[v];
-  }
-}
+using ptt::vector_route;
 
 // ---- forward, the vector route ----------------------------------------
 template <typename T, int W>
@@ -305,15 +253,126 @@ cudaError_t layer_norm_fwd(const void* x, const void* gamma,
 // backward below run on the saved s (pallas_fused.py:160-195).
 //
 // What bounds it on the H100: bytes.  Four [rows, N] streams (x and r
-// read, out and s written) at ~10 flops per element.
+// read, out and s written) at ~10 flops per element.  At BERT's 768 a row
+// is 1.5 KB a stream in bf16, so what stands between a row's loads and
+// its stores (two reductions) has to overlap other rows' loads.
 //
-// Design: the scalar route's (layer_norm_fwd_kernel), one block of 256
-// threads per row with scalar loads, neighbouring threads on neighbouring
-// addresses.  The first pass adds x and r in f32, writes s and sums it;
-// the second and third passes re-read x and r (from L1: a BERT row is 3-6
-// KB) and add them again, so the statistics and the output come from the
-// f32 sum, never from the stored s that a bf16 input rounds.  Device
-// memory sees each stream once.
+// Design, the vector route (`ln_res_fwd_vec_kernel`): the forward's vector
+// route with two input streams.  W warps share a row, a lane holding
+// `kResLaneVectors` 16-byte vectors of x and of r (three: at 768 one warp
+// a row in bf16 and two in f32, every lane busy).  A lane adds its x and r
+// in f32 as soon as they arrive, stores s in 16-byte stores at once and
+// keeps the f32 sum in registers: the statistics and the output come from
+// it, never from the stored s that a bf16 input rounds.  Its x and r
+// registers are then free, so it loads its next row into them before this
+// row's two reductions (the mean, then the mean of squared deviations:
+// the TPU kernel's two-pass order, from registers; warp shuffles and one
+// shared-memory exchange, added in warp order).  A persistent grid (the
+// SMs times the blocks one holds), gamma and beta loaded once a lane.
+// One to six vectors a lane and blocks of 256 threads were no faster
+// (`scripts/torch_norm_sweep.py`).
+//
+// The scalar route (`layer_norm_residual_fwd_kernel`) takes rows off 16
+// bytes and rows wider than kMaxVectorWidth: one block of 256 threads per
+// row with scalar loads, neighbouring threads on neighbouring addresses.
+// The first pass adds x and r in f32, writes s and sums it; the second and
+// third passes re-read x and r (from L1) and add them again.
+template <typename T, int W>
+__global__ void __launch_bounds__(block_threads(W, kResThreads))
+    ln_res_fwd_vec_kernel(const T* __restrict__ x, const T* __restrict__ r,
+                          const T* __restrict__ gamma,
+                          const T* __restrict__ beta, T* __restrict__ out,
+                          T* __restrict__ s_out, float* __restrict__ mu_out,
+                          float* __restrict__ rstd_out, int rows, int n,
+                          float eps) {
+  using V = Vec16<T>;
+  constexpr int kVec = V::kN;
+  constexpr int kC = kResLaneVectors;
+  constexpr int kRows = block_rows(W, kResThreads);
+  // [0]: the sums, [1]: the squared deviations (one slot each suffices, as
+  // in ln_fwd_vec_kernel)
+  __shared__ float red[2][kRows][W];
+  const int warp = threadIdx.x >> 5;
+  const int grp = warp / W, wr = warp % W;
+  const int t = wr * 32 + (threadIdx.x & 31);  // lane within the row
+  const int nv = n / kVec;
+  const V* xv = reinterpret_cast<const V*>(x);
+  const V* rv = reinterpret_cast<const V*>(r);
+  const V* gv = reinterpret_cast<const V*>(gamma);
+  const V* bv = reinterpret_cast<const V*>(beta);
+  V g[kC], b[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    const int v = c * 32 * W + t;
+    if (v < nv) {
+      g[c] = gv[v];
+      b[c] = bv[v];
+    }
+  }
+  const size_t step = static_cast<size_t>(gridDim.x) * kRows;
+  size_t row = static_cast<size_t>(blockIdx.x) * kRows + grp;
+  V a[kC], e[kC];  // this row's x and r, then the next row's
+  load_row<W>(a, xv, row, rows, nv, t);
+  load_row<W>(e, rv, row, rows, nv, t);
+  // every thread runs the same iterations (the row sums' barriers)
+  for (size_t r0 = row - grp; r0 < static_cast<size_t>(rows);
+       r0 += step, row += step) {
+    const bool live = row < static_cast<size_t>(rows);
+    float sf[kC][kVec];
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int v = c * 32 * W + t;
+      if (live && v < nv) {
+        V o;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          sf[c][j] = ptt::to_float(a[c].v[j]) + ptt::to_float(e[c].v[j]);
+          o.v[j] = ptt::from_float<T>(sf[c][j]);
+          sum += sf[c][j];
+        }
+        reinterpret_cast<V*>(s_out + row * n)[v] = o;
+      }
+    }
+    load_row<W>(a, xv, row + step, rows, nv, t);
+    load_row<W>(e, rv, row + step, rows, nv, t);
+    const float mu = row_sum<W>(sum, red[0][grp], wr) / n;
+    float q = 0.f;
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      if (live && c * 32 * W + t < nv) {
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) {
+          const float d = sf[c][j] - mu;
+          q += d * d;
+        }
+      }
+    }
+    const float rstd = rsqrtf(row_sum<W>(q, red[1][grp], wr) / n + eps);
+    if (live) {
+      V* yr = reinterpret_cast<V*>(out + row * n);
+#pragma unroll
+      for (int c = 0; c < kC; ++c) {
+        const int v = c * 32 * W + t;
+        if (v < nv) {
+          V o;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            const float shat = (sf[c][j] - mu) * rstd;
+            o.v[j] = ptt::from_float<T>(shat * ptt::to_float(g[c].v[j]) +
+                                        ptt::to_float(b[c].v[j]));
+          }
+          yr[v] = o;
+        }
+      }
+      if (t == 0) {
+        mu_out[row] = mu;
+        rstd_out[row] = rstd;
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(256)
     layer_norm_residual_fwd_kernel(
@@ -355,12 +414,64 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// Whether the residual forward takes the vector route: the rule of
+// `vector_route` over its six pointers.
+bool residual_vector_route(int n, int isz, const void* x, const void* r,
+                           const void* gamma, const void* beta,
+                           const void* out, const void* s) {
+  return vector_route(n, isz, x, r, gamma, beta) && aligned16(out) &&
+         aligned16(s);
+}
+
+template <typename T, int W>
+cudaError_t ln_res_fwd_vec(const void* x, const void* r, const void* gamma,
+                           const void* beta, void* out, void* s, void* mu,
+                           void* rstd, int rows, int n, float eps,
+                           int device, cudaStream_t stream) {
+  constexpr int kThreads = block_threads(W, kResThreads);
+  constexpr int kRows = block_rows(W, kResThreads);
+  static const int per_sm = [] {
+    int b = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &b, ln_res_fwd_vec_kernel<T, W>, kThreads, 0);
+    return b > 0 ? b : 1;
+  }();
+  const long long want = (static_cast<long long>(rows) + kRows - 1) / kRows;
+  const long long cap = static_cast<long long>(sm_count(device)) * per_sm;
+  const int grid = static_cast<int>(want < cap ? want : cap);
+  ln_res_fwd_vec_kernel<T, W><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(r),
+      static_cast<const T*>(gamma), static_cast<const T*>(beta),
+      static_cast<T*>(out), static_cast<T*>(s), static_cast<float*>(mu),
+      static_cast<float*>(rstd), rows, n, eps);
+  return cudaGetLastError();
+}
+
+// The vector launch for W warps a row, as ln_fwd_vec_any.
+template <typename T, int W>
+cudaError_t ln_res_fwd_vec_any(int w, const void* x, const void* r,
+                               const void* gamma, const void* beta, void* out,
+                               void* s, void* mu, void* rstd, int rows, int n,
+                               float eps, int device, cudaStream_t stream) {
+  if (w == W)
+    return ln_res_fwd_vec<T, W>(x, r, gamma, beta, out, s, mu, rstd, rows, n,
+                                eps, device, stream);
+  if constexpr (32 * W * kResLaneVectors * Vec16<T>::kN < kMaxVectorWidth)
+    return ln_res_fwd_vec_any<T, 2 * W>(w, x, r, gamma, beta, out, s, mu,
+                                        rstd, rows, n, eps, device, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 cudaError_t layer_norm_residual_fwd(const void* x, const void* r,
                                     const void* gamma, const void* beta,
                                     void* out, void* s, void* mu, void* rstd,
-                                    int rows, int n, float eps,
+                                    int rows, int n, float eps, int device,
                                     cudaStream_t stream) {
+  if (residual_vector_route(n, sizeof(T), x, r, gamma, beta, out, s))
+    return ln_res_fwd_vec_any<T, 1>(
+        row_warps(n, kResLaneVectors * Vec16<T>::kN), x, r, gamma, beta, out,
+        s, mu, rstd, rows, n, eps, device, stream);
   layer_norm_residual_fwd_kernel<T><<<rows, 256, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(r),
       static_cast<const T*>(gamma), static_cast<const T*>(beta),
@@ -759,10 +870,11 @@ extern "C" int ptt_layer_norm_residual_fwd(const void* x, const void* r,
   cudaError_t e;
   if (dtype == PTT_DTYPE_F32) {
     e = layer_norm_residual_fwd<float>(x, r, gamma, beta, out, s, mu, rstd,
-                                       rows, n, eps, st);
+                                       rows, n, eps, device, st);
   } else if (dtype == PTT_DTYPE_BF16) {
     e = layer_norm_residual_fwd<__nv_bfloat16>(x, r, gamma, beta, out, s,
-                                               mu, rstd, rows, n, eps, st);
+                                               mu, rstd, rows, n, eps, device,
+                                               st);
   } else {
     e = cudaErrorInvalidValue;
   }
@@ -805,6 +917,14 @@ extern "C" int ptt_layer_norm_vector_route(const void* a, const void* b,
                                            const void* c, const void* d,
                                            int n, int isz) {
   return vector_route(n, isz, a, b, c, d) ? 1 : 0;
+}
+
+// 1 when the residual forward on rows of n values of `isz` bytes at these
+// pointers takes the vector route, else 0 (the scalar route).
+extern "C" int ptt_layer_norm_residual_vector_route(
+    const void* x, const void* r, const void* gamma, const void* beta,
+    const void* out, const void* s, int n, int isz) {
+  return residual_vector_route(n, isz, x, r, gamma, beta, out, s) ? 1 : 0;
 }
 
 extern "C" const char* ptt_error_string(int code) {

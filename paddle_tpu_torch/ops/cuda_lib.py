@@ -91,6 +91,10 @@ _SIGNATURES = {
     "ptt_paged_attention_splits": ((_I, _I, _I, _I, _I, _I, _I), _I),
     "ptt_matmul_epilogue_tma_route": ((_P, _P, _I, _I, _I), _I),
     "ptt_layer_norm_vector_route": ((_P, _P, _P, _P, _I, _I), _I),
+    "ptt_layer_norm_residual_vector_route": ((_P, _P, _P, _P, _P, _P, _I,
+                                              _I), _I),
+    "ptt_rms_norm_vector_route": ((_P, _P, _P, _P, _I, _I), _I),
+    "ptt_rms_norm_bwd_blocks": ((_I, _I, _I, _I, _I), _I),
     "ptt_mma_check": ((_P, _P, _P, _I, _P), _I),
     "ptt_wgmma_check": ((_P, _P, _P, _I, _P), _I),
     "ptt_error_string": ((_I,), ctypes.c_char_p),
@@ -213,12 +217,13 @@ def stream_handle(device):
 _tickets = {}
 
 
-def tickets(device, n):
+def tickets(device, n, stream=None):
     """At least ``n`` zeroed int32 counters on ``device`` for launches on
     its current stream (one buffer a stream: launches on one stream run
-    one after another)."""
+    one after another); ``stream``: that stream's handle, where the
+    caller has it already."""
     import torch
-    key = (device.index, stream_handle(device))
+    key = (device.index, stream_handle(device) if stream is None else stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)

@@ -16,11 +16,11 @@ points: ``torch.autograd.Function``s whose backward is the backward
 kernel.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises.  The forward and the backward kernels have two routes
-each (`vector_route`): rows in 16-byte vectors held in registers, or, for
-rows off 16 bytes and rows wider than `VECTOR_MAX_WIDTH`, one value at a
-time; the wrappers count their launches by route (``vector_launches``,
-``scalar_launches``).
+kernel or raises.  The forward, the backward and the residual forward
+kernels have two routes each (`vector_route`): rows in 16-byte vectors
+held in registers, or, for rows off 16 bytes and rows wider than
+`VECTOR_MAX_WIDTH`, one value at a time; the wrappers count their
+launches by route (``vector_launches``, ``scalar_launches``).
 """
 from __future__ import annotations
 
@@ -45,10 +45,12 @@ VECTOR_MAX_WIDTH = 8192
 
 def vector_route(n, *tensors):
     """Whether a layer-norm kernel on rows of ``n`` values takes the vector
-    route: the kernels' rule (``ptt_layer_norm_vector_route``), rows of
-    16-byte multiples no wider than `VECTOR_MAX_WIDTH` and every pointer
-    (forward: x, gamma, beta, out; backward: x, gamma, dout, dx) 16-byte
-    aligned; else the scalar route."""
+    route: the kernels' rule (``ptt_layer_norm_vector_route``,
+    ``ptt_layer_norm_residual_vector_route``), rows of 16-byte multiples no
+    wider than `VECTOR_MAX_WIDTH` and every pointer (forward: x, gamma,
+    beta, out; backward: x, gamma, dout, dx; residual forward: x, the
+    residual, gamma, beta, out, s) 16-byte aligned; else the scalar
+    route."""
     isz = tensors[0].element_size()
     return (0 < n <= VECTOR_MAX_WIDTH and n * isz % 16 == 0
             and all(t.data_ptr() % 16 == 0 for t in tensors))
@@ -256,6 +258,8 @@ def fused_layer_norm_residual(x, residual, gamma, beta, eps=1e-5):
             cuda_lib.stream_handle(x.device))
         cuda_lib.check(rc, "layer_norm_residual")
         fused_layer_norm_residual.launches += 1
+        _count_route(fused_layer_norm_residual, n, x, residual, gamma, beta,
+                     out, s)
     return out, s, mu, rstd
 
 
@@ -288,9 +292,10 @@ def layer_norm_residual(x, residual, gamma, beta, eps=1e-5):
 
 
 #: kernel launches since the last reset (chip_smoke.py reads them), and
-#: the forward's and backward's by route
+#: each kernel's by route
 fused_layer_norm.launches = 0
 fused_layer_norm_bwd.launches = 0
 fused_layer_norm_residual.launches = 0
-for _fn in (fused_layer_norm, fused_layer_norm_bwd):
+for _fn in (fused_layer_norm, fused_layer_norm_bwd,
+            fused_layer_norm_residual):
     _fn.vector_launches = _fn.scalar_launches = 0

@@ -27,7 +27,10 @@ vectors at 16-byte aligned bases: every model's heads; `vector_route` is
 the Python copy of the kernel's rule), which splits each sequence's key
 walk over ``S`` blocks (``ptt_paged_attention_splits``) and merges their
 states in the last block to finish, and the element-wise route for the
-rest.  The wrapper counts launches by route.
+rest.  The wrapper counts launches by route.  A decode step calls it once
+a layer, so its host time counts: it asks the library for ``S`` once a
+shape (`split_count`) and keeps the merge's f32 scratch per (device,
+stream), grown only when a call needs more.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from . import cuda_lib
 from .tiles import NEG_INF
 
 __all__ = ["MAX_HEAD_DIM", "paged_attention_ref", "paged_attention",
-           "vector_route"]
+           "vector_route", "split_count"]
 
 #: the largest head_dim the kernel (and the reference's Pallas path) takes
 MAX_HEAD_DIM = 256
@@ -82,6 +85,36 @@ def vector_route(q, k_pool, v_pool, out):
     D = q.shape[-1]
     return (0 < D <= MAX_HEAD_DIM and D * q.element_size() % 16 == 0
             and all(t.data_ptr() % 16 == 0 for t in (q, k_pool, v_pool, out)))
+
+
+#: the vector route's splits by (library, B, H, D, block size, table
+#: width, dtype code, device): the library's answer, asked once a shape
+_splits = {}
+#: the merge's f32 scratch by (device index, stream)
+_partials = {}
+
+
+def split_count(lib, B, H, D, bs, W, code, device):
+    """The splits S of the key walk that the vector route takes for this
+    call: ``lib.ptt_paged_attention_splits``, asked once a shape."""
+    key = (lib, B, H, D, bs, W, code, device)
+    splits = _splits.get(key)
+    if splits is None:
+        splits = _splits[key] = lib.ptt_paged_attention_splits(
+            B, H, D, bs, W, code, device)
+    return splits
+
+
+def _partial(device, stream, n):
+    """At least ``n`` f32 values of scratch for launches on ``stream`` of
+    ``device`` (launches on one stream run one after another, and each
+    writes every value of the scratch it reads)."""
+    key = (device.index, stream)
+    buf = _partials.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _partials[key] = torch.empty(n, dtype=torch.float32,
+                                           device=device)
+    return buf
 
 
 def _check(q, k_pool, v_pool, block_tables, context_lens):
@@ -140,13 +173,11 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens,
         dev = q.device.index
         stream = cuda_lib.stream_handle(q.device)
         vec = vector_route(q, k_pool, v_pool, out)
-        splits = lib.ptt_paged_attention_splits(B, H, D, bs, W, code, dev) \
-            if vec else 1
+        splits = split_count(lib, B, H, D, bs, W, code, dev) if vec else 1
         partial = tickets = None
         if splits > 1:
-            partial = torch.empty(B * H * splits * (D + 2),
-                                  dtype=torch.float32, device=q.device)
-            tickets = cuda_lib.tickets(q.device, B * H)
+            partial = _partial(q.device, stream, B * H * splits * (D + 2))
+            tickets = cuda_lib.tickets(q.device, B * H, stream)
         rc = lib.ptt_paged_attention_fwd(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_tables.data_ptr(), context_lens.data_ptr(), out.data_ptr(),

@@ -10,20 +10,51 @@ it.  `rms_norm` is the differentiable entry point: a
 ``torch.autograd.Function`` whose backward is the backward kernel.
 
 A CPU tensor takes the plain PyTorch version; a CUDA tensor launches the
-kernel or raises.
+kernel or raises.  The backward kernel has two routes (`vector_route`):
+rows in 16-byte vectors held in registers by a persistent grid, or, for
+rows off 16 bytes and rows wider than `VECTOR_MAX_WIDTH`, the first design
+(a block a row, shared-memory sums); its wrapper counts its launches by
+route (``vector_launches``, ``scalar_launches``) and sizes the scratch of
+the dgamma sum by `bwd_blocks`.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
+# the backward's route rule is the layer norm's (``csrc/rms_norm.cu`` and
+# ``csrc/layer_norm.cu`` share ``kMaxVectorWidth``): x, gamma, dout, dx
+from .layer_norm import VECTOR_MAX_WIDTH, vector_route
 
 __all__ = ["rms_norm_ref", "fused_rms_norm", "rms_norm_bwd_ref",
-           "fused_rms_norm_bwd", "rms_norm"]
+           "fused_rms_norm_bwd", "rms_norm", "vector_route", "bwd_blocks",
+           "VECTOR_MAX_WIDTH"]
 
-#: row blocks of the backward's first pass (each leaves one f32 row of
-#: dgamma partial sums for the second pass)
-_BWD_BLOCKS = 512
+#: the backward's vector route's budget: values of a row a lane holds (in
+#: whole 16-byte vectors), threads a block, threads an SM
+#: (``csrc/rms_norm.cu`` ``kBwdLaneValues``, ``kBwdThreads``,
+#: ``kBwdSmThreads``)
+_BWD_LANE_VALUES, _BWD_THREADS, _BWD_SM_THREADS = 16, 256, 512
+#: row blocks of the scalar route's first pass (``kScalarBlocks``)
+_SCALAR_BLOCKS = 512
+
+
+def bwd_blocks(rows, n, element_size, vector, sms):
+    """The backward's first-pass blocks, each leaving one f32 row of dgamma
+    partial sums, on a card of ``sms`` SMs: the library's count
+    (``ptt_rms_norm_bwd_blocks``).  The vector route's persistent grid has
+    ``_BWD_SM_THREADS`` threads an SM and one block a row group at most;
+    the scalar route ``_SCALAR_BLOCKS``, one a row at most."""
+    if not vector:
+        return min(rows, _SCALAR_BLOCKS)
+    vec = 16 // element_size
+    per_lane = max(1, _BWD_LANE_VALUES // vec) * vec
+    w = 1
+    while 32 * w * per_lane < n:
+        w *= 2
+    threads = max(32 * w, _BWD_THREADS)
+    per_sm = max(1, _BWD_SM_THREADS // threads)
+    return min(-(-rows // (threads // (32 * w))), per_sm * sms)
 
 
 def rms_norm_ref(x, gamma, eps=1e-6):
@@ -109,16 +140,23 @@ def fused_rms_norm_bwd(x, gamma, rstd, dout):
         if not t.is_contiguous():
             raise ValueError(f"rms norm bwd: {name} must be contiguous")
     dx = torch.empty_like(x)
-    dgamma = torch.zeros(n, dtype=gamma.dtype, device=x.device)
-    if rows and n:
-        nblk = min(rows, _BWD_BLOCKS)
-        partial = torch.empty(nblk, n, dtype=torch.float32, device=x.device)
-        rc = cuda_lib.library().ptt_rms_norm_bwd(
-            x.data_ptr(), gamma.data_ptr(), rstd.data_ptr(), dout.data_ptr(),
-            dx.data_ptr(), dgamma.data_ptr(), partial.data_ptr(), rows, n,
-            nblk, code, x.device.index, cuda_lib.stream_handle(x.device))
-        cuda_lib.check(rc, "rms_norm_bwd")
-        fused_rms_norm_bwd.launches += 1
+    if not (rows and n):
+        return dx, torch.zeros(n, dtype=gamma.dtype, device=x.device)
+    dgamma = torch.empty(n, dtype=gamma.dtype, device=x.device)
+    vec = vector_route(n, x, gamma, dout, dx)
+    nblk = bwd_blocks(rows, n, x.element_size(), vec,
+                      cuda_lib.sm_count(x.device.index))
+    partial = torch.empty(nblk, n, dtype=torch.float32, device=x.device)
+    rc = cuda_lib.library().ptt_rms_norm_bwd(
+        x.data_ptr(), gamma.data_ptr(), rstd.data_ptr(), dout.data_ptr(),
+        dx.data_ptr(), dgamma.data_ptr(), partial.data_ptr(), rows, n, nblk,
+        code, x.device.index, cuda_lib.stream_handle(x.device))
+    cuda_lib.check(rc, "rms_norm_bwd")
+    fused_rms_norm_bwd.launches += 1
+    if vec:
+        fused_rms_norm_bwd.vector_launches += 1
+    else:
+        fused_rms_norm_bwd.scalar_launches += 1
     return dx, dgamma
 
 
@@ -145,6 +183,8 @@ def rms_norm(x, gamma, eps=1e-6):
     return fused_rms_norm(x, gamma, eps)[0]
 
 
-#: kernel launches since the last reset (chip_smoke.py reads them)
+#: kernel launches since the last reset (chip_smoke.py reads them), and
+#: the backward's by route
 fused_rms_norm.launches = 0
 fused_rms_norm_bwd.launches = 0
+fused_rms_norm_bwd.vector_launches = fused_rms_norm_bwd.scalar_launches = 0

@@ -8,7 +8,10 @@ imports torch and the port only, so it runs where JAX is not installed:
 
 Small shapes with ragged edges (rows not a multiple of a block, vocab
 50304 and odd vocabularies, all activations; RMS norm also at the LLaMA
-paths' shapes and on a misaligned view; layer norm forward and backward
+paths' shapes, past the backward's register route (9000) and on a
+misaligned view, each backward launch's route held to the Python rule,
+the library's and the wrapper's counts, its block count to the
+library's, 10 reruns bit-identical; layer norm forward and backward
 at the drives' widths 768, 1024 and 2048, at 300, 7000 and 9000 and off
 16 bytes, each launch's route held to the Python rule, the library's and
 the wrapper's counts, a misaligned view on the scalar routes, 100 runs
@@ -38,7 +41,10 @@ held to their plain versions with the same tolerances, on shapes off the
 16-byte grid and off the tile, with an all-zero weight channel and with
 a scale per pool slot.  The fused residual layer norm is held to its
 plain version forward (out, s, mu, rstd) and backward (the layer-norm
-backward kernel on the saved s) at odd row counts; flash attention also
+backward kernel on the saved s) at odd row counts, the BERT drive's
+[8192, 768] and past its register route (9000), each forward launch's
+route held to both rules and the counts, 10 reruns bit-identical;
+flash attention also
 at heads of 160 and 256 (the widest the reference routes to its kernel),
 of 40 and 96 (zero-filled columns of the 64 and 128 instantiations) and
 of 129 (misaligned rows: the element-wise staging), on the views
@@ -313,29 +319,62 @@ def test_layer_norm_bwd_kernel(gen, dtype, rows, n):
 
 #: RMS norm: LLaMA-2 7B's decode step and prefill, the LLaMA training
 #: drive's rows, and ragged widths (bf16 300 and 299 rows take one value
-#: a load, the others 16 bytes)
-_RMS_SHAPES = [(4, 4096), (512, 4096), (8192, 1024), (37, 300), (5, 299)]
+#: a load, the others 16 bytes; the backward's scalar route there and at
+#: 9000, past its register route; 1030 rows of 1024 leave the vector
+#: route's last row group partly empty)
+_RMS_SHAPES = [(4, 4096), (512, 4096), (8192, 1024), (37, 300), (5, 299),
+               (1030, 1024), (3, 9000)]
+
+
+def _rms_route(rows, n, x, g, do, dx):
+    """The backward's route by the Python rule, held equal to the library's
+    rule, and its first pass's blocks to the library's count."""
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.rms_norm import bwd_blocks, vector_route
+    lib = cuda_lib.library()
+    route = vector_route(n, x, g, do, dx)
+    assert bool(lib.ptt_rms_norm_vector_route(
+        x.data_ptr(), g.data_ptr(), do.data_ptr(), dx.data_ptr(), n,
+        x.element_size())) == route
+    assert bwd_blocks(rows, n, x.element_size(), route,
+                      cuda_lib.sm_count(x.device.index)) == \
+        lib.ptt_rms_norm_bwd_blocks(rows, n, x.element_size(), int(route),
+                                    x.device.index)
+    if n in (1024, 4096):
+        assert route, "a model width must take the vector route"
+    return route
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("rows,n", _RMS_SHAPES)
 def test_rms_norm_kernels(gen, dtype, rows, n):
+    """Forward and backward against the plain versions, the backward's
+    launch counted under its route, and 10 reruns of the backward (dgamma
+    summed in two passes without atomics) bit-identical."""
     x = (2 * torch.randn(rows, n, device="cuda", generator=gen) + 1).to(dtype)
     g = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(dtype)
     do = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
-    n0 = (ops.fused_rms_norm.launches, ops.fused_rms_norm_bwd.launches)
+    fn = ops.fused_rms_norm_bwd
+    n0 = (ops.fused_rms_norm.launches, fn.launches, fn.vector_launches,
+          fn.scalar_launches)
     out, rstd = ops.fused_rms_norm(x, g)
     want, rstd_ref = ops.rms_norm_ref(x, g)
     _close(out, want, dtype)
     _close(rstd, rstd_ref, torch.float32)
-    dx, dg = ops.fused_rms_norm_bwd(x, g, rstd_ref, do)
+    dx, dg = fn(x, g, rstd_ref, do)
     dx_ref, dg_ref = ops.rms_norm_bwd_ref(x, g, rstd_ref, do)
     assert (ops.fused_rms_norm.launches,
             ops.fused_rms_norm_bwd.launches) == (n0[0] + 1, n0[1] + 1)
+    vec = _rms_route(rows, n, x, g, do, dx)
+    assert (fn.vector_launches, fn.scalar_launches) == \
+        (n0[2] + vec, n0[3] + (not vec))
     _close(dx, dx_ref, dtype)
     assert dg.dtype == dtype
     torch.testing.assert_close(dg.float(), dg_ref.float(),
                                atol=_sum_tol(dtype, rows), rtol=_TOL[dtype])
+    for _ in range(10):
+        again = fn(x, g, rstd_ref, do)
+        assert torch.equal(again[0], dx) and torch.equal(again[1], dg)
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -570,12 +609,16 @@ def test_flash_attention_at_bert_shape(gen, dtype):
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
-@pytest.mark.parametrize("rows,n", [(37, 768), (300, 768), (5, 300)])
+@pytest.mark.parametrize("rows,n", [(37, 768), (300, 768), (5, 300),
+                                    (8192, 768), (3, 9000)])
 def test_layer_norm_residual_kernel(gen, dtype, rows, n):
-    """Row counts off any block, widths off the 256-thread stride: the
-    forward's out, s, mu and rstd, and the gradients through autograd
-    (the layer-norm backward kernel on the saved s) against the plain
-    versions; x's and the residual's gradients are one tensor's values."""
+    """Row counts off any block, widths off the 256-thread stride, the BERT
+    drive's [8192, 768] and a width past the register route: the forward's
+    out, s, mu and rstd, its launch counted under its route (the Python
+    rule held to the library's), 10 reruns bit-identical, and the
+    gradients through autograd (the layer-norm backward kernel on the saved
+    s) against the plain versions; x's and the residual's gradients are
+    one tensor's values."""
     x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
          + 0.5).to(dtype).requires_grad_()
     r = torch.randn(rows, n, device="cuda", generator=gen).to(
@@ -584,16 +627,27 @@ def test_layer_norm_residual_kernel(gen, dtype, rows, n):
         dtype).requires_grad_()
     b = (0.1 * torch.randn(n, device="cuda", generator=gen)).to(
         dtype).requires_grad_()
-    n0 = ops.fused_layer_norm_residual.launches, \
-        ops.fused_layer_norm_bwd.launches
-    got = ops.fused_layer_norm_residual(x.detach(), r.detach(), g.detach(),
-                                        b.detach())
-    want = ops.layer_norm_residual_ref(x.detach(), r.detach(), g.detach(),
-                                       b.detach())
+    fn = ops.fused_layer_norm_residual
+    n0 = fn.launches, ops.fused_layer_norm_bwd.launches, \
+        fn.vector_launches, fn.scalar_launches
+    args = (x.detach(), r.detach(), g.detach(), b.detach())
+    got = fn(*args)
+    want = ops.layer_norm_residual_ref(*args)
     for a, w, dt in zip(got, want, (dtype, dtype, torch.float32,
                                     torch.float32)):
         assert a.dtype == w.dtype == dt
         _close(a, w, dt)
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.layer_norm import vector_route
+    tensors = (*args, got[0], got[1])
+    vec = vector_route(n, *tensors)
+    assert bool(cuda_lib.library().ptt_layer_norm_residual_vector_route(
+        *(t.data_ptr() for t in tensors), n, x.element_size())) == vec
+    assert vec == (n in (300, 768) and n * x.element_size() % 16 == 0)
+    assert (fn.vector_launches, fn.scalar_launches) == \
+        (n0[2] + vec, n0[3] + (not vec))
+    for _ in range(10):
+        assert all(torch.equal(a, f) for a, f in zip(fn(*args), got))
     out = ops.layer_norm_residual(x, r, g, b)
     dout = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
     out.backward(dout)
@@ -605,11 +659,10 @@ def test_layer_norm_residual_kernel(gen, dtype, rows, n):
         torch.testing.assert_close(a.float(), w.float(),
                                    atol=_sum_tol(dtype, rows),
                                    rtol=_TOL[dtype])
-    assert (ops.fused_layer_norm_residual.launches,
-            ops.fused_layer_norm_bwd.launches) == (n0[0] + 2, n0[1] + 1)
+    assert (fn.launches, ops.fused_layer_norm_bwd.launches) == \
+        (n0[0] + 12, n0[1] + 1)
     with pytest.raises(ValueError, match="residual"):
-        ops.fused_layer_norm_residual(x.detach(), r.detach().double(),
-                                      g.detach(), b.detach())
+        fn(x.detach(), r.detach().double(), g.detach(), b.detach())
 
 
 def _int8_weight(K, N, gen, dead=(0,)):

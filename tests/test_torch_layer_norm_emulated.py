@@ -1,5 +1,6 @@
-"""The CUDA source of the layer norm's forward and backward (rows 2 and 6),
-run on the CPU against the plain versions.
+"""The CUDA source of the layer norm's forward and backward (rows 2 and 6)
+and of the fused residual layer norm's forward (row 13), run on the CPU
+against the plain versions.
 
 ``paddle_tpu_torch/csrc/layer_norm.cu`` is compiled with g++ against the
 CPU stand-in for the CUDA device language (``tests/cuda_emu``: one thread
@@ -13,11 +14,14 @@ routes, one to 32 warps a row); a width past the register route
 (8200); rows fewer than the persistent grid, and more rows than it holds
 on a stand-in device of one to three SMs (device d > 0 has d SMs; the
 stand-in holds one block an SM), so blocks walk several rows and the last
-row group is partly empty.  Tolerances as on the card
+row group is partly empty; the residual forward (out, s, mu, rstd) at
+the same cases, x, the residual or s misaligned on the scalar route.
+Tolerances as on the card
 (``tests/test_torch_cuda.py``): f32 1e-4 abs + rel, bf16 2e-2; dgamma and
 dbeta as column sums (``_sum_tol``).  Outputs start as NaN, so a missed
 element shows; every case runs twice and the two runs are bit-identical.
-The wrapper's Python copy of the route rule answers as the library's.
+The wrapper's Python copy of the route rule answers as the library's
+(both rules, the residual's over its six pointers).
 The stand-in runs a block's threads concurrently and its blocks one after
 another: it checks indexing, masks, barriers and the fixed summation
 order, not speed; the card tests and ``chip_smoke.py`` do that.
@@ -184,3 +188,49 @@ def test_layer_norm_bwd_refuses_bad_arguments(lib):
     for rows, n, nblk in ((4, 64, 0), (4, 64, 5), (4, 29100, 1)):
         assert lib.ptt_layer_norm_bwd(*args, rows, n, nblk, f32, 0,
                                       None) != 0
+
+
+def _res_fwd(lib, x, r, gamma, beta, device, s_view=False):
+    """The residual forward into NaN-filled outputs; with ``s_view`` s is
+    a view one element past a 16-byte boundary."""
+    rows, n = x.shape
+    out = torch.full_like(x, float("nan"))
+    s = torch.full((rows * n + 1,), float("nan"), dtype=x.dtype)
+    s = (s[1:] if s_view else s[:-1]).view(rows, n)
+    mu = torch.full((rows,), float("nan"))
+    rstd = torch.full((rows,), float("nan"))
+    assert lib.ptt_layer_norm_residual_fwd(
+        x.data_ptr(), r.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), s.data_ptr(), mu.data_ptr(), rstd.data_ptr(), rows,
+        n, 1e-12, cuda_lib.dtype_code(x.dtype), device, None) == 0
+    return out, s, mu, rstd
+
+
+#: the residual forward's cases beyond `_CASES`: the residual misaligned,
+#: s misaligned (both the scalar route)
+_RES_CASES = [(*c, None) for c in _CASES] + [
+    (5, 768, 0, False, False, False, "r"),
+    (5, 768, 0, False, False, False, "s")]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,n,device,misaligned,v32,v16,view",
+                         _RES_CASES)
+def test_layer_norm_residual_fwd_emulated(lib, dtype, rows, n, device,
+                                          misaligned, v32, v16, view):
+    x, gamma, beta, _ = _inputs(rows, n, dtype, misaligned, rows * 23 + n)
+    r = _inputs(rows, n, dtype, view == "r", rows * 5 + n)[0]
+    got = _res_fwd(lib, x, r, gamma, beta, device, view == "s")
+    tensors = (x, r, gamma, beta, got[0], got[1])
+    route = vector_route(n, *tensors)
+    assert route == (v32 if dtype == torch.float32 else v16)
+    assert bool(lib.ptt_layer_norm_residual_vector_route(
+        *(t.data_ptr() for t in tensors), n, x.element_size())) == route
+    want = ops.layer_norm_residual_ref(x, r, gamma, beta, 1e-12)
+    for a, w, dt in zip(got, want, (dtype, dtype, torch.float32,
+                                    torch.float32)):
+        _close(a, w, dt)
+    # s is x + r rounded once from f32, as the plain version stores it
+    assert torch.equal(got[1], want[1])
+    again = _res_fwd(lib, x, r, gamma, beta, device, view == "s")
+    assert all(torch.equal(a, b) for a, b in zip(again, got))

@@ -13,8 +13,10 @@ zeros), 1, 16 and 17 (one page and one key past it), and 161-300 (many
 tiles, several splits of the key walk); block tables scattered over the
 pool, their padding entries pointing at a page of NaNs that must never
 show, rows staged whole and (4100 wide) by each block's run; the splits
-the library picks for the stand-in's 132-SM device 0, and forced ones: 1
-(no merge), 3 and 32 (splits with no visible key, which weigh 0).  The
+the library picks for the stand-in's 132-SM device 0 (the wrapper's
+cached count, `split_count`, equal to it for every case, asked once a
+shape), and forced ones: 1 (no merge), 3 and 32 (splits with no visible
+key, which weigh 0).  The
 element-wise route (bf16 heads off 16 bytes, a misaligned view) through
 the same entry point; the route rule against the Python copy.  Tolerances
 as on the card (``tests/test_torch_cuda.py``): bf16 2e-2 abs + rel
@@ -40,7 +42,8 @@ import torch
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
-from paddle_tpu_torch.ops.paged import vector_route
+from paddle_tpu_torch.ops import paged
+from paddle_tpu_torch.ops.paged import split_count, vector_route
 from test_torch_flash_emulated import _emulated_source
 
 _EMU = Path(__file__).resolve().parent / "cuda_emu"
@@ -126,6 +129,8 @@ def _fwd(lib, args, splits=None, order=0, device=0):
     if splits is None:
         splits = lib.ptt_paged_attention_splits(B, H, D, bs, W, code,
                                                 device)
+        # the wrapper's cached count is the library's answer
+        assert split_count(lib, B, H, D, bs, W, code, device) == splits
     out = torch.full_like(q, float("nan"))
     partial = torch.full((B * H * splits * (D + 2),), float("nan"))
     tickets = torch.zeros(B * H, dtype=torch.int32)
@@ -220,6 +225,32 @@ def test_paged_splits_follow_the_card_emulated(lib):
     assert splits(4, 2, 128, 16, 0, code, 0) == 1
     args, clean = _inputs([300, 5, 0, 161], 16, 128, torch.bfloat16)
     assert _check(lib, args, clean, device=1) == 1
+
+
+def test_paged_split_cache_emulated(lib):
+    """The wrapper asks the library for the splits once a (B, H, D, block
+    size, table width, dtype, device): each shape's cached count is the
+    library's answer, asking again adds no entry, and a cached entry is
+    what the wrapper answers (the library is not asked again)."""
+    f32, bf16 = (cuda_lib.dtype_code(t) for t in (torch.float32,
+                                                  torch.bfloat16))
+    shapes = [(4, 2, 128, 16, 13, bf16, 1), (4, 2, 128, 16, 13, bf16, 132),
+              (4, 2, 128, 16, 1000, bf16, 0), (1, 1, 128, 16, 1000, f32, 0),
+              (5, 16, 128, 16, 13, bf16, 0), (4, 32, 128, 16, 260, bf16, 0)]
+    for shape in shapes:
+        assert split_count(lib, *shape) == \
+            lib.ptt_paged_attention_splits(*shape)
+    size = len(paged._splits)
+    for shape in shapes:
+        split_count(lib, *shape)
+    assert len(paged._splits) == size
+    key = (lib, *shapes[0])
+    kept = paged._splits[key]
+    paged._splits[key] = 7
+    try:
+        assert split_count(lib, *shapes[0]) == 7
+    finally:
+        paged._splits[key] = kept
 
 
 @pytest.mark.parametrize("dtype,D,shift", [(torch.bfloat16, 36, 0),
