@@ -253,15 +253,37 @@ phase fails.  Phases:
     match ratio card vs CPU reported; then phase 23's LoRA fine-tuning
     model (multi-LoRA width, 2 layers, base frozen, rank 16) the same way
     under O1, held to ``BF16_LORA_PARITY_TOL`` against a control with
-    qkv's B factors zeroed, the frozen base bit-unchanged.
+    qkv's B factors zeroed, the frozen base bit-unchanged;
+27. optimizers: ``__graft_entry__.entry()``'s width (hidden 512, vocab
+    4096) cut to 2 layers, f32, numpy weights, B=2, S=128: 3 steps of
+    each of the 14 optimizers, of AdamW under each of the 17 schedulers,
+    of L1Decay, L2Decay, parameter groups, scheduled betas and the three
+    clips, on the card and on the CPU, held to ``PARITY_TOL`` as phase 5
+    holds AdamW (with ``hold_sign_free``), the kernels' launches per
+    forward/backward evaluation; then two state round-trips on the card,
+    AdamW under ``LinearWarmup`` and AdamW with a ``GradScaler`` whose
+    step 1 a pre-step hook poisons: 3 steps, ``state_dict`` into a fresh
+    model, optimizer and scaler, 1 step, bit-identical to 4 uninterrupted
+    steps;
+28. O2 training: the GPT-1.3B pretraining recipe at phase 8's shape
+    (24 layers, flash + recompute, B=8, S=1024) with ``amp.decorate(
+    level="O2", dtype="bfloat16")``, ``auto_cast(level="O2")``, AdamW
+    (weight decay 0.01 off the biases and norms),
+    ``LinearWarmup(CosineAnnealingDecay)``, ``ClipGradByGlobalNorm(1.0)``
+    and a ``GradScaler``: ms/step, tokens/s, MFU, peak memory, launches
+    per step, the learning rates, the loss falling, one profiled step;
+29. O2 parity: GPT_1P3B's width cut to 2 layers, O2 bf16 parameters,
+    flash + recompute: 3 AdamW steps on the card and on the CPU held to
+    ``BF16_PARITY_TOL`` against a control with fc1's bias dropped, as
+    phase 26.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
 training, generate, the three LLaMA, the int8 serving, the two BERT, the
-ERNIE, the four MoE, the four LoRA, the paged decode and the bf16 parity
-summaries, the grouped f32 repetitions, the wgmma self-check and the
-kernels' resources) and the card's
-``nvidia-smi`` line; the last line is
+ERNIE, the four MoE, the four LoRA, the paged decode, the bf16 parity,
+the optimizer, the O2 training and the O2 parity summaries, the grouped
+f32 repetitions, the wgmma self-check and the kernels' resources) and
+the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -2115,18 +2137,22 @@ def per_step(drive, layers):
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
 
-def check_counts(phase, ops, counts, steps, layers, drive):
+def check_counts(phase, ops, counts, steps, layers, drive, show=True,
+                 routes=True):
     """Each kernel's launches in a drive against its launches per step
-    times the steps; then `check_routes`."""
+    times the steps (``show``: the counts printed); then, with
+    ``routes``, `check_routes`."""
     want = per_step(drive, layers)
-    say(f"  launches {counts}; per step {want}")
+    if show:
+        say(f"  launches {counts}; per step {want}")
     for name, n in counts.items():
         if want[name] and n == 0:
             fail(f"{phase}: kernel {name} was never launched")
         if n != want[name] * steps:
             fail(f"{phase}: {name} launched {n} times in {steps} steps, "
                  f"expected {want[name]} per step")
-    check_routes(phase, ops)
+    if routes:
+        check_routes(phase, ops)
 
 
 def report(name, dtype_name, r):
@@ -2876,48 +2902,72 @@ PARITY_TOL = dict(loss=1e-5, grad=1e-4, param=(1e-4, 1e-4))
 
 
 def train_parity_run(pt, ops, make_model, loss_of, params, ids, labels,
-                     device, clip=True, steps=3, track_small=False):
+                     device, clip=True, steps=3, track_small=False,
+                     make_opt=None, quiet=False):
     """Losses, step-1 gradients and final parameters of ``steps`` AdamW
     steps (global-norm clip 1.0 with ``clip``) of ``make_model(device)``
     on ``device``, with ``loss_of(model, ids, labels)`` as the loss, the
-    launch counts of the run, and (with ``track_small``) for each
-    parameter the elements whose gradient was, at some step, within the
-    gradient gate of 0 (at most ``PARITY_TOL["grad"]`` of that gradient's
-    largest magnitude)."""
+    launch counts of the run, (with ``track_small``) for each parameter
+    the elements whose gradient was, at some step, within the gradient
+    gate of 0 (at most ``PARITY_TOL["grad"]`` of that gradient's largest
+    magnitude), and the number of forward/backward evaluations.
+    ``make_opt(model)`` builds another optimizer: its scheduler, if any,
+    steps after each step (``ReduceOnPlateau`` on the loss), and an LBFGS
+    steps on a closure (its step-1 gradients are its first
+    evaluation's)."""
     import torch
     model = make_model(device)
     pt.load_reference_state(model, params)
-    opt = pt.optimizer.AdamW(
+    opt = make_opt(model) if make_opt is not None else pt.optimizer.AdamW(
         learning_rate=PARITY_LR, weight_decay=0.01,
         parameters=model.parameters(),
         grad_clip=pt.nn.ClipGradByGlobalNorm(1.0) if clip else None)
     x, y = (torch.from_numpy(a).to(device) for a in (ids, labels))
     reset_launches(ops)
     t0 = time.perf_counter()
-    losses, grads, small = [], None, {}
-    for step in range(steps):
+    losses, small, seen = [], {}, dict(evals=0, grads=None)
+
+    def evaluate():
         loss = loss_of(model, x, y)
         loss.backward()
-        losses.append(float(loss.detach()))
-        if step == 0:
-            grads = {n: p.grad.detach().cpu().clone()
-                     for n, p in model.named_parameters()
-                     if p.grad is not None}
+        seen["evals"] += 1
+        if seen["grads"] is None:
+            seen["grads"] = {n: p.grad.detach().cpu().clone()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}
         for n, p in model.named_parameters() if track_small else ():
             if p.grad is None:
                 continue
             g = p.grad.detach().abs()
             m = (g <= PARITY_TOL["grad"] * g.max()).cpu()
             small[n] = small[n] | m if n in small else m
-        opt.step()
+        return loss
+
+    lr = pt.optimizer.lr
+    for step in range(steps):
+        if isinstance(opt, pt.optimizer.LBFGS):
+            def closure():
+                opt.clear_grad()
+                return evaluate()
+            loss = opt.step(closure)
+        else:
+            loss = evaluate()
+            opt.step()
         opt.clear_grad()
+        losses.append(float(loss.detach()))
+        sched = opt._learning_rate
+        if isinstance(sched, lr.ReduceOnPlateau):
+            sched.step(losses[-1])
+        elif isinstance(sched, lr.LRScheduler):
+            sched.step()
     if device == "cuda":
         torch.cuda.synchronize()
     counts = launches(ops)
-    say(f"  {device}: {steps} steps in {time.perf_counter() - t0:.2f} s, "
-        f"losses {losses}")
+    if not quiet:
+        say(f"  {device}: {steps} steps in {time.perf_counter() - t0:.2f} s, "
+            f"losses {losses}")
     final = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
-    return losses, grads, final, counts, small
+    return losses, seen["grads"], final, counts, small, seen["evals"]
 
 
 def phase_train_parity(pt, ops, flash=False):
@@ -2960,7 +3010,20 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
             pt, ops, make_model, loss_of, params, ids, labels, device, clip,
             track_small=sign_free and device == "cpu")
         torch.cuda.empty_cache()
-    (l_gpu, g_gpu, p_gpu, counts, _), (l_cpu, g_cpu, p_cpu, _, small) = \
+    out = hold_parity(phase, params, runs, sign_free, frozen)
+    check_counts(phase, ops, runs["cuda"][3], 3, layers, drive)
+    return out
+
+
+def hold_parity(phase, params, runs, sign_free=False, frozen=None,
+                quiet=False, step_bound=PARITY_LR):
+    """`train_parity`'s gates on its two runs (``runs["cuda"]`` and
+    ``runs["cpu"]``, from `train_parity_run`): the losses, step-1
+    gradients and final parameters within `PARITY_TOL`, with the
+    ``sign_free`` (a largest step of ``step_bound``) and ``frozen``
+    holds.  ``quiet`` prints one line."""
+    import torch
+    (l_gpu, g_gpu, p_gpu, _, _, _), (l_cpu, g_cpu, p_cpu, _, small, _) = \
         runs["cuda"], runs["cpu"]
     if set(g_gpu) != set(g_cpu):
         fail(f"{phase}: gradients of {sorted(set(g_gpu) ^ set(g_cpu))} on "
@@ -2976,7 +3039,8 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
             f"{len(g_cpu)} got a gradient")
     key_note = ""
     if sign_free:
-        key_note = hold_sign_free(phase, small, p_gpu, p_cpu)
+        key_note = hold_sign_free(phase, small, p_gpu, p_cpu,
+                                  steps=len(l_cpu), step_bound=step_bound)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     grad_err, grad_at = max(
         (float((g_gpu[n] - g_cpu[n]).abs().max())
@@ -2988,26 +3052,31 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
         excess = float((d - rtol * p_cpu[n].abs()).max())
         if excess > worst:
             worst, worst_at = excess, n
-    say(f"  loss max rel err {loss_err:.3e} (tolerance "
-        f"{PARITY_TOL['loss']:g}); step-1 grads max err / max |grad| "
-        f"{grad_err:.3e} at {grad_at} (tolerance {PARITY_TOL['grad']:g}); "
-        f"params after 3 steps max (|err| - {rtol:g}*|p|) {worst:.3e} at "
-        f"{worst_at or '-'} (tolerance {atol:g}){key_note}")
+    if quiet:
+        say(f"  {phase}: loss {loss_err:.2e}, grad {grad_err:.2e}, param "
+            f"excess {worst:.2e} at {worst_at or '-'}{key_note}")
+    else:
+        say(f"  loss max rel err {loss_err:.3e} (tolerance "
+            f"{PARITY_TOL['loss']:g}); step-1 grads max err / max |grad| "
+            f"{grad_err:.3e} at {grad_at} (tolerance "
+            f"{PARITY_TOL['grad']:g}); params after {len(l_cpu)} steps max "
+            f"(|err| - {rtol:g}*|p|) {worst:.3e} at {worst_at or '-'} "
+            f"(tolerance {atol:g}){key_note}")
     if loss_err > PARITY_TOL["loss"]:
         fail(f"{phase}: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
     if grad_err > PARITY_TOL["grad"]:
         fail(f"{phase}: gradient of {grad_at} differs by "
              f"{grad_err:.3e} of its largest value")
     if worst > atol:
-        fail(f"{phase}: parameter {worst_at} differs after 3 "
+        fail(f"{phase}: parameter {worst_at} differs after {len(l_cpu)} "
              f"steps by {worst:.3e} past {rtol:g}*|p|")
-    check_counts(phase, ops, counts, 3, layers, drive)
     return dict(loss_max_rel_err=loss_err, grad_max_rel_err=grad_err,
                 param_max_excess=worst, losses_cuda=l_gpu,
                 losses_cpu=l_cpu)
 
 
-def hold_sign_free(phase, small, p_gpu, p_cpu, steps=3):
+def hold_sign_free(phase, small, p_gpu, p_cpu, steps=3,
+                   step_bound=PARITY_LR):
     """AdamW moves each element by about lr times the sign of its
     gradient's running mean, whatever the gradient's size.  Where a
     gradient lies within the gradient gate of 0 (``small``: at most
@@ -3018,9 +3087,10 @@ def hold_sign_free(phase, small, p_gpu, p_cpu, steps=3):
     taken out of the `PARITY_TOL` check (``p_gpu`` gets the CPU's values
     there).  Among them are the key slices of the qkv biases, whose
     gradient is 0 in exact arithmetic (softmax is invariant to a per-row
-    constant)."""
+    constant).  ``step_bound`` is the largest step such an element can
+    take (the learning rate for Adam's family)."""
     import torch
-    bound = 2 * steps * PARITY_LR
+    bound = 2 * steps * step_bound
     worst, count = 0.0, 0
     for n, m in small.items():
         if not bool(m.any()):
@@ -3028,7 +3098,7 @@ def hold_sign_free(phase, small, p_gpu, p_cpu, steps=3):
         d = float((p_gpu[n] - p_cpu[n]).abs()[m].max())
         if d > bound:
             fail(f"{phase}: {n} differs by {d:.3e} after {steps} steps where "
-                 f"its gradient was ~0, past 2 * {steps} * lr")
+                 f"its gradient was ~0, past 2 * {steps} * {step_bound:g}")
         worst, count = max(worst, d), count + int(m.sum())
         p_gpu[n] = torch.where(m, p_cpu[n], p_gpu[n])
     return (f"; {count} elements whose gradient lay within the gate of 0 at "
@@ -4254,6 +4324,433 @@ def phase_bf16_parity(pt, ops):
                 greedy_match_ratio=match, lora=lora)
 
 
+# ---------------------------------------------------------------------
+# phase 27: the optimizer family, card against CPU, and state round-trips
+# ---------------------------------------------------------------------
+#: the optimizer phase's model: ``__graft_entry__.entry()``'s width
+#: (hidden 512, 8 heads of 64, vocab 4096) cut to 2 layers, composite
+#: attention, f32.  The updates are elementwise and do not depend on the
+#: width, and this width keeps the 2 x 39 runs (half of them on the CPU)
+#: to seconds.
+OPT_PARITY_CFG = dict(vocab_size=4096, hidden_size=512, num_hidden_layers=2,
+                      num_attention_heads=8, max_position_embeddings=512,
+                      use_flash_attention=False)
+
+
+def lr_schedulers(pt, base=PARITY_LR):
+    """The 17 schedulers of ``optimizer.lr``, each set so that its rate
+    moves within 3 steps and stays at most ``base``."""
+    lr = pt.optimizer.lr
+    return {
+        "NoamDecay": lambda: lr.NoamDecay(d_model=512, warmup_steps=2,
+                                          learning_rate=base * 20),
+        "PiecewiseDecay": lambda: lr.PiecewiseDecay(
+            [1, 2], [base, base / 2, base / 4]),
+        "NaturalExpDecay": lambda: lr.NaturalExpDecay(base, gamma=0.5),
+        "InverseTimeDecay": lambda: lr.InverseTimeDecay(base, gamma=0.5),
+        "PolynomialDecay": lambda: lr.PolynomialDecay(
+            base, decay_steps=3, end_lr=base / 10),
+        "LinearWarmup": lambda: lr.LinearWarmup(
+            lr.CosineAnnealingDecay(base, T_max=3), warmup_steps=1,
+            start_lr=base / 10, end_lr=base),
+        "ExponentialDecay": lambda: lr.ExponentialDecay(base, gamma=0.5),
+        "MultiStepDecay": lambda: lr.MultiStepDecay(base, [1, 2], gamma=0.5),
+        "StepDecay": lambda: lr.StepDecay(base, step_size=1, gamma=0.5),
+        "LambdaDecay": lambda: lr.LambdaDecay(base, lambda e: 1 / (1 + e)),
+        "MultiplicativeDecay": lambda: lr.MultiplicativeDecay(
+            base, lambda e: 0.5),
+        # mode "max" on a falling loss: no step is better, so it halves
+        # the rate after each step past the first, whatever the rounding
+        "ReduceOnPlateau": lambda: lr.ReduceOnPlateau(
+            base, mode="max", factor=0.5, patience=0),
+        "CosineAnnealingDecay": lambda: lr.CosineAnnealingDecay(base,
+                                                                T_max=3),
+        "CosineAnnealingWarmRestarts": lambda:
+            lr.CosineAnnealingWarmRestarts(base, T_0=2),
+        "LinearLR": lambda: lr.LinearLR(base, total_steps=3,
+                                        start_factor=0.25),
+        "OneCycleLR": lambda: lr.OneCycleLR(base, total_steps=3),
+        "CyclicLR": lambda: lr.CyclicLR(base / 10, base, step_size_up=1),
+    }
+
+
+def optimizer_cases(pt):
+    """name -> ``make_opt(parameters)``: the 14 optimizers, the 17
+    schedulers (each AdamW's rate), ``L1Decay``/``L2Decay``, parameter
+    groups, scheduled betas and the three clips.  Every optimizer that
+    normalises its gradient (Adam's family, Adamax, Adagrad, RMSProp,
+    Rprop, Lamb) takes at most `PARITY_LR` a step, the largest step
+    `hold_sign_free` allows an element whose gradient's sign rounding
+    decides."""
+    o, nn, reg = pt.optimizer, pt.nn, pt.regularizer
+    L = PARITY_LR
+
+    def clip():
+        return nn.ClipGradByGlobalNorm(1.0)
+
+    def no_norm_decay(name):
+        return not (name.endswith("bias") or ".ln_" in name)
+
+    cases = {
+        "SGD": lambda ps: o.SGD(1e-2, ps, weight_decay=0.01,
+                                grad_clip=clip()),
+        "Momentum": lambda ps: o.Momentum(1e-2, 0.9, ps, use_nesterov=True,
+                                          weight_decay=0.01,
+                                          grad_clip=clip()),
+        "Adam": lambda ps: o.Adam(L, parameters=ps, weight_decay=0.01,
+                                  grad_clip=clip()),
+        "AdamW": lambda ps: o.AdamW(L, parameters=ps, weight_decay=0.01,
+                                    apply_decay_param_fun=no_norm_decay,
+                                    grad_clip=clip()),
+        "Adamax": lambda ps: o.Adamax(L, parameters=ps, grad_clip=clip()),
+        "Adagrad": lambda ps: o.Adagrad(L, parameters=ps, weight_decay=0.01,
+                                        grad_clip=clip()),
+        "Adadelta": lambda ps: o.Adadelta(0.5, parameters=ps,
+                                          weight_decay=0.01,
+                                          grad_clip=clip()),
+        "RMSProp": lambda ps: o.RMSProp(L / 8, momentum=0.9, centered=True,
+                                        parameters=ps, grad_clip=clip()),
+        "Lamb": lambda ps: o.Lamb(L, parameters=ps, grad_clip=clip()),
+        "Rprop": lambda ps: o.Rprop(L / 2, parameters=ps, grad_clip=clip()),
+        "ASGD": lambda ps: o.ASGD(1e-2, batch_num=2, parameters=ps,
+                                  weight_decay=0.01, grad_clip=clip()),
+        "NAdam": lambda ps: o.NAdam(L, parameters=ps, weight_decay=0.01,
+                                    grad_clip=clip()),
+        "RAdam": lambda ps: o.RAdam(L, parameters=ps, weight_decay=0.01,
+                                    grad_clip=clip()),
+        "LBFGS": lambda ps: o.LBFGS(1e-3, max_iter=2, history_size=4,
+                                    parameters=ps),
+        "L1Decay": lambda ps: o.SGD(1e-2, ps, weight_decay=reg.L1Decay(1e-4),
+                                    grad_clip=clip()),
+        "L2Decay": lambda ps: o.Momentum(1e-2, 0.9, ps,
+                                         weight_decay=reg.L2Decay(0.01),
+                                         grad_clip=clip()),
+        "param_groups": lambda ps: o.AdamW(
+            L, parameters=[{"params": ps[:9]},
+                           {"params": ps[9:], "weight_decay": 0.5}],
+            grad_clip=clip()),
+        "scheduled_betas": lambda ps: o.Adam(
+            L, beta1=lambda: 0.85, beta2=lambda: 0.995, parameters=ps,
+            grad_clip=clip()),
+        "ClipGradByValue": lambda ps: o.SGD(
+            0.1, ps, grad_clip=nn.ClipGradByValue(1e-3)),
+        "ClipGradByNorm": lambda ps: o.SGD(
+            0.1, ps, grad_clip=nn.ClipGradByNorm(0.01)),
+        "ClipGradByGlobalNorm": lambda ps: o.SGD(
+            0.1, ps, grad_clip=nn.ClipGradByGlobalNorm(0.5,
+                                                       group_name="g")),
+    }
+    for name, make in lr_schedulers(pt).items():
+        cases["lr." + name] = lambda ps, make=make: o.AdamW(
+            make(), parameters=ps, weight_decay=0.01, grad_clip=clip())
+    return cases
+
+
+def phase_optimizer_parity(pt, ops):
+    """Every case of `optimizer_cases`: 3 steps of `OPT_PARITY_CFG`'s GPT
+    on the card and on the CPU from the same numpy weights and batch (as
+    `train_parity`), held to `PARITY_TOL` with `hold_sign_free`, each
+    kernel's launches to the composite drive's per forward/backward
+    evaluation; then `state_round_trip` for AdamW under a scheduler and
+    for the GradScaler."""
+    import numpy as np
+    import torch
+    phase = "optimizer parity"
+    cfg = pt.GPTConfig(**OPT_PARITY_CFG)
+    crit = pt.GPTPretrainingCriterion()
+
+    def make_model(device):
+        return pt.GPTForCausalLM(cfg, device=device)
+
+    def loss_of(model, x, y):
+        return crit(model(x), y)
+
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100
+    params = numpy_weights(make_model("cpu"), SEED + 2)
+    out, t0 = {}, time.perf_counter()
+    for name, make_opt in optimizer_cases(pt).items():
+        runs = {device: train_parity_run(
+            pt, ops, make_model, loss_of, params, ids, labels, device,
+            track_small=device == "cpu", quiet=True,
+            make_opt=lambda m: make_opt(list(m.parameters())))
+            for device in ("cuda", "cpu")}
+        out[name] = hold_parity(f"{phase} {name}", params, runs,
+                                sign_free=True, quiet=True)
+        check_counts(f"{phase} {name}", ops, runs["cuda"][3],
+                     runs["cuda"][5], cfg.num_hidden_layers, "train",
+                     show=False, routes=False)
+        out[name]["evaluations"] = runs["cuda"][5]
+    say(f"  {len(out)} cases in {time.perf_counter() - t0:.1f} s")
+    check_routes(phase, ops)
+    out["grad_scaler_detects"] = check_scaler_nonfinite(pt)
+    opt = pt.optimizer
+    out["round_trip_adamw"] = state_round_trip(
+        pt, make_model, loss_of, params, ids, labels,
+        lambda ps: opt.AdamW(lr_schedulers(pt)["LinearWarmup"](),
+                             parameters=ps, weight_decay=0.01,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0)))
+    out["round_trip_grad_scaler"] = state_round_trip(
+        pt, make_model, loss_of, params, ids, labels,
+        lambda ps: opt.AdamW(PARITY_LR, parameters=ps, weight_decay=0.01,
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0)),
+        scaler=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_scaler_nonfinite(pt):
+    """``GradScaler.unscale_`` on the card, f32 and bf16 gradients: it
+    divides by the scale and finds a gradient holding one NaN, one inf or
+    one -inf among finite values, and none in finite gradients."""
+    import torch
+    found = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for bad in (None, float("nan"), float("inf"), -float("inf")):
+            ps = [torch.nn.Parameter(torch.ones(n, device="cuda",
+                                                dtype=dtype))
+                  for n in (3, 4099, 70000)]
+            for p in ps:
+                p.grad = torch.full_like(p, 4.0)
+            if bad is not None:
+                ps[1].grad[4000] = bad
+            scaler = pt.amp.GradScaler(init_loss_scaling=4.0)
+            scaler.unscale_(pt.optimizer.SGD(0.1, ps))
+            key = f"{str(dtype).split('.')[-1]} {bad}"
+            found[key] = scaler._found_inf
+            if scaler._found_inf != (bad is not None) \
+                    or float(ps[0].grad[0]) != 1.0:
+                fail(f"GradScaler on the card: {key}: found "
+                     f"{scaler._found_inf}, unscaled {float(ps[0].grad[0])}")
+    say(f"  GradScaler.unscale_ on the card finds: {found}")
+    return found
+
+
+def state_round_trip(pt, make_model, loss_of, params, ids, labels, make_opt,
+                     scaler=False, steps=3):
+    """``steps`` + 1 steps on the card uninterrupted, against ``steps``
+    steps, then the model's, the optimizer's (its scheduler's inside) and,
+    with ``scaler``, a ``GradScaler``'s ``state_dict`` (cloned) into a
+    fresh model, optimizer and scaler, and one more step: every parameter
+    must be bit-identical.  With ``scaler``, a pre-step hook poisons the
+    first gradient at step 1, so the scaler skips that step and backs
+    off, and the resumed run must carry its counters."""
+    import torch
+    from paddle_tpu_torch.optimizer import optimizer as opt_mod
+    x, y = (torch.from_numpy(a).cuda() for a in (ids, labels))
+
+    def fresh():
+        model = make_model("cuda")
+        pt.load_reference_state(model, params)
+        sc = pt.amp.GradScaler(init_loss_scaling=2.0 ** 10,
+                               incr_every_n_steps=2) if scaler else None
+        return model, make_opt(list(model.parameters())), sc
+
+    def run(model, opt, sc, first, last):
+        state = {"step": first}
+
+        def poison(o, ps):
+            if o is opt and state["step"] == 1:
+                ps[0].grad = ps[0].grad * float("inf")
+
+        remove = opt_mod.register_pre_step_hook(poison) if scaler \
+            else (lambda: None)
+        try:
+            for step in range(first, last):
+                state["step"] = step
+                loss = loss_of(model, x, y)
+                if sc is None:
+                    loss.backward()
+                    opt.step()
+                else:
+                    sc.scale(loss).backward()
+                    opt_mod.run_pre_step_hooks(opt, opt._params_with_grad())
+                    sc.step(opt)
+                opt.clear_grad()
+                if isinstance(opt._learning_rate,
+                              pt.optimizer.lr.LRScheduler):
+                    opt._learning_rate.step()
+        finally:
+            remove()
+
+    whole = fresh()
+    run(*whole, 0, steps + 1)
+    first = fresh()
+    run(*first, 0, steps)
+    model_state = {k: v.clone() for k, v in first[0].state_dict().items()}
+    opt_state = {k: v.clone() if isinstance(v, torch.Tensor) else v
+                 for k, v in first[1].state_dict().items()}
+    sc_state = first[2].state_dict() if scaler else None
+    del first
+    resumed = fresh()
+    resumed[0].load_state_dict(model_state)
+    resumed[1].set_state_dict(opt_state)
+    if scaler:
+        resumed[2].load_state_dict(sc_state)
+    run(*resumed, steps, steps + 1)
+    torch.cuda.synchronize()
+    differ = [n for (n, a), b in zip(whole[0].named_parameters(),
+                                     resumed[0].parameters())
+              if not torch.equal(a, b)]
+    what = "GradScaler" if scaler else "AdamW + LinearWarmup"
+    extra = ""
+    if scaler:
+        if whole[2].state_dict() != resumed[2].state_dict():
+            fail(f"state round-trip ({what}): the scaler's state differs: "
+                 f"{whole[2].state_dict()} vs {resumed[2].state_dict()}")
+        if whole[1]._step_count != steps:
+            fail(f"state round-trip ({what}): {whole[1]._step_count} steps "
+                 f"applied, expected {steps} (one skipped)")
+        extra = (f", scale {whole[2]._scale:g}, steps applied "
+                 f"{whole[1]._step_count} of {steps + 1}")
+    say(f"  state round-trip ({what}): {steps} steps, state_dict into a "
+        f"fresh model and optimizer, 1 step: {len(differ)} of "
+        f"{len(model_state)} parameters differ from {steps + 1} "
+        f"uninterrupted steps{extra}")
+    if differ:
+        fail(f"state round-trip ({what}): not bit-identical: {differ[:8]}")
+    return dict(bit_identical=True, parameters=len(model_state),
+                scaler=whole[2].state_dict() if scaler else None)
+
+
+# ---------------------------------------------------------------------
+# phase 28: the GPT-1.3B pretraining recipe under O2
+# ---------------------------------------------------------------------
+#: the recipe's peak learning rate.  O2 keeps no f32 master weights (the
+#: reference keeps none), so an update under half a bf16 ulp of its
+#: weight is lost: a weight near 0.02 has an ulp of 1.2e-4, a norm weight
+#: at 1.0 one of 7.8e-3.
+O2_LR = 1e-4
+
+
+def phase_o2_training(pt, ops, peak_lr=O2_LR):
+    """The GPT-1.3B pretraining recipe at phase 8's shape (``GPT_1P3B``,
+    24 layers, flash attention + recompute, B=8, S=1024):
+    ``amp.decorate(level="O2", dtype="bfloat16")`` and ``auto_cast(level=
+    "O2")``; AdamW with weight decay 0.01 masked off the biases and the
+    norms; ``LinearWarmup(CosineAnnealingDecay)`` (warm-up over the
+    warm-up steps from ``peak_lr / 10``, then a cosine over the timed
+    steps to ``peak_lr / 10``); ``ClipGradByGlobalNorm(1.0)``; a
+    ``GradScaler``.  Driven by `drive_training`."""
+    import numpy as np
+    import torch
+    B = TRAIN_B[True]
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, use_flash_attention=True,
+                              use_recompute=True))
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    pt.amp.decorate(model, level="O2", dtype="bfloat16")
+    n_params = sum(p.numel() for p in model.parameters())
+    lr = pt.optimizer.lr
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(peak_lr, T_max=TRAIN_STEPS,
+                                eta_min=peak_lr / 10),
+        warmup_steps=TRAIN_WARMUP, start_lr=peak_lr / 10, end_lr=peak_lr)
+    opt = pt.optimizer.AdamW(
+        learning_rate=sched, weight_decay=0.01, parameters=model.parameters(),
+        apply_decay_param_fun=lambda n: not (n.endswith("bias")
+                                             or ".ln_" in n),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    scaler = pt.amp.GradScaler()
+    crit = pt.GPTPretrainingCriterion()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (B, TRAIN_S))).cuda()
+    rates, skipped = [], []
+
+    def step():
+        rates.append(opt.get_lr())
+        with pt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = crit(model(ids), ids)
+        scaler.minimize(opt, scaler.scale(loss))
+        skipped.append(scaler._found_inf)
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    counts, summary = drive_training(ops, step, n_params, B, L, H,
+                                     "O2 training", "train_flash")
+    if any(skipped):
+        fail(f"O2 training: the scaler skipped steps {skipped}")
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    say(f"  peak lr {peak_lr:g}, rates {rates}, loss scale "
+        f"{scaler._scale:g}, parameter dtypes {dtypes}")
+    summary.update(peak_lr=peak_lr, rates=rates, loss_scale=scaler._scale,
+                   skipped_steps=sum(skipped), parameter_dtypes=dtypes)
+    return counts, summary
+
+
+# ---------------------------------------------------------------------
+# phase 29: O2 bf16 parity, GPT at full width, 2 layers
+# ---------------------------------------------------------------------
+#: the O2 parity's learning rate, phase 26's.  The parameters are bf16
+#: and each update rounds into them; at 1e-3 the card's and the CPU's
+#: losses part by 4.1e-4 after 3 steps (past the loss gate; the larger
+#: steps carry the bf16 rounding differences further), at 1e-4 the
+#: readings sit within every gate (PERF.md §5).
+O2_PARITY_LR = PARITY_LR
+
+
+def phase_o2_parity(pt, ops):
+    """GPT_1P3B's width cut to 2 layers, ``amp.decorate(level="O2")``
+    bf16 parameters under ``auto_cast(level="O2")``, flash attention and
+    recompute, from numpy weights: 3 AdamW steps on the card and on the
+    CPU (plain versions), held to `BF16_PARITY_TOL` as phase 26 holds O1
+    (the updates measured from the bf16 starting weights), and the control
+    (the card run with fc1's bias dropped) shown to fail each gate."""
+    import numpy as np
+    import torch
+    phase = "O2 parity"
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, num_hidden_layers=2,
+                              use_flash_attention=True, use_recompute=True))
+    crit = pt.GPTPretrainingCriterion()
+
+    def make(device):
+        return pt.amp.decorate(pt.GPTForCausalLM(cfg, device=device),
+                               level="O2", dtype="bfloat16")
+
+    def loss_of(model, x, y):
+        with pt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            return crit(model(x), y)
+
+    def make_opt(model):
+        return pt.optimizer.AdamW(
+            O2_PARITY_LR, parameters=model.parameters(), weight_decay=0.01,
+            grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100
+    params = numpy_weights(make("cpu"), SEED + 2)
+    no_bias = {n: np.zeros_like(a) if n.endswith("mlp.fc1.bias") else a
+               for n, a in params.items()}
+
+    def as_bf16(ws):
+        return {n: torch.from_numpy(a).bfloat16().float().numpy()
+                for n, a in ws.items()}
+
+    runs = {}
+    for name, device, start in (("control", "cuda", no_bias),
+                                ("card", "cuda", params),
+                                ("cpu", "cpu", params)):
+        runs[name] = train_parity_run(pt, ops, make, loss_of, start, ids,
+                                      labels, device, make_opt=make_opt)
+        torch.cuda.empty_cache()
+    if {str(p.dtype) for p in runs["card"][2].values()} != {"torch.bfloat16"}:
+        fail(f"{phase}: the parameters are not all bf16")
+    got, ctl = hold_bf16_gates(phase, runs, as_bf16(params),
+                               as_bf16(no_bias), BF16_PARITY_TOL,
+                               "fc1's bias dropped")
+    check_counts(phase, ops, runs["card"][3], 3, cfg.num_hidden_layers,
+                 "train_flash")
+    return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
+                losses_control=runs["control"][0], readings=got,
+                control=ctl, tolerance=BF16_PARITY_TOL, lr=O2_PARITY_LR)
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -4379,7 +4876,7 @@ def kernels_line(results, counts):
         for d, c in counts.items():
             entry[f"launches_{d}"] = c[name]
         for d in ("train_flash", "llama_train", "bert_train", "moe_train",
-                  "lora_train"):
+                  "lora_train", "train_o2"):
             entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
         entry["launches_per_forward_ernie_eval"] = \
             counts["ernie_eval"][name] // ERNIE_FORWARDS
@@ -4556,6 +5053,23 @@ def main():
         "3 AdamW steps, CUDA vs CPU; bf16 greedy tokens; LoRA fine-tuning "
         "at the multilora width, 2 layers, bf16 O1")
     bf16_parity = phase_bf16_parity(pt, ops)
+    free_device_memory()
+
+    say("[27] optimizers: 14 optimizers, 17 schedulers, L1/L2 decay, "
+        "parameter groups, scheduled betas, 3 clips; entry() width, 2 "
+        "layers, f32, 3 steps, CUDA vs CPU; state round-trips")
+    optimizer_parity = phase_optimizer_parity(pt, ops)
+    free_device_memory()
+
+    say("[28] O2 training: GPT_1P3B, bf16 O2 (decorate + auto_cast), flash "
+        "attention + recompute, AdamW with a decay mask, LinearWarmup + "
+        "cosine, clip 1.0, GradScaler, B=8 S=1024")
+    o2_counts, o2_training = phase_o2_training(pt, ops)
+    free_device_memory()
+
+    say("[29] O2 parity: full width, 2 layers, bf16 O2, flash + recompute, "
+        "3 AdamW steps, CUDA vs CPU")
+    o2_parity = phase_o2_parity(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -4564,7 +5078,7 @@ def main():
                   bert_train=bert_counts, ernie_eval=ernie_counts,
                   serve_moe=moe_serve_counts, moe_train=moe_train_counts,
                   serve_lora=lora_serve_counts, lora_train=lora_train_counts,
-                  paged_decode=paged_counts)
+                  paged_decode=paged_counts, train_o2=o2_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -4585,7 +5099,10 @@ def main():
                     "multi_lora_serving": lora_serving,
                     "lora_training_parity": lora_train_parity,
                     "lora_training": lora_training, "paged_decode": paged,
-                    "bf16_parity": bf16_parity, "wgmma_check": wgmma_check,
+                    "bf16_parity": bf16_parity,
+                    "optimizer_parity": optimizer_parity,
+                    "o2_training": o2_training, "o2_parity": o2_parity,
+                    "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))
     say(card)

@@ -11,10 +11,13 @@ Ported so far (see ``ops`` for the kernels):
 
 * serving: ``models.gpt`` through ``inference.serving.GenerationEngine``,
   with ragged paged attention, layer norm and the matmul epilogue;
-* training: ``GPTPretrainingCriterion``, ``amp.auto_cast`` (bf16, O1),
-  ``optimizer.{SGD, Adam, AdamW}`` and ``nn.ClipGradByGlobalNorm``, with
-  the backward kernels of layer norm and the matmul epilogue and the
-  softmax cross-entropy kernels, forward and backward;
+* training: ``GPTPretrainingCriterion``, ``amp.auto_cast`` (bf16, O1
+  and O2), ``amp.decorate``, ``amp.GradScaler``, ``amp.debugging``, the
+  14 optimizers of ``optimizer`` (multi-tensor updates), the 17
+  schedulers of ``optimizer.lr``, ``regularizer.{L1Decay, L2Decay}`` and
+  the three clips of ``nn``, with the backward kernels of layer norm and
+  the matmul epilogue and the softmax cross-entropy kernels, forward and
+  backward;
 * flash attention: GPT's dense attention (``use_flash_attention=True``,
   the default) through the flash-attention kernels, forward, dq and
   dk/dv; ``use_recompute=True`` through ``distributed.fleet.recompute``;
@@ -48,7 +51,7 @@ Ported so far (see ``ops`` for the kernels):
 * the paged decode view: ``inference.serving.PagedCacheView`` in its
   prefill and decode modes, decode through the paged-attention kernel.
 """
-from . import amp, distributed, nn, optimizer, quantization
+from . import amp, distributed, nn, optimizer, quantization, regularizer
 from .convert import load_reference_state
 from .models.bert import BertConfig, BertForMaskedLM
 from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
@@ -62,6 +65,7 @@ from .inference.serving import (GenerationEngine, PagedCacheView,
                                 convert_to_lora, merge_lora, unmerge_lora)
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
+           "regularizer",
            "load_reference_state", "BertConfig", "BertForMaskedLM",
            "ErnieConfig", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "GPT_1P3B",

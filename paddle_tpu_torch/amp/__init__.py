@@ -1,19 +1,43 @@
-"""paddle.amp ``auto_cast`` at level O1, for the port's functionals.
+"""paddle.amp: ``auto_cast`` at levels O1 and O2, ``decorate`` and
+``GradScaler``, for the port's functionals.
 
-Port of ``paddle_tpu/amp/__init__.py`` (``auto_cast`` :105, the O1 rule
-of ``_amp_caster`` :76-96) with the reference's op lists, copied from
-``paddle_tpu/ops/_generated.py:1196-1198``.  Inside ``auto_cast()`` an
-op on the white list casts its floating inputs to the AMP dtype, an op
-on the black list casts them to f32, and any other op leaves them as
-they are.  The port's functionals that the GPT path runs consult it by
-the reference's op names: ``linear``, ``linear_act``, ``matmul_v2``
-(the tied LM head), ``scaled_dot_product_attention``, ``layer_norm``
-and ``cross_entropy`` (see `cast_inputs`).
+Port of ``paddle_tpu/amp/__init__.py`` (``auto_cast`` :105, the rule of
+``_amp_caster`` :76-96, ``decorate`` :129, ``GradScaler`` :143-250) with
+the reference's op lists, copied from
+``paddle_tpu/ops/_generated.py:1196-1198``.  Inside ``auto_cast()`` at O1
+an op on the white list casts its floating inputs to the AMP dtype, an op
+on the black list casts them to f32, and any other op leaves them as they
+are; at O2 every op off the black list casts them to the AMP dtype.  The
+port's functionals consult it by the reference's op names (see
+`cast_inputs`): ``linear``, ``linear_act``, ``matmul_v2`` (the tied LM
+head), ``scaled_dot_product_attention``, ``layer_norm``, ``rms_norm``,
+``cross_entropy``, ``embedding``, ``dropout`` and the others of
+``nn.functional``.  The reference casts the inputs of every dispatched
+op; the port's models add residuals and reshape with plain torch ops,
+whose dtypes follow from the functionals' (``tests/test_torch_amp_o2.py``
+holds each GPT block's output dtype to the reference's under O2).
 
 ``torch.autocast`` is not used: it does not reach the ctypes kernels
-and keeps other lists.  O2 and ``decorate(level="O2")`` raise
-``NotImplementedError``; ``GradScaler`` is not ported (bf16 needs no
-loss scaling).
+and keeps other lists.
+
+``decorate(level="O2")`` casts every floating parameter and buffer of
+the models to the AMP dtype in place.  No f32 master weights are kept:
+the reference's docstring says the optimizers keep them, but its update
+rounds the f32 math back into the low-precision parameter, and the
+port's optimizers do the same.  ``master_weight`` and ``save_dtype`` are
+accepted and not read, as in the reference.
+
+``GradScaler`` is the reference's dynamic loss scaling: ``scale``
+multiplies the loss, ``unscale_`` divides the gradients and checks them
+for inf/NaN (two multi-tensor passes, ``torch._foreach_mul_`` and
+``torch._foreach_norm`` of the largest magnitude, and one host read a
+step), ``step`` skips the update on a non-finite gradient and then calls
+``update``, which grows the scale after ``incr_every_n_steps`` good
+steps and shrinks it (to at least 1) after ``decr_every_n_nan_or_inf``
+bad ones.  As in the reference,
+``unscale_`` does not mark the optimizer, so ``step`` unscales again, and
+``step`` runs ``update`` itself.  The port's kernels have no fp16 route:
+loss scaling runs with f32 and bf16 gradients.
 """
 from __future__ import annotations
 
@@ -23,8 +47,8 @@ import torch
 
 from ..core import to_torch_dtype
 
-__all__ = ["auto_cast", "decorate", "cast_inputs", "current_state",
-           "restore_state"]
+__all__ = ["auto_cast", "decorate", "GradScaler", "cast_inputs",
+           "current_state", "restore_state"]
 
 #: the reference's O1 lists (ops/_generated.py AMP_WHITE_LIST and
 #: AMP_BLACK_LIST)
@@ -44,11 +68,12 @@ BLACK_LIST = frozenset({
 
 
 class _AmpState:
-    def __init__(self, enable, dtype, white, black):
+    def __init__(self, enable, dtype, white, black, level="O1"):
         self.enable = enable
         self.dtype = dtype
         self.white = white
         self.black = black
+        self.level = level
 
 
 _amp_stack = []
@@ -57,13 +82,11 @@ _amp_stack = []
 @contextlib.contextmanager
 def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
               level="O1", dtype="float16", use_promote=True):
-    """Cast the inputs of the port's functionals by the O1 lists while
-    the context is open (level O0 casts nothing).  Custom lists move op
-    names between the lists, as the reference's do."""
+    """Cast the inputs of the port's functionals by the O1 or O2 rule
+    while the context is open (level O0 casts nothing).  Custom lists
+    move op names between the lists, as the reference's do."""
     if level not in ("O0", "O1", "O2"):
         raise ValueError(f"level must be O0, O1 or O2, got {level!r}")
-    if level == "O2":
-        raise NotImplementedError("auto_cast level O2 is not ported yet")
     white, black = set(WHITE_LIST), set(BLACK_LIST)
     if custom_white_list:
         white |= set(custom_white_list)
@@ -71,9 +94,9 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
     if custom_black_list:
         black |= set(custom_black_list)
         white -= set(custom_black_list)
-    _amp_stack.append(_AmpState(bool(enable) and level == "O1",
+    _amp_stack.append(_AmpState(bool(enable) and level != "O0",
                                 to_torch_dtype(dtype), frozenset(white),
-                                frozenset(black)))
+                                frozenset(black), level))
     try:
         yield
     finally:
@@ -81,7 +104,7 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
 
 
 def current_state():
-    """The O1 state in force now (None outside any ``auto_cast``), for
+    """The AMP state in force now (None outside any ``auto_cast``), for
     `restore_state` to re-enter later: recompute captures it at the first
     forward and replays the block's forward under it during backward,
     which runs outside the ``auto_cast`` block."""
@@ -100,26 +123,146 @@ def restore_state(state):
         _amp_stack.pop()
 
 
-def decorate(models, optimizers=None, level="O1", dtype="float16"):
-    """``paddle.amp.decorate``: O1 leaves models and optimizers as they
-    are (the reference does the same); O2 is not ported."""
+def decorate(models, optimizers=None, level="O1", dtype="float16",
+             master_weight=None, save_dtype=None, **kwargs):
+    """``paddle.amp.decorate``: O2 casts every floating parameter and
+    buffer of ``models`` (one module or a list) to ``dtype`` in place, so
+    an optimizer built before keeps its parameters; O1 leaves them as
+    they are.  Returns ``models``, or ``(models, optimizers)``."""
     if level == "O2":
-        raise NotImplementedError("amp.decorate level O2 is not ported yet")
-    return models if optimizers is None else (models, optimizers)
+        target = to_torch_dtype(dtype)
+        items = models if isinstance(models, (list, tuple)) else [models]
+        with torch.no_grad():
+            for m in items:
+                for t in list(m.parameters()) + list(m.buffers()):
+                    if t.is_floating_point() and t.dtype != target:
+                        t.data = t.data.to(target)
+    if optimizers is None:
+        return models
+    return models, optimizers
 
 
 def cast_inputs(op_name, *tensors):
-    """The O1 rule for one op: its floating tensors cast to the AMP dtype
-    (white list) or to f32 (black list) inside an enabled ``auto_cast``;
-    returned unchanged otherwise.  ``None`` entries pass through."""
+    """The AMP rule for one op inside an enabled ``auto_cast``: its
+    floating tensors cast to f32 (black list), or to the AMP dtype (the
+    white list at O1, every other op at O2); returned unchanged
+    otherwise.  ``None`` entries pass through."""
     st = _amp_stack[-1] if _amp_stack else None
     if st is None or not st.enable:
         return tensors
-    if op_name in st.white:
-        target = st.dtype
-    elif op_name in st.black:
+    if op_name in st.black:
         target = torch.float32
+    elif st.level == "O2" or op_name in st.white:
+        target = st.dtype
     else:
         return tensors
     return tuple(t.to(target) if t is not None and t.is_floating_point()
                  and t.dtype != target else t for t in tensors)
+
+
+class GradScaler:
+    """Dynamic loss scaling, the reference's (amp/__init__.py:143-250)."""
+
+    def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
+                 incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
+                 decr_every_n_nan_or_inf=1, use_dynamic_loss_scaling=True):
+        self._enable = enable
+        self._scale = float(init_loss_scaling)
+        self._incr_ratio = incr_ratio
+        self._decr_ratio = decr_ratio
+        self._incr_every_n_steps = incr_every_n_steps
+        self._decr_every_n = decr_every_n_nan_or_inf
+        self._dynamic = use_dynamic_loss_scaling
+        self._good_steps = 0
+        self._bad_steps = 0
+        self._found_inf = False
+
+    def is_enable(self):
+        return self._enable
+
+    def is_use_dynamic_loss_scaling(self):
+        return self._dynamic
+
+    def get_loss_scaling(self):
+        return torch.tensor(self._scale, dtype=torch.float32)
+
+    def scale(self, var):
+        """``var * scale`` (an f32 scale on ``var``'s device)."""
+        if not self._enable:
+            return var
+        return var * torch.tensor(self._scale, dtype=torch.float32,
+                                  device=var.device)
+
+    @torch.no_grad()
+    def unscale_(self, optimizer):
+        """Divide the optimizer's gradients by the scale (a product by its
+        inverse in f32, rounded to each gradient's dtype) and note whether
+        any is inf or NaN (each gradient's largest magnitude in f32: an
+        inf stays inf and a NaN propagates; one host read a step); the
+        first such gradient is recorded by name
+        (``debugging.last_nonfinite``)."""
+        if not self._enable:
+            return
+        params = optimizer._params_with_grad()
+        self._found_inf = False
+        if not params:
+            return
+        grads = [p.grad for p in params]
+        torch._foreach_mul_(grads, 1.0 / self._scale)
+        peaks = torch._foreach_norm(grads, float("inf"), dtype=torch.float32)
+        device = peaks[0].device
+        if not bool(torch.isfinite(torch.stack(
+                [t.to(device) for t in peaks])).all()):
+            from .debugging import first_nonfinite
+            first_nonfinite([(optimizer._name(p), p.grad) for p in params])
+            self._found_inf = True
+
+    def step(self, optimizer):
+        """`unscale_`, the optimizer's step unless a gradient was inf or
+        NaN, then `update`.  It unscales even after an explicit
+        `unscale_`, as the reference does."""
+        if not self._enable:
+            optimizer.step()
+            return
+        self.unscale_(optimizer)
+        if not self._found_inf:
+            optimizer.step()
+        self.update()
+
+    def minimize(self, optimizer, scaled_loss):
+        scaled_loss.backward()
+        self.step(optimizer)
+
+    def update(self):
+        if not self._dynamic:
+            return
+        if self._found_inf:
+            self._bad_steps += 1
+            self._good_steps = 0
+            if self._bad_steps >= self._decr_every_n:
+                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._bad_steps = 0
+        else:
+            self._good_steps += 1
+            self._bad_steps = 0
+            if self._good_steps >= self._incr_every_n_steps:
+                self._scale *= self._incr_ratio
+                self._good_steps = 0
+
+    def state_dict(self):
+        return {"scale": self._scale, "incr_ratio": self._incr_ratio,
+                "decr_ratio": self._decr_ratio,
+                "incr_every_n_steps": self._incr_every_n_steps,
+                "decr_every_n_nan_or_inf": self._decr_every_n,
+                "good_steps": self._good_steps,
+                "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, state):
+        self._scale = state.get("scale", self._scale)
+        self._good_steps = state.get("good_steps", 0)
+        self._bad_steps = state.get("bad_steps", 0)
+
+    set_state_dict = load_state_dict
+
+
+from . import debugging  # noqa: E402,F401

@@ -1,4 +1,4 @@
 """``paddle.distributed.fleet``: activation recompute."""
-from .recompute import recompute
+from .recompute import recompute, recompute_sequential
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "recompute_sequential"]

@@ -1,9 +1,10 @@
 """Activation recompute (gradient checkpointing).
 
 Port of ``paddle_tpu/distributed/fleet/recompute.py`` (``recompute``
-:22-75), over ``torch.utils.checkpoint.checkpoint(...,
-use_reentrant=False)``: the forward keeps only the function's inputs,
-and the backward runs the function again to rebuild what it needs.
+:22-75 and ``recompute_sequential`` :76-93), over
+``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``: the
+forward keeps only the function's inputs, and the backward runs the
+function again to rebuild what it needs.
 
 The replay happens inside ``backward()``, which two things of the port
 would otherwise see differently from the first forward:
@@ -29,7 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ... import amp
 
-__all__ = ["recompute"]
+__all__ = ["recompute", "recompute_sequential"]
 
 
 def _generators(function):
@@ -78,3 +79,26 @@ def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,
 
     return checkpoint(run, *args, use_reentrant=False,
                       preserve_rng_state=preserve_rng_state)
+
+
+def recompute_sequential(ctx, functions, *args, **kwargs):
+    """``recompute_sequential({"segments": k}, Sequential(...), input)``:
+    the layers of ``functions`` cut into runs of ``len // k`` (at least
+    1), each run recomputed as one function of the previous run's
+    output.  A run of modules is wrapped in a ``torch.nn.Sequential``, so
+    that their generators replay too."""
+    segments = ctx.get("segments", 1) if isinstance(ctx, dict) else 1
+    layers = list(functions)
+    seg_size = max(len(layers) // max(segments, 1), 1)
+    x = args[0]
+    for i in range(0, len(layers), seg_size):
+        seg = layers[i:i + seg_size]
+        if all(isinstance(l, torch.nn.Module) for l in seg):
+            run = torch.nn.Sequential(*seg)
+        else:
+            def run(t, seg=seg):
+                for l in seg:
+                    t = l(t)
+                return t
+        x = recompute(run, x, **kwargs)
+    return x

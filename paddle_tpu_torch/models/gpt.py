@@ -27,7 +27,8 @@ through the softmax cross-entropy kernels.
 ``fc1`` runs through the matmul-epilogue kernels with ``gelu_tanh``, the
 three layer norms through the layer-norm kernels, forward and backward.
 After ``quantization.convert_to_int8`` every ``Linear`` (qkv, out, fc1,
-fc2) runs the int8 matmul-epilogue kernel; the tied LM head stays float.
+fc2) runs the int8 matmul-epilogue kernel; the tied LM head stays float
+(an untied ``lm_head``, a ``Linear``, is converted too).
 A model starts in training mode, as the reference's ``Layer`` does (the
 serving engine switches it to eval); dropout masks come from the
 model's own ``torch.Generator``.
@@ -172,9 +173,6 @@ class GPTModel(nn.Module):
         super().__init__()
         if cfg.use_scan_layers:
             raise NotImplementedError("use_scan_layers is not ported yet")
-        if not cfg.tie_word_embeddings:
-            raise NotImplementedError(
-                "an untied LM head is not ported yet")
         self.config = cfg
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.wte = pnn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)
@@ -208,7 +206,9 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module, GenerationMixin):
-    """GPT with its LM head tied to the token embedding.
+    """GPT with its LM head tied to the token embedding, or, with
+    ``tie_word_embeddings=False``, its own ``lm_head`` (a ``Linear``
+    ``[hidden, vocab]`` without bias, as in the reference's gpt.py:208).
 
     ``device=None`` places it on the CUDA device and raises when there
     is none; ``device="cpu"`` runs the plain versions of the kernels.
@@ -229,6 +229,9 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         self.config = cfg
         self.gpt = self.model_cls(cfg, device=device, dtype=dtype,
                                   generator=gen)
+        self.lm_head = None if cfg.tie_word_embeddings else pnn.Linear(
+            cfg.hidden_size, cfg.vocab_size, bias=False, device=device,
+            dtype=dtype, generator=gen)
         for name, p in self.named_parameters():
             p.param_name = name
 
@@ -241,7 +244,10 @@ class GPTForCausalLM(nn.Module, GenerationMixin):
         return self.gpt.wte.weight.dtype
 
     def logits(self, hidden):
-        """The tied LM head: ``hidden @ wte.weight^T``."""
+        """The LM head: ``hidden @ wte.weight^T`` when tied, else
+        ``lm_head(hidden)``."""
+        if self.lm_head is not None:
+            return self.lm_head(hidden)
         return F.matmul(hidden, self.gpt.wte.weight, transpose_y=True)
 
     def forward(self, input_ids, cache=None, use_cache=False):

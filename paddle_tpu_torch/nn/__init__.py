@@ -2,9 +2,10 @@
 ERNIE paths, LoRA's segmented epilogue (``functional.lora_segment_act``)
 among them."""
 from . import functional
-from .clip import ClipGradByGlobalNorm
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layers import (Dropout, Embedding, LayerList, LayerNorm, Linear,
                      RMSNorm)
 
-__all__ = ["functional", "ClipGradByGlobalNorm", "Dropout", "Embedding",
-           "LayerList", "LayerNorm", "Linear", "RMSNorm"]
+__all__ = ["functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
+           "ClipGradByValue", "Dropout", "Embedding", "LayerList",
+           "LayerNorm", "Linear", "RMSNorm"]

@@ -8,21 +8,22 @@ Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``nn/functional/norm.py`` (``layer_norm`` :22,
 ``fused_residual_layer_norm`` :58, ``rms_norm`` :103),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
-path), ``nn/functional/flash_attention.py``
+path and its composite), ``nn/functional/flash_attention.py``
 (``scaled_dot_product_attention`` :85 with its routing, the composite
 ``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
 ``fused_residual_layer_norm``, ``linear_act``, ``linear_act_int8``,
 ``rms_norm`` (with a weight), ``lora_segment_act``, ``cross_entropy``
-and dense attention
-without dropout through its Pallas kernels; here
-they call the port's kernel entry points (differentiable, but for the
-int8 epilogue), which take the plain versions for CPU tensors and launch
-the CUDA kernels (forward and backward) for CUDA tensors.  Plain GEMMs
-and lookups stay PyTorch ops, as the reference left them to XLA.  Each
-functional the reference's AMP lists name casts its inputs by the O1
-rule (``amp.cast_inputs``).
+(hard labels) and dense attention without dropout through its Pallas
+kernels; here they call the port's kernel entry points (differentiable,
+but for the int8 epilogue), which take the plain versions for CPU
+tensors and launch the CUDA kernels (forward and backward) for CUDA
+tensors.  The other forms (norms without affine parameters, soft or
+weighted or smoothed cross-entropy) are the reference's composites in
+plain PyTorch, as are plain GEMMs and lookups, which the reference left
+to XLA.  Each functional casts its inputs by the AMP rule in force
+(``amp.cast_inputs``: O1's lists, or O2).
 """
 from __future__ import annotations
 
@@ -121,42 +122,62 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
 
 def embedding(x, weight):
     """Row lookup: ``weight[x]``."""
+    (weight,) = amp.cast_inputs("embedding", weight)
     return torch.nn.functional.embedding(x, weight)
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
-    """Layer norm over the last dim with ``weight`` and ``bias``, through
-    the layer-norm kernels.  Other forms (no affine parameters, several
-    axes) are not ported yet."""
+def _norm_axes(x, normalized_shape):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
-    if len(tuple(normalized_shape)) != 1 or weight is None or bias is None:
-        raise NotImplementedError(
-            "layer_norm without affine parameters or over several axes "
-            "is not ported yet")
+    n = len(tuple(normalized_shape))
+    return tuple(range(x.dim() - n, x.dim()))
+
+
+def _layer_norm_composite(vf, dtype, axes, weight, bias, epsilon):
+    """The reference's composite (norm.py:33-50) on ``vf`` (f32 for
+    bf16/f16 input): mean and variance over ``axes``, the normalised
+    value rounded to ``dtype``, then times ``weight`` and plus ``bias``
+    where given."""
+    mean = vf.mean(dim=axes, keepdim=True)
+    var = (vf - mean).square().mean(dim=axes, keepdim=True)
+    out = ((vf - mean) * torch.rsqrt(var + epsilon)).to(dtype)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+    """Layer norm over the last ``len(normalized_shape)`` dims.  With
+    ``weight`` and ``bias`` over the last dim, the layer-norm kernels, as
+    the reference routes it (norm.py:22-54); otherwise the reference's
+    composite, in f32 for bf16/f16 input."""
+    axes = _norm_axes(x, normalized_shape)
     x, weight, bias = amp.cast_inputs("layer_norm", x, weight, bias)
-    return ops.layer_norm(x.contiguous(), weight, bias, epsilon)
+    if len(axes) == 1 and weight is not None and bias is not None:
+        return ops.layer_norm(x.contiguous(), weight, bias, epsilon)
+    xf = x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+    return _layer_norm_composite(xf, x.dtype, axes, weight, bias, epsilon)
 
 
 def fused_residual_layer_norm(x, residual, normalized_shape, weight=None,
                               bias=None, epsilon=1e-5):
-    """``layer_norm(x + residual)`` over the last dim with ``weight`` and
-    ``bias``, the post-norm sublayer epilogue (norm.py:58-99), through the
-    fused residual layer-norm kernel forward and the layer-norm backward
-    kernel on the saved sum.  The add runs in f32; ``x`` and the residual
-    share a dtype on the card.  It is on the O1 black list, so under
-    ``auto_cast`` it runs in f32.  Other forms (no affine parameters,
-    several axes) are not ported yet."""
-    if isinstance(normalized_shape, int):
-        normalized_shape = (normalized_shape,)
-    if len(tuple(normalized_shape)) != 1 or weight is None or bias is None:
-        raise NotImplementedError(
-            "fused_residual_layer_norm without affine parameters or over "
-            "several axes is not ported yet")
+    """``layer_norm(x + residual)`` over the last dims, the post-norm
+    sublayer epilogue (norm.py:58-99).  With ``weight`` and ``bias`` over
+    the last dim, the fused residual layer-norm kernel forward and the
+    layer-norm backward kernel on the saved sum; otherwise the
+    reference's composite.  The add runs in f32 either way; ``x`` and the
+    residual share a dtype on the card.  It is on the O1 black list, so
+    under ``auto_cast`` it runs in f32."""
+    axes = _norm_axes(x, normalized_shape)
     x, residual, weight, bias = amp.cast_inputs(
         "fused_residual_layer_norm", x, residual, weight, bias)
-    return ops.layer_norm_residual(x.contiguous(), residual.contiguous(),
-                                   weight, bias, epsilon)
+    if len(axes) == 1 and weight is not None and bias is not None:
+        return ops.layer_norm_residual(x.contiguous(), residual.contiguous(),
+                                       weight, bias, epsilon)
+    return _layer_norm_composite(x.float() + residual.float(), x.dtype, axes,
+                                 weight, bias, epsilon)
 
 
 def rms_norm(x, weight=None, epsilon=1e-6):
@@ -179,12 +200,14 @@ def rms_norm(x, weight=None, epsilon=1e-6):
 def silu(x):
     """``x * sigmoid(x)``; the reference leaves it to XLA, the port to
     PyTorch."""
+    (x,) = amp.cast_inputs("silu", x)
     return torch.nn.functional.silu(x)
 
 
 def tanh(x):
     """``tanh(x)``; the reference leaves it to XLA, the port to
     PyTorch."""
+    (x,) = amp.cast_inputs("tanh", x)
     return torch.tanh(x)
 
 
@@ -194,6 +217,7 @@ def dropout(x, p=0.5, training=True, generator=None):
     is drawn from ``generator`` (the model's own), not the global RNG."""
     if not training or p == 0.0:
         return x
+    (x,) = amp.cast_inputs("dropout", x)
     if p == 1.0:
         return torch.zeros_like(x)
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
@@ -296,9 +320,13 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     keep mask drawn from ``generator`` (the model's own; the global
     generator when None).  The reference dispatches that branch as
     ``scaled_dot_product_attention_drop``, which is on neither O1 list,
-    so under ``auto_cast`` its inputs are not cast."""
+    so under ``auto_cast`` at O1 its inputs are not cast (at O2 they go
+    to the AMP dtype, as every op off the black list does)."""
     drop = float(dropout_p) if training else 0.0
     if drop > 0.0:
+        query, key, value, attn_mask = amp.cast_inputs(
+            "scaled_dot_product_attention_drop", query, key, value,
+            attn_mask)
         return _sdpa_composite(query, key, value, is_causal, attn_mask,
                                drop, generator)
     query, key, value = amp.cast_inputs("scaled_dot_product_attention",
@@ -320,25 +348,82 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     return out, None
 
 
+def _cross_entropy_composite(logits, label, weight, ignore_index, reduction,
+                             soft_label, axis, use_softmax, smooth):
+    """The reference's composite (loss.py:74-120): log-softmax in f32 for
+    bf16/f16 logits (or the log of probabilities, ``use_softmax=False``),
+    soft labels (smoothed towards uniform) or hard labels (the smoothed
+    loss mixing in the mean negative log-probability, class weights, the
+    ignore index zeroing a row), and the reduction: ``"mean"`` divides by
+    the number (or the weight sum) of valid labels, at least 1."""
+    if use_softmax:
+        x = logits.float() if logits.dtype in (torch.bfloat16,
+                                               torch.float16) else logits
+        logp = torch.log_softmax(x, dim=axis)
+    else:
+        logp = torch.log(torch.clamp_min(logits, 1e-30))
+    n_classes = logits.shape[axis]
+    valid = None
+    if soft_label:
+        lab = label
+        if smooth > 0:
+            lab = lab * (1 - smooth) + smooth / n_classes
+        loss = -(lab * logp).sum(dim=axis)
+    else:
+        lab = label
+        if lab.dim() == logits.dim() and lab.shape[axis] == 1:
+            lab = lab.squeeze(axis)
+        valid = lab != ignore_index
+        safe = torch.where(valid, lab, 0)
+        loss = -torch.take_along_dim(logp, safe.unsqueeze(axis),
+                                     dim=axis).squeeze(axis)
+        if smooth > 0:
+            loss = (1 - smooth) * loss + smooth * -logp.mean(dim=axis)
+        if weight is not None:
+            loss = loss * weight[safe]
+        loss = torch.where(valid, loss, 0.0)
+    if reduction == "mean":
+        if valid is None:
+            return loss.mean()
+        if weight is not None:
+            denom = torch.where(valid, weight[safe], 0.0).sum()
+        else:
+            denom = valid.sum().to(loss.dtype)
+        return loss.sum() / denom.clamp_min(1.0)
+    if reduction == "sum":
+        return loss.sum()
+    return loss
+
+
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, label_smoothing=0.0):
-    """Hard-label softmax cross-entropy over the last dim through the
-    softmax cross-entropy kernels, as the reference's fused path does
-    (loss.py:57-72): labels equal to ``ignore_index`` are relabelled to
-    -1 (zero loss and gradient), and ``"mean"`` divides the sum by the
-    number of valid labels (at least 1).  Soft labels, class weights,
-    label smoothing and other axes are not ported yet."""
-    if soft_label or weight is not None or label_smoothing != 0.0 \
-            or not use_softmax or axis not in (-1, input.dim() - 1):
-        raise NotImplementedError(
-            "cross_entropy with soft labels, class weights, label "
-            "smoothing, use_softmax=False or another axis is not ported "
-            "yet")
+    """Softmax cross-entropy, routed as the reference routes it
+    (loss.py:38-121): hard labels over the last dim of f32, bf16 or f16
+    logits (at most 128K classes) without class weights or smoothing go
+    through the softmax cross-entropy kernels, as the reference's fused
+    path does (the kernels have no f16 route yet, so f16 logits on the
+    card raise there, as every kernel wrapper does for f16): labels equal to ``ignore_index`` are relabelled to -1 (zero
+    loss and gradient), and ``"mean"`` divides the sum by the number of
+    valid labels (at least 1).  Soft labels, class weights, label
+    smoothing, ``use_softmax=False`` and other axes take the reference's
+    composite."""
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"reduction must be mean, sum or none, got "
                          f"{reduction!r}")
-    (input,) = amp.cast_inputs("cross_entropy", input)
+    input, label, weight = amp.cast_inputs("cross_entropy", input, label,
+                                           weight)
+    axis = int(axis)
+    fused = (not soft_label and weight is None and label_smoothing == 0.0
+             and use_softmax and axis in (-1, input.dim() - 1)
+             and input.shape[-1] <= 128 * 1024
+             and input.dtype in (torch.float32, torch.bfloat16,
+                                 torch.float16))
+    if not fused:
+        return _cross_entropy_composite(
+            input, label, weight, int(ignore_index), reduction,
+            bool(soft_label), axis, bool(use_softmax),
+            float(label_smoothing))
     lab = label
     if lab.dim() == input.dim() and lab.shape[-1] == 1:
         lab = lab.squeeze(-1)

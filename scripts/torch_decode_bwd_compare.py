@@ -31,16 +31,13 @@ line is printed first.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-OUT = ROOT / "build" / "decode_bwd_compare"
-ORDER = ("parent", "change", "change", "parent")
+import compare_common as cc
+
+OUT = cc.ROOT / "build" / "decode_bwd_compare"
 #: the drives compared, with the summary key of their ms a step
 DRIVES = {"phase8": "step_ms", "phase15": "step_ms", "phase24": "step_ms",
           "phase25": "decode_ms_per_step"}
@@ -48,37 +45,16 @@ DRIVES = {"phase8": "step_ms", "phase15": "step_ms", "phase24": "step_ms",
 BUCKETS = ("matmul_epilogue_bwd", "paged_attention", "column_sum")
 
 
-def load_module(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def buckets(summary):
     """The row-7, row-9 and column-sum device ms a step of a drive's
     profile, or None where the profiler saw no device time."""
-    prof = summary.get("profile")
-    if not prof:
-        return None
-    per = prof["device_ms_per_step"]
-    return {b: per.get(b, 0.0) for b in BUCKETS}
+    return cc.buckets(summary, BUCKETS)
 
 
 def worker(root, label, out_path):
     """One process: the kernel times, then the drives."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
-    os.chdir(root)
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cs = load_module("chip_smoke", root / "chip_smoke.py")
-    here = load_module("chip_smoke_here", ROOT / "chip_smoke.py")
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import cuda_lib
-    cuda_lib.library()
+    torch, cs, pt, ops, _ = cc.start_worker(root)
+    here = cc.this_tree()
     for fn in (ops.paged_attention, ops.fused_linear_act_bwd):
         for name in ("vector_launches", "elementwise_launches"):
             if not hasattr(fn, name):    # a checkout without the counters
@@ -140,33 +116,16 @@ def main():
         return
     if len(sys.argv) != 2:
         sys.exit(__doc__)
-    parent = Path(sys.argv[1]).resolve()
-    if not (parent / "chip_smoke.py").exists():
-        sys.exit(f"{parent}: no chip_smoke.py, not a checkout")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "from paddle_tpu_torch.ops import cuda_lib; "
-         "cuda_lib.library()"], cwd=str(d)) for d in (parent, ROOT)]
-    if any(b.wait() for b in builds):
-        sys.exit("a build failed")
-    runs = []
-    for i, label in enumerate(ORDER):
-        path = OUT / f"{i}_{label}.json"
-        root = parent if label == "parent" else ROOT
-        rc = subprocess.run([sys.executable, __file__, "--worker",
-                             str(root), label, str(path)]).returncode
-        if rc:
-            sys.exit(f"the {label} process failed ({rc})")
-        runs.append(json.loads(path.read_text()))
-        print(f"{label}: {summary_line(runs[-1])}", flush=True)
-    sys.path.insert(0, str(ROOT))
+    trees = {"parent": Path(sys.argv[1]).resolve(), "change": cc.ROOT}
+    card, runs = cc.run_order(
+        __file__, trees, cc.ORDER, OUT,
+        after=lambda label, r: print(f"{label}: {summary_line(r)}",
+                                     flush=True))
+    sys.path.insert(0, str(cc.ROOT))
     from paddle_tpu_torch.quantization import greedy_match_ratio
     first = runs[0]
-    out = {"card": card, "order": list(ORDER), "kernels": {}, "drives": {}}
+    out = {"card": card, "order": list(cc.ORDER), "kernels": {},
+           "drives": {}}
     for key in first["kernels"]:
         out["kernels"][key] = {
             "ms": [r["kernels"][key]["ms"] for r in runs],
@@ -194,9 +153,7 @@ def main():
               f"{v['buckets_ms_per_step']}")
     print(f"  phase25 greedy match vs the first parent: "
           f"{out['drives']['phase25']['greedy_match_vs_first_parent']}")
-    text = json.dumps(out)
-    (OUT / "compare.json").write_text(text)
-    print(text)
+    cc.write_out(OUT, out)
 
 
 if __name__ == "__main__":

@@ -54,16 +54,16 @@ from __future__ import annotations
 
 import importlib.util
 import json
-import os
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
+import compare_common as cc
+
+ROOT = cc.ROOT
 OUT = ROOT / "build" / "norm_compare"
-ORDER = ("parent", "change", "change", "parent")
 #: the drives compared, with the summary key of their ms a step
 DRIVES = {"phase11": "step_ms", "phase15": "step_ms",
           "phase16": "ms_per_forward", "phase25": "decode_ms_per_step"}
@@ -77,21 +77,10 @@ ROUTED = ("fused_rms_norm_bwd", "fused_layer_norm_residual")
 ROUNDS, DECODE_STEPS = 4, 32
 
 
-def load_module(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def buckets(summary):
     """The device ms a step of `BUCKETS` in a drive's profile, or None
     where the profiler saw no device time."""
-    prof = summary.get("profile")
-    if not prof:
-        return None
-    per = prof["device_ms_per_step"]
-    return {b: per.get(b, 0.0) for b in BUCKETS}
+    return cc.buckets(summary, BUCKETS)
 
 
 def per_call_us(torch, fn, calls=200, repeats=9):
@@ -180,18 +169,8 @@ def kernel_rows(torch, here, ops, label, gen):
 
 def worker(root, label, out_path, full):
     """One process: the host times, the kernel rows, then the drives."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
-    os.chdir(root)
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cs = load_module("chip_smoke", root / "chip_smoke.py")
-    here = load_module("chip_smoke_here", ROOT / "chip_smoke.py")
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import cuda_lib
-    cuda_lib.library()
+    torch, cs, pt, ops, cuda_lib = cc.start_worker(root)
+    here = cc.this_tree()
     for name in ROUTED:
         fn = getattr(ops, name)
         for attr in ("vector_launches", "scalar_launches"):
@@ -267,7 +246,7 @@ def one_process(out_path, *specs):
     so the ratio of the two is the reading that compares checkouts."""
     import numpy as np
     import torch
-    here = load_module("chip_smoke_here", ROOT / "chip_smoke.py")
+    here = cc.this_tree()
     trees = [spec.split("=", 1) for spec in specs]
     pkgs = {}
     for label, root in trees:
@@ -317,34 +296,15 @@ def main():
     if len(sys.argv) not in (2, 3):
         sys.exit(__doc__)
     trees = {"parent": Path(sys.argv[1]).resolve(), "change": ROOT}
-    order = list(ORDER)
+    order = list(cc.ORDER)
     if len(sys.argv) == 3:
         trees["older"] = Path(sys.argv[2]).resolve()
         order = ["older", *order, "older"]
-    for label, d in trees.items():
-        if not (d / "chip_smoke.py").exists():
-            sys.exit(f"{d}: no chip_smoke.py, not a checkout ({label})")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "from paddle_tpu_torch.ops import cuda_lib; "
-         "cuda_lib.library()"], cwd=str(d)) for d in trees.values()]
-    if any(b.wait() for b in builds):
-        sys.exit("a build failed")
-    runs = []
-    for i, label in enumerate(order):
-        path = OUT / f"{i}_{label}.json"
-        full = "0" if label == "older" else "1"
-        rc = subprocess.run([sys.executable, __file__, "--worker",
-                             str(trees[label]), label, str(path),
-                             full]).returncode
-        if rc:
-            sys.exit(f"the {label} process failed ({rc})")
-        runs.append(json.loads(path.read_text()))
-        print(f"{label}: {summary_line(runs[-1])}", flush=True)
+    card, runs = cc.run_order(
+        __file__, trees, order, OUT,
+        args=lambda label: ("0" if label == "older" else "1",),
+        after=lambda label, r: print(f"{label}: {summary_line(r)}",
+                                     flush=True))
     path = OUT / "one_process.json"
     rc = subprocess.run([sys.executable, __file__, "--one-process",
                          str(path), *(f"{label}={trees[label]}"
@@ -401,9 +361,7 @@ def main():
               f"{r['host_us']['paged_attention']:.1f} us, layer norm "
               f"{r['host_us']['layer_norm']:.1f} us, greedy match "
               f"{r['greedy_match_vs_parent']}")
-    text = json.dumps(out)
-    (OUT / "compare.json").write_text(text)
-    print(text)
+    cc.write_out(OUT, out)
 
 
 if __name__ == "__main__":

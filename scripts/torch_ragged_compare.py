@@ -27,26 +27,16 @@ printed first.
 """
 from __future__ import annotations
 
-import importlib.util
 import json
-import os
-import subprocess
 import sys
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent
-OUT = ROOT / "build" / "ragged_compare"
-ORDER = ("parent", "change", "change", "parent")
+import compare_common as cc
+
+OUT = cc.ROOT / "build" / "ragged_compare"
 #: the drives compared: (phase, summary key of its profile's buckets)
 DRIVES = ("phase4", "phase13", "phase18", "phase22")
 ROUTES = ("mma_launches", "f32_launches", "elementwise_launches")
-
-
-def load_module(name, path):
-    spec = importlib.util.spec_from_file_location(name, path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def ragged_ms(summary):
@@ -62,18 +52,8 @@ def ragged_ms(summary):
 
 def worker(root, label, out_path):
     """One process: the kernel times, then the four drives."""
-    root = Path(root).resolve()
-    sys.path.insert(0, str(root))
-    os.chdir(root)
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cs = load_module("chip_smoke", root / "chip_smoke.py")
-    here = load_module("chip_smoke_here", ROOT / "chip_smoke.py")
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch import ops
-    from paddle_tpu_torch.ops import cuda_lib
-    cuda_lib.library()
+    torch, cs, pt, ops, _ = cc.start_worker(root)
+    here = cc.this_tree()
     for fn in (ops.ragged_paged_attention, ops.ragged_paged_attention_int8):
         for name in ROUTES:     # a checkout without route counters
             if not hasattr(fn, name):
@@ -123,33 +103,16 @@ def main():
         return
     if len(sys.argv) != 2:
         sys.exit(__doc__)
-    parent = Path(sys.argv[1]).resolve()
-    if not (parent / "chip_smoke.py").exists():
-        sys.exit(f"{parent}: no chip_smoke.py, not a checkout")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    print(card, flush=True)
-    OUT.mkdir(parents=True, exist_ok=True)
-    builds = [subprocess.Popen(
-        [sys.executable, "-c", "from paddle_tpu_torch.ops import cuda_lib; "
-         "cuda_lib.library()"], cwd=str(d)) for d in (parent, ROOT)]
-    if any(b.wait() for b in builds):
-        sys.exit("a build failed")
-    runs = []
-    for i, label in enumerate(ORDER):
-        path = OUT / f"{i}_{label}.json"
-        root = parent if label == "parent" else ROOT
-        rc = subprocess.run([sys.executable, __file__, "--worker",
-                             str(root), label, str(path)]).returncode
-        if rc:
-            sys.exit(f"the {label} process failed ({rc})")
-        runs.append(json.loads(path.read_text()))
-        print(f"{label}: {summary_line(runs[-1])}", flush=True)
-    sys.path.insert(0, str(ROOT))
+    trees = {"parent": Path(sys.argv[1]).resolve(), "change": cc.ROOT}
+    card, runs = cc.run_order(
+        __file__, trees, cc.ORDER, OUT,
+        after=lambda label, r: print(f"{label}: {summary_line(r)}",
+                                     flush=True))
+    sys.path.insert(0, str(cc.ROOT))
     from paddle_tpu_torch.quantization import greedy_match_ratio
     first = runs[0]
-    out = {"card": card, "order": list(ORDER), "kernels": {}, "drives": {}}
+    out = {"card": card, "order": list(cc.ORDER), "kernels": {},
+           "drives": {}}
     for key in first["kernels"]:
         out["kernels"][key] = {
             "ms": [r["kernels"][key]["ms"] for r in runs],
@@ -173,9 +136,7 @@ def main():
         print(f"  {d}: ms/step {v['ms_per_step']}, ragged ms a step "
               f"{v['ragged_ms_per_step']}, greedy match "
               f"{v['greedy_match_vs_first_parent']}")
-    text = json.dumps(out)
-    (OUT / "compare.json").write_text(text)
-    print(text)
+    cc.write_out(OUT, out)
 
 
 if __name__ == "__main__":

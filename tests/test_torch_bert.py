@@ -153,9 +153,15 @@ def test_functional_fused_residual_layer_norm_matches_reference(dtype):
     assert torch.equal(fused, F.fused_residual_layer_norm(
         torch.from_numpy(x), torch.from_numpy(r), 96, layer.weight,
         layer.bias, 1e-12))
-    with pytest.raises(NotImplementedError):
-        F.fused_residual_layer_norm(torch.from_numpy(x), torch.from_numpy(r),
-                                    96)
+    # without affine parameters: the reference's composite
+    want = paddle.nn.functional.fused_residual_layer_norm(
+        *(paddle.to_tensor(a).astype(dtype) for a in (x, r)), 96,
+        epsilon=1e-12)
+    got = F.fused_residual_layer_norm(
+        *(torch.from_numpy(a).to(_TORCH[dtype]) for a in (x, r)), 96,
+        epsilon=1e-12)
+    assert got.dtype == _TORCH[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
 
 
 def test_functional_fused_residual_layer_norm_runs_in_f32_under_o1():

@@ -191,11 +191,17 @@ def test_amp_o1_casts_by_the_reference_lists():
                               custom_black_list=["linear"]):
             assert pt.nn.functional.linear(x, w).dtype == torch.float32
     assert pt.nn.functional.linear(x, w).dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        with pt.amp.auto_cast(level="O2"):
-            pass
-    with pytest.raises(NotImplementedError):
-        pt.amp.decorate(None, level="O2")
+    # O2: every op off the black list casts to the AMP dtype
+    with pt.amp.auto_cast(dtype="bfloat16", level="O2"):
+        assert pt.nn.functional.embedding(
+            torch.tensor([1]), w).dtype == torch.bfloat16
+        assert pt.nn.functional.silu(x).dtype == torch.bfloat16
+        assert pt.nn.functional.layer_norm(
+            x.bfloat16(), 4, torch.ones(4), torch.zeros(4)).dtype \
+            == torch.float32
+    layer = pt.nn.Linear(4, 5, device="cpu")
+    assert pt.amp.decorate(layer, level="O2", dtype="bfloat16") is layer
+    assert layer.weight.dtype == layer.bias.dtype == torch.bfloat16
 
 
 def test_dropout_draws_from_the_models_generator():
@@ -233,16 +239,22 @@ def test_clip_by_global_norm_is_paddles_rule():
 
 
 def test_training_options_not_ported_raise():
+    """What the training path still refuses: ``use_scan_layers``,
+    ``minimize`` on a static graph and the operator-stats functions of
+    ``amp.debugging`` (the dispatch registry is not ported)."""
     _, port = _pair()
-    with pytest.raises(NotImplementedError):
-        pt.optimizer.AdamW(learning_rate=lambda: 1e-3,
-                           parameters=port.parameters())
-    with pytest.raises(NotImplementedError):
-        pt.optimizer.SGD(parameters=[{"params": list(port.parameters())}])
-    with pytest.raises(NotImplementedError):
-        pt.nn.functional.cross_entropy(torch.zeros(2, 3),
-                                       torch.zeros(2, 3), soft_label=True)
-    with pytest.raises(NotImplementedError):
+    opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=port.parameters())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        opt.minimize(torch.zeros(()), startup_program=object())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        opt.minimize("loss_var")
+    for fn in (pt.amp.debugging.enable_operator_stats_collection,
+               pt.amp.debugging.disable_operator_stats_collection,
+               pt.amp.debugging.collect_operator_stats):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            fn()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
         pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_scan_layers=True)),
                           device="cpu")
     pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_recompute=True)),
