@@ -86,7 +86,9 @@ phase fails.  Phases:
    decode shape (4 sequences at contexts 129-192 and one at 0, 16 heads
    of 128, pages of 16) and at a long decode (4 sequences of 4096 keys),
    each run twice and held bit-identical on the vector route (no library
-   call);
+   call); the softmax cross-entropy rows (8a, 8b) also at the vision
+   drives' logits (`XENT_VISION_CASES`: LeNet's [64, 10], ResNet-50's
+   [32, 1000] and [256, 1000]), beside ``F.cross_entropy``;
 3. parity: GPT at full width (hidden 2048, 16 heads, vocab 50304) cut to
    2 layers, f32, weights from a numpy seed, served by the engine on the
    card and on the CPU (plain versions): 4 requests sharing a prefix,
@@ -276,13 +278,33 @@ phase fails.  Phases:
     flash + recompute: 3 AdamW steps on the card and on the CPU held to
     ``BF16_PARITY_TOL`` against a control with fc1's bias dropped, as
     phase 26.
+30. vision parity: LeNet (B=8, 1 x 28 x 28, 3 Adam steps) and ResNet-50
+    (10 classes, B=4, 3 x 64 x 64, batch norm in training mode, 3
+    Momentum steps), f32, from the CPU model's initial state and one
+    numpy batch, on the CPU and then on the card: losses, step-1
+    gradients, parameters and the batch norms' running statistics after
+    3 steps within ``PARITY_TOL``, the card's relus taking the CPU's
+    derivative at inputs within ``KINK_BAND`` of 0 (`ReluKinks`);
+31. LeNet training: bench.py's ``bench_lenet`` recipe (B=64, 1 x 28 x 28,
+    f32, ``Adam(1e-3)``, 2 warm-up steps, then 10 timed steps, each
+    synchronised): imgs/s, ms/step, MFU against the f32 peak, peak
+    memory, launches per step, one profiled step, the loss falling;
+32. ResNet-50 training: bench.py's ``bench_resnet50`` recipe (224 x 224,
+    1000 classes, ``auto_cast(bf16, O1)``, ``Momentum(0.1, 0.9)``, 2
+    warm-up steps, then 5 timed steps) at B=32 (BASELINE's) and B=256:
+    imgs/s, ms/step, MFU (3 x the forward's flops, counted from the
+    model's convolution and Linear shapes, against 989 TFLOP/s), peak
+    memory, launches per step, one profiled step split by
+    ``VISION_PROFILE_GROUPS``, finite losses with the last below the
+    first.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
 training, generate, the three LLaMA, the int8 serving, the two BERT, the
 ERNIE, the four MoE, the four LoRA, the paged decode, the bf16 parity,
 the optimizer, the O2 training and the O2 parity summaries, the grouped
-f32 repetitions, the wgmma self-check and the kernels' resources) and
+f32 repetitions, the vision parity, LeNet and ResNet-50 training
+summaries, the wgmma self-check and the kernels' resources) and
 the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -908,19 +930,33 @@ def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen, n=FFN):
         bound_ms=bms, bound_by=by)
 
 
-def _xent_inputs(rows, dtype, gen):
+def _xent_inputs(rows, dtype, gen, vocab=VOCAB):
     import torch
-    x = (2 * torch.randn(rows, VOCAB, device="cuda",
+    x = (2 * torch.randn(rows, vocab, device="cuda",
                          generator=gen)).to(dtype)
-    labels = torch.randint(0, VOCAB, (rows,), device="cuda", generator=gen)
+    labels = torch.randint(0, vocab, (rows,), device="cuda", generator=gen)
     labels[::97] = -1                     # a few ignored rows
     return x, labels
 
 
-def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen):
-    """The training drive's loss: logits [4092, 50304]."""
+#: ResNet-50's batches on the card (phase 32): BASELINE's 32, and 256,
+#: the per-card batch of the usual ImageNet mixed-precision recipes
+RESNET50_BATCHES = (32, 256)
+
+#: the vision drives' logits (rows, classes): LeNet's B=64 over 10
+#: classes (phase 31, f32), ResNet-50's two batches over 1000 (phase 32:
+#: O1 black-lists cross_entropy, so the bf16 logits reach the kernels as
+#: f32)
+XENT_VISION_CASES = {"lenet": (64, 10),
+                     "resnet50": (RESNET50_BATCHES[0], 1000),
+                     "resnet50_large": (RESNET50_BATCHES[-1], 1000)}
+
+
+def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen, vocab=VOCAB):
+    """The training drive's loss: logits [4092, 50304], or [rows,
+    vocab]."""
     import torch
-    x, labels = _xent_inputs(rows, dtype, gen)
+    x, labels = _xent_inputs(rows, dtype, gen, vocab)
     loss, lse = ops.softmax_xent_fwd(x, labels)
     loss_r, lse_r = ops.softmax_xent_fwd_ref(x, labels)
     torch.cuda.synchronize()
@@ -928,11 +964,11 @@ def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen):
     err, rel, ok = compare(loss, loss_r, "float32")
     lse_err, _, lse_ok = compare(lse, lse_r, "float32")
     isz = x.element_size()
-    nbytes = rows * VOCAB * isz + rows * 8 + 2 * rows * 4
-    bms, by = bound(nbytes, 4 * rows * VOCAB, dtype_name)
+    nbytes = rows * vocab * isz + rows * 8 + 2 * rows * 4
+    bms, by = bound(nbytes, 4 * rows * vocab, dtype_name)
     return dict(
         err=max(err, lse_err), rel=rel, ok=ok and lse_ok,
-        shape=f"logits[{rows},{VOCAB}]",
+        shape=f"logits[{rows},{vocab}]",
         note=f"loss max abs err {err:.3e}, lse {lse_err:.3e}",
         ms=time_ms(lambda: ops.softmax_xent_fwd(x, labels)),
         plain_ms=time_ms(lambda: ops.softmax_xent_fwd_ref(x, labels)),
@@ -941,11 +977,11 @@ def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen):
         bound_ms=bms, bound_by=by)
 
 
-def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen):
-    """The training drive's loss gradient: logits [4092, 50304], g the
-    mean's 1/valid-count per row."""
+def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen, vocab=VOCAB):
+    """The training drive's loss gradient: logits [4092, 50304] (or
+    [rows, vocab]), g the mean's 1/valid-count per row."""
     import torch
-    x, labels = _xent_inputs(rows, dtype, gen)
+    x, labels = _xent_inputs(rows, dtype, gen, vocab)
     _, lse = ops.softmax_xent_fwd_ref(x, labels)
     g = torch.full((rows,), 1.0 / rows, device="cuda")
     dx = ops.softmax_xent_bwd(x, labels, lse, g)
@@ -955,10 +991,10 @@ def check_softmax_xent_bwd(ops, rows, dtype, dtype_name, gen):
     atol, rtol = TOL[dtype_name]
     err, rel, ok = compare(dx, dx_r, dtype_name, atol / rows, rtol)
     isz = x.element_size()
-    nbytes = 2 * rows * VOCAB * isz + rows * (8 + 4 + 4)
-    bms, by = bound(nbytes, 4 * rows * VOCAB, dtype_name)
+    nbytes = 2 * rows * vocab * isz + rows * (8 + 4 + 4)
+    bms, by = bound(nbytes, 4 * rows * vocab, dtype_name)
     return dict(
-        err=err, rel=rel, ok=ok, shape=f"logits[{rows},{VOCAB}]",
+        err=err, rel=rel, ok=ok, shape=f"logits[{rows},{vocab}]",
         note=(f"tolerance {atol / rows:.3e} + {rtol:g}*|plain|; no single "
               f"PyTorch call computes this backward alone"),
         ms=time_ms(lambda: ops.softmax_xent_bwd(x, labels, lse, g)),
@@ -2061,13 +2097,15 @@ KERNEL_INFO = {
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
-        lora_train=(0, 1)),
+        lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
+        resnet50_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
-        lora_train=(0, 1)),
+        lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
+        resnet50_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
@@ -2131,8 +2169,9 @@ def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve",
     "serve_int8", "serve_moe", "serve_lora", "train", "train_flash",
     "llama_train", "bert_train", "bert_parity", "moe_train", "lora_train",
-    "paged_decode", or "generate", "llama_gen" and "ernie_eval", whose step
-    is one forward)."""
+    "paged_decode", "vision_parity", "lenet_train", "resnet50_train", or
+    "generate", "llama_gen" and "ernie_eval", whose step is one
+    forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
             if drive in info else 0 for name, info in KERNEL_INFO.items()}
 
@@ -2268,6 +2307,7 @@ def phase_kernels(ops, budgets):
     gen_ln = torch.Generator(device="cuda").manual_seed(SEED + 12)
     gen_rg = torch.Generator(device="cuda").manual_seed(SEED + 14)
     gen_pg = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    gen_xv = torch.Generator(device="cuda").manual_seed(SEED + 30)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
                               (torch.float32, "float32")):
         block_q = ops.ragged_q_block(dtype)
@@ -2292,6 +2332,13 @@ def phase_kernels(ops, budgets):
             report(name, dtype_name, r)
             results[(name, dtype_name, "train")] = r
             torch.cuda.empty_cache()
+        for case, (rows, vocab) in XENT_VISION_CASES.items():
+            for name, check in (("softmax_xent_fwd", check_softmax_xent_fwd),
+                                ("softmax_xent_bwd",
+                                 check_softmax_xent_bwd)):
+                r = check(ops, rows, dtype, dtype_name, gen_xv, vocab)
+                report(name, dtype_name, r)
+                results[(name, dtype_name, case)] = r
         for case, (rows, n) in LN_CASES.items():
             for name, check in (("layer_norm", check_layer_norm),
                                 ("layer_norm_bwd", check_layer_norm_bwd)):
@@ -2845,13 +2892,14 @@ def profile_device(fn):
     return prof, wall_ms
 
 
-def split_profile(prof_wall, steps, what):
-    """Device time by kernel group and the device's idle share over a
-    profiled window of ``steps`` steps.  The profiler's own overhead
-    inflates the wall time, so the idle share is an upper bound."""
+def split_profile(prof_wall, steps, what, kernel_groups=_PROFILE_GROUPS):
+    """Device time by kernel group (``kernel_groups``) and the device's
+    idle share over a profiled window of ``steps`` steps.  The profiler's
+    own overhead inflates the wall time, so the idle share is an upper
+    bound."""
     from torch.autograd import DeviceType
     prof, wall_ms = prof_wall
-    groups = {name: 0.0 for name, _ in _PROFILE_GROUPS}
+    groups = {name: 0.0 for name, _ in kernel_groups}
     groups["other"] = 0.0
     others = []
     for evt in prof.key_averages():
@@ -2861,7 +2909,7 @@ def split_profile(prof_wall, steps, what):
         if us is None:
             us = evt.self_cuda_time_total
         name = evt.key
-        for group, keys in _PROFILE_GROUPS:
+        for group, keys in kernel_groups:
             if any(k in name for k in ((keys,) if isinstance(keys, str)
                                        else keys)):
                 groups[group] += us / 1e3
@@ -3015,6 +3063,16 @@ def train_parity(pt, ops, phase, make_model, loss_of, vocab, layers, drive,
     return out
 
 
+def excess(got, want):
+    """The largest ``|got - want| - rtol |want|`` over the tensors (0 at
+    least), with `PARITY_TOL`'s parameter rtol, and where it is ("-"
+    where nothing exceeds 0)."""
+    rtol = PARITY_TOL["param"][1]
+    return max([(0.0, "-")] + [
+        (float(((got[n] - w).abs() - rtol * w.abs()).max()), n)
+        for n, w in want.items()])
+
+
 def hold_parity(phase, params, runs, sign_free=False, frozen=None,
                 quiet=False, step_bound=PARITY_LR):
     """`train_parity`'s gates on its two runs (``runs["cuda"]`` and
@@ -3046,21 +3104,16 @@ def hold_parity(phase, params, runs, sign_free=False, frozen=None,
         (float((g_gpu[n] - g_cpu[n]).abs().max())
          / max(float(g_cpu[n].abs().max()), 1e-30), n) for n in g_cpu)
     atol, rtol = PARITY_TOL["param"]
-    worst, worst_at = 0.0, ""
-    for n in p_cpu:
-        d = (p_gpu[n] - p_cpu[n]).abs()
-        excess = float((d - rtol * p_cpu[n].abs()).max())
-        if excess > worst:
-            worst, worst_at = excess, n
+    worst, worst_at = excess(p_gpu, p_cpu)
     if quiet:
         say(f"  {phase}: loss {loss_err:.2e}, grad {grad_err:.2e}, param "
-            f"excess {worst:.2e} at {worst_at or '-'}{key_note}")
+            f"excess {worst:.2e} at {worst_at}{key_note}")
     else:
         say(f"  loss max rel err {loss_err:.3e} (tolerance "
             f"{PARITY_TOL['loss']:g}); step-1 grads max err / max |grad| "
             f"{grad_err:.3e} at {grad_at} (tolerance "
             f"{PARITY_TOL['grad']:g}); params after {len(l_cpu)} steps max "
-            f"(|err| - {rtol:g}*|p|) {worst:.3e} at {worst_at or '-'} "
+            f"(|err| - {rtol:g}*|p|) {worst:.3e} at {worst_at} "
             f"(tolerance {atol:g}){key_note}")
     if loss_err > PARITY_TOL["loss"]:
         fail(f"{phase}: losses {l_gpu} on CUDA vs {l_cpu} on CPU")
@@ -4751,6 +4804,440 @@ def phase_o2_parity(pt, ops):
                 control=ctl, tolerance=BF16_PARITY_TOL, lr=O2_PARITY_LR)
 
 
+# ---------------------------------------------------------------------
+# phases 30-32: vision
+# ---------------------------------------------------------------------
+#: relu's derivative steps from 0 to 1 at 0.  Where a relu input lies
+#: within rounding of 0, the two runs' rounding decides the side it falls
+#: on, and one input on the other side moves its channel's gradients by
+#: its whole upstream value: a ResNet-18's port and reference part by
+#: 7.5e-6 at one layer2.0.bn1 input in the CPU tests, which moves that
+#: layer's bias gradient by 3% of its largest.  By ResNet-50's layer4, f32
+#: activations part from f64 by ~1e-4 of their largest (PERF.md §6, PR
+#: 18), ~1e-3 absolute.  The parity runs therefore give the card's relus
+#: the reference run's derivative at the inputs within this band of 0
+#: (`ReluKinks`); the values stay the card's own.
+KINK_BAND = 1e-3
+
+
+class ReluKinks:
+    """The derivatives one run's relus took at their inputs within
+    `KINK_BAND` of 0, recorded call by call, and given to other runs'
+    relus at the same calls (`attach`; `rewind` before each other run)."""
+
+    def __init__(self, band=KINK_BAND):
+        self.band, self.sides, self.calls, self.held = band, [], 0, 0
+
+    def rewind(self):
+        self.calls = 0
+
+    def record(self, v):
+        """One relu call's input: the flat indices within the band and the
+        derivative there (1 above 0, the reference's 0.5 at 0, 0 below)."""
+        v = v.detach().double().reshape(-1).cpu()
+        idx = (v.abs() <= self.band).nonzero().reshape(-1)
+        near = v[idx]
+        self.sides.append((idx, (near > 0).float() + 0.5 * (near == 0).float()))
+
+    def hold(self, x, out):
+        """``out``, the relu of ``x`` at the next recorded call, with the
+        recorded derivative at the recorded indices; its values stay."""
+        idx, side = self.sides[self.calls]
+        self.calls += 1
+        if idx.numel() == 0:
+            return out
+        self.held += idx.numel()
+        idx = idx.to(x.device)
+        xs = x.reshape(-1)[idx] * side.to(x.device, x.dtype)
+        flat = out.reshape(-1)
+        return flat.index_put((idx,), flat[idx].detach()
+                              + (xs - xs.detach())).reshape(out.shape)
+
+    def attach(self, model, relu_cls, record):
+        """Forward hooks on ``model``'s ``relu_cls`` layers that record
+        (``record``) or hold each call; returns their handles."""
+        if record:
+            def hook(module, inputs, out):
+                self.record(inputs[0])
+        else:
+            def hook(module, inputs, out):
+                return self.hold(inputs[0], out)
+        return [m.register_forward_hook(hook) for m in model.modules()
+                if isinstance(m, relu_cls)]
+
+
+#: Momentum's learning rate in the parity runs.  At the recipe's 0.1 a
+#: random ResNet-18's loss on 4 images goes 2.0, 3.9, 11.2 over 3 steps
+#: (the CPU tests): the parity would measure how that blow-up carries
+#: rounding, not the port; at 0.01 it falls to 0.002, where the loss
+#: gate's 1e-5 relative is rounding.  At 1e-3 each parameter still moves
+#: by ~5e-3 of its gradient in 3 steps, 50 times the parameter gate.
+#: Adam runs at `PARITY_LR`.
+VISION_MOMENTUM_LR = 1e-3
+
+#: the parity phase's models: (input shape, classes, optimizer).  LeNet at
+#: B=8; ResNet-50 at B=4 on 64 x 64, which leaves layer4 2 x 2 x 4 = 16
+#: values a channel for its batch norms (at 32 x 32 and B=2 it would have
+#: 2, and the norm's output would be nearly a sign function)
+VISION_PARITY = {"lenet": ((8, 1, 28, 28), 10, "adam"),
+                 "resnet50": ((4, 3, 64, 64), 10, "momentum")}
+
+#: ResNet-50's training-mode batch norms carry f32 rounding so far that
+#: no two f32 runs of its parity meet `PARITY_TOL`: on the CPU, f32 parts
+#: from f64 by 2.1e-4 of a step-1 gradient's largest (relu kinks held at
+#: 1e-3; 5.6e-2 held at 1e-4) and, over 3 Momentum steps, by 20% in the
+#: third loss (B=4; 8.3e-4 at B=16 and lr 1e-4: PERF.md §6, PR 18).  Its
+#: parity therefore runs in f64, card against CPU, 3 steps under
+#: `PARITY_TOL`; and its f32 run on the card (the cuDNN f32 convolutions,
+#: rows 8a/8b) takes one step, held against the CPU's f64 step (logits,
+#: gradients, buffers) within the larger of `PARITY_TOL` and this multiple
+#: of the CPU's own f32 step's distance from it.
+F32_FLOOR_FACTOR = 4.0
+
+
+def vision_parity_run(pt, ops, make_model, params, x, y, make_opt, device,
+                      kinks, record, dtype, steps=3, track_small=False):
+    """`train_parity_run` of ``make_model(device)`` in ``dtype`` with the
+    cross-entropy of its logits as the loss, its relus recording their
+    kinks into ``kinks`` or (``record`` false) holding them; returns its
+    readings and ``dict(logits=`` the first step's, ``buffers=`` those
+    after each step``)`` in f64 on the CPU."""
+    import torch
+    seen = dict(logits=None, buffers=[])
+
+    def make(dev):
+        model = make_model(dev).to(dtype)
+        kinks.rewind()
+        kinks.attach(model, pt.nn.ReLU, record)
+        return model
+
+    def loss_of(model, xs, ys):
+        logits = model(xs.to(dtype))
+        if seen["logits"] is None:
+            seen["logits"] = logits.detach().double().cpu()
+        seen["buffers"].append({n: b.detach().double().cpu()
+                                for n, b in model.named_buffers()})
+        return pt.nn.functional.cross_entropy(logits, ys)
+    return train_parity_run(pt, ops, make, loss_of, params, x, y, device,
+                            steps=steps, track_small=track_small,
+                            make_opt=make_opt), seen
+
+
+def step1_readings(run, ref):
+    """The first step of ``run`` against ``ref`` (`vision_parity_run`
+    results): the logits' largest error against their largest magnitude
+    (the loss, one number, can land near its f64 value by chance: the
+    CPU's f32 loss sat 7e-8 from it, the card's 1.3e-5, with both runs'
+    logits ~8e-5 away), the gradients' largest error against each
+    tensor's largest magnitude, the buffers' excess after the step; each
+    with where it is."""
+    (_, g_x, *_), e_x = run
+    (_, g_r, *_), e_r = ref
+    lg = e_r["logits"]
+    return dict(
+        logits=(float((e_x["logits"] - lg).abs().max() / lg.abs().max()),
+                "step-1 logits"),
+        grad=max((float((g_x[n] - g).abs().max())
+                  / max(float(g.abs().max()), 1e-30), n)
+                 for n, g in g_r.items()),
+        buffer=excess(e_x["buffers"][0], e_r["buffers"][0]))
+
+
+def hold_f32_floor(phase, card, cpu32, cpu64):
+    """The card's f32 step against the CPU's f64 step, each reading of
+    `step1_readings` within the larger of its `PARITY_TOL` and
+    `F32_FLOOR_FACTOR` times the CPU's f32 step's reading against f64."""
+    tol = dict(logits=PARITY_TOL["grad"], grad=PARITY_TOL["grad"],
+               buffer=PARITY_TOL["param"][0])
+    got, floor = step1_readings(card, cpu64), step1_readings(cpu32, cpu64)
+    direct = step1_readings(card, cpu32)
+    out = {}
+    for key, limit in tol.items():
+        gate = max(limit, F32_FLOOR_FACTOR * floor[key][0])
+        say(f"  f32 step 1, {key}: card vs CPU f64 {got[key][0]:.3e} at "
+            f"{got[key][1]}; CPU f32 vs f64 {floor[key][0]:.3e} at "
+            f"{floor[key][1]}; gate {gate:.3e} (PARITY_TOL {limit:g}); "
+            f"card vs CPU f32 {direct[key][0]:.3e} at {direct[key][1]}")
+        if got[key][0] > gate:
+            fail(f"{phase}: f32 step-1 {key} of the card {got[key][0]:.3e} "
+                 f"from the CPU's f64 step, past {gate:.3e}")
+        out[key] = dict(card_vs_f64=got[key][0], cpu32_vs_f64=floor[key][0],
+                        card_vs_cpu32=direct[key][0], gate=gate,
+                        parity_tol=limit, at=got[key][1])
+    return out
+
+
+def vision_parity(pt, ops, phase, make_model, shape, classes, opt_name):
+    """3 steps of ``make_model`` on the CPU, then on the card, from the
+    CPU model's own initial state (its generator seeded with 0) and one
+    numpy batch: losses, step-1 gradients, final parameters and the batch
+    norms' final running statistics held to `PARITY_TOL`, the card's relus
+    at the CPU's kinks (`ReluKinks`).  LeNet (Adam, Adam's sign-free
+    elements by `hold_sign_free`) runs in f32; ResNet-50 (Momentum) in
+    f64, then one f32 step on the CPU and on the card held by
+    `hold_f32_floor` (`F32_FLOOR_FACTOR` says why)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 30)
+    x = rng.standard_normal(shape).astype(np.float32)
+    y = rng.integers(0, classes, shape[0])
+    params = {k: v.numpy() for k, v in
+              make_model("cpu").state_dict().items()}
+    if opt_name == "adam":
+        def make_opt(m):
+            return pt.optimizer.Adam(learning_rate=PARITY_LR,
+                                     parameters=m.parameters())
+    else:
+        def make_opt(m):
+            return pt.optimizer.Momentum(learning_rate=VISION_MOMENTUM_LR,
+                                         momentum=0.9,
+                                         parameters=m.parameters())
+    dtype = torch.float64 if opt_name == "momentum" else torch.float32
+    legs = [("cpu", "cpu", True, dtype, 3), ("cuda", "cuda", False, dtype, 3)]
+    if dtype == torch.float64:
+        legs += [("cpu32", "cpu", False, torch.float32, 1),
+                 ("cuda32", "cuda", False, torch.float32, 1)]
+    kinks = ReluKinks()
+    runs, counts = {}, None
+    for key, device, record, dt, steps in legs:
+        held = kinks.held
+        runs[key] = vision_parity_run(
+            pt, ops, make_model, params, x, y, make_opt, device, kinks,
+            record, dt, steps, track_small=record and opt_name == "adam")
+        say(f"  ({key}: {str(dt)[6:]}) " + (
+            "its relus recorded" if record else
+            f"{kinks.held - held} relu inputs within {KINK_BAND:g} of 0 took "
+            f"the CPU {str(dtype)[6:]} run's derivative"))
+        if key.startswith("cuda") and dt == torch.float32:
+            counts, launch_steps = runs[key][0][3], steps
+        torch.cuda.empty_cache()
+    out = hold_parity(phase, params, {k: runs[k][0] for k in ("cuda", "cpu")},
+                      sign_free=opt_name == "adam")
+    buf = excess(runs["cuda"][1]["buffers"][-1],
+                 runs["cpu"][1]["buffers"][-1])
+    say(f"  buffers after 3 steps max (|err| - "
+        f"{PARITY_TOL['param'][1]:g}*|b|) {buf[0]:.3e} at {buf[1]} "
+        f"(tolerance {PARITY_TOL['param'][0]:g})")
+    if buf[0] > PARITY_TOL["param"][0]:
+        fail(f"{phase}: buffer {buf[1]} differs after 3 steps by "
+             f"{buf[0]:.3e}")
+    out.update(buffer_max_excess=buf[0], dtype=str(dtype)[6:])
+    if dtype == torch.float64:
+        out["f32_step1"] = hold_f32_floor(phase, runs["cuda32"],
+                                          runs["cpu32"], runs["cpu"])
+    check_counts(phase, ops, counts, launch_steps, 0, "vision_parity")
+    out.update(relu_inputs_held=kinks.held, batch=list(shape),
+               optimizer=opt_name,
+               losses={k: r[0][0] for k, r in runs.items()})
+    return out
+
+
+def phase_vision_parity(pt, ops):
+    """Phase 30: LeNet (B=8, 3 Adam steps) and ResNet-50 (10 classes, B=4,
+    3 x 64 x 64, 3 Momentum steps), f32, batch norm in training mode."""
+    models = pt.vision.models
+    make = {"lenet": lambda device: models.LeNet(device=device),
+            "resnet50": lambda device: models.resnet50(num_classes=10,
+                                                       device=device)}
+    out = {}
+    for name, (shape, classes, opt_name) in VISION_PARITY.items():
+        say(f"  {name}: input {list(shape)}, {classes} classes, {opt_name}")
+        out[name] = vision_parity(pt, ops, f"{name} parity", make[name],
+                                  shape, classes, opt_name)
+        free_device_memory()
+    return out
+
+
+#: device-time groups of the vision drives' profiles, by kernel-name
+#: substring (first match wins): the cross-entropy rows, cuDNN's
+#: convolutions by pass (its kernels name fprop, dgrad and wgrad), the
+#: layout transforms cuDNN runs around them, batch norm (cuDNN's and
+#: ATen's), pooling, the optimizer's multi-tensor updates, GEMMs (the
+#: Linear layers), and elementwise ops and casts
+VISION_PROFILE_GROUPS = (
+    ("softmax_xent_fwd", "xent_fwd_kernel"),
+    ("softmax_xent_bwd", "xent_bwd_kernel"),
+    ("conv_wgrad", ("wgrad", "Wgrad")),
+    ("conv_dgrad", ("dgrad", "Dgrad")),
+    ("conv_fprop", ("fprop", "Fprop", "implicit_convolve", "conv2d",
+                    "convolve")),
+    ("layout_transform", ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc",
+                          "nhwc_to_nchw")),
+    ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
+    ("pooling", ("pool", "Pool")),
+    ("optimizer_foreach", "multi_tensor_apply"),
+    ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+    ("elementwise_and_casts", ("elementwise", "copy", "Copy", "fill",
+                               "reduce", "Reduce")))
+
+VISION_WARMUP = 2
+LENET_B, LENET_STEPS = 64, 10
+RESNET50_HW, RESNET50_STEPS = 224, 5
+
+
+def forward_flops(pt, model, x):
+    """2 x the multiply-adds of every ``Conv2D`` and ``Linear`` in one
+    forward of ``x``, from the shapes the layers see (eval mode, no
+    gradient, so the batch norms' buffers stay)."""
+    import math
+    import torch
+    total = [0]
+
+    def conv(m, inputs, out):
+        total[0] += 2 * out.numel() * math.prod(m.weight.shape[1:])
+
+    def linear(m, inputs, out):
+        total[0] += 2 * out.numel() * m.weight.shape[0]    # [in, out]
+    hooks = [m.register_forward_hook(conv if isinstance(m, pt.nn.Conv2D)
+                                     else linear)
+             for m in model.modules()
+             if isinstance(m, (pt.nn.Conv2D, pt.nn.Linear))]
+    model.eval()
+    with torch.no_grad():
+        model(x)
+    model.train()
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def drive_vision(ops, step, B, steps, phase, drive, flops_per_img, peak):
+    """`VISION_WARMUP` untimed calls of ``step`` (one training step that
+    returns its loss), then ``steps`` timed ones, each synchronised by
+    reading its loss, as bench.py does: imgs/s, ms/step, MFU (3 x the
+    forward's ``flops_per_img`` a trained image against ``peak``), peak
+    memory; the losses must be finite and fall; each kernel's launches
+    must equal ``drive``'s per step; one profiled step splits device time
+    by `VISION_PROFILE_GROUPS`.  Returns (launch counts, summary)."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    losses = [float(step()) for _ in range(VISION_WARMUP)]
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    losses += [float(step()) for _ in range(steps)]
+    elapsed = time.perf_counter() - t0
+    counts = launches(ops)
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = elapsed / steps * 1e3
+    imgs_per_s = B * steps / elapsed
+    mfu = 3 * flops_per_img * imgs_per_s / peak
+    say(f"  B={B}: warm-up {VISION_WARMUP} steps {warm_s:.2f} s; {steps} "
+        f"steps in {elapsed:.3f} s: {step_ms:.2f} ms/step, "
+        f"{imgs_per_s:.1f} imgs/s, forward {flops_per_img / 1e9:.4f} "
+        f"GFLOP an image, MFU {mfu:.4f} (3 x forward vs {peak:.3g} "
+        f"flop/s), peak memory {peak_gib:.2f} GiB; losses {losses}")
+    if not all(np.isfinite(losses)):
+        fail(f"{phase}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{phase}: the loss did not fall on a repeated batch: "
+             f"{losses}")
+    check_counts(phase, ops, counts, steps, 0, drive)
+    summary = dict(batch=B, steps=steps, step_ms=step_ms,
+                   imgs_per_s=imgs_per_s, forward_flops_per_img=flops_per_img,
+                   mfu=mfu, mfu_peak_flops=peak, peak_memory_gib=peak_gib,
+                   losses=losses,
+                   launches_per_step={n: c // steps
+                                      for n, c in counts.items() if c})
+    prof_wall = profile_device(step)
+    summary["profile"] = split_profile(prof_wall, 1, f"{phase} step",
+                                       VISION_PROFILE_GROUPS)
+    if summary["profile"] is not None:
+        summary["profile"]["largest_kernels"] = largest_kernels(prof_wall[0])
+    return counts, summary
+
+
+def largest_kernels(prof, n=3):
+    """The ``n`` kernels with the most device time in each
+    `VISION_PROFILE_GROUPS` group of a profile: {group: [(name, ms)]},
+    printed."""
+    from torch.autograd import DeviceType
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        group = next((g for g, keys in VISION_PROFILE_GROUPS
+                      if any(k in evt.key for k in ((keys,) if isinstance(
+                          keys, str) else keys))), "other")
+        out.setdefault(group, []).append((evt.key[:100], us / 1e3))
+    out = {g: sorted(rows, key=lambda r: -r[1])[:n]
+           for g, rows in out.items()}
+    for g, rows in out.items():
+        say(f"  largest {g} kernels (ms): " + "; ".join(
+            f"{name} {ms:.3f}" for name, ms in rows))
+    return out
+
+
+def phase_lenet_training(pt, ops):
+    """Phase 31: bench.py's ``bench_lenet`` recipe (bench.py:449-511):
+    ``LeNet(num_classes=10)``, f32 (TF32 off), ``Adam(1e-3)``, one batch
+    of B=64 1 x 28 x 28 images and labels from ``default_rng(0)``."""
+    import numpy as np
+    import torch
+    model = pt.vision.models.LeNet(num_classes=10)
+    opt = pt.optimizer.Adam(learning_rate=1e-3, parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    img = torch.from_numpy(rng.standard_normal(
+        (LENET_B, 1, 28, 28)).astype(np.float32)).cuda()
+    label = torch.from_numpy(rng.integers(0, 10, (LENET_B,))).cuda()
+
+    def step():
+        loss = pt.nn.functional.cross_entropy(model(img), label)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    flops = forward_flops(pt, model, img[:1])
+    return drive_vision(ops, step, LENET_B, LENET_STEPS, "lenet training",
+                        "lenet_train", flops, PEAK_OPS_PER_S["float32"])
+
+
+def phase_resnet50_training(pt, ops):
+    """Phase 32: bench.py's ``bench_resnet50`` recipe (bench.py:514-591)
+    at each of `RESNET50_BATCHES`: ``resnet50(num_classes=1000)``, f32
+    parameters under ``auto_cast(bf16, O1)`` (convolutions and the
+    classifier in bf16, batch norm and the loss in f32),
+    ``Momentum(0.1, 0.9)``, one batch of 224 x 224 images and labels from
+    ``default_rng(0)``; the model and optimizer built anew for each batch
+    (its generator seeded with 0).  bench.py's halving on a memory error
+    is not ported: a batch that does not fit fails the phase.  Returns
+    the first batch's launch counts and both summaries."""
+    import numpy as np
+    import torch
+    out, first = {}, None
+    for B in RESNET50_BATCHES:
+        model = pt.vision.models.resnet50(num_classes=1000)
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+        rng = np.random.default_rng(0)
+        img = torch.from_numpy(rng.standard_normal(
+            (B, 3, RESNET50_HW, RESNET50_HW)).astype(np.float32)).cuda()
+        label = torch.from_numpy(rng.integers(0, 1000, (B,))).cuda()
+
+        def step():
+            with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+                loss = pt.nn.functional.cross_entropy(model(img), label)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        flops = forward_flops(pt, model, img[:1])
+        counts, out[f"batch_{B}"] = drive_vision(
+            ops, step, B, RESNET50_STEPS, f"resnet50 training B={B}",
+            "resnet50_train", flops, PEAK_BF16)
+        first = first or counts
+        del model, opt, img, step
+        free_device_memory()
+    return first, out
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -4863,7 +5350,9 @@ def kernels_line(results, counts):
             if name == "paged_attention" \
             else dict.fromkeys(("qkv", "out", "fc2")) \
             if name == "matmul_epilogue_int8" \
-            else LN_CASES if name in ("layer_norm", "layer_norm_bwd") else {}
+            else LN_CASES if name in ("layer_norm", "layer_norm_bwd") \
+            else dict(XENT_VISION_CASES) if name.startswith("softmax_xent") \
+            else {}
         served = any(d in info for d in ("serve", "serve_int8", "serve_moe",
                                          "serve_lora", "paged_decode"))
         key = (name,) if served else (name, "train")
@@ -4880,6 +5369,10 @@ def kernels_line(results, counts):
             entry[f"launches_per_step_{d}"] = counts[d][name] // TRAIN_STEPS
         entry["launches_per_forward_ernie_eval"] = \
             counts["ernie_eval"][name] // ERNIE_FORWARDS
+        entry["launches_per_step_lenet_train"] = \
+            counts["lenet_train"][name] // LENET_STEPS
+        entry["launches_per_step_resnet50_train"] = \
+            counts["resnet50_train"][name] // RESNET50_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
@@ -5070,6 +5563,20 @@ def main():
     say("[29] O2 parity: full width, 2 layers, bf16 O2, flash + recompute, "
         "3 AdamW steps, CUDA vs CPU")
     o2_parity = phase_o2_parity(pt, ops)
+    free_device_memory()
+
+    say("[30] vision parity: LeNet (B=8, 3 Adam steps) and ResNet-50 (10 "
+        "classes, B=4, 3x64x64, 3 Momentum steps), f32, CUDA vs CPU")
+    vision_parity_out = phase_vision_parity(pt, ops)
+    free_device_memory()
+
+    say("[31] LeNet training: bench_lenet recipe, f32, Adam(1e-3), B=64")
+    lenet_counts, lenet_training = phase_lenet_training(pt, ops)
+    free_device_memory()
+
+    say("[32] ResNet-50 training: bench_resnet50 recipe, 224x224, bf16 O1, "
+        f"Momentum(0.1, 0.9), B={RESNET50_BATCHES}")
+    resnet50_counts, resnet50_training = phase_resnet50_training(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -5078,7 +5585,8 @@ def main():
                   bert_train=bert_counts, ernie_eval=ernie_counts,
                   serve_moe=moe_serve_counts, moe_train=moe_train_counts,
                   serve_lora=lora_serve_counts, lora_train=lora_train_counts,
-                  paged_decode=paged_counts, train_o2=o2_counts)
+                  paged_decode=paged_counts, train_o2=o2_counts,
+                  lenet_train=lenet_counts, resnet50_train=resnet50_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -5102,6 +5610,9 @@ def main():
                     "bf16_parity": bf16_parity,
                     "optimizer_parity": optimizer_parity,
                     "o2_training": o2_training, "o2_parity": o2_parity,
+                    "vision_parity": vision_parity_out,
+                    "lenet_training": lenet_training,
+                    "resnet50_training": resnet50_training,
                     "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))

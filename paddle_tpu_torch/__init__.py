@@ -49,9 +49,17 @@ Ported so far (see ``ops`` for the kernels):
   kernels; ``GenerationEngine.enable_lora`` serves many adapters and
   base-model rows in one step;
 * the paged decode view: ``inference.serving.PagedCacheView`` in its
-  prefill and decode modes, decode through the paged-attention kernel.
+  prefill and decode modes, decode through the paged-attention kernel;
+* vision: ``vision.models`` (LeNet, the ResNet family with ResNeXt and
+  the wide variants, VGG, MobileNetV2) on ``nn``'s convolutions, pools,
+  batch norms, ``ReLU``/``ReLU6``, ``Flatten`` and ``Sequential``
+  (``nn.layer``), their functionals (``nn.functional.{conv, pooling,
+  norm, activation}``: cuDNN convolutions and batch norm, as the
+  reference leaves them to XLA) and ``nn.initializer``; trained with the
+  softmax cross-entropy kernels on their logits.
 """
-from . import amp, distributed, nn, optimizer, quantization, regularizer
+from . import (amp, distributed, nn, optimizer, quantization, regularizer,
+               vision)
 from .convert import load_reference_state
 from .models.bert import BertConfig, BertForMaskedLM
 from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
@@ -65,7 +73,7 @@ from .inference.serving import (GenerationEngine, PagedCacheView,
                                 convert_to_lora, merge_lora, unmerge_lora)
 
 __all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
-           "regularizer",
+           "regularizer", "vision",
            "load_reference_state", "BertConfig", "BertForMaskedLM",
            "ErnieConfig", "ErnieForMaskedLM",
            "ErnieForSequenceClassification", "GPT_1P3B",

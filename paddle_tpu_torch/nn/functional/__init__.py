@@ -1,10 +1,11 @@
 """The functionals GPT, LLaMA, BERT and ERNIE serving and training call,
-on ``torch.Tensor``.
+on ``torch.Tensor``, and (re-exported from this package's ``conv``,
+``pooling``, ``norm`` and ``activation`` modules) those of the vision
+models.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``linear_act`` :54, ``linear_act_int8`` :130, ``lora_segment_act`` :80, ``embedding`` :523,
 ``dropout``),
-``nn/functional/activation.py`` (``silu``, ``tanh``),
 ``nn/functional/norm.py`` (``layer_norm`` :22,
 ``fused_residual_layer_norm`` :58, ``rms_norm`` :103),
 ``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
@@ -31,16 +32,30 @@ import threading
 
 import torch
 
-from .. import amp
-from .. import ops
-from ..ops.tiles import NEG_INF, min_rows
+from ... import amp
+from ... import ops
+from ...ops.tiles import NEG_INF, min_rows
+from .activation import relu, relu6, relu_, silu, tanh
+from .conv import conv1d, conv2d, conv3d
+from .norm import batch_norm
+from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
+                      adaptive_avg_pool3d, adaptive_max_pool1d,
+                      adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
+                      avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
+                      max_pool3d, max_unpool1d, max_unpool2d, max_unpool3d)
 
 __all__ = ["linear", "linear_act", "linear_act_int8", "lora_segment_act",
            "matmul",
            "embedding", "layer_norm", "fused_residual_layer_norm",
            "rms_norm", "silu", "tanh", "dropout",
            "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
-           "cross_entropy"]
+           "cross_entropy", "relu", "relu_", "relu6", "conv1d", "conv2d",
+           "conv3d", "batch_norm", "avg_pool1d", "avg_pool2d", "avg_pool3d",
+           "max_pool1d", "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
+           "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d", "max_unpool1d", "max_unpool2d",
+           "max_unpool3d"]
 
 
 def linear(x, weight, bias=None):
@@ -195,20 +210,6 @@ def rms_norm(x, weight=None, epsilon=1e-6):
         return (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
     x, weight = amp.cast_inputs("rms_norm", x, weight)
     return ops.rms_norm(x.contiguous(), weight, epsilon)
-
-
-def silu(x):
-    """``x * sigmoid(x)``; the reference leaves it to XLA, the port to
-    PyTorch."""
-    (x,) = amp.cast_inputs("silu", x)
-    return torch.nn.functional.silu(x)
-
-
-def tanh(x):
-    """``tanh(x)``; the reference leaves it to XLA, the port to
-    PyTorch."""
-    (x,) = amp.cast_inputs("tanh", x)
-    return torch.tanh(x)
 
 
 def dropout(x, p=0.5, training=True, generator=None):

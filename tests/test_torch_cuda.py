@@ -85,7 +85,9 @@ entry never reaching the output; a misaligned q on the element-wise
 route.  The epilogue backward at the drives' fc1 shapes ([4096, 8192],
 [8192, 8192], [8192, 4096], [8192, 3072], [8192, 768]) and every
 activation on the vector route by the counters and both rules, N = 130
-on the element-wise route, and 100 runs bit-identical.
+on the element-wise route, and 100 runs bit-identical.  The softmax
+cross-entropy rows also at the vision drives' logits ([64, 10] and [32,
+1000]), and one ResNet-18 Momentum step on the card against the CPU.
 """
 import numpy as np
 import pytest
@@ -427,6 +429,80 @@ def test_softmax_xent_kernels(gen, dtype, rows, V):
     dx_ref = ops.softmax_xent_bwd_ref(x, labels, lse, g)
     _close(dx, dx_ref, dtype)
     assert float(dx[0].float().abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("rows,V", [(64, 10), (32, 1000)])
+def test_softmax_xent_kernels_at_vision_shapes(gen, dtype, rows, V):
+    """LeNet's logits [64, 10] (246 of the 256 threads of a row's block
+    hold no column) and ResNet-50's [32, 1000], forward and backward."""
+    x = (3 * torch.randn(rows, V, device="cuda", generator=gen)).to(dtype)
+    labels = torch.randint(0, V, (rows,), device="cuda", generator=gen)
+    labels[::7] = -1
+    loss, lse = ops.softmax_xent_fwd(x, labels)
+    loss_ref, lse_ref = ops.softmax_xent_fwd_ref(x, labels)
+    torch.testing.assert_close(loss, loss_ref, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(lse, lse_ref, atol=1e-4, rtol=1e-5)
+    g = torch.full((rows,), 1.0 / rows, device="cuda")
+    dx = ops.softmax_xent_bwd(x, labels, lse, g)
+    dx_ref = ops.softmax_xent_bwd_ref(x, labels, lse, g)
+    tol = _TOL[dtype] / rows
+    torch.testing.assert_close(dx.float(), dx_ref.float(), atol=tol,
+                               rtol=_TOL[dtype])
+
+
+def test_resnet18_step_on_the_card_matches_the_cpu(gen):
+    """One Momentum step of ResNet-18 (10 classes, B=4, 3 x 64 x 64, f32,
+    TF32 off, batch norm in training mode) on the card and on the CPU
+    from the same weights: the loss, every gradient (against its largest
+    magnitude), every parameter and running statistic after the step
+    within 1e-4; the card's relus take the CPU's derivative within
+    ``chip_smoke.KINK_BAND`` of 0 (``chip_smoke.ReluKinks``)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    import paddle_tpu_torch as pt
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rng = np.random.default_rng(40)
+        x = rng.standard_normal((4, 3, 64, 64)).astype(np.float32)
+        y = rng.integers(0, 10, (4,))
+        state = pt.vision.models.resnet18(num_classes=10,
+                                          device="cpu").state_dict()
+        kinks = chip_smoke.ReluKinks()
+        runs = {}
+        for device, record in (("cpu", True), ("cuda", False)):
+            model = pt.vision.models.resnet18(num_classes=10, device=device)
+            model.load_state_dict(state)
+            hooks = kinks.attach(model, pt.nn.ReLU, record)
+            opt = pt.optimizer.Momentum(learning_rate=1e-3, momentum=0.9,
+                                        parameters=model.parameters())
+            loss = pt.nn.functional.cross_entropy(
+                model(torch.from_numpy(x).to(device)),
+                torch.from_numpy(y).to(device))
+            loss.backward()
+            grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+            opt.step()
+            for h in hooks:
+                h.remove()
+            runs[device] = (float(loss.detach()), grads, {
+                n: t.detach().cpu() for n, t in model.state_dict().items()})
+        (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = runs["cuda"], \
+            runs["cpu"]
+        assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        for n, g in g_cpu.items():
+            assert float((g_gpu[n] - g).abs().max()) \
+                <= 1e-4 * float(g.abs().max()), n
+        for n, t in s_cpu.items():
+            torch.testing.assert_close(s_gpu[n], t, atol=1e-4, rtol=1e-4,
+                                       msg=n)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = prev
 
 
 def test_wrappers_refuse_bad_inputs(gen):

@@ -47,7 +47,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "quantization", "models.bert", "models.ernie",
               "models.moe_gpt", "ops.grouped",
               "distributed.auto_parallel.moe_dispatch", "ops.lora",
-              "ops.paged", "inference.serving.lora"):
+              "ops.paged", "inference.serving.lora", "nn.functional.conv",
+              "nn.functional.pooling", "nn.functional.norm",
+              "nn.initializer", "nn.layer.conv", "vision.models.resnet",
+              "vision.models.mobilenet"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
