@@ -296,7 +296,27 @@ phase fails.  Phases:
     model's convolution and Linear shapes, against 989 TFLOP/s), peak
     memory, launches per step, one profiled step split by
     ``VISION_PROFILE_GROUPS``, finite losses with the last below the
-    first.
+    first;
+33. vision parity II (`phase_vision_parity_ii`): SqueezeNet 1.1 and
+    AlexNet held as LeNet in phase 30 (f32), MobileNetV1 (0.25),
+    ShuffleNetV2 (0.5), GoogLeNet (its loss with both aux heads) and
+    DenseNet-121 as ResNet-50 (f64, then one f32 step), 10 classes, B=4,
+    3 x 64 x 64, 3 Momentum steps, every dropout at rate 0;
+34. vision ops parity (`phase_vision_ops_parity`): every transposed
+    convolution form, the other norms, the pooling masks and unpooling,
+    roi_align and roi_pool, box_coder, yolo_box, deform_conv2d v1 and
+    v2 and nms on the card against the CPU at small shapes, within
+    ``VISION_OPS_TOL`` (masks, unpooled maps and nms indices exactly);
+35. GoogLeNet training and 36. DenseNet-121 training: phase 32's recipe
+    at B=64 (`phase_vision_recipe`), GoogLeNet's loss with both aux heads
+    (rows 8a/8b 3 + 3 a step; DenseNet 1 + 1), with the share of the
+    busy time in concatenation and batch norm;
+37. detection ops (`phase_detection_ops`) at a detector's shapes:
+    CUDA-event ms a call, forward and backward, and peak memory of
+    roi_align and roi_pool (an 800 x 1216 image pair at stride 4, 512
+    boxes an image), yolo_box on YOLOv3-608's heads with nms per image
+    (the device IoU and the host sweep apart), box_coder decoding 1000
+    priors x 81 classes and a DCN ResNet-50 stage-3 deform_conv2d v2.
 
 Before the last line come one JSON object (every kernel's results, the
 serving, training-parity, training, flash training-parity, flash
@@ -304,7 +324,8 @@ training, generate, the three LLaMA, the int8 serving, the two BERT, the
 ERNIE, the four MoE, the four LoRA, the paged decode, the bf16 parity,
 the optimizer, the O2 training and the O2 parity summaries, the grouped
 f32 repetitions, the vision parity, LeNet and ResNet-50 training
-summaries, the wgmma self-check and the kernels' resources) and
+summaries, phases 33-37's, the wgmma self-check and the kernels'
+resources) and
 the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -946,10 +967,12 @@ RESNET50_BATCHES = (32, 256)
 #: the vision drives' logits (rows, classes): LeNet's B=64 over 10
 #: classes (phase 31, f32), ResNet-50's two batches over 1000 (phase 32:
 #: O1 black-lists cross_entropy, so the bf16 logits reach the kernels as
-#: f32)
+#: f32), GoogLeNet's (its three heads) and DenseNet-121's B=64 over 1000
+#: (phases 35-36)
 XENT_VISION_CASES = {"lenet": (64, 10),
                      "resnet50": (RESNET50_BATCHES[0], 1000),
-                     "resnet50_large": (RESNET50_BATCHES[-1], 1000)}
+                     "resnet50_large": (RESNET50_BATCHES[-1], 1000),
+                     "b64_1000": (64, 1000)}
 
 
 def check_softmax_xent_fwd(ops, rows, dtype, dtype_name, gen, vocab=VOCAB):
@@ -2098,14 +2121,16 @@ KERNEL_INFO = {
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
         lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
-        resnet50_train=(0, 1)),
+        resnet50_train=(0, 1), googlenet_parity=(0, 3),
+        googlenet_train=(0, 3), densenet_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
         train=(0, 1), train_flash=(0, 1), llama_train=(0, 1),
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
         lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
-        resnet50_train=(0, 1)),
+        resnet50_train=(0, 1), googlenet_parity=(0, 3),
+        googlenet_train=(0, 3), densenet_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
@@ -2169,7 +2194,9 @@ def per_step(drive, layers):
     """Launches per step of every kernel in one drive ("serve",
     "serve_int8", "serve_moe", "serve_lora", "train", "train_flash",
     "llama_train", "bert_train", "bert_parity", "moe_train", "lora_train",
-    "paged_decode", "vision_parity", "lenet_train", "resnet50_train", or
+    "paged_decode", "vision_parity", "lenet_train", "resnet50_train",
+    "googlenet_parity", "googlenet_train" (the main head's and the two
+    aux heads' losses: rows 8a/8b 3 a step), "densenet_train", or
     "generate", "llama_gen" and "ernie_eval", whose step is one
     forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
@@ -3073,13 +3100,27 @@ def excess(got, want):
         for n, w in want.items()])
 
 
+def grad_readings(got, want, zero_grads=None):
+    """The largest error of each gradient of ``got`` against ``want``
+    over that gradient's largest magnitude in ``want``, or, for the names
+    ``zero_grads`` accepts (gradients that are exactly 0: a batch norm's
+    bias whose output a 1 x 1 convolution feeds to another batch norm in
+    training mode), over the largest magnitude of every gradient; the
+    worst, with its name."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return max((float((got[n] - g).abs().max()) / (
+        top if zero_grads and zero_grads(n)
+        else max(float(g.abs().max()), 1e-30)), n)
+        for n, g in want.items())
+
+
 def hold_parity(phase, params, runs, sign_free=False, frozen=None,
-                quiet=False, step_bound=PARITY_LR):
+                quiet=False, step_bound=PARITY_LR, zero_grads=None):
     """`train_parity`'s gates on its two runs (``runs["cuda"]`` and
     ``runs["cpu"]``, from `train_parity_run`): the losses, step-1
-    gradients and final parameters within `PARITY_TOL`, with the
-    ``sign_free`` (a largest step of ``step_bound``) and ``frozen``
-    holds.  ``quiet`` prints one line."""
+    gradients (`grad_readings`, with ``zero_grads``) and final parameters
+    within `PARITY_TOL`, with the ``sign_free`` (a largest step of
+    ``step_bound``) and ``frozen`` holds.  ``quiet`` prints one line."""
     import torch
     (l_gpu, g_gpu, p_gpu, _, _, _), (l_cpu, g_cpu, p_cpu, _, small, _) = \
         runs["cuda"], runs["cpu"]
@@ -3100,9 +3141,7 @@ def hold_parity(phase, params, runs, sign_free=False, frozen=None,
         key_note = hold_sign_free(phase, small, p_gpu, p_cpu,
                                   steps=len(l_cpu), step_bound=step_bound)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
-    grad_err, grad_at = max(
-        (float((g_gpu[n] - g_cpu[n]).abs().max())
-         / max(float(g_cpu[n].abs().max()), 1e-30), n) for n in g_cpu)
+    grad_err, grad_at = grad_readings(g_gpu, g_cpu, zero_grads)
     atol, rtol = PARITY_TOL["param"]
     worst, worst_at = excess(p_gpu, p_cpu)
     if quiet:
@@ -4895,10 +4934,29 @@ VISION_PARITY = {"lenet": ((8, 1, 28, 28), 10, "adam"),
 F32_FLOOR_FACTOR = 4.0
 
 
+#: GoogLeNet's auxiliary heads' weight in its training loss (Szegedy et
+#: al. 2015, section 5)
+AUX_WEIGHT = 0.3
+
+
+def vision_loss(pt, out, labels):
+    """The cross-entropy of a model's logits; for GoogLeNet's ``(out,
+    aux1, aux2)`` in training mode, the main head's plus `AUX_WEIGHT`
+    times the two auxiliary heads'."""
+    ce = pt.nn.functional.cross_entropy
+    if not isinstance(out, tuple):
+        return ce(out, labels)
+    main, aux1, aux2 = out
+    loss = ce(main, labels)
+    if aux1 is None:
+        return loss
+    return loss + AUX_WEIGHT * (ce(aux1, labels) + ce(aux2, labels))
+
+
 def vision_parity_run(pt, ops, make_model, params, x, y, make_opt, device,
                       kinks, record, dtype, steps=3, track_small=False):
-    """`train_parity_run` of ``make_model(device)`` in ``dtype`` with the
-    cross-entropy of its logits as the loss, its relus recording their
+    """`train_parity_run` of ``make_model(device)`` in ``dtype`` with
+    `vision_loss` of its logits as the loss, its relus recording their
     kinks into ``kinks`` or (``record`` false) holding them; returns its
     readings and ``dict(logits=`` the first step's, ``buffers=`` those
     after each step``)`` in f64 on the CPU."""
@@ -4912,45 +4970,45 @@ def vision_parity_run(pt, ops, make_model, params, x, y, make_opt, device,
         return model
 
     def loss_of(model, xs, ys):
-        logits = model(xs.to(dtype))
+        out = model(xs.to(dtype))
         if seen["logits"] is None:
-            seen["logits"] = logits.detach().double().cpu()
-        seen["buffers"].append({n: b.detach().double().cpu()
+            main = out[0] if isinstance(out, tuple) else out
+            seen["logits"] = main.detach().double().cpu()
+        # a copy: an f64 buffer on the CPU would alias the live buffer
+        seen["buffers"].append({n: b.detach().double().cpu().clone()
                                 for n, b in model.named_buffers()})
-        return pt.nn.functional.cross_entropy(logits, ys)
+        return vision_loss(pt, out, ys)
     return train_parity_run(pt, ops, make, loss_of, params, x, y, device,
                             steps=steps, track_small=track_small,
                             make_opt=make_opt), seen
 
 
-def step1_readings(run, ref):
+def step1_readings(run, ref, zero_grads=None):
     """The first step of ``run`` against ``ref`` (`vision_parity_run`
     results): the logits' largest error against their largest magnitude
     (the loss, one number, can land near its f64 value by chance: the
     CPU's f32 loss sat 7e-8 from it, the card's 1.3e-5, with both runs'
     logits ~8e-5 away), the gradients' largest error against each
-    tensor's largest magnitude, the buffers' excess after the step; each
-    with where it is."""
+    tensor's largest magnitude (`grad_readings`), the buffers' excess
+    after the step; each with where it is."""
     (_, g_x, *_), e_x = run
     (_, g_r, *_), e_r = ref
     lg = e_r["logits"]
     return dict(
         logits=(float((e_x["logits"] - lg).abs().max() / lg.abs().max()),
                 "step-1 logits"),
-        grad=max((float((g_x[n] - g).abs().max())
-                  / max(float(g.abs().max()), 1e-30), n)
-                 for n, g in g_r.items()),
+        grad=grad_readings(g_x, g_r, zero_grads),
         buffer=excess(e_x["buffers"][0], e_r["buffers"][0]))
 
 
-def hold_f32_floor(phase, card, cpu32, cpu64):
+def hold_f32_floor(phase, card, cpu32, cpu64, zero_grads=None):
     """The card's f32 step against the CPU's f64 step, each reading of
     `step1_readings` within the larger of its `PARITY_TOL` and
     `F32_FLOOR_FACTOR` times the CPU's f32 step's reading against f64."""
     tol = dict(logits=PARITY_TOL["grad"], grad=PARITY_TOL["grad"],
                buffer=PARITY_TOL["param"][0])
-    got, floor = step1_readings(card, cpu64), step1_readings(cpu32, cpu64)
-    direct = step1_readings(card, cpu32)
+    got, floor, direct = (step1_readings(a, b, zero_grads) for a, b in (
+        (card, cpu64), (cpu32, cpu64), (card, cpu32)))
     out = {}
     for key, limit in tol.items():
         gate = max(limit, F32_FLOOR_FACTOR * floor[key][0])
@@ -4967,15 +5025,24 @@ def hold_f32_floor(phase, card, cpu32, cpu64):
     return out
 
 
-def vision_parity(pt, ops, phase, make_model, shape, classes, opt_name):
+def vision_parity(pt, ops, phase, make_model, shape, classes, opt_name,
+                  design=None, drive="vision_parity", zero_grads=None,
+                  cudnn=True):
     """3 steps of ``make_model`` on the CPU, then on the card, from the
     CPU model's own initial state (its generator seeded with 0) and one
     numpy batch: losses, step-1 gradients, final parameters and the batch
     norms' final running statistics held to `PARITY_TOL`, the card's relus
-    at the CPU's kinks (`ReluKinks`).  LeNet (Adam, Adam's sign-free
-    elements by `hold_sign_free`) runs in f32; ResNet-50 (Momentum) in
-    f64, then one f32 step on the CPU and on the card held by
-    `hold_f32_floor` (`F32_FLOOR_FACTOR` says why)."""
+    at the CPU's kinks (`ReluKinks`).  ``design`` "f32" runs both legs in
+    f32 (LeNet, Adam, its sign-free elements by `hold_sign_free`; the
+    small nets of phase 33, Momentum); "f64" (ResNet-50, GoogLeNet,
+    DenseNet-121) runs them in f64, then one f32 step on the CPU and on
+    the card held by `hold_f32_floor` (`F32_FLOOR_FACTOR` says why).  By
+    default Adam runs "f32", Momentum "f64".  Each kernel launches as
+    ``drive`` says a step in the card's f32 run.  ``zero_grads``: see
+    `grad_readings`.  Without ``cudnn`` the card's 3-step run has cuDNN
+    off (ATen's own convolutions), and one more f32 step with it on is
+    reported against the CPU's, not gated (`VISION_PARITY_II` says
+    why)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(SEED + 30)
@@ -4992,27 +5059,35 @@ def vision_parity(pt, ops, phase, make_model, shape, classes, opt_name):
             return pt.optimizer.Momentum(learning_rate=VISION_MOMENTUM_LR,
                                          momentum=0.9,
                                          parameters=m.parameters())
-    dtype = torch.float64 if opt_name == "momentum" else torch.float32
+    design = design or ("f64" if opt_name == "momentum" else "f32")
+    dtype = {"f32": torch.float32, "f64": torch.float64}[design]
     legs = [("cpu", "cpu", True, dtype, 3), ("cuda", "cuda", False, dtype, 3)]
     if dtype == torch.float64:
         legs += [("cpu32", "cpu", False, torch.float32, 1),
                  ("cuda32", "cuda", False, torch.float32, 1)]
+    if not cudnn:
+        legs.append(("cuda_cudnn", "cuda", False, torch.float32, 1))
     kinks = ReluKinks()
     runs, counts = {}, None
     for key, device, record, dt, steps in legs:
         held = kinks.held
-        runs[key] = vision_parity_run(
-            pt, ops, make_model, params, x, y, make_opt, device, kinks,
-            record, dt, steps, track_small=record and opt_name == "adam")
+        cudnn_was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = cudnn or key != "cuda"
+        try:
+            runs[key] = vision_parity_run(
+                pt, ops, make_model, params, x, y, make_opt, device, kinks,
+                record, dt, steps, track_small=record and opt_name == "adam")
+        finally:
+            torch.backends.cudnn.enabled = cudnn_was
         say(f"  ({key}: {str(dt)[6:]}) " + (
             "its relus recorded" if record else
             f"{kinks.held - held} relu inputs within {KINK_BAND:g} of 0 took "
             f"the CPU {str(dtype)[6:]} run's derivative"))
-        if key.startswith("cuda") and dt == torch.float32:
+        if key in ("cuda", "cuda32") and dt == torch.float32:
             counts, launch_steps = runs[key][0][3], steps
         torch.cuda.empty_cache()
     out = hold_parity(phase, params, {k: runs[k][0] for k in ("cuda", "cpu")},
-                      sign_free=opt_name == "adam")
+                      sign_free=opt_name == "adam", zero_grads=zero_grads)
     buf = excess(runs["cuda"][1]["buffers"][-1],
                  runs["cpu"][1]["buffers"][-1])
     say(f"  buffers after 3 steps max (|err| - "
@@ -5022,10 +5097,17 @@ def vision_parity(pt, ops, phase, make_model, shape, classes, opt_name):
         fail(f"{phase}: buffer {buf[1]} differs after 3 steps by "
              f"{buf[0]:.3e}")
     out.update(buffer_max_excess=buf[0], dtype=str(dtype)[6:])
+    if not cudnn:
+        got = step1_readings(runs["cuda_cudnn"], runs["cpu"], zero_grads)
+        say("  with cuDNN (reported, not gated): f32 step 1 against the "
+            "CPU's " + ", ".join(f"{k} {v[0]:.3e} at {v[1]}"
+                                 for k, v in got.items()))
+        out["cudnn_f32_step1_vs_cpu"] = {k: v[0] for k, v in got.items()}
     if dtype == torch.float64:
         out["f32_step1"] = hold_f32_floor(phase, runs["cuda32"],
-                                          runs["cpu32"], runs["cpu"])
-    check_counts(phase, ops, counts, launch_steps, 0, "vision_parity")
+                                          runs["cpu32"], runs["cpu"],
+                                          zero_grads)
+    check_counts(phase, ops, counts, launch_steps, 0, drive)
     out.update(relu_inputs_held=kinks.held, batch=list(shape),
                optimizer=opt_name,
                losses={k: r[0][0] for k, r in runs.items()})
@@ -5051,8 +5133,9 @@ def phase_vision_parity(pt, ops):
 #: device-time groups of the vision drives' profiles, by kernel-name
 #: substring (first match wins): the cross-entropy rows, cuDNN's
 #: convolutions by pass (its kernels name fprop, dgrad and wgrad), the
-#: layout transforms cuDNN runs around them, batch norm (cuDNN's and
-#: ATen's), pooling, the optimizer's multi-tensor updates, GEMMs (the
+#: layout transforms cuDNN runs around them, ``torch.cat``'s copies
+#: (DenseNet's, the inceptions'), batch norm (cuDNN's and ATen's),
+#: pooling, the optimizer's multi-tensor updates, GEMMs (the
 #: Linear layers), and elementwise ops and casts
 VISION_PROFILE_GROUPS = (
     ("softmax_xent_fwd", "xent_fwd_kernel"),
@@ -5063,6 +5146,7 @@ VISION_PROFILE_GROUPS = (
                     "convolve")),
     ("layout_transform", ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc",
                           "nhwc_to_nchw")),
+    ("concat", "CatArray"),
     ("batch_norm", ("batch_norm", "bn_fw", "bn_bw", "BatchNorm")),
     ("pooling", ("pool", "Pool")),
     ("optimizer_foreach", "multi_tensor_apply"),
@@ -5238,6 +5322,473 @@ def phase_resnet50_training(pt, ops):
     return first, out
 
 
+# ---------------------------------------------------------------------
+# phases 33-37: the rest of vision
+# ---------------------------------------------------------------------
+#: phase 33's models: (constructor, its arguments, `vision_parity`'s
+#: design, the names of its exactly-zero gradients for `grad_readings`,
+#: whether its card run uses cuDNN).
+#: From `scripts/torch_vision_diag.py --cpu` at B=4, 64 x 64, 3
+#: Momentum(1e-3) steps, relu kinks held within 1e-3 (PERF.md section
+#: 6): SqueezeNet's and AlexNet's f32 runs stay within `PARITY_TOL`
+#: of f64 (gradients 9.5e-7 and 6.0e-7), so they are held in f32 card
+#: against CPU; the four with training-mode batch norms carry f32 past it
+#: (MobileNetV1's step-1 gradients 3.3e-3 and third loss 6.3e-4 from
+#: f64, ShuffleNetV2's third loss 3.8e-3, GoogLeNet's gradients 1.8e-3,
+#: DenseNet-121's 3.5e-2 at its first batch norm), so they take phase
+#: 30's f64 design.  ShuffleNetV2's units feed a batch norm's output
+#: through a 1 x 1 convolution to another batch norm, which makes that
+#: first norm's bias gradient exactly 0.  cuDNN's f32 weight gradient of
+#: AlexNet's 64 -> 192 5 x 5 convolution on 7 x 7 maps sits 1.2e-3 to
+#: 1.7e-3 from f64 under every setting (default, deterministic,
+#: benchmark, ``fp32_precision="ieee"``; ATen's own convolution 1.8e-7:
+#: `scripts/torch_vision_diag.py --convs` on one H100 80GB HBM3 at 700 W),
+#: so AlexNet's card run has cuDNN off and its cuDNN step is reported
+#: beside it
+VISION_PARITY_II = {
+    "squeezenet1_1": ("squeezenet1_1", {}, "f32", None, True),
+    "alexnet": ("alexnet", {}, "f32", None, False),
+    "mobilenet_v1": ("mobilenet_v1", {"scale": 0.25}, "f64", None, True),
+    "shufflenet_v2": ("ShuffleNetV2", {"scale": 0.5}, "f64",
+                      lambda n: n.endswith(("branch1.1.bias",
+                                            "branch2.4.bias")), True),
+    "googlenet": ("googlenet", {}, "f64", None, True),
+    "densenet121": ("densenet121", {}, "f64", None, True),
+}
+VISION_PARITY_II_SHAPE = (4, 3, 64, 64)
+
+
+def vision_model(pt, name, device):
+    """A phase 33 model (`VISION_PARITY_II`, 10 classes) on ``device``,
+    every dropout's rate set to 0 (the card's and the CPU's masks
+    differ)."""
+    ctor, kw = VISION_PARITY_II[name][:2]
+    model = getattr(pt.vision.models, ctor)(num_classes=10, device=device,
+                                            **kw)
+    for m in model.modules():
+        if isinstance(m, pt.nn.Dropout):
+            m.p = 0.0
+    return model
+
+
+def phase_vision_parity_ii(pt, ops):
+    """Phase 33: `VISION_PARITY_II`'s six models, 10 classes, B=4, 3 x 64
+    x 64, 3 Momentum steps, dropout 0, batch norm in training mode,
+    GoogLeNet's loss with its aux heads (`vision_loss`), card against the
+    CPU's plain run by `vision_parity` in each model's design."""
+    out = {}
+    for name, (_, kw, design, zero_grads, cudnn) in \
+            VISION_PARITY_II.items():
+        say(f"  {name} {kw or ''}: input {list(VISION_PARITY_II_SHAPE)}, "
+            f"{design} design" + ("" if cudnn else ", cuDNN off"))
+        t0 = time.perf_counter()
+        out[name] = vision_parity(
+            pt, ops, f"{name} parity",
+            lambda device, name=name: vision_model(pt, name, device),
+            VISION_PARITY_II_SHAPE, 10, "momentum", design,
+            "googlenet_parity" if name == "googlenet" else "vision_parity",
+            zero_grads, cudnn)
+        out[name]["seconds"] = time.perf_counter() - t0
+        free_device_memory()
+    return out
+
+
+#: phase 34's gate: each output and gradient of an op on the card within
+#: this share of its largest magnitude on the CPU (f32, TF32 off: cuDNN
+#: and the CPU sum in other orders; the gathers' backward adds with
+#: atomics on the card); masks, unpooled maps and nms indices exactly
+VISION_OPS_TOL = 1e-4
+
+#: phase 34's transposed convolutions: (dims, padding, stride, dilation,
+#: groups, output_padding, layout), every form of module 4
+CONV_T_CASES = (
+    (2, 1, 2, 1, 1, 0, "NCHW"), (2, 1, 2, 1, 1, 1, "NCHW"),
+    (2, [0, 1, 2, 0], 2, 1, 2, 1, "NCHW"), (2, [[1, 0], [0, 2]], 2, 1, 1, 0,
+                                            "NCHW"),
+    (2, 0, 3, 2, 2, [2, 1], "NCHW"), (2, 0, 2, 1, 1, 1, "NCHW"),
+    (2, 2, 2, 1, 1, 1, "NHWC"), (1, [1, 3], 2, 1, 1, 1, "NCL"),
+    (1, 2, 2, 1, 2, 0, "NLC"), (3, [0, 1, 1, 0, 2, 1], 2, 1, 1, 0, "NCDHW"),
+    (3, 1, 2, 1, 1, 1, "NDHWC"))
+
+
+def card_vs_cpu(what, fn, arrays, grad=(), exact=False):
+    """``fn`` on the CPU and on the card from the same numpy ``arrays``
+    (those indexed by ``grad`` with gradients, under one upstream
+    gradient): every output and gradient within `VISION_OPS_TOL` of its
+    largest CPU magnitude, or with ``exact`` equal.  Returns the largest
+    reading."""
+    import numpy as np
+    import torch
+    res = {}
+    for device in ("cpu", "cuda"):
+        ts = [torch.from_numpy(a).to(device) for a in arrays]
+        for i in grad:
+            ts[i].requires_grad_()
+        out = fn(*ts)
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        if grad:
+            up = np.random.default_rng(SEED + 1).standard_normal(
+                tuple(outs[0].shape)).astype(np.float32)
+            (outs[0] * torch.from_numpy(up).to(device)).sum().backward()
+            outs += [ts[i].grad for i in grad]
+        res[device] = [o.detach().cpu() for o in outs]
+    worst = 0.0
+    for got, want in zip(res["cuda"], res["cpu"]):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"vision ops parity: {what}: {got.dtype} {tuple(got.shape)} "
+                 f"on the card, {want.dtype} {tuple(want.shape)} on the CPU")
+        if exact:
+            if not torch.equal(got, want):
+                fail(f"vision ops parity: {what} differs on the card")
+            continue
+        g, w = got.double(), want.double()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        if not err <= VISION_OPS_TOL:
+            fail(f"vision ops parity: {what}: {err:.3e} of the largest "
+                 f"magnitude, past {VISION_OPS_TOL:g}")
+        worst = max(worst, err)
+    return worst
+
+
+def _boxes(rng, n, lo, hi, size):
+    import numpy as np
+    c = rng.uniform(lo, hi, (n, 2))
+    wh = rng.uniform(size[0], size[1], (n, 2))
+    return np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+
+
+def phase_vision_ops_parity(pt):
+    """Phase 34: module 4-8 ops on the card against the CPU at small
+    shapes (`card_vs_cpu`): every transposed-convolution form of
+    `CONV_T_CASES`, forward and backward; instance, group and local
+    response norm, ``normalize`` and ``spectral_norm``, forward and
+    backward; the fixed and adaptive pooling masks on integer-valued
+    (tie-rich) inputs and the unpooled maps, exactly, with the round trip
+    (pooling the unpooled map gives the pooled values back); roi_align
+    (forward, and backward to the features and the boxes) and roi_pool;
+    box_coder encode and decode, yolo_box; deform_conv2d v1 and v2,
+    forward and backward; nms indices, exactly, plain and per category."""
+    import numpy as np
+    import torch
+    F, V = pt.nn.functional, pt.vision.ops
+    rng = np.random.default_rng(SEED + 34)
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    for i, (nsp, pad, st, dil, groups, opad, df) in enumerate(CONV_T_CASES):
+        sp = (6, 5, 4)[:nsp]
+        shape = (2, 4) + sp if df.startswith("NC") else (2,) + sp + (4,)
+        fn = getattr(F, f"conv{nsp}d_transpose")
+        out[f"conv_transpose_{i}_{nsp}d_{df}"] = card_vs_cpu(
+            f"conv{nsp}d_transpose {pad} {df}",
+            lambda x, w, b, fn=fn, pad=pad, st=st, dil=dil, g=groups,
+            o=opad, df=df: fn(x, w, b, st, pad, o, g, dil, data_format=df),
+            [randn(*shape), randn(4, 6 // groups, *(3,) * nsp, scale=0.3),
+             randn(6)], grad=(0, 1, 2))
+    norms = {
+        "instance_norm": (lambda x, w, b: F.instance_norm(
+            x, weight=w, bias=b), (2, 4, 5, 6), 2),
+        "instance_norm_nhwc": (lambda x, w, b: F.instance_norm(
+            x, weight=w, bias=b, data_format="NHWC"), (2, 5, 6, 4), 2),
+        "group_norm": (lambda x, w, b: F.group_norm(x, 3, weight=w, bias=b),
+                       (2, 6, 5, 4), 2),
+        "local_response_norm": (lambda x: F.local_response_norm(x, 5),
+                                (2, 7, 4, 3), 0),
+        "normalize": (lambda x: F.normalize(x, p=1.5, axis=-1), (3, 5, 4),
+                      0)}
+    for name, (fn, shape, n_par) in norms.items():
+        c = shape[-1] if name.endswith("nhwc") else shape[1]
+        arrays = [randn(*shape) + 0.5] + [1 + randn(c, scale=0.3)
+                                          for _ in range(n_par)]
+        out[name] = card_vs_cpu(name, fn, arrays,
+                                grad=tuple(range(len(arrays))))
+    u, v = randn(4), randn(18)
+    out["spectral_norm"] = card_vs_cpu(
+        "spectral_norm", lambda w, u_, v_: F.spectral_norm(w, u_, v_, 0, 2),
+        [randn(4, 3, 2, 3), u, v], grad=(0,))
+    masks = {"max_pool1d": ((2, 3, 13), (3, 2, 1)),
+             "max_pool2d": ((2, 3, 9, 8), (3, 2, 1)),
+             "max_pool3d": ((1, 2, 5, 6, 7), (3, 2, 1)),
+             "adaptive_max_pool1d": ((2, 3, 10), (4,)),
+             "adaptive_max_pool2d": ((2, 3, 9, 8), ((3, 5),)),
+             "adaptive_max_pool3d": ((1, 2, 5, 6, 7), ((3, 2, 4),))}
+    for name, (shape, args) in masks.items():
+        x = rng.integers(0, 3, shape).astype(np.float32)
+        card_vs_cpu(f"{name} mask", lambda t, name=name, args=args: getattr(
+            F, name)(t, *args, return_mask=True), [x], exact=True)
+    for nsp, shape in ((1, (2, 3, 12)), (2, (2, 3, 9, 8)),
+                       (3, (1, 2, 6, 6, 7))):
+        x = (np.abs(randn(*shape)) + 0.1).astype(np.float32)
+
+        def round_trip(t, nsp=nsp):
+            pooled, mask = getattr(F, f"max_pool{nsp}d")(t, 2, 2,
+                                                         return_mask=True)
+            back = getattr(F, f"max_unpool{nsp}d")(
+                pooled, mask, 2, 2, output_size=list(t.shape[2:]))
+            if not torch.equal(getattr(F, f"max_pool{nsp}d")(back, 2, 2),
+                               pooled):
+                fail(f"vision ops parity: max_unpool{nsp}d does not round "
+                     f"trip its mask on {t.device}")
+            return back, mask
+        card_vs_cpu(f"max_unpool{nsp}d", round_trip, [x], exact=True)
+    out["masks_and_unpool"] = "exact"
+    x = randn(2, 5, 12, 14)
+    boxes = _boxes(rng, 9, -4.0, 30.0, (2.0, 16.0))
+    num = np.array([4, 5], np.int32)
+    out["roi_align"] = card_vs_cpu(
+        "roi_align", lambda f, b, n: V.roi_align(f, b, n, (3, 4), 0.5, 2),
+        [x, boxes, num], grad=(0, 1))
+    out["roi_align_unaligned"] = card_vs_cpu(
+        "roi_align unaligned", lambda f, b, n: V.roi_align(
+            f, b, n, 2, 0.5, -1, aligned=False), [x, boxes, num],
+        grad=(0, 1))
+    out["roi_pool"] = card_vs_cpu(
+        "roi_pool", lambda f, b, n: V.roi_pool(f, b, n, 3, 0.5),
+        [x, boxes, num])
+    prior, target = _boxes(rng, 6, 0, 50, (2, 20)), _boxes(rng, 5, 0, 50,
+                                                           (2, 20))
+    out["box_coder_encode"] = card_vs_cpu(
+        "box_coder encode", lambda p, t: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], t), [prior, target])
+    out["box_coder_decode"] = card_vs_cpu(
+        "box_coder decode", lambda p, d: V.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], d, "decode_center_size", False, 0),
+        [prior, randn(6, 3, 4, scale=0.3)])
+    out["yolo_box"] = card_vs_cpu(
+        "yolo_box", lambda h, s: V.yolo_box(
+            h, s, [10, 13, 16, 30, 33, 23], 4, 0.5, 32, scale_x_y=1.05),
+        [randn(2, 27, 5, 6), np.array([[320, 416], [288, 256]], np.int32)])
+    for version in ("v1", "v2"):
+        arrays = [randn(2, 3, 10, 9), randn(2, 18, 5, 5, scale=2.5),
+                  randn(4, 3, 3, 3, scale=0.3), randn(4)]
+        if version == "v2":
+            arrays.append(rng.uniform(0, 1, (2, 9, 5, 5)).astype(np.float32))
+        out[f"deform_conv2d_{version}"] = card_vs_cpu(
+            f"deform_conv2d {version}", lambda x_, o, w, b, *m: (
+                V.deform_conv2d(x_, o, w, b, 2, 2, 2,
+                                mask=m[0] if m else None)), arrays,
+            grad=tuple(range(len(arrays))))
+    nb = _boxes(rng, 300, 0, 200, (5, 60))
+    scores = (rng.permutation(300) / 300).astype(np.float32)
+    cats = rng.integers(0, 5, 300)
+    card_vs_cpu("nms", lambda b, s: V.nms(b, 0.4, s), [nb, scores],
+                exact=True)
+    card_vs_cpu("nms per category", lambda b, s, c: V.nms(
+        b, 0.4, s, c, top_k=50), [nb, scores, cats], exact=True)
+    out["nms"] = "exact"
+    say("  card vs CPU, largest error over the largest magnitude (gate "
+        f"{VISION_OPS_TOL:g}; masks, unpooled maps and nms exact): " +
+        ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}"
+                  for k, v in out.items()))
+    return out
+
+
+VISION_II_B, VISION_II_HW, VISION_II_STEPS = 64, 224, 5
+
+
+def phase_vision_recipe(pt, ops, name, phase, drive):
+    """Phases 35 (GoogLeNet) and 36 (DenseNet-121): phase 32's recipe at
+    B=`VISION_II_B`: 224 x 224, 1000 classes, f32 parameters under
+    ``auto_cast(bf16, O1)``, ``Momentum(0.1, 0.9)``, dropout on (masks
+    from the model's generator), GoogLeNet's loss with its aux heads
+    (`vision_loss`), one batch of images and labels from
+    ``default_rng(0)``, through `drive_vision`; returns (launch counts,
+    summary)."""
+    import numpy as np
+    import torch
+    ctor = VISION_PARITY_II[name][0]
+    model = getattr(pt.vision.models, ctor)(num_classes=1000)
+    opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                parameters=model.parameters())
+    rng = np.random.default_rng(0)
+    B, hw = VISION_II_B, VISION_II_HW
+    img = torch.from_numpy(rng.standard_normal(
+        (B, 3, hw, hw)).astype(np.float32)).cuda()
+    label = torch.from_numpy(rng.integers(0, 1000, (B,))).cuda()
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss = vision_loss(pt, model(img), label)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    flops = forward_flops(pt, model, img[:1])
+    counts, summary = drive_vision(ops, step, B, VISION_II_STEPS, phase,
+                                   drive, flops, PEAK_BF16)
+    prof = summary["profile"]
+    if prof is not None:
+        busy = prof["device_busy_ms"]
+        split = prof["device_ms_per_step"]
+        share = {k: split[k] / busy for k in ("concat", "batch_norm")}
+        say(f"  concatenation {split['concat']:.2f} ms and batch norm "
+            f"{split['batch_norm']:.2f} ms of {busy:.2f} busy ms: "
+            f"{share['concat']:.3f} and {share['batch_norm']:.3f}")
+        prof["busy_share"] = share
+    return counts, summary
+
+
+#: YOLOv3-608's heads (stride, anchors in pixels: Redmon and Farhadi
+#: 2018, COCO's 9 clusters, 3 a head), 80 classes
+YOLO_HEADS = ((32, (116, 90, 156, 198, 373, 326)),
+              (16, (30, 61, 62, 45, 59, 119)),
+              (8, (10, 13, 16, 30, 33, 23)))
+YOLO_B, YOLO_IMG, YOLO_CLASSES = 8, 608, 80
+NMS_PRE, NMS_TOP_K, NMS_IOU = 1000, 100, 0.45
+
+
+def _op_timing(what, fwd, inputs=(), bwd=True):
+    """CUDA-event ms of ``fwd()`` and (``bwd``) of the backward of its
+    first output to ``inputs`` under a random upstream, and the peak
+    device memory of one forward and backward; printed."""
+    import torch
+    out = fwd()
+    first = out[0] if isinstance(out, tuple) else out
+    if not all(bool(torch.isfinite(o).all()) for o in (
+            out if isinstance(out, tuple) else (out,))):
+        fail(f"detection ops: {what} gives a non-finite value")
+    r = dict(fwd_ms=time_ms(fwd, iters=10, warmup=2))
+    if bwd:
+        up = torch.randn_like(first)
+        r["bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+            first, inputs, up, retain_graph=True), iters=10, warmup=2)
+    del out, first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    o = fwd()
+    if bwd:
+        f = o[0] if isinstance(o, tuple) else o
+        torch.autograd.grad(f, inputs, torch.ones_like(f))
+    torch.cuda.synchronize()
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    r["peak_above_inputs_gib"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 30
+    say(f"  {what}: forward {r['fwd_ms']:.3f} ms" + (
+        f", backward {r['bwd_ms']:.3f} ms" if bwd else "") +
+        f", peak {r['peak_gib']:.2f} GiB ({r['peak_above_inputs_gib']:.2f} "
+        f"above the inputs)")
+    return r
+
+
+def phase_detection_ops(pt):
+    """Phase 37: the detection ops at a detector's shapes, CUDA-event ms a
+    call and the peak memory: roi_align and roi_pool over an 800 x 1216
+    image pair's stride-4 features [2, 256, 200, 304] f32 with 512 boxes
+    an image (output 7, ``sampling_ratio`` 2, ``spatial_scale`` 0.25,
+    aligned), forward and, for roi_align, backward; yolo_box on
+    YOLOv3-608's three heads at B=8 (`YOLO_HEADS`, ``conf_thresh``
+    0.005), then nms per image over its `NMS_PRE` best boxes by their
+    best class score, per category, ``top_k`` `NMS_TOP_K`: the IoU
+    matrix's device time and the host sweep's time apart, the kept
+    indices equal to the CPU's; box_coder decoding 1000 priors x 81
+    classes; deform_conv2d v2 at a DCN ResNet-50 stage-3 3 x 3 (x [2,
+    128, 100, 152], padding 1), forward and backward, and with zero
+    offsets and a unit mask equal to ``conv2d``."""
+    import numpy as np
+    import torch
+    V = pt.vision.ops
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 37)
+    rng = np.random.default_rng(SEED + 37)
+    out = {}
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, device="cuda", generator=gen)
+
+    feats = randn(2, 256, 200, 304).requires_grad_()
+    wh = np.exp(rng.uniform(np.log(16), np.log(512), (1024, 2)))
+    lo = rng.uniform(0, 1, (1024, 2)) * (np.array([1216, 800]) - wh)
+    boxes = torch.from_numpy(np.concatenate([lo, lo + wh], 1).astype(
+        np.float32)).cuda().requires_grad_()
+    num = torch.tensor([512, 512], device="cuda")
+    out["roi_align"] = _op_timing(
+        "roi_align [2, 256, 200, 304], 1024 boxes, 7 x 7",
+        lambda: V.roi_align(feats, boxes, num, 7, 0.25, 2, True),
+        (feats, boxes))
+    out["roi_pool"] = _op_timing(
+        "roi_pool, the same inputs",
+        lambda: V.roi_pool(feats, boxes, num, 7, 0.25), bwd=False)
+    del feats, boxes
+    torch.cuda.empty_cache()
+    size = torch.full((YOLO_B, 2), YOLO_IMG, device="cuda",
+                      dtype=torch.int32)
+    heads, yolo = [], {}
+    for stride, anchors in YOLO_HEADS:
+        g = YOLO_IMG // stride
+        h = randn(YOLO_B, 3 * (5 + YOLO_CLASSES), g, g)
+        yolo[f"stride_{stride}"] = _op_timing(
+            f"yolo_box [{YOLO_B}, 255, {g}, {g}]",
+            lambda h=h, a=anchors, s=stride: V.yolo_box(
+                h, size, list(a), YOLO_CLASSES, 0.005, s), bwd=False)
+        heads.append(V.yolo_box(h, size, list(anchors), YOLO_CLASSES, 0.005,
+                                stride))
+    out["yolo_box"] = yolo
+    boxes = torch.cat([b for b, _ in heads], 1)
+    scores = torch.cat([s for _, s in heads], 1)
+    best, cats = scores.max(-1)
+    top = best.topk(NMS_PRE, -1).indices
+    iou_ms, sweep_ms, nms_ms, kept = [], [], [], []
+    for i in range(YOLO_B):
+        b, s, c = boxes[i, top[i]], best[i, top[i]], cats[i, top[i]]
+        iou_ms.append(time_ms(lambda: V.nms_iou(b), iters=10, warmup=2))
+        iou = V.nms_iou(b).cpu().numpy()
+        s_h, c_h = s.double().cpu().numpy(), c.cpu().numpy()
+        t0 = time.perf_counter()
+        V.nms_sweep(iou, NMS_IOU, s_h, c_h, top_k=NMS_TOP_K)
+        sweep_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = V.nms(b, NMS_IOU, s, c, top_k=NMS_TOP_K)
+        torch.cuda.synchronize()
+        nms_ms.append((time.perf_counter() - t0) * 1e3)
+        want = V.nms(b.cpu(), NMS_IOU, s.cpu(), c.cpu(), top_k=NMS_TOP_K)
+        if not torch.equal(keep.cpu(), want):
+            fail(f"detection ops: nms on image {i} keeps other boxes on the "
+                 f"card than on the CPU")
+        kept.append(len(keep))
+    out["nms"] = dict(
+        boxes=NMS_PRE, top_k=NMS_TOP_K, iou_threshold=NMS_IOU,
+        device_iou_ms=float(np.median(iou_ms)),
+        host_sweep_ms=float(np.median(sweep_ms)),
+        call_ms=float(np.median(nms_ms)), kept=kept)
+    say(f"  nms over {NMS_PRE} boxes an image, per category, top_k "
+        f"{NMS_TOP_K} (median of {YOLO_B} images): device IoU "
+        f"{out['nms']['device_iou_ms']:.3f} ms (CUDA events), host sweep "
+        f"{out['nms']['host_sweep_ms']:.3f} ms, whole call "
+        f"{out['nms']['call_ms']:.3f} ms (host clock); kept {kept}; equal "
+        f"to the CPU's")
+    del heads, boxes, scores
+    prior = torch.from_numpy(_boxes(rng, 1000, 0.1, 0.9, (0.02, 0.3))).cuda()
+    deltas = randn(1000, 81, 4, scale=0.5)
+    out["box_coder_decode"] = _op_timing(
+        "box_coder decode, 1000 priors x 81 classes",
+        lambda: V.box_coder(prior, [0.1, 0.1, 0.2, 0.2], deltas,
+                            "decode_center_size", True, 0), bwd=False)
+    x = randn(2, 128, 100, 152).requires_grad_()
+    off = randn(2, 18, 100, 152, scale=2.0).requires_grad_()
+    mask = torch.sigmoid(randn(2, 9, 100, 152)).requires_grad_()
+    w = randn(128, 128, 3, 3, scale=1 / 34).requires_grad_()
+    out["deform_conv2d_v2"] = _op_timing(
+        "deform_conv2d v2 x [2, 128, 100, 152], 3 x 3",
+        lambda: V.deform_conv2d(x, off, w, None, 1, 1, mask=mask),
+        (x, off, mask, w))
+    with torch.no_grad():
+        got = V.deform_conv2d(x, torch.zeros_like(off), w, None, 1, 1,
+                              mask=torch.ones_like(mask))
+        want = pt.nn.functional.conv2d(x, w, None, 1, 1)
+    err = float((got - want).abs().max() / want.abs().max())
+    if not err <= VISION_OPS_TOL:
+        fail(f"detection ops: deform_conv2d with zero offsets is "
+             f"{err:.3e} from conv2d")
+    out["deform_conv2d_v2"]["zero_offset_vs_conv2d"] = err
+    say(f"  deform_conv2d with zero offsets and a unit mask vs conv2d: "
+        f"{err:.2e} of the largest magnitude")
+    return out
+
+
 def free_device_memory():
     """Collect the last phase's objects (the engine and its cache hold
     reference cycles) and return their device memory, so the next phase's
@@ -5373,6 +5924,9 @@ def kernels_line(results, counts):
             counts["lenet_train"][name] // LENET_STEPS
         entry["launches_per_step_resnet50_train"] = \
             counts["resnet50_train"][name] // RESNET50_STEPS
+        for d in ("googlenet_train", "densenet_train"):
+            entry[f"launches_per_step_{d}"] = \
+                counts[d][name] // VISION_II_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
@@ -5577,6 +6131,36 @@ def main():
     say("[32] ResNet-50 training: bench_resnet50 recipe, 224x224, bf16 O1, "
         f"Momentum(0.1, 0.9), B={RESNET50_BATCHES}")
     resnet50_counts, resnet50_training = phase_resnet50_training(pt, ops)
+    free_device_memory()
+
+    say("[33] vision parity II: SqueezeNet 1.1 and AlexNet in f32; "
+        "MobileNetV1 0.25, ShuffleNetV2 0.5, GoogLeNet and DenseNet-121 in "
+        "f64 with one f32 step (10 classes, B=4, 3x64x64, 3 Momentum steps, "
+        "dropout 0), CUDA vs CPU")
+    vision_parity_ii = phase_vision_parity_ii(pt, ops)
+    free_device_memory()
+
+    say("[34] vision ops parity: transposed convolutions, norms, pooling "
+        "masks and unpooling, roi_align/roi_pool, box_coder, yolo_box, "
+        "deform_conv2d, nms; CUDA vs CPU")
+    vision_ops_parity = phase_vision_ops_parity(pt)
+    free_device_memory()
+
+    say(f"[35] GoogLeNet training: 224x224, bf16 O1, Momentum(0.1, 0.9), "
+        f"B={VISION_II_B}, loss with both aux heads")
+    googlenet_counts, googlenet_training = phase_vision_recipe(
+        pt, ops, "googlenet", "googlenet training", "googlenet_train")
+    free_device_memory()
+
+    say(f"[36] DenseNet-121 training: 224x224, bf16 O1, Momentum(0.1, 0.9), "
+        f"B={VISION_II_B}")
+    densenet_counts, densenet_training = phase_vision_recipe(
+        pt, ops, "densenet121", "densenet121 training", "densenet_train")
+    free_device_memory()
+
+    say("[37] detection ops at a detector's shapes: roi_align/roi_pool, "
+        "yolo_box + nms (YOLOv3-608, B=8), box_coder, deform_conv2d v2")
+    detection_ops = phase_detection_ops(pt)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -5586,7 +6170,9 @@ def main():
                   serve_moe=moe_serve_counts, moe_train=moe_train_counts,
                   serve_lora=lora_serve_counts, lora_train=lora_train_counts,
                   paged_decode=paged_counts, train_o2=o2_counts,
-                  lenet_train=lenet_counts, resnet50_train=resnet50_counts)
+                  lenet_train=lenet_counts, resnet50_train=resnet50_counts,
+                  googlenet_train=googlenet_counts,
+                  densenet_train=densenet_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -5613,6 +6199,11 @@ def main():
                     "vision_parity": vision_parity_out,
                     "lenet_training": lenet_training,
                     "resnet50_training": resnet50_training,
+                    "vision_parity_ii": vision_parity_ii,
+                    "vision_ops_parity": vision_ops_parity,
+                    "googlenet_training": googlenet_training,
+                    "densenet121_training": densenet_training,
+                    "detection_ops": detection_ops,
                     "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))

@@ -36,8 +36,10 @@ from ... import amp
 from ... import ops
 from ...ops.tiles import NEG_INF, min_rows
 from .activation import relu, relu6, relu_, silu, tanh
-from .conv import conv1d, conv2d, conv3d
-from .norm import batch_norm
+from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
+                   conv3d, conv3d_transpose)
+from .norm import (batch_norm, group_norm, instance_norm,
+                   local_response_norm, normalize, spectral_norm)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
@@ -50,8 +52,11 @@ __all__ = ["linear", "linear_act", "linear_act_int8", "lora_segment_act",
            "rms_norm", "silu", "tanh", "dropout",
            "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
            "cross_entropy", "relu", "relu_", "relu6", "conv1d", "conv2d",
-           "conv3d", "batch_norm", "avg_pool1d", "avg_pool2d", "avg_pool3d",
-           "max_pool1d", "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
+           "conv3d", "conv1d_transpose", "conv2d_transpose",
+           "conv3d_transpose", "batch_norm", "instance_norm", "group_norm",
+           "local_response_norm", "normalize", "spectral_norm",
+           "avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d",
+           "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
            "adaptive_avg_pool2d", "adaptive_avg_pool3d",
            "adaptive_max_pool1d", "adaptive_max_pool2d",
            "adaptive_max_pool3d", "max_unpool1d", "max_unpool2d",

@@ -18,8 +18,25 @@ high side), pad the input with zeros first.
 The dtype rule is the reference's (:57-79): operands of different dtypes
 are promoted to one, f16 is computed in f32 and cast back, and the bias
 is added after the convolution.  The op names ``conv1d``/``conv2d``/
-``conv3d`` are on the O1 white list.  The transposed convolutions are not
-ported yet.
+``conv3d`` are on the O1 white list.
+
+The transposed convolutions (:111-200, ``conv{1,2,3}d_transpose``, also
+white-listed) take weights ``[in, out / groups, *kernel]``, torch's
+layout too, with groups splitting the input channels.  The reference
+convolves the stride-dilated input, padded by ``d·(k−1) − lo`` below and
+``d·(k−1) − hi + output_padding`` above, with the flipped kernel, so its
+output is the full transposed convolution (``(in − 1)·s + d·(k−1) + 1``
+long) from ``lo`` to ``hi − output_padding`` before its end, zeros past
+its end.  torch's ``conv_transpose`` pads symmetrically and bounds its
+``output_padding`` by the stride, so the port passes it the padding
+``min(lo, hi − output_padding)`` (0 when negative) and crops, or pads
+with zeros, what is left by that formula; the bias is added after.
+String padding raises ``NotImplementedError``: the reference hands it to
+XLA with ``lhs_dilation``, which refuses it ("String padding is not
+implemented for transposed convolution"), so it computes no size to
+copy.  ``output_size`` is never read there: the port accepts it where it
+equals the size it computes and raises ``NotImplementedError`` where it
+differs.
 """
 from __future__ import annotations
 
@@ -27,10 +44,14 @@ import torch
 
 from ... import amp
 
-__all__ = ["conv1d", "conv2d", "conv3d"]
+__all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
+           "conv2d_transpose", "conv3d_transpose"]
 
 _CONV = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
          3: torch.nn.functional.conv3d}
+_CONV_T = {1: torch.nn.functional.conv_transpose1d,
+           2: torch.nn.functional.conv_transpose2d,
+           3: torch.nn.functional.conv_transpose3d}
 
 
 def ntuple(v, n):
@@ -95,6 +116,19 @@ def channels_first(x, data_format):
     return (x.movedim(-1, 1) if last else x), last
 
 
+def _operand_dtypes(x, weight):
+    """The reference's dtype rule (:57-79): f16 operands computed in f32
+    (the output's dtype returned, to cast back to), mixed operands
+    promoted to one; else the output's dtype is None."""
+    if torch.float16 in (x.dtype, weight.dtype):
+        return x.float(), weight.float(), torch.promote_types(x.dtype,
+                                                              weight.dtype)
+    if x.dtype != weight.dtype:
+        common = torch.promote_types(x.dtype, weight.dtype)
+        return x.to(common), weight.to(common), None
+    return x, weight, None
+
+
 def _conv(x, weight, bias, stride, padding, dilation, groups, data_format,
           nsp, op_name):
     x, weight, bias = amp.cast_inputs(op_name, x, weight, bias)
@@ -105,13 +139,7 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, data_format,
         pads = [(0, 0)] * nsp
     elif pads == "SAME":
         pads = same_pads(x.shape[2:], weight.shape[2:], stride, dilation)
-    out_dtype = None
-    if torch.float16 in (x.dtype, weight.dtype):
-        out_dtype = torch.promote_types(x.dtype, weight.dtype)
-        x, weight = x.float(), weight.float()
-    elif x.dtype != weight.dtype:
-        common = torch.promote_types(x.dtype, weight.dtype)
-        x, weight = x.to(common), weight.to(common)
+    x, weight, out_dtype = _operand_dtypes(x, weight)
     if all(lo == hi for lo, hi in pads):
         sym = tuple(lo for lo, _ in pads)
     else:
@@ -146,3 +174,75 @@ def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
     H, W, C]``."""
     return _conv(x, weight, bias, stride, padding, dilation, groups,
                  data_format, 3, "conv3d")
+
+
+def _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                    dilation, groups, data_format, nsp, output_size,
+                    op_name):
+    if isinstance(padding, str):
+        raise NotImplementedError(
+            f"{op_name} with padding {padding!r}: the reference passes "
+            f"string padding to XLA with lhs_dilation, which refuses it, so "
+            f"there is no size to copy")
+    x, weight, bias = amp.cast_inputs(op_name, x, weight, bias)
+    stride, dilation = ntuple(stride, nsp), ntuple(dilation, nsp)
+    opad = ntuple(output_padding or 0, nsp)
+    x, last = channels_first(x, data_format)
+    pads = norm_padding(padding, nsp, last)
+    kernel = weight.shape[2:]
+    full = [(n - 1) * s + d * (k - 1) + 1 for n, s, d, k in
+            zip(x.shape[2:], stride, dilation, kernel)]
+    # the reference's output is full[lo : full - hi + opad]
+    want = [(lo, f - hi + o) for (lo, hi), f, o in zip(pads, full, opad)]
+    sizes = tuple(b - a for a, b in want)
+    if output_size is not None and \
+            tuple(ntuple(output_size, nsp)[-nsp:]) != sizes:
+        raise NotImplementedError(
+            f"{op_name}: output_size {output_size} differs from the size "
+            f"{list(sizes)} the padding gives; the reference never reads "
+            f"output_size")
+    sym = tuple(max(min(lo, hi - o), 0) for (lo, hi), o in zip(pads, opad))
+    x, weight, out_dtype = _operand_dtypes(x, weight)
+    out = _CONV_T[nsp](x, weight, None, stride, sym, 0, int(groups),
+                       dilation)
+    # out is full[p : full - p]; crop to want, zeros past full's end
+    for ax, ((a, b), p, f) in enumerate(zip(want, sym, full), start=2):
+        out = out.narrow(ax, a - p, min(b, f - p) - a)
+        if b > f - p:
+            widths = [0, 0] * (out.dim() - 1 - ax) + [0, b - (f - p)]
+            out = torch.nn.functional.pad(out, widths)
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    if bias is not None:
+        out = out + bias.reshape((-1,) + (1,) * nsp)
+    return out.movedim(1, -1) if last else out
+
+
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    """1-D transposed convolution over ``[N, C, L]`` or ``[N, L, C]``."""
+    df = "NCW" if data_format in ("NCL", "NCW") else "NWC"
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, df, 1, output_size,
+                           "conv1d_transpose")
+
+
+def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCHW", name=None):
+    """2-D transposed convolution over ``[N, C, H, W]`` or ``[N, H, W,
+    C]``."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, data_format, 2, output_size,
+                           "conv2d_transpose")
+
+
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    """3-D transposed convolution over ``[N, C, D, H, W]`` or ``[N, D, H,
+    W, C]``."""
+    return _conv_transpose(x, weight, bias, stride, padding, output_padding,
+                           dilation, groups, data_format, 3, output_size,
+                           "conv3d_transpose")

@@ -1,24 +1,35 @@
 """Weight initializers.
 
-Port of ``paddle_tpu/nn/initializer/__init__.py:27-166``:
-``calculate_gain``, the fans, ``Constant``, ``Normal``, ``Uniform``,
-``XavierNormal``, ``XavierUniform``, ``KaimingNormal`` and
-``KaimingUniform``.  Calling one on a tensor fills it in place, from the
-``torch.Generator`` given (the global one when None), and returns it.
+Port of ``paddle_tpu/nn/initializer/__init__.py:27-219``:
+``calculate_gain``, the fans, ``Constant``, ``Normal``,
+``TruncatedNormal``, ``Uniform``, ``XavierNormal``, ``XavierUniform``,
+``KaimingNormal``, ``KaimingUniform``, ``Assign``, ``Orthogonal``,
+``Dirac`` and ``set_global_initializer``.  Calling one on a tensor
+fills it in place, from the ``torch.Generator`` given (the global one
+when None), and returns it.
 As in the reference, random values are drawn in f32 and cast to the
 tensor's type.  The two packages' generators differ, so the port draws
 other values than the reference from the same seed; the distributions are
-the same.
+the same.  ``Assign`` and ``Dirac`` draw nothing and give the reference's
+values exactly.  ``TruncatedNormal`` is the reference's ``mean + std *
+z`` with ``z`` a standard normal truncated to ``[a, b]`` (so ``a`` and
+``b`` are in units of ``std``, where ``torch.nn.init.trunc_normal_``
+truncates the output itself).  The reference stores the initializers of
+``set_global_initializer`` and never reads them: the port raises
+``NotImplementedError`` when given one, and ``set_global_initializer(None)``
+does nothing.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierNormal",
-           "XavierUniform", "KaimingNormal", "KaimingUniform",
-           "calculate_gain", "fans"]
+__all__ = ["Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
+           "XavierNormal", "XavierUniform", "KaimingNormal",
+           "KaimingUniform", "Assign", "Orthogonal", "Dirac",
+           "set_global_initializer", "calculate_gain", "fans"]
 
 
 def fans(shape):
@@ -78,6 +89,19 @@ class Normal(Initializer):
 
     def draw(self, vals, generator):
         vals.normal_(self.mean, self.std, generator=generator)
+
+
+class TruncatedNormal(Initializer):
+    """``mean + std * z``, ``z`` a standard normal truncated to ``[a,
+    b]``."""
+
+    def __init__(self, mean=0.0, std=1.0, a=-2.0, b=2.0, name=None):
+        self.mean, self.std, self.a, self.b = mean, std, a, b
+
+    def draw(self, vals, generator):
+        torch.nn.init.trunc_normal_(vals, 0.0, 1.0, self.a, self.b,
+                                    generator=generator)
+        vals.mul_(self.std).add_(self.mean)
 
 
 class Uniform(Initializer):
@@ -144,3 +168,67 @@ class KaimingUniform(_Kaiming):
     def draw(self, vals, generator):
         limit = self._scale(vals.shape) * math.sqrt(3.0)
         vals.uniform_(-limit, limit, generator=generator)
+
+
+class Assign(Initializer):
+    """The given value (an array, a list or a tensor), reshaped to the
+    parameter's shape."""
+
+    def __init__(self, value, name=None):
+        self.value = value
+
+    def __call__(self, param, generator=None):
+        v = self.value
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        with torch.no_grad():
+            param.copy_(torch.as_tensor(np.asarray(v)).reshape(param.shape))
+        return param
+
+
+class Orthogonal(Initializer):
+    """``gain`` times the Q of a QR of a ``(max(rows, cols), min(rows,
+    cols))`` normal draw with its signs fixed by R's diagonal, transposed
+    when rows < cols; ``cols`` is the product of the other dims."""
+
+    def __init__(self, gain=1.0, name=None):
+        self.gain = gain
+
+    def draw(self, vals, generator):
+        rows = vals.shape[0]
+        cols = math.prod(vals.shape[1:]) if vals.dim() > 1 else 1
+        flat = torch.empty((max(rows, cols), min(rows, cols)),
+                           dtype=torch.float32, device=vals.device)
+        flat.normal_(0.0, 1.0, generator=generator)
+        q, r = torch.linalg.qr(flat)
+        q = q * torch.sign(torch.diagonal(r))
+        if rows < cols:
+            q = q.T
+        vals.copy_(self.gain * q[:rows, :cols].reshape(vals.shape))
+
+
+class Dirac(Initializer):
+    """Ones at the kernel's centre from input channel ``i`` to output
+    channel ``g * out / groups + i`` of each group, zeros elsewhere."""
+
+    def __init__(self, groups=1, name=None):
+        self.groups = groups
+
+    def draw(self, vals, generator):
+        vals.zero_()
+        oc, ic = vals.shape[:2]
+        centers = tuple(s // 2 for s in vals.shape[2:])
+        per = oc // self.groups
+        for g in range(self.groups):
+            for i in range(min(per, ic)):
+                vals[(g * per + i, i) + centers] = 1.0
+
+
+def set_global_initializer(weight_init, bias_init=None):
+    """Refused when given an initializer: the reference stores it and no
+    layer ever reads it.  ``None`` for both does nothing."""
+    if weight_init is not None or bias_init is not None:
+        raise NotImplementedError(
+            "set_global_initializer: the reference stores the initializers "
+            "and never applies them, so the port refuses them rather than "
+            "pick either behaviour")

@@ -1,5 +1,7 @@
 """Activation and pooling layers: port of ``paddle_tpu/nn/layer/
-activation_pool.py`` (``ReLU``, ``ReLU6`` :48-49; the pools :102-175).
+activation_pool.py`` (``ReLU``, ``ReLU6`` :48-49; the pools :102-175;
+``MaxUnPool1D/2D/3D`` :177-219, whose ``forward`` takes the values and
+the mask).
 A pool layer keeps its arguments and calls its functional with them
 (``ceil_mode``, ``exclusive``, ``divisor_override``, ``data_format``,
 ... by keyword)."""
@@ -12,7 +14,8 @@ from .. import functional as F
 __all__ = ["ReLU", "ReLU6", "AvgPool1D", "AvgPool2D", "AvgPool3D",
            "MaxPool1D", "MaxPool2D", "MaxPool3D", "AdaptiveAvgPool1D",
            "AdaptiveAvgPool2D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
-           "AdaptiveMaxPool2D", "AdaptiveMaxPool3D"]
+           "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "MaxUnPool1D",
+           "MaxUnPool2D", "MaxUnPool3D"]
 
 
 class ReLU(nn.Module):
@@ -112,3 +115,40 @@ class AdaptiveMaxPool2D(_AdaptivePoolNd):
 
 class AdaptiveMaxPool3D(_AdaptivePoolNd):
     _fn = staticmethod(F.adaptive_max_pool3d)
+
+
+class _MaxUnPoolNd(nn.Module):
+    _fn = None
+    _data_format = "NCHW"
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format=None, output_size=None, name=None):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.stride = stride
+        self.padding = padding
+        self.data_format = data_format or self._data_format
+        self.output_size = output_size
+
+    def forward(self, x, indices):
+        return type(self)._fn(x, indices, self.kernel_size, self.stride,
+                              self.padding, self.data_format,
+                              self.output_size)
+
+    def extra_repr(self):
+        return (f"kernel_size={self.kernel_size}, stride={self.stride}, "
+                f"padding={self.padding}")
+
+
+class MaxUnPool1D(_MaxUnPoolNd):
+    _fn = staticmethod(F.max_unpool1d)
+    _data_format = "NCL"
+
+
+class MaxUnPool2D(_MaxUnPoolNd):
+    _fn = staticmethod(F.max_unpool2d)
+
+
+class MaxUnPool3D(_MaxUnPoolNd):
+    _fn = staticmethod(F.max_unpool3d)
+    _data_format = "NCDHW"

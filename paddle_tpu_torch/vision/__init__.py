@@ -1,12 +1,13 @@
-"""paddle.vision: the ported models (``models``).
+"""paddle.vision: the ported models (``models``) and detection ops
+(``ops``).
 
-Port of ``paddle_tpu/vision``: LeNet, the ResNet family, VGG and
-MobileNetV2 so far; ``small_nets``, ``densenet_googlenet``,
-``transforms``, ``datasets`` and ``ops`` are not ported yet.
+Port of ``paddle_tpu/vision``; ``transforms`` and ``datasets`` are not
+ported yet (they build on ``io.Dataset``, which comes with the
+``io/`` DataLoader).
 """
-from . import models
+from . import models, ops
 from .models import (LeNet, ResNet, resnet18, resnet34, resnet50, resnet101,
                      resnet152)
 
-__all__ = ["models", "LeNet", "ResNet", "resnet18", "resnet34", "resnet50",
-           "resnet101", "resnet152"]
+__all__ = ["models", "ops", "LeNet", "ResNet", "resnet18", "resnet34",
+           "resnet50", "resnet101", "resnet152"]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """How far f32 carries ResNet-50's training step from f64, on the card
 and on the CPU: the numbers behind phase 30's design (``chip_smoke.
-F32_FLOOR_FACTOR``).
+F32_FLOOR_FACTOR``) and, with ``--cpu``, behind each of phase 33's
+models' designs.
 
     python3 scripts/torch_vision_diag.py               # on the card
     python3 scripts/torch_vision_diag.py --cpu B:HW:LR:BAND ...
@@ -17,11 +18,20 @@ run the same way, and the card's f64 run; each leaf layer's output error
 against f64 in one forward, on the CPU and on the card; batch norm alone
 on inputs with a mean of 0, 10 and 100.
 
-``--cpu``: for each ``B:HW:LR:BAND``, ResNet-50 (10 classes) at batch
-B, HW x HW, 3 Momentum(LR, 0.9) steps on the CPU in f64 (recording relu
-kinks within BAND of 0) and in f32 (holding them): phase 30's readings
-of the f32 run against f64 (`chip_smoke.vision_parity_run`,
-`chip_smoke.excess`).
+``--convs``: the convolutions' readings alone (those shapes and
+AlexNet's and GoogLeNet's 11 x 11 and 5 x 5), under each setting and
+``cudnn.benchmark``.
+
+``--cpu``: for each ``[MODEL:]B:HW:LR:BAND``, ResNet-50 or ``MODEL`` (a
+key of `chip_smoke.VISION_PARITY_II`: phase 33's models, dropout 0) with
+10 classes at batch B, HW x HW, 3 Momentum(LR, 0.9) steps on the CPU in
+f64 (recording relu kinks within BAND of 0) and in f32 (holding them):
+phase 30's readings of the f32 run against f64
+(`chip_smoke.vision_parity_run`, `chip_smoke.excess`), and whether the
+f32 run meets `chip_smoke.PARITY_TOL` (phase 33's f32 design) or not
+(its f64 design).
+
+    python3 scripts/torch_vision_diag.py --cpu googlenet:4:64:1e-3:1e-3
 """
 import argparse
 import sys
@@ -52,7 +62,7 @@ def model_step(pt, device, dtype):
                                   for n, p in m.named_parameters()}
 
 
-def card(pt):
+def card(pt, convs_only=False):
     import torch
     import torch.nn.functional as TF
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -70,7 +80,11 @@ def card(pt):
               ((4, 64, 16, 16), (64, 64, 3, 3), 1, 1),
               ((4, 256, 8, 8), (128, 256, 1, 1), 1, 0),
               ((4, 512, 2, 2), (512, 512, 3, 3), 1, 1),
-              ((4, 128, 16, 16), (128, 128, 3, 3), 2, 1)]
+              ((4, 128, 16, 16), (128, 128, 3, 3), 2, 1),
+              # AlexNet's 11 x 11 and 5 x 5, GoogLeNet's 5 x 5 (phase 33)
+              ((4, 3, 64, 64), (64, 3, 11, 11), 4, 2),
+              ((4, 64, 7, 7), (192, 64, 5, 5), 1, 2),
+              ((4, 16, 7, 7), (32, 16, 5, 5), 1, 2)]
 
     def rel(a, b):
         return float((a.detach().double().cpu() - b).abs().max()
@@ -96,6 +110,19 @@ def card(pt):
         print(f"{tag}: conv f32 card vs f64 (fwd dgrad wgrad):",
               "; ".join(out))
 
+    if convs_only:
+        convs("default")
+        for flag in ("deterministic", "benchmark"):
+            setattr(torch.backends.cudnn, flag, True)
+            convs(flag)
+            setattr(torch.backends.cudnn, flag, False)
+        if hasattr(torch.backends.cudnn, "conv"):
+            torch.backends.cudnn.conv.fp32_precision = "ieee"
+            convs("fp32_precision ieee")
+        torch.backends.cudnn.enabled = False
+        convs("cuDNN off")
+        torch.backends.cudnn.enabled = True
+        return
     l64, g64 = model_step(pt, "cpu", torch.float64)
 
     def vs64(tag, l, g):
@@ -174,14 +201,19 @@ def cpu_scan(pt, specs):
     from paddle_tpu_torch import ops
     cs.say = lambda msg: None
     for spec in specs:
-        b, hw, lr, band = spec.split(":")
-        b, hw, lr, band = int(b), int(hw), float(lr), float(band)
+        parts = spec.split(":")
+        name = parts.pop(0) if len(parts) == 5 else "resnet50"
+        b, hw, lr, band = int(parts[0]), int(parts[1]), float(parts[2]), \
+            float(parts[3])
         rng = np.random.default_rng(cs.SEED + 30)
         x = rng.standard_normal((b, 3, hw, hw)).astype(np.float32)
         y = rng.integers(0, 10, b)
 
-        def make(device):
-            return pt.vision.models.resnet50(num_classes=10, device=device)
+        def make(device, name=name):
+            if name == "resnet50":
+                return pt.vision.models.resnet50(num_classes=10,
+                                                 device=device)
+            return cs.vision_model(pt, name, device)
 
         def make_opt(m):
             return pt.optimizer.Momentum(learning_rate=lr, momentum=0.9,
@@ -193,12 +225,20 @@ def cpu_scan(pt, specs):
                 for rec, dt in ((True, torch.float64),
                                 (False, torch.float32))]
         (r64, e64), (r32, e32) = runs
-        step1 = cs.step1_readings(runs[1], runs[0])
+        zero = cs.VISION_PARITY_II.get(name, (None,) * 5)[3]
+        step1 = cs.step1_readings(runs[1], runs[0], zero)
         loss3 = abs(r32[0][-1] - r64[0][-1]) / abs(r64[0][-1])
-        print(f"B={b} HW={hw} lr={lr:g} band={band:g}: step-1 logits "
+        loss_err = max(abs(a - c) / abs(c) for a, c in zip(r32[0], r64[0]))
+        param = cs.excess(r32[2], r64[2])[0]
+        tol = cs.PARITY_TOL
+        meets = (loss_err <= tol["loss"] and step1["grad"][0] <= tol["grad"]
+                 and param <= tol["param"][0])
+        print(f"{name} B={b} HW={hw} lr={lr:g} band={band:g}: f32 "
+              f"{'meets' if meets else 'misses'} PARITY_TOL (losses "
+              f"{loss_err:.2e}); step-1 logits "
               f"{step1['logits'][0]:.2e}, gradients {step1['grad'][0]:.2e} "
               f"at {step1['grad'][1]}; after 3 steps loss {loss3:.2e}, "
-              f"parameters {cs.excess(r32[2], r64[2])[0]:.2e}, buffers "
+              f"parameters {param:.2e}, buffers "
               f"{cs.excess(e32['buffers'][-1], e64['buffers'][-1])[0]:.2e}; "
               f"f64 losses {[round(v, 5) for v in r64[0]]}, f32 "
               f"{[round(v, 5) for v in r32[0]]}", flush=True)
@@ -206,13 +246,15 @@ def cpu_scan(pt, specs):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--cpu", nargs="+", metavar="B:HW:LR:BAND")
+    parser.add_argument("--cpu", nargs="+", metavar="[MODEL:]B:HW:LR:BAND")
+    parser.add_argument("--convs", action="store_true",
+                        help="on the card: the convolutions' readings only")
     args = parser.parse_args()
     import paddle_tpu_torch as pt
     if args.cpu:
         cpu_scan(pt, args.cpu)
     else:
-        card(pt)
+        card(pt, args.convs)
 
 
 if __name__ == "__main__":

@@ -87,7 +87,10 @@ route.  The epilogue backward at the drives' fc1 shapes ([4096, 8192],
 activation on the vector route by the counters and both rules, N = 130
 on the element-wise route, and 100 runs bit-identical.  The softmax
 cross-entropy rows also at the vision drives' logits ([64, 10] and [32,
-1000]), and one ResNet-18 Momentum step on the card against the CPU.
+1000]), and one ResNet-18 Momentum step on the card against the CPU;
+the vision ops of ``chip_smoke.py`` phase 34 (transposed convolutions,
+norms, pooling masks and unpooling, the detection ops) and 3 Momentum
+steps of SqueezeNet 1.1 and AlexNet, card against CPU.
 """
 import numpy as np
 import pytest
@@ -503,6 +506,55 @@ def test_resnet18_step_on_the_card_matches_the_cpu(gen):
     finally:
         torch.backends.cuda.matmul.allow_tf32, \
             torch.backends.cudnn.allow_tf32 = prev
+
+
+def _chip_smoke():
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.fixture
+def no_tf32():
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_vision_ops_on_the_card_match_the_cpu(gen, no_tf32):
+    """``chip_smoke.phase_vision_ops_parity``: every transposed
+    convolution form, the other norms, the pooling masks and unpooled maps
+    (exactly), roi_align and roi_pool, box_coder, yolo_box, deform_conv2d
+    v1 and v2, forward and backward, and nms (exactly) on the card against
+    the CPU, within ``chip_smoke.VISION_OPS_TOL`` of each output's
+    largest magnitude."""
+    import paddle_tpu_torch as pt
+    out = _chip_smoke().phase_vision_ops_parity(pt)
+    assert out["nms"] == "exact" and out["deform_conv2d_v2"] <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["squeezenet1_1", "alexnet"])
+def test_small_net_steps_on_the_card_match_the_cpu(gen, no_tf32, name):
+    """3 Momentum steps of SqueezeNet 1.1 or AlexNet (10 classes, B=4, 3 x
+    64 x 64, f32, dropout 0) on the card against the CPU within
+    ``chip_smoke.PARITY_TOL`` (``chip_smoke.vision_parity``; AlexNet with
+    cuDNN off, as phase 33 runs it), rows 8a/8b launched once a step."""
+    import paddle_tpu_torch as pt
+    cs = _chip_smoke()
+    out = cs.vision_parity(
+        pt, ops, f"{name} parity", lambda d: cs.vision_model(pt, name, d),
+        cs.VISION_PARITY_II_SHAPE, 10, "momentum", "f32",
+        cudnn=cs.VISION_PARITY_II[name][4])
+    assert out["dtype"] == "float32"
+    assert out["grad_max_rel_err"] <= cs.PARITY_TOL["grad"]
 
 
 def test_wrappers_refuse_bad_inputs(gen):

@@ -50,7 +50,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "ops.paged", "inference.serving.lora", "nn.functional.conv",
               "nn.functional.pooling", "nn.functional.norm",
               "nn.initializer", "nn.layer.conv", "vision.models.resnet",
-              "vision.models.mobilenet"):
+              "vision.models.mobilenet", "vision.models.small_nets",
+              "vision.models.densenet_googlenet", "vision.ops",
+              "nn.layer.norm", "nn.layer.activation_pool"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

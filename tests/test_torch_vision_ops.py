@@ -20,7 +20,23 @@ accumulates in bf16), within 2^-5 of it (sqrt(150) half-ulps of drift).
 * Pooling: max and average, symmetric, asymmetric and ``"SAME"`` padding,
   ``exclusive`` on and off, ``divisor_override``; adaptive pools whose
   output does and does not divide the input; NCHW and NHWC; 1-D and 3-D.
-  ``ceil_mode=True``, ``return_mask=True`` and ``max_unpool*d`` raise.
+  ``ceil_mode=True`` floors, as the reference.
+* Transposed convolutions: symmetric and asymmetric padding,
+  ``output_padding`` past the padding, groups and dilation, channels
+  last, 1-D, 2-D and 3-D; string padding refused by both packages;
+  ``output_size`` accepted where it equals the size computed; the
+  layers.
+* The masks of ``return_mask=True`` exactly equal to the reference's
+  (ties included: integer-valued inputs), fixed and adaptive, 1-D, 2-D
+  and 3-D; ``max_unpool*d`` against the reference and round-tripping a
+  mask, with and without ``output_size``; the layers.
+* Instance, group and local response norm, ``normalize`` and
+  ``spectral_norm`` and their layers (names and shapes as the
+  reference's); ``SyncBatchNorm`` raises.
+* The initializers ``TruncatedNormal`` (bounds in units of ``std``),
+  ``Orthogonal`` (orthonormal rows or columns times ``gain``), ``Dirac``
+  and ``Assign`` (exactly the reference's values), and
+  ``set_global_initializer`` (refused unless None).
 * Batch norm in training and in eval, NCHW and NHWC, with its running
   statistics after one call (Paddle's momentum, the unbiased variance);
   the layers' buffers under the reference's names; the dtypes under O1.
@@ -343,23 +359,34 @@ def test_adaptive_pool_matches_reference(case, dtype):
 
 
 def test_ceil_mode_return_mask_and_unpool_raise():
-    x = torch.randn(1, 1, 5, 5)
-    with pytest.raises(NotImplementedError, match="ceil_mode"):
-        F.max_pool2d(x, 2, 2, ceil_mode=True)
-    with pytest.raises(NotImplementedError, match="ceil_mode"):
-        F.avg_pool2d(x, 2, 2, ceil_mode=True)
-    with pytest.raises(NotImplementedError, match="ceil_mode"):
-        pt.nn.MaxPool2D(2, 2, ceil_mode=True)(x)
-    # the reference ignores the flag: 2 x 2, where torch's ceil gives 3 x 3
-    ref = RF.max_pool2d(paddle.to_tensor(x.numpy()), 2, 2, ceil_mode=True)
-    assert tuple(ref.shape) == (1, 1, 2, 2)
-    for call in (lambda: F.max_pool2d(x, 2, 2, return_mask=True),
-                 lambda: F.adaptive_max_pool2d(x, 2, return_mask=True),
-                 lambda: F.max_unpool2d(x, x.long(), 2)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    """``ceil_mode`` is ignored as in the reference (floored windows:
+    2 x 2 on 5 x 5, where torch's ceil gives 3 x 3); what still raises:
+    a 2-D channels-last mask (the reference reads it as NCHW), a 1-D
+    channels-last unpool (read as NCL there), an unpool index past the
+    output (as there) and ``divisor_override`` with string padding."""
+    x = np.random.default_rng(12).standard_normal((1, 2, 5, 5)).astype(
+        np.float32)
+    tx, rx = torch.from_numpy(x), paddle.to_tensor(x)
+    for name in ("max_pool2d", "avg_pool2d"):
+        got = getattr(F, name)(tx, 2, 2, ceil_mode=True)
+        want = getattr(RF, name)(rx, 2, 2, ceil_mode=True)
+        assert tuple(got.shape) == tuple(want.shape) == (1, 2, 2, 2)
+        np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
+    got = pt.nn.MaxPool2D(3, 2, ceil_mode=True)(tx)
+    want = paddle.nn.MaxPool2D(3, 2, ceil_mode=True)(rx)
+    assert tuple(got.shape) == tuple(want.shape) == (1, 2, 2, 2)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
+    with pytest.raises(NotImplementedError, match="NCHW"):
+        F.max_pool2d(tx.permute(0, 2, 3, 1), 2, return_mask=True,
+                     data_format="NHWC")
+    with pytest.raises(NotImplementedError, match="NCL"):
+        F.max_unpool1d(tx[:, :, 0], tx[:, :, 0].long(), 2,
+                       data_format="NLC")
+    _, mask = F.max_pool2d(tx, 2, 2, return_mask=True)
+    with pytest.raises(ValueError, match="output_size"):
+        F.max_unpool2d(tx[:, :, :2, :2], mask + 16, 2)
     with pytest.raises(NotImplementedError, match="string padding"):
-        F.avg_pool2d(x, 2, 2, "SAME", divisor_override=2)
+        F.avg_pool2d(tx, 2, 2, "SAME", divisor_override=2)
 
 
 # ---------------------------------------------------------------------
@@ -481,3 +508,394 @@ def test_relu_inplace():
     y = leaf * 1.0
     F.relu_(y).sum().backward()
     assert leaf.grad.tolist() == [0.0, 0.5, 1.0]
+
+
+# ---------------------------------------------------------------------
+# transposed convolutions
+# ---------------------------------------------------------------------
+#: (dims, padding, stride, dilation, groups, output_padding, layout)
+CONV_T_CASES = {
+    "2d_int": (2, 1, 2, 1, 1, 0, "NCHW"),
+    "2d_output_padding": (2, 1, 2, 1, 1, 1, "NCHW"),
+    "2d_asymmetric": (2, [0, 1, 2, 0], 2, 1, 2, 1, "NCHW"),
+    "2d_pairs": (2, [[1, 0], [0, 2]], 2, 1, 1, 0, "NCHW"),
+    "2d_groups_dilation": (2, 0, 3, 2, 2, [2, 1], "NCHW"),
+    "2d_output_padding_past_padding": (2, 0, 2, 1, 1, 1, "NCHW"),
+    "2d_nhwc": (2, 2, 2, 1, 1, 1, "NHWC"),
+    "1d_asymmetric": (1, [1, 3], 2, 1, 1, 1, "NCL"),
+    "1d_nlc": (1, 2, 2, 1, 2, 0, "NLC"),
+    "3d": (3, [0, 1, 1, 0, 2, 1], 2, 1, 1, 0, "NCDHW"),
+    "3d_ndhwc": (3, 1, 2, 1, 1, 1, "NDHWC"),
+}
+
+
+@pytest.mark.parametrize("case", list(CONV_T_CASES))
+def test_conv_transpose_matches_reference(case):
+    nsp, padding, stride, dilation, groups, opad, df = CONV_T_CASES[case]
+    rng = np.random.default_rng(len(case) + 60)
+    spatial = (6, 5, 4)[:nsp]
+    shape = (2, 4) + spatial if df.startswith("NC") \
+        else (2,) + spatial + (4,)
+    arrays = [rng.standard_normal(shape).astype(np.float32),
+              (0.3 * rng.standard_normal((4, 6 // groups) + (3,) * nsp)
+               ).astype(np.float32),
+              rng.standard_normal(6).astype(np.float32)]
+    name = f"conv{nsp}d_transpose"
+
+    def call(mod):
+        return lambda x, wt, b: getattr(mod, name)(
+            x, wt, b, stride, padding, opad, groups, dilation,
+            data_format=df)
+    _hold(*_run_both(call(RF), call(F), arrays, "float32"), "float32")
+
+
+def test_conv_transpose_bf16_and_f16_match_reference():
+    rng = np.random.default_rng(61)
+    arrays = [rng.standard_normal((2, 4, 5, 6)).astype(np.float32),
+              (0.3 * rng.standard_normal((4, 3, 3, 3))).astype(np.float32)]
+
+    def call(mod):
+        return lambda x, wt: mod.conv2d_transpose(x, wt, None, 2,
+                                                  [1, 0, 0, 1], 1)
+    _hold(*_run_both(call(RF), call(F), arrays, "bfloat16"), "bfloat16")
+    x, w = (torch.from_numpy(a).half() for a in arrays)
+    got = F.conv2d_transpose(x, w, None, 2, 1)
+    want = RF.conv2d_transpose(*(paddle.to_tensor(a).astype("float16")
+                                 for a in arrays), None, 2, 1)
+    assert got.dtype == torch.float16
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-3, rtol=2e-3)
+
+
+def test_conv_transpose_asymmetric_crop_follows_the_reference():
+    """Length (in - 1) * s + d * (k - 1) + 1 - lo - hi + output_padding;
+    the full transposed convolution cropped by lo below, and by hi less
+    output_padding above (zeros past its end)."""
+    x = torch.randn(1, 1, 4)
+    w = torch.randn(1, 1, 3)
+    full = F.conv1d_transpose(x, w, None, 2, 0)
+    assert full.shape[-1] == (4 - 1) * 2 + 3
+    for lo, hi, opad in ((0, 2, 0), (2, 0, 1), (1, 3, 1), (0, 0, 1)):
+        got = F.conv1d_transpose(x, w, None, 2, [lo, hi], opad)
+        want = torch.cat([full, torch.zeros(1, 1, 1)], -1)[
+            ..., lo:full.shape[-1] - hi + opad]
+        assert got.shape[-1] == 9 - lo - hi + opad
+        torch.testing.assert_close(got, want)
+        ref = RF.conv1d_transpose(paddle.to_tensor(x.numpy()),
+                                  paddle.to_tensor(w.numpy()), None, 2,
+                                  [lo, hi], opad)
+        np.testing.assert_allclose(_np(got), _np(ref), atol=1e-6)
+
+
+def test_conv_transpose_refuses_string_padding_and_other_output_size():
+    x = np.zeros((1, 2, 5, 5), np.float32)
+    w = np.zeros((2, 3, 3, 3), np.float32)
+    for pad in ("SAME", "VALID"):
+        with pytest.raises(NotImplementedError, match="string padding"):
+            F.conv2d_transpose(torch.from_numpy(x), torch.from_numpy(w),
+                               None, 2, pad)
+        # the reference refuses it inside XLA
+        with pytest.raises(ValueError, match="String padding"):
+            RF.conv2d_transpose(paddle.to_tensor(x), paddle.to_tensor(w),
+                                None, 2, pad)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    assert F.conv2d_transpose(tx, tw, None, 2, 1, output_size=[9, 9]
+                              ).shape == (1, 3, 9, 9)
+    with pytest.raises(NotImplementedError, match="output_size"):
+        F.conv2d_transpose(tx, tw, None, 2, 1, output_size=[10, 10])
+
+
+@pytest.mark.parametrize("nsp", [1, 2, 3])
+def test_conv_transpose_layers_match_reference(nsp):
+    cls = f"Conv{nsp}DTranspose"
+    ref = getattr(paddle.nn, cls)(4, 6, 3, stride=2, padding=1, groups=2)
+    port = getattr(pt.nn, cls)(4, 6, 3, stride=2, padding=1, groups=2,
+                               device="cpu")
+    assert tuple(port.weight.shape) == (4, 3) + (3,) * nsp
+    assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in ref.state_dict().items()}
+    pt.load_reference_state(port, {k: np.asarray(v.numpy())
+                                   for k, v in ref.state_dict().items()})
+    x = np.random.default_rng(62).standard_normal(
+        (2, 4) + (5, 4, 3)[:nsp]).astype(np.float32)
+    got = port(torch.from_numpy(x))
+    want = ref(paddle.to_tensor(x))
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=1e-5)
+    size = list(got.shape[2:])
+    assert port(torch.from_numpy(x), output_size=size).shape == got.shape
+
+
+# ---------------------------------------------------------------------
+# pooling masks and unpooling
+# ---------------------------------------------------------------------
+#: (functional, input shape, arguments, keyword arguments)
+MASK_CASES = {
+    "2d_resnet": ("max_pool2d", (2, 3, 9, 8), (3, 2, 1), {}),
+    "2d_k2": ("max_pool2d", (2, 3, 9, 8), (2, 2, 0), {}),
+    "2d_rect": ("max_pool2d", (2, 3, 9, 8), ([3, 2], [1, 2], [1, 0]), {}),
+    "2d_same": ("max_pool2d", (2, 3, 9, 8), (2, 2, "SAME"), {}),
+    "1d": ("max_pool1d", (2, 3, 13), (3, 2, 1), {}),
+    "3d": ("max_pool3d", (1, 2, 5, 6, 7), (3, 2, 1), {}),
+    "3d_ndhwc": ("max_pool3d", (1, 5, 6, 7, 2), (3, 2, 1),
+                 {"data_format": "NDHWC"}),
+    "adaptive1d": ("adaptive_max_pool1d", (2, 3, 10), (4,), {}),
+    "adaptive2d_divides": ("adaptive_max_pool2d", (2, 3, 8, 10), ((4, 5),),
+                           {}),
+    "adaptive2d_uneven": ("adaptive_max_pool2d", (2, 3, 9, 8), ((3, 5),),
+                          {}),
+    "adaptive3d": ("adaptive_max_pool3d", (1, 2, 5, 6, 7), ((3, 2, 4),),
+                   {}),
+}
+
+
+@pytest.mark.parametrize("case", list(MASK_CASES))
+def test_pool_masks_equal_reference(case):
+    """Integer-valued inputs tie often: the first maximum a window, as
+    numpy's (and the reference's ``jnp``) ``argmax`` takes it."""
+    name, shape, args, kw = MASK_CASES[case]
+    x = np.random.default_rng(len(case) + 70).integers(0, 3, shape).astype(
+        np.float32)
+    rout, rmask = getattr(RF, name)(paddle.to_tensor(x), *args,
+                                    return_mask=True, **kw)
+    tout, tmask = getattr(F, name)(torch.from_numpy(x), *args,
+                                   return_mask=True, **kw)
+    assert tmask.dtype == torch.int64
+    assert np.array_equal(tmask.numpy(), _np(rmask))
+    np.testing.assert_array_equal(_np(tout), _np(rout))
+
+
+@pytest.mark.parametrize("case", ["1d", "2d", "2d_output_size", "2d_nhwc",
+                                  "3d", "3d_ndhwc"])
+def test_unpool_round_trips_the_mask(case):
+    nsp = int(case[0])
+    last = case.endswith(("nhwc", "ndhwc"))
+    spatial = {1: (11,), 2: (9, 8), 3: (5, 6, 7)}[nsp]
+    df = {1: "NCL", 2: "NCHW", 3: "NCDHW"}[nsp]
+    rng = np.random.default_rng(len(case) + 80)
+    # positive values: pooling the unpooled map finds each maximum again
+    x = (np.abs(rng.standard_normal((2, 3) + spatial)) + 0.1).astype(
+        np.float32)
+    pool, unpool = f"max_pool{nsp}d", f"max_unpool{nsp}d"
+    out, mask = getattr(F, pool)(torch.from_numpy(x), 2, 2,
+                                 return_mask=True)
+    size = list(spatial) if case.endswith("output_size") or nsp != 2 \
+        else None
+    if last:
+        out, mask = out.movedim(1, -1), mask.movedim(1, -1)
+        df = df[0] + df[2:] + "C"
+    got = getattr(F, unpool)(out, mask, 2, 2, data_format=df,
+                             output_size=size)
+    want = getattr(RF, unpool)(paddle.to_tensor(out.numpy()),
+                               paddle.to_tensor(mask.numpy()), 2, 2,
+                               data_format=df, output_size=size)
+    np.testing.assert_array_equal(_np(got), _np(want))
+    # the round trip: each window's maximum back where it came from
+    back = got.movedim(-1, 1) if last else got
+    if size is None:
+        assert back.shape[2:] == (8, 8)
+    dense = torch.zeros((2, 3) + spatial)
+    dense.reshape(2, 3, -1).scatter_(
+        2, (mask.movedim(-1, 1) if last else mask).reshape(2, 3, -1),
+        (out.movedim(-1, 1) if last else out).reshape(2, 3, -1))
+    if size is not None:
+        assert torch.equal(back, dense)
+    repooled = getattr(F, pool)(back, 2, 2)
+    assert torch.equal(repooled, out.movedim(-1, 1) if last else out)
+
+
+def test_unpool_layers_and_gradient():
+    x = torch.rand(1, 2, 6, 6) + 0.1
+    out, mask = F.max_pool2d(x, 2, 2, return_mask=True)
+    v = out.clone().requires_grad_()
+    got = pt.nn.MaxUnPool2D(2, 2)(v, mask)
+    got.sum().backward()
+    assert torch.equal(v.grad, torch.ones_like(v))
+    assert torch.equal(F.max_pool2d(got.detach(), 2, 2), out)
+    o1, m1 = F.max_pool1d(x[:, :, 0], 2, 2, return_mask=True)
+    assert torch.equal(pt.nn.MaxUnPool1D(2)(o1, m1),
+                       F.max_unpool1d(o1, m1, 2))
+    o3, m3 = F.max_pool3d(x[:, :, None].expand(1, 2, 2, 6, 6), 2,
+                          return_mask=True)
+    assert pt.nn.MaxUnPool3D(2)(o3, m3).shape == (1, 2, 2, 6, 6)
+
+
+# ---------------------------------------------------------------------
+# the other norms
+# ---------------------------------------------------------------------
+#: (functional, input shape, arguments, keyword arguments, parameters)
+NORM_CASES = {
+    "instance": ("instance_norm", (2, 4, 5, 6), (), {}, 2),
+    "instance_nhwc": ("instance_norm", (2, 5, 6, 4), (),
+                      {"data_format": "NHWC"}, 2),
+    "instance_3d": ("instance_norm", (2, 3, 3, 4, 5), (), {}, 0),
+    "group": ("group_norm", (2, 6, 5, 4), (3,), {}, 2),
+    "group_nhwc": ("group_norm", (2, 5, 4, 6), (2,),
+                   {"data_format": "NHWC"}, 2),
+    "lrn": ("local_response_norm", (2, 7, 4, 3), (5,), {}, 0),
+    "lrn_even": ("local_response_norm", (2, 6, 4, 3), (4,),
+                 {"alpha": 1e-2, "beta": 0.5, "k": 2.0}, 0),
+    "lrn_nhwc": ("local_response_norm", (2, 4, 3, 7), (3,),
+                 {"data_format": "NHWC"}, 0),
+    "normalize": ("normalize", (3, 5, 4), (), {}, 0),
+    "normalize_p1": ("normalize", (3, 5, 4), (), {"p": 1, "axis": -1}, 0),
+}
+
+
+@pytest.mark.parametrize("case,dtype", [(c, "float32") for c in NORM_CASES]
+                         + [(c, "bfloat16") for c in ("instance", "group",
+                                                      "lrn")])
+def test_norm_matches_reference(case, dtype):
+    name, shape, args, kw, n_params = NORM_CASES[case]
+    rng = np.random.default_rng(len(case) + 90)
+    arrays = [(1.5 * rng.standard_normal(shape) + 0.5).astype(np.float32)]
+    caxis = -1 if kw.get("data_format", "NC").startswith("NH") else 1
+    for _ in range(n_params):
+        arrays.append((1 + 0.3 * rng.standard_normal(shape[caxis])
+                       ).astype(np.float32))
+
+    def call(mod):
+        fn = getattr(mod, name)
+        if name == "instance_norm":
+            return lambda x, *wb: fn(x, weight=wb[0] if wb else None,
+                                     bias=wb[1] if wb else None, **kw)
+        if name == "group_norm":
+            return lambda x, w_, b_: fn(x, *args, weight=w_, bias=b_, **kw)
+        return lambda x: fn(x, *args, **kw)
+    _hold(*_run_both(call(RF), call(F), arrays, dtype), dtype)
+
+
+def test_instance_norm_with_running_stats_matches_reference():
+    rng = np.random.default_rng(95)
+    x = rng.standard_normal((2, 3, 4, 4)).astype(np.float32)
+    rm = rng.standard_normal(3).astype(np.float32)
+    rv = (1 + rng.random(3)).astype(np.float32)
+    got = F.instance_norm(torch.from_numpy(x), torch.from_numpy(rm),
+                          torch.from_numpy(rv), use_input_stats=False)
+    want = RF.instance_norm(paddle.to_tensor(x), paddle.to_tensor(rm),
+                            paddle.to_tensor(rv), use_input_stats=False)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="running_mean"):
+        F.instance_norm(torch.from_numpy(x), use_input_stats=False)
+
+
+@pytest.mark.parametrize("dim,iters", [(0, 1), (1, 3)])
+def test_spectral_norm_matches_reference(dim, iters):
+    rng = np.random.default_rng(96 + dim)
+    w = rng.standard_normal((4, 3, 2, 2)).astype(np.float32)
+    h = w.shape[dim]
+    u = rng.standard_normal(h).astype(np.float32)
+    v = rng.standard_normal(w.size // h).astype(np.float32)
+
+    (rout, rgrads), (tout, tgrads) = _run_both(
+        lambda w_: RF.spectral_norm(w_, paddle.to_tensor(u),
+                                    paddle.to_tensor(v), dim, iters),
+        lambda w_: F.spectral_norm(w_, torch.from_numpy(u),
+                                   torch.from_numpy(v), dim, iters),
+        [w], "float32")
+    _hold((rout, rgrads), (tout, tgrads), "float32")
+
+
+def test_norm_layers_match_reference_names_and_outputs():
+    rng = np.random.default_rng(97)
+    x = rng.standard_normal((2, 6, 4, 3)).astype(np.float32)
+    pairs = [
+        (paddle.nn.GroupNorm(3, 6), pt.nn.GroupNorm(3, 6, device="cpu")),
+        (paddle.nn.InstanceNorm2D(6), pt.nn.InstanceNorm2D(6, device="cpu")),
+        (paddle.nn.InstanceNorm1D(6, bias_attr=False),
+         pt.nn.InstanceNorm1D(6, bias_attr=False, device="cpu")),
+        (paddle.nn.LocalResponseNorm(3), pt.nn.LocalResponseNorm(3)),
+    ]
+    for ref, port in pairs:
+        assert {k: tuple(v.shape) for k, v in port.state_dict().items()} \
+            == {k: tuple(v.shape) for k, v in ref.state_dict().items()}
+        xs = x[:, :, :, 0] if isinstance(port, pt.nn.InstanceNorm1D) else x
+        np.testing.assert_allclose(_np(port(torch.from_numpy(xs))),
+                                   _np(ref(paddle.to_tensor(xs))),
+                                   atol=1e-5, rtol=1e-5)
+    ref = paddle.nn.SpectralNorm([6, 4, 3], dim=1, power_iters=2)
+    port = pt.nn.SpectralNorm([6, 4, 3], dim=1, power_iters=2, device="cpu")
+    assert list(port.state_dict()) == ["weight_u", "weight_v"]
+    assert not list(port.parameters())
+    assert {k: tuple(v.shape) for k, v in port.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in ref.state_dict().items()}
+    pt.load_reference_state(port, {k: np.asarray(v.numpy())
+                                   for k, v in ref.state_dict().items()})
+    w = x[0, :, :, :]
+    np.testing.assert_allclose(_np(port(torch.from_numpy(w))),
+                               _np(ref(paddle.to_tensor(w))), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(NotImplementedError, match="SyncBatchNorm"):
+        pt.nn.SyncBatchNorm(4, device="cpu")
+
+
+# ---------------------------------------------------------------------
+# the other initializers
+# ---------------------------------------------------------------------
+def test_truncated_normal_bounds_are_in_std_units():
+    from paddle_tpu_torch.nn import initializer as I
+    gen = torch.Generator().manual_seed(98)
+    t = I.TruncatedNormal(mean=3.0, std=0.5, a=-1.0, b=2.0)(
+        torch.empty(200000), gen)
+    # mean + std * z, z in [a, b]: [2.5, 4.0]; the output itself is not
+    # truncated to [a, b]
+    assert float(t.min()) >= 2.5 and float(t.max()) <= 4.0
+    assert float(t.min()) < 2.51 and float(t.max()) > 3.99
+    z = (t.double() - 3.0) / 0.5
+    # moments of the standard normal truncated to [-1, 2]
+    from math import erf, exp, pi, sqrt
+    phi = [exp(-v * v / 2) / sqrt(2 * pi) for v in (-1.0, 2.0)]
+    mass = 0.5 * (erf(2 / sqrt(2)) - erf(-1 / sqrt(2)))
+    assert abs(float(z.mean()) - (phi[0] - phi[1]) / mass) < 0.01
+    ref = paddle.nn.initializer.TruncatedNormal(3.0, 0.5, -1.0, 2.0
+                                                ).generate((50000,),
+                                                           jnp.float32)
+    ref = np.asarray(ref)
+    assert ref.min() >= 2.5 and ref.max() <= 4.0
+    assert abs(float(ref.mean()) - float(t.mean())) < 0.01
+
+
+@pytest.mark.parametrize("shape", [(3, 5), (6, 2), (4, 2, 3, 3), (5,)])
+def test_orthogonal_rows_or_columns_are_orthonormal(shape):
+    from paddle_tpu_torch.nn import initializer as I
+    t = I.Orthogonal(gain=1.7)(torch.empty(shape),
+                               torch.Generator().manual_seed(99))
+    rows = shape[0]
+    m = t.reshape(rows, -1).double() / 1.7
+    if rows <= m.shape[1]:
+        gram = m @ m.T
+    else:
+        gram = m.T @ m
+    torch.testing.assert_close(gram, torch.eye(gram.shape[0],
+                                               dtype=torch.float64),
+                               atol=1e-5, rtol=0)
+    ref = np.asarray(paddle.nn.initializer.Orthogonal(1.7).generate(
+        shape, jnp.float32)).reshape(rows, -1) / 1.7
+    rgram = ref @ ref.T if rows <= ref.shape[1] else ref.T @ ref
+    np.testing.assert_allclose(rgram, np.eye(rgram.shape[0]), atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,groups", [((4, 4, 3, 3), 1),
+                                          ((6, 2, 3), 2), ((4, 2, 3, 5, 5),
+                                                           2),
+                                          ((3, 5, 3, 3), 1)])
+def test_dirac_and_assign_equal_reference(shape, groups):
+    from paddle_tpu_torch.nn import initializer as I
+    got = I.Dirac(groups)(torch.empty(shape))
+    want = np.asarray(paddle.nn.initializer.Dirac(groups).generate(
+        shape, jnp.float32))
+    assert np.array_equal(got.numpy(), want)
+    value = np.arange(np.prod(shape), dtype=np.float32) / 7
+    for v in (value, value.tolist(), torch.from_numpy(value)):
+        got = I.Assign(v)(torch.empty(shape))
+        want = np.asarray(paddle.nn.initializer.Assign(value).generate(
+            shape, jnp.float32))
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_set_global_initializer_refuses_initializers():
+    from paddle_tpu_torch.nn import initializer as I
+    I.set_global_initializer(None)
+    I.set_global_initializer(None, None)
+    with pytest.raises(NotImplementedError, match="never applies"):
+        I.set_global_initializer(I.Constant(0.0))
+    with pytest.raises(NotImplementedError):
+        I.set_global_initializer(None, I.Constant(0.0))
