@@ -56,10 +56,15 @@ Ported so far (see ``ops`` for the kernels):
   (``nn.layer``), their functionals (``nn.functional.{conv, pooling,
   norm, activation}``: cuDNN convolutions and batch norm, as the
   reference leaves them to XLA) and ``nn.initializer``; trained with the
-  softmax cross-entropy kernels on their logits.
+  softmax cross-entropy kernels on their logits;
+* execution tiers: ``jit.to_static`` captures a step into a CUDA graph
+  per call signature and replays it (``jit.trace``), with the
+  optimizers' learning rate and step count on the device and the
+  in-flight window of ``core.pipeline``; the serving engine's unified
+  ragged step runs through it, as the reference's does.
 """
-from . import (amp, distributed, nn, optimizer, quantization, regularizer,
-               vision)
+from . import (amp, distributed, jit, nn, optimizer, quantization,
+               regularizer, vision)
 from .convert import load_reference_state
 from .models.bert import BertConfig, BertForMaskedLM
 from .models.ernie import (ErnieConfig, ErnieForMaskedLM,
@@ -72,7 +77,7 @@ from .models.moe_gpt import (MoEGPTConfig, MoEGPTForCausalLM,
 from .inference.serving import (GenerationEngine, PagedCacheView,
                                 convert_to_lora, merge_lora, unmerge_lora)
 
-__all__ = ["amp", "distributed", "nn", "optimizer", "quantization",
+__all__ = ["amp", "distributed", "jit", "nn", "optimizer", "quantization",
            "regularizer", "vision",
            "load_reference_state", "BertConfig", "BertForMaskedLM",
            "ErnieConfig", "ErnieForMaskedLM",

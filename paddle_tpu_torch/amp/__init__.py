@@ -46,6 +46,7 @@ import contextlib
 import torch
 
 from ..core import to_torch_dtype
+from ..core.place import capturing
 
 __all__ = ["auto_cast", "decorate", "GradScaler", "cast_inputs",
            "current_state", "restore_state"]
@@ -161,7 +162,13 @@ def cast_inputs(op_name, *tensors):
 
 
 class GradScaler:
-    """Dynamic loss scaling, the reference's (amp/__init__.py:143-250)."""
+    """Dynamic loss scaling, the reference's (amp/__init__.py:143-250).
+    The scale is a host float, and `scale` multiplies by its copy in a 0-d
+    f32 tensor on the loss's device, made at the first call there and
+    written (one ``fill_``) wherever `update` or `load_state_dict` changes
+    the scale: a step captured by ``jit.to_static`` with
+    ``scaler.scale(loss).backward()`` inside and ``scaler.step(opt);
+    scaler.update()`` outside reads the current scale at every replay."""
 
     def __init__(self, enable=True, init_loss_scaling=2.0 ** 15,
                  incr_ratio=2.0, decr_ratio=0.5, incr_every_n_steps=2000,
@@ -176,6 +183,7 @@ class GradScaler:
         self._good_steps = 0
         self._bad_steps = 0
         self._found_inf = False
+        self._scale_t = {}          # device -> 0-d f32 copy of the scale
 
     def is_enable(self):
         return self._enable
@@ -187,11 +195,21 @@ class GradScaler:
         return torch.tensor(self._scale, dtype=torch.float32)
 
     def scale(self, var):
-        """``var * scale`` (an f32 scale on ``var``'s device)."""
+        """``var * scale`` (the scale's f32 tensor on ``var``'s device)."""
         if not self._enable:
             return var
-        return var * torch.tensor(self._scale, dtype=torch.float32,
-                                  device=var.device)
+        t = self._scale_t.get(var.device)
+        if t is None:
+            _refuse_capture("GradScaler.scale's first call on a device")
+            t = self._scale_t[var.device] = torch.full(
+                (), self._scale, dtype=torch.float32, device=var.device)
+        return var * t
+
+    def _set_scale(self, value):
+        if value != self._scale:
+            self._scale = value
+            for t in self._scale_t.values():
+                t.fill_(value)
 
     @torch.no_grad()
     def unscale_(self, optimizer):
@@ -203,6 +221,7 @@ class GradScaler:
         (``debugging.last_nonfinite``)."""
         if not self._enable:
             return
+        _refuse_capture("GradScaler.unscale_")
         params = optimizer._params_with_grad()
         self._found_inf = False
         if not params:
@@ -224,6 +243,7 @@ class GradScaler:
         if not self._enable:
             optimizer.step()
             return
+        _refuse_capture("GradScaler.step")
         self.unscale_(optimizer)
         if not self._found_inf:
             optimizer.step()
@@ -236,17 +256,18 @@ class GradScaler:
     def update(self):
         if not self._dynamic:
             return
+        _refuse_capture("GradScaler.update")
         if self._found_inf:
             self._bad_steps += 1
             self._good_steps = 0
             if self._bad_steps >= self._decr_every_n:
-                self._scale = max(self._scale * self._decr_ratio, 1.0)
+                self._set_scale(max(self._scale * self._decr_ratio, 1.0))
                 self._bad_steps = 0
         else:
             self._good_steps += 1
             self._bad_steps = 0
             if self._good_steps >= self._incr_every_n_steps:
-                self._scale *= self._incr_ratio
+                self._set_scale(self._scale * self._incr_ratio)
                 self._good_steps = 0
 
     def state_dict(self):
@@ -258,11 +279,25 @@ class GradScaler:
                 "bad_steps": self._bad_steps}
 
     def load_state_dict(self, state):
-        self._scale = state.get("scale", self._scale)
+        self._set_scale(float(state.get("scale", self._scale)))
         self._good_steps = state.get("good_steps", 0)
         self._bad_steps = state.get("bad_steps", 0)
 
     set_state_dict = load_state_dict
+
+
+def _refuse_capture(what):
+    """`GradScaler` reads ``found_inf`` on the host at each step, as the
+    reference's does (``paddle_tpu/amp/__init__.py:189-197``), and keeps
+    its scale on the host, so a CUDA graph can hold neither: refuse them
+    under ``jit.to_static``'s capture (only `scale` of a device whose
+    scale tensor exists can be captured)."""
+    if capturing():
+        raise RuntimeError(
+            f"{what} under jit.to_static's capture: the scaler reads "
+            "found_inf and keeps its scale on the host, which a CUDA graph "
+            "cannot replay; keep unscale_/step/update outside the captured "
+            "step, or run the scaled step eagerly")
 
 
 from . import debugging  # noqa: E402,F401

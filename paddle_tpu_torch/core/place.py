@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "capturing"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -39,3 +39,11 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise RuntimeError(f"unsupported device {device!r}: cuda or cpu")
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is recording a graph
+    (``jit.to_static``'s capture or any ``torch.cuda.graph``).  False
+    until CUDA is initialised, as on the CPU, where no graph records."""
+    return torch.cuda.is_initialized() and \
+        torch.cuda.is_current_stream_capturing()

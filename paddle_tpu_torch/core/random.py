@@ -36,18 +36,25 @@ def _rotl(x, d):
     return ((x << d) | (x >> (32 - d))) & _MASK
 
 
+def _u32(x, like):
+    """``x`` as an int64 operand on ``like``'s device: a tensor as it is,
+    an int as a Python number (no host-to-device copy, so a CUDA graph
+    can hold the draw)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=like.device, dtype=torch.int64)
+    return int(x)
+
+
 def threefry2x32(k1, k2, x1, x2):
     """Threefry-2x32 with 20 rounds (JAX's ``_threefry2x32_lowering``):
     key words ``k1, k2`` and count words ``x1, x2`` are int64 tensors (or
     ints) holding uint32 values, broadcast together.  Returns the two
     output words."""
     k1 = torch.as_tensor(k1, dtype=torch.int64)
-    k2 = torch.as_tensor(k2, dtype=torch.int64, device=k1.device)
+    k2 = _u32(k2, k1)
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
-    x1 = (torch.as_tensor(x1, dtype=torch.int64, device=k1.device)
-          + ks[0]) & _MASK
-    x2 = (torch.as_tensor(x2, dtype=torch.int64, device=k1.device)
-          + ks[1]) & _MASK
+    x1 = (ks[0] + _u32(x1, k1)) & _MASK
+    x2 = (ks[1] + _u32(x2, k1)) & _MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x1 = (x1 + x2) & _MASK
@@ -84,8 +91,8 @@ def uniform(key, n):
     per key, the draw under ``gumbel``: f32 ``[..., n]``."""
     bits = random_bits(key, n)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(_TINY_F32, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(1.0, dtype=torch.float32, device=key.device)
+    lo = torch.full((), _TINY_F32, dtype=torch.float32, device=key.device)
+    hi = torch.full((), 1.0, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

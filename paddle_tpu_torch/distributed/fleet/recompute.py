@@ -18,7 +18,11 @@ would otherwise see differently from the first forward:
   not from the default generators ``checkpoint`` saves): its state is
   saved before the first forward and set again for the replay, so the
   replay draws the same masks; the state that stood when the replay
-  began is restored after it, so later draws do not change.
+  began is restored after it, so later draws do not change.  Under
+  ``jit.to_static``'s capture a generator's state cannot be taken and
+  set again: a function whose modules drew nothing in the eager
+  (discovery) run is captured without it, and one that drew (dropout >
+  0) raises ``NotImplementedError``.
 
 The memory guard's global switch (``remat_enabled()`` in the reference)
 is not ported yet: recompute is on only where a model asks for it.
@@ -29,16 +33,22 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ... import amp
+from ...core.place import capturing
 
 __all__ = ["recompute", "recompute_sequential"]
 
 
-def _generators(function):
-    """The ``torch.Generator``s of the modules ``function`` runs (a module,
-    or a bound method of one), each once."""
+def _owner(function):
+    """The module ``function`` is (or is a bound method of), or None."""
     owner = function if isinstance(function, torch.nn.Module) \
         else getattr(function, "__self__", None)
-    if not isinstance(owner, torch.nn.Module):
+    return owner if isinstance(owner, torch.nn.Module) else None
+
+
+def _generators(owner):
+    """The ``torch.Generator``s of the modules under ``owner``, each
+    once."""
+    if owner is None:
         return []
     found = {}
     for mod in owner.modules():
@@ -59,14 +69,31 @@ def recompute(function, *args, use_reentrant=True, preserve_rng_state=True,
     if not torch.is_grad_enabled():
         return function(*args, **kwargs)
     amp_state = amp.current_state()
-    gens = _generators(function) if preserve_rng_state else []
+    owner = _owner(function)
+    gens = _generators(owner) if preserve_rng_state else []
+    if gens and capturing():
+        # a CUDA graph cannot take a generator's state and set it again
+        # (the states are host numbers, the graph's offsets its own):
+        # capture a function whose modules drew nothing in the eager
+        # (discovery) run, and refuse one that drew
+        if getattr(owner, "_recompute_draws", True):
+            raise NotImplementedError(
+                "recompute of a function that draws from its modules' "
+                "generators (dropout > 0) under jit.to_static's capture is "
+                "not ported yet")
+        gens = []
     at_forward = [g.get_state() for g in gens]
     calls = []
 
     def run(*inputs):
         if not calls:
             calls.append(1)
-            return function(*inputs, **kwargs)
+            out = function(*inputs, **kwargs)
+            if gens:
+                owner._recompute_draws = any(
+                    not torch.equal(g.get_state(), s)
+                    for g, s in zip(gens, at_forward))
+            return out
         at_replay = [g.get_state() for g in gens]
         for g, state in zip(gens, at_forward):
             g.set_state(state)

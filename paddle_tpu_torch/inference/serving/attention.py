@@ -12,7 +12,11 @@ fresh K/V into the pool in place, then attends.
 
 * The ragged view (the engine's unified step) runs ragged paged
   attention over every segment, so prefill chunks and decode rows share
-  one kernel launch.  An int8 pool quantizes each token as it is
+  one kernel launch.  Its driving tensors are persistent buffers that
+  `RaggedCacheView.set_inputs` writes in place (``copy_``), so a CUDA
+  graph of the step (``jit.to_static``) reads each step's values at the
+  addresses it captured; the reference swaps read-only state instead
+  (``paddle_tpu/inference/serving/attention.py:416-436``).  An int8 pool quantizes each token as it is
   scattered and hands its per-slot scale tables to the int8 attention
   kernel.  With multi-LoRA on, the view carries the per-q-block adapter
   state (``lora``) that the model's projections read.
@@ -216,8 +220,11 @@ class RaggedLayerCache:
 class RaggedCacheView:
     """Adapts a PagedKVCache to the model for the unified ragged step.
 
-    `set_inputs` stages one step's driving tensors; every layer of the
-    forward pass reads them.
+    `set_inputs` stages one step's driving tensors into persistent
+    buffers on the pool's device; every layer of the forward pass reads
+    them.  A buffer is made at the first call (or when a shape changes)
+    and written in place after, so the engine's fixed-shape steps always
+    read the same addresses.
     """
 
     def __init__(self, cache, block_q):
@@ -231,6 +238,8 @@ class RaggedCacheView:
         self.seq_ids = None        # [T // block_q] int32 (S = null)
         self.q_starts = None       # [T // block_q] int32
         self.q_valids = None       # [T // block_q] int32
+        self.last_index = None     # [S] int64 flat row each sequence samples
+        self.sample_pos = None     # [S] int64 position of that sample
         self.lora = None           # SegmentAdapterState with multi-LoRA on
         self._layers = [RaggedLayerCache(self, i)
                         for i in range(cache.num_layers)]
@@ -243,14 +252,35 @@ class RaggedCacheView:
     def __getitem__(self, layer):
         return self._layers[layer]
 
+    def _stage(self, name, value, dtype):
+        """Write ``value`` into the persistent buffer ``name`` (made, or
+        made anew, when missing or of another shape)."""
+        value = torch.as_tensor(value)
+        buf = getattr(self, name)
+        if buf is None or buf.shape != value.shape:
+            buf = torch.empty(value.shape, dtype=dtype,
+                              device=self.cache.device)
+            setattr(self, name, buf)
+        buf.copy_(value, non_blocking=True)
+
     def set_inputs(self, slot_mapping, block_tables, context_lens,
-                   position_ids, seq_ids, q_starts, q_valids):
-        """Stage this step's driving tensors (on the pool's device)."""
-        self.slot_block, self.slot_offset = _slots(slot_mapping,
-                                                   self.cache.block_size)
-        self.block_tables = block_tables
-        self.context_lens = context_lens
-        self.position_ids = position_ids
-        self.seq_ids = seq_ids
-        self.q_starts = q_starts
-        self.q_valids = q_valids
+                   position_ids, seq_ids, q_starts, q_valids,
+                   last_index=None, sample_pos=None):
+        """Stage this step's driving values (tensors or host arrays) into
+        the view's buffers, in place.  ``last_index`` and ``sample_pos``
+        (each sequence's sampled flat row and its position) are the
+        engine's sampler inputs."""
+        block, offset = _slots(torch.as_tensor(slot_mapping),
+                               self.cache.block_size)
+        self._stage("slot_block", block, torch.int64)
+        self._stage("slot_offset", offset, torch.int64)
+        self._stage("block_tables", block_tables, torch.int32)
+        self._stage("context_lens", context_lens, torch.int32)
+        self._stage("position_ids", position_ids, torch.int64)
+        self._stage("seq_ids", seq_ids, torch.int32)
+        self._stage("q_starts", q_starts, torch.int32)
+        self._stage("q_valids", q_valids, torch.int32)
+        if last_index is not None:
+            self._stage("last_index", last_index, torch.int64)
+        if sample_pos is not None:
+            self._stage("sample_pos", sample_pos, torch.int64)

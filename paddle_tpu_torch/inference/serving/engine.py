@@ -1,9 +1,31 @@
 """GenerationEngine: continuous-batching LLM serving over the paged KV cache.
 
 Port of ``paddle_tpu/inference/serving/engine.py``.  Each `step` runs ONE
-unified ragged step, eagerly: at most one prefill chunk plus every decode
-row, packed into a fixed ``[token_budget]`` flat buffer of block-aligned
-segments (``ops/ragged.py``), through the model, then the sampler.
+unified ragged step: at most one prefill chunk plus every decode row,
+packed into a fixed ``[token_budget]`` flat buffer of block-aligned
+segments (``ops/ragged.py``), through the model, then the sampler.  As in
+the reference (engine.py:284), the step function ``_ragged_step(ids,
+seeds, do_sample, top_k, top_p, temperature)`` runs through
+``jit.to_static``: on the card its first call runs eagerly, its second is
+captured into a CUDA graph and every later step replays it; on the CPU
+it runs eagerly.  The step therefore has fixed shapes and no host branch:
+
+  * every driving value of a step (token ids, slots, positions, segment
+    descriptors, block tables, context lengths, the sampled rows and
+    their positions, the decode feed and the sampling controls) goes to
+    the device in ONE host-to-device copy, outside the step, and is
+    written in place into the view's persistent buffers
+    (``attention.RaggedCacheView.set_inputs``);
+  * the decode feed scatters the previous step's device-side tokens into
+    the ids over all ``max_batch`` rows, a row that is not fed writing to
+    a null target past the buffer;
+  * the sampler computes the greedy and the sampled token of every row
+    and picks with ``torch.where`` (the reference's in-graph
+    ``ragged_sample_next``).
+
+``stats()["step_compiles"]`` is the number of call signatures the step
+has seen (``len(_step_fn._cache)``), as the reference counts its
+compiles: 1 for any mix of prefill and decode.
 
   * **prefix caching**: admission consults the COW prefix index
     (``kv_cache.py``), so a request sharing a cached prompt prefix starts
@@ -58,7 +80,9 @@ import time
 import numpy as np
 import torch
 
+from ... import jit
 from ...core import random, resolve_device, to_torch_dtype
+from ...core.pipeline import ENV_PIPELINE_DEPTH, pipeline_depth
 from ...ops.ragged import ragged_q_block
 from ...quantization import convert_to_int8
 from .attention import RaggedCacheView
@@ -67,11 +91,10 @@ from .lora import AdapterStoreFull
 from .scheduler import (ContinuousBatchingScheduler, Request,
                         max_batch_size, prefill_chunk_size)
 
-__all__ = ["GenerationEngine", "sample_next", "pipeline_depth",
-           "ENV_PIPELINE_DEPTH", "ENV_KV_DTYPE", "ENV_WEIGHT_DTYPE"]
+__all__ = ["GenerationEngine", "sample_next", "ragged_sample_next",
+           "pipeline_depth", "ENV_PIPELINE_DEPTH", "ENV_KV_DTYPE",
+           "ENV_WEIGHT_DTYPE"]
 
-ENV_PIPELINE_DEPTH = "PADDLE_TPU_PIPELINE_DEPTH"
-_DEFAULT_PIPELINE_DEPTH = 2
 #: KV pool element dtype override ("int8": the quantized paged cache;
 #: unset: the model's dtype)
 ENV_KV_DTYPE = "PADDLE_TPU_KV_DTYPE"
@@ -82,16 +105,6 @@ ENV_WEIGHT_DTYPE = "PADDLE_TPU_WEIGHT_DTYPE"
 _UNPORTED_ENV = ("PADDLE_TPU_SPEC_K", "PADDLE_TPU_KV_TIERING",
                  "PADDLE_TPU_SERVE_STEP_DEADLINE_MS",
                  "PADDLE_TPU_SERVE_SHED_DEPTH")
-
-
-def pipeline_depth():
-    """Max dispatched-but-undrained steps (PADDLE_TPU_PIPELINE_DEPTH,
-    default 2, at least 1)."""
-    try:
-        d = int(os.environ.get(ENV_PIPELINE_DEPTH, _DEFAULT_PIPELINE_DEPTH))
-    except ValueError:
-        return _DEFAULT_PIPELINE_DEPTH
-    return max(1, d)
 
 
 def _not_ported(what):
@@ -115,37 +128,48 @@ def _nucleus_mask(probs, top_p):
     return keep | (top_p[:, None] >= 1.0)
 
 
-def sample_next(z, seeds, positions, do_sample, top_k, top_p, temperature):
-    """Next token for each row of ``z`` ``[B, V]`` (f32 logits), int64.
+def ragged_sample_next(z, seeds, positions, do_sample, top_k, top_p,
+                       temperature):
+    """Next token for each row of ``z`` ``[B, V]`` (f32 logits), int64,
+    with every control a device tensor of length B: the reference's
+    in-graph ``_filter_and_draw`` (engine.py:92-127).
 
-    Greedy rows take the argmax.  Sampling rows (``do_sample`` and
-    temperature > 0) apply temperature -> top-k -> top-p, the
-    reference's filter order, and draw ``argmax(logp + gumbel)`` with
-    the key ``fold_in(PRNGKey(seed), position)`` of JAX's threefry, as
-    the reference's ``_filter_and_draw`` (engine.py:92-127) does.  The
-    controls are host numpy arrays of length B."""
+    Both the greedy token (the argmax) and the sampled one are computed
+    for every row, and ``torch.where`` picks: rows with ``do_sample`` and
+    temperature > 0 apply temperature -> top-k -> top-p, the reference's
+    filter order, and draw ``argmax(logp + gumbel)`` with the key
+    ``fold_in(PRNGKey(seed), position)`` of JAX's threefry.  No value is
+    read on the host, so the draw can be captured."""
     greedy = z.argmax(dim=-1)
-    use = np.asarray(do_sample, bool) & (np.asarray(temperature) > 0)
-    if not use.any():
-        return greedy
-    dev = z.device
     V = z.shape[-1]
-    temp = torch.as_tensor(np.where(use, temperature, 1.0),
-                           dtype=torch.float32, device=dev)
+    use = do_sample & (temperature > 0)
+    temp = torch.where(use, temperature, 1.0)
     p = torch.softmax(z / temp[:, None], dim=-1)
-    k = torch.as_tensor(np.clip(top_k, 0, V), dtype=torch.int64, device=dev)
+    k = top_k.clamp(0, V)
     p_desc = torch.sort(p, dim=-1, descending=True).values
     kth = p_desc.gather(-1, (k - 1).clamp(min=0)[:, None])
     p = torch.where((k > 0)[:, None] & (p < kth), 0.0, p)
     p = p / p.sum(dim=-1, keepdim=True)
-    tp = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
-    p = torch.where(_nucleus_mask(p, tp), p, 0.0)
+    p = torch.where(_nucleus_mask(p, top_p), p, 0.0)
     logp = torch.log(torch.clamp_min(p, 1e-30))
-    key = random.fold_in(
-        random.prng_key(np.asarray(seeds, np.int64), device=dev),
-        torch.as_tensor(np.asarray(positions, np.int64), device=dev))
+    key = random.fold_in(random.prng_key(seeds), positions)
     sampled = random.categorical(key, logp)
-    return torch.where(torch.as_tensor(use, device=dev), sampled, greedy)
+    return torch.where(use, sampled, greedy)
+
+
+def sample_next(z, seeds, positions, do_sample, top_k, top_p, temperature):
+    """`ragged_sample_next` with the controls as host arrays of length B
+    (seeds and positions int, do_sample bool, top_k int, top_p and
+    temperature float)."""
+    dev = z.device
+
+    def put(v, dtype):
+        return torch.as_tensor(np.asarray(v), dtype=dtype, device=dev)
+    return ragged_sample_next(
+        z, put(seeds, torch.int64), put(positions, torch.int64),
+        put(np.asarray(do_sample, bool), torch.bool),
+        put(top_k, torch.int64), put(top_p, torch.float32),
+        put(temperature, torch.float32))
 
 
 # ---------------------------------------------------------------------
@@ -231,6 +255,7 @@ class GenerationEngine:
         self.scheduler = ContinuousBatchingScheduler(
             self.cache, self.max_batch, self.prefill_chunk)
         self._view = RaggedCacheView(self.cache, self.block_q)
+        self._step_fn = jit.to_static(self._ragged_step)
         # multi-LoRA (lora.py): the store and the per-q-block slot ids,
         # built by enable_lora before the first step
         self._lora = None
@@ -295,9 +320,11 @@ class GenerationEngine:
                            attach_lora_sites, lora_store_budget)
         if self._lora is not None:
             return self._lora.store
-        if self._steps_dispatched:
-            raise RuntimeError("enable_lora() must run before the first "
-                               "step")
+        if len(self._step_fn._cache):
+            raise RuntimeError(
+                "enable_lora() must run before the first step: the "
+                "compiled step program is already traced without the "
+                "adapter epilogue")
         sites = attach_lora_sites(self.model, targets=targets)
         if num_slots is None and budget is None \
                 and lora_store_budget() is None:
@@ -406,7 +433,8 @@ class GenerationEngine:
                  running=len(self.scheduler.running),
                  tokens_generated=self._tokens_generated,
                  token_budget=self.token_budget,
-                 steps=self._steps_dispatched)
+                 steps=self._steps_dispatched,
+                 step_compiles=len(self._step_fn._cache))
         if self._lora is not None:
             ls = self._lora.store.stats()
             s.update(lora=ls, adapter_hit_rate=ls["hit_rate"])
@@ -481,16 +509,35 @@ class GenerationEngine:
         self._lora_release(victim)
         self.scheduler.requeue(victim, victim.generated)
 
+    def _ragged_step(self, ids, seeds, do_sample, top_k, top_p,
+                     temperature):
+        """The ONE step function (``self._step_fn`` runs it through
+        ``jit.to_static``): the model over the flat buffer ``ids`` ``[1,
+        T]`` with the view's staged inputs, the hidden state of each
+        sequence's sampled row (``view.last_index``), the LM head on those
+        rows, then the sampler at ``view.sample_pos``."""
+        view = self._view
+        with torch.no_grad():
+            hidden = self.model.gpt(ids, cache=view)
+            rows_hidden = hidden[0, view.last_index]            # [S, h]
+            logits = self.model.logits(rows_hidden).float()
+            return ragged_sample_next(logits, seeds, view.sample_pos,
+                                      do_sample, top_k, top_p, temperature)
+
     def _dispatch_step(self, chunk, decodes):
-        """Pack the chunk and the decode rows into the flat ragged
-        buffer, run the model and the sampler."""
+        """Pack the chunk and the decode rows into the flat ragged buffer,
+        stage them with one copy, feed the decode rows from the previous
+        step's device tokens, and run the step function."""
         T, S, BQ = self.token_budget, self.max_batch, self.block_q
         W = self.cache.table_width
         NQB = self.num_q_blocks
-        # every int32 input of the step in ONE host buffer: one copy
-        sizes = dict(ids=T, slots=T, positions=T, seq_ids=NQB,
+        # every input of the step in ONE int32 host buffer: one copy (the
+        # ids carry one more slot, the decode feed's null target; top_p
+        # and temperature are f32 bit patterns)
+        sizes = dict(ids=T + 1, slots=T, positions=T, seq_ids=NQB,
                      q_starts=NQB, q_valids=NQB, tables=S * W, ctx=S,
-                     last_index=S, feed_flat=S, feed_rows=S,
+                     last_index=S, sample_pos=S, feed_flat=S, feed_rows=S,
+                     seeds=S, do_sample=S, top_k=S, top_p=S, temperature=S,
                      lora_slots=NQB if self._lora is not None else 0)
         buf = np.zeros(sum(sizes.values()), np.int32)
         host, off = {}, 0
@@ -498,11 +545,12 @@ class GenerationEngine:
             host[name] = buf[off:off + n]
             off += n
         host["seq_ids"][:] = S           # S = null segment
+        host["feed_flat"][:] = T         # not fed: the null target
         store = self._lora.store if self._lora is not None else None
         if store is not None:
             host["lora_slots"][:] = store.null_slot
         tables = host["tables"].reshape(S, W)
-        sample_pos = np.zeros(S, np.int64)
+        self._controls(host)
 
         flat = 0
         rows_reqs = []           # rows that sample a token this step
@@ -525,7 +573,7 @@ class GenerationEngine:
             tables[r] = self.cache.block_table(req.id)
             host["ctx"][r] = length
             host["last_index"][r] = flat
-            sample_pos[r] = length
+            host["sample_pos"][r] = length
             rows_reqs.append((r, req))
             flat += BQ
         if chunk is not None:
@@ -548,7 +596,7 @@ class GenerationEngine:
             if start + n == len(req.prompt):
                 # prompt complete: sample the first new token
                 host["last_index"][r] = flat + n - 1
-                sample_pos[r] = start + n
+                host["sample_pos"][r] = start + n
                 rows_reqs.append((r, req))
             flat += nseg * BQ
 
@@ -560,22 +608,20 @@ class GenerationEngine:
         self._view.set_inputs(dev["slots"], dev["tables"].view(S, W),
                               dev["ctx"], dev["positions"].view(1, T),
                               dev["seq_ids"], dev["q_starts"],
-                              dev["q_valids"])
+                              dev["q_valids"], dev["last_index"],
+                              dev["sample_pos"])
         if store is not None:
             self._lora.stage(dev["lora_slots"])
-        ids = dev["ids"]
-        if n_feed:
-            # the previous step's device-side tokens feed this step's
-            # decode inputs with no host read
-            ids[dev["feed_flat"][:n_feed].long()] = self._last_tokens[
-                dev["feed_rows"][:n_feed].long()].to(ids.dtype)
-        controls = self._controls()
-        with torch.no_grad():
-            hidden = self.model.gpt(ids.view(1, T), cache=self._view)
-            rows_hidden = hidden[0, dev["last_index"].long()]   # [S, h]
-            logits = self.model.logits(rows_hidden).float()
-            tok = sample_next(logits, controls[0], sample_pos,
-                              *controls[1:])
+        # the previous step's device-side tokens feed this step's decode
+        # inputs with no host read, over all max_batch rows
+        ids = dev["ids"].long()
+        ids[dev["feed_flat"].long()] = self._last_tokens[
+            dev["feed_rows"].long()]
+        tok = self._step_fn(
+            ids[:T].view(1, T), dev["seeds"].long() & 0xFFFFFFFF,
+            dev["do_sample"].bool(), dev["top_k"].long(),
+            dev["top_p"].view(torch.float32),
+            dev["temperature"].view(torch.float32))
         self._steps_dispatched += 1
         self._last_tokens = tok
         for _, req in rows_reqs:
@@ -589,24 +635,23 @@ class GenerationEngine:
             self.cache.commit_prefix(
                 req.id, req.prompt[:req.num_computed])
 
-    def _controls(self):
-        """Per-row sampling controls (seed, do_sample, top_k, top_p,
-        temperature) as host arrays; empty rows are greedy."""
-        n = self.max_batch
-        seeds = np.zeros(n, np.int64)
-        do_sample = np.zeros(n, bool)
-        top_k = np.zeros(n, np.int64)
-        top_p = np.ones(n, np.float32)
-        temp = np.ones(n, np.float32)
+    def _controls(self, host):
+        """Write each row's sampling controls (seed, do_sample, top_k,
+        top_p, temperature) into the step's host buffer; empty rows are
+        greedy."""
+        top_p = host["top_p"].view(np.float32)
+        temp = host["temperature"].view(np.float32)
+        seeds = host["seeds"].view(np.uint32)
+        top_p[:] = 1.0
+        temp[:] = 1.0
         for i, req in enumerate(self._rows):
             if req is None:
                 continue
-            seeds[i] = req.seed
-            do_sample[i] = req.do_sample
-            top_k[i] = req.top_k
+            seeds[i] = int(req.seed) & 0xFFFFFFFF
+            host["do_sample"][i] = bool(req.do_sample)
+            host["top_k"][i] = req.top_k
             top_p[i] = req.top_p
             temp[i] = req.temperature
-        return seeds, do_sample, top_k, top_p, temp
 
     # -- committing + draining ------------------------------------------
     def _commit_token(self, req, token):

@@ -446,9 +446,16 @@ class SegmentAdapterState:
         self.block_adapter = None   # [NQB] int32 slot ids on the device
 
     def stage(self, slots):
-        """This step's slot ids (an int tensor, kept as int32 on the
-        store's device)."""
-        self.block_adapter = slots.to(self.store.device, torch.int32)
+        """This step's slot ids (an int tensor or host array), written in
+        place into the persistent int32 buffer on the store's device (made
+        at the first call, or anew when the width changes), so a CUDA
+        graph of the step reads each step's ids."""
+        slots = torch.as_tensor(slots)
+        if self.block_adapter is None \
+                or self.block_adapter.shape != slots.shape:
+            self.block_adapter = torch.empty(
+                slots.shape, dtype=torch.int32, device=self.store.device)
+        self.block_adapter.copy_(slots, non_blocking=True)
 
     def active(self, layer):
         site = getattr(layer, "lora_site", None)

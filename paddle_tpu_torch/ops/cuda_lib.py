@@ -12,6 +12,15 @@ rebuilds and an unchanged one is reused.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; `check` raises when that is not 0, so a refused
 launch (too many threads, too much shared memory) never passes silently.
+
+Under ``jit.to_static``'s CUDA-graph capture the current stream is the
+capture stream, so the per-stream caches (`tickets` here, the paged
+wrapper's merge scratch) are keyed by it.  The traced function's first
+(eager) call runs on that same stream, so the buffers exist before the
+capture and are not allocated from the graph's private pool; the
+tickets are left 0 by every launch, so the replays share them.  The
+cached host calls (`sm_count`, the paged wrapper's split count) are made
+at the first call, and a replay repeats none of them.
 """
 from __future__ import annotations
 

@@ -7,14 +7,19 @@ updates like the base's optimizers; ``Rprop`` picks each element's step
 size by the sign of ``g * g_prev``, a per-tensor ``torch.where``.
 ``LBFGS`` is driven by a closure that re-evaluates the loss, and runs
 eagerly on flat f32 vectors, as the reference does.  Scalar factors are
-f32, as the reference's traced scalars are.
+f32 tensors computed from the device step count, as the reference's traced
+update computes them; NAdam's running momentum product and RAdam's
+rectification switch (``rho_t > 5``, a ``torch.where``) stay on the device
+too, so a replayed step under ``jit.to_static`` advances them.  ``LBFGS``
+evaluates its closure and line search on the host and raises
+``NotImplementedError`` under capture.
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from .optimizer import Optimizer, f32
+from ..core.place import capturing
+from .optimizer import Optimizer, bias_correction, steps_f32
 
 __all__ = ["Rprop", "ASGD", "NAdam", "RAdam", "LBFGS"]
 
@@ -40,7 +45,7 @@ class Rprop(Optimizer):
         eta_m, eta_p = self._etas
         for p, x, g in zip(ps, pf, gf):
             prev = self._acc("prev_grad", p)
-            size = self._acc("step_size", p, init=float(lr))
+            size = self._acc("step_size", p, init=lr)
             sign = torch.sign(g * prev)
             size.copy_(torch.clamp(
                 torch.where(sign > 0, size * eta_p,
@@ -63,9 +68,10 @@ class ASGD(Optimizer):
                          grad_clip, name)
         self._batch_num = max(1, int(batch_num))
 
-    def _scalars(self):
-        t = float(f32(self._step_count) + f32(1.0))
-        return self._current_lr(), t, min(t, float(self._batch_num))
+    def _scalars(self, device):
+        lr, step = self._device_state(device)
+        t = steps_f32(step)
+        return lr, t, torch.clamp_max(t, float(self._batch_num))
 
     def _update(self, ps, pf, gf, flag, s):
         lr, t, win = s
@@ -74,7 +80,7 @@ class ASGD(Optimizer):
         diff = torch._foreach_sub(gf, ds)
         torch._foreach_div_(diff, win)
         torch._foreach_add_(ds, diff)
-        torch._foreach_add_(pf, ds, alpha=-lr)
+        torch._foreach_sub_(pf, torch._foreach_mul(ds, lr))
         diff = torch._foreach_sub(pf, axs)
         torch._foreach_div_(diff, t)
         torch._foreach_add_(axs, diff)
@@ -83,8 +89,8 @@ class ASGD(Optimizer):
 class NAdam(Optimizer):
     """Adam with Nesterov momentum (Dozat 2016; extra.py:120-172), with
     the momentum schedule ``mu_t = b1*(1 - 0.5*0.96^(t*psi))`` and its
-    running product, which the optimizer owns (it is not saved by
-    ``state_dict``, as in the reference)."""
+    running product, which the optimizer owns, a 0-d f32 tensor a device
+    (it is not saved by ``state_dict``, as in the reference)."""
 
     def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, momentum_decay=0.004, parameters=None,
@@ -94,24 +100,25 @@ class NAdam(Optimizer):
         self._b1, self._b2 = float(beta1), float(beta2)
         self._eps = float(epsilon)
         self._psi = float(momentum_decay)
-        self._mu_product = f32(1.0)
+        self._mu_products = {}      # device -> 0-d f32 running product
 
-    def _scalars(self):
+    def _scalars(self, device):
         """The step's factors; advances the running product of the
         momentum schedule."""
         b1, b2, psi = self._b1, self._b2, self._psi
-        t = f32(self._step_count) + f32(1.0)
-        mu_t = f32(b1) * (f32(1.0) - f32(0.5) * f32(0.96) ** (t * f32(psi)))
-        mu_t1 = f32(b1) * (f32(1.0) - f32(0.5)
-                           * f32(0.96) ** ((t + f32(1.0)) * f32(psi)))
-        mprod_t = self._mu_product * mu_t
+        lr, step = self._device_state(device)
+        t = steps_f32(step)
+        mu_t = b1 * (1.0 - 0.5 * torch.pow(0.96, t * psi))
+        mu_t1 = b1 * (1.0 - 0.5 * torch.pow(0.96, (t + 1.0) * psi))
+        prod = self._mu_products.get(device)
+        if prod is None:
+            prod = self._mu_products[device] = torch.ones(
+                (), dtype=torch.float32, device=device)
+        mprod_t = prod * mu_t
         mprod_t1 = mprod_t * mu_t1
-        c1 = float(f32(1.0) - mprod_t1)
-        c2 = float(f32(1.0) - mprod_t)
-        bc2 = float(f32(1.0) - f32(b2) ** t)
-        self._mu_product = mprod_t
-        return (self._current_lr(), float(mu_t1), c1,
-                float(f32(1.0) - mu_t), c2, bc2)
+        prod.copy_(mprod_t)
+        return (lr, mu_t1, 1.0 - mprod_t1, 1.0 - mu_t, 1.0 - mprod_t,
+                bias_correction(b2, t))
 
     def _update(self, ps, pf, gf, flag, s):
         lr, mu_t1, c1, one_mu_t, c2, bc2 = s
@@ -149,25 +156,22 @@ class RAdam(Optimizer):
         self._b1, self._b2 = float(beta1), float(beta2)
         self._eps = float(epsilon)
 
-    def _scalars(self):
-        """lr, the bias corrections and the rectification (None until
-        ``rho_t`` passes 5)."""
+    def _scalars(self, device):
+        """lr, the bias corrections, the rectification and whether it
+        applies (``rho_t > 5``), all on the device."""
         b1, b2 = self._b1, self._b2
-        t = f32(self._step_count) + f32(1.0)
+        lr, step = self._device_state(device)
+        t = steps_f32(step)
         rho_inf = 2.0 / (1.0 - b2) - 1.0
-        b2t = f32(b2) ** t
-        rho_t = f32(rho_inf) - f32(2.0) * t * b2t / (f32(1.0) - b2t)
-        rect = None
-        if rho_t > 5.0:
-            rect = float(np.sqrt(
-                ((rho_t - f32(4)) * (rho_t - f32(2)) * f32(rho_inf))
-                / max(f32((rho_inf - 4) * (rho_inf - 2)) * rho_t,
-                      f32(1e-8))))
-        return (self._current_lr(), float(f32(1.0) - f32(b1) ** t),
-                float(f32(1.0) - b2t), rect)
+        b2t = torch.pow(b2, t)
+        rho_t = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+        rect = torch.sqrt(
+            ((rho_t - 4) * (rho_t - 2) * rho_inf)
+            / torch.clamp_min((rho_inf - 4) * (rho_inf - 2) * rho_t, 1e-8))
+        return lr, bias_correction(b1, t), 1.0 - b2t, rect, rho_t > 5.0
 
     def _update(self, ps, pf, gf, flag, s):
-        lr, bc1, bc2, rect = s
+        lr, bc1, bc2, rect, use_rect = s
         b1, b2 = self._b1, self._b2
         ms = self._accs("moment1", ps)
         vs = self._accs("moment2", ps)
@@ -176,14 +180,15 @@ class RAdam(Optimizer):
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, gf, gf, value=1 - b2)
         upd = torch._foreach_div(ms, bc1)
-        if rect is not None:
-            den = torch._foreach_div(vs, bc2)
-            torch._foreach_sqrt_(den)
-            torch._foreach_add_(den, self._eps)
-            torch._foreach_mul_(upd, rect)
-            torch._foreach_div_(upd, den)
-            del den
-        torch._foreach_add_(pf, upd, alpha=-lr)
+        den = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self._eps)
+        rected = torch._foreach_mul(upd, rect)
+        torch._foreach_div_(rected, den)
+        del den
+        upd = [torch.where(use_rect, r, u) for r, u in zip(rected, upd)]
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(pf, upd)
 
 
 class LBFGS(Optimizer):
@@ -239,6 +244,10 @@ class LBFGS(Optimizer):
 
     @torch.no_grad()
     def step(self, closure=None):
+        if capturing():
+            raise NotImplementedError(
+                "LBFGS under jit.to_static's capture is not ported yet: "
+                "its closure and line search run on the host")
         if closure is None:
             raise ValueError("LBFGS.step requires a closure that "
                              "re-evaluates the loss")
@@ -305,5 +314,5 @@ class LBFGS(Optimizer):
                 break
             if n_evals[0] >= self.max_eval:
                 break
-        self._step_count += 1
+        self._advance()
         return loss

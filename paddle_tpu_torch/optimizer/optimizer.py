@@ -46,11 +46,29 @@ are no f32 master weights (the reference keeps none: ``_master_weights``,
 :86, is never written).  Groups are split into chunks of at most
 `CHUNK_ELEMENTS` elements, which bounds the f32 temporaries.
 ``torch._fused_adamw_`` and ``torch.optim`` are not used: they round in
-their own order and hold the decay mask differently.  Scalar factors
-(``1 - b1**t``) are computed in f32, as the reference's traced scalars
-are.
+their own order and hold the decay mask differently.
 
-The learning rate and the step count are host numbers read at each step.
+The learning rate and the step count live on the device, as the
+reference's do (:64-85): each parameter device has a 0-d f32
+``_lr_tensor`` and an int64 ``_step_count`` (the first parameter's device
+under those names, every device in ``_dev_state``).  Every update reads
+the rate there (``p - lr*upd`` as a multiply and a subtract; the Adam
+family folds it into its bias correction, `_AdamBase`), and the
+scalar factors that depend on the step (``1 - b1**t`` of Adam, AdamW,
+Adamax and Lamb, and the counters of ``extra.py``) are computed from the
+step tensor in f32, as the reference's traced update computes them
+(``1.0 - b1**(step + 1)``).  `_sync_lr` writes the rate with one
+``fill_`` when it changed (``set_lr``, ``set_lr_scheduler``, a
+scheduler's step), and ``step`` advances the count with ``add_(1)``.
+``get_lr`` still returns a Python float.
+
+Under ``jit.to_static``'s capture the step is recorded into a CUDA graph:
+``step`` then does not write the rate (a write inside the graph would
+replay the capture's value) but registers `_sync_lr` with the traced
+function, which calls it before every replay, so a replay reads the
+scheduler's current rate; the ``add_(1)`` is in the graph, so each replay
+advances the count.  A callable (scheduled) beta is read on the host at
+each step and raises ``NotImplementedError`` under capture.
 """
 from __future__ import annotations
 
@@ -60,6 +78,8 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from ..core.place import capturing
+from ..jit import trace as _trace
 from ..regularizer import L1Decay
 from .lr import LRScheduler
 
@@ -103,10 +123,15 @@ def run_pre_step_hooks(optimizer, params):
     _hooks_ran.flag = True
 
 
-def f32(x):
-    """``x`` as a numpy f32 scalar: the reference's scalar factors are
-    traced f32 values."""
-    return np.float32(x)
+def steps_f32(step):
+    """``t = step + 1`` in f32 from the int64 step tensor, as the
+    reference's ``(step + 1).astype(f32)``."""
+    return (step + 1).to(torch.float32)
+
+
+def bias_correction(beta_, t):
+    """``1 - beta**t`` in f32 on ``t``'s device (``beta_`` a float)."""
+    return 1.0 - torch.pow(beta_, t)
 
 
 def as_f32(tensors):
@@ -168,7 +193,11 @@ class Optimizer:
         self._weight_decay = weight_decay
         self._grad_clip = grad_clip
         self._accumulators = OrderedDict()  # name -> {param name: tensor}
-        self._step_count = 0
+        # device -> (0-d f32 learning rate, 0-d int64 step count)
+        self._dev_state = OrderedDict()
+        self._lr_last = None
+        self._device_state(parameters[0].device if parameters
+                           else torch.device("cpu"))
         self._skip_apply = False
         self._names = {}
         for p in parameters:
@@ -196,9 +225,52 @@ class Optimizer:
 
     def set_lr(self, value):
         self._learning_rate = float(value)
+        self._sync_lr()
 
     def set_lr_scheduler(self, scheduler):
         self._learning_rate = scheduler
+        self._sync_lr()
+
+    def _sync_lr(self):
+        """Write the current rate into every device's rate tensor (one
+        ``fill_`` each), skipped while it is unchanged (:103-114)."""
+        lr = self._current_lr()
+        if lr == self._lr_last:
+            return
+        self._lr_last = lr
+        for lr_t, _ in self._dev_state.values():
+            lr_t.fill_(lr)
+
+    # ---- device state ----
+    def _device_state(self, device):
+        """``(lr, step)``: the 0-d rate and step tensors on ``device``,
+        made at first use (the step copied from the first device's)."""
+        st = self._dev_state.get(device)
+        if st is None:
+            lr = torch.full((), self._current_lr(), dtype=torch.float32,
+                            device=device)
+            if self._dev_state:
+                step = self._step_count.to(device, copy=True)
+            else:
+                step = torch.zeros((), dtype=torch.int64, device=device)
+            st = self._dev_state[device] = (lr, step)
+        return st
+
+    @property
+    def _lr_tensor(self):
+        """The rate tensor of the first parameter device."""
+        return next(iter(self._dev_state.values()))[0]
+
+    @property
+    def _step_count(self):
+        """The step-count tensor of the first parameter device."""
+        return next(iter(self._dev_state.values()))[1]
+
+    def _advance(self):
+        """Count one applied step on every device (a device op, so a
+        replayed step counts too)."""
+        for _, step in self._dev_state.values():
+            step.add_(1)
 
     # ---- accumulators ----
     def _acc(self, name, param, init=0.0):
@@ -207,8 +279,9 @@ class Optimizer:
         if key not in d:
             dtype = torch.float32 if param.dtype in (
                 torch.bfloat16, torch.float16) else param.dtype
-            d[key] = torch.full_like(param, init, dtype=dtype,
-                                     memory_format=torch.contiguous_format)
+            t = torch.empty_like(param, dtype=dtype,
+                                 memory_format=torch.contiguous_format)
+            d[key] = t.fill_(init)     # a float or a 0-d device tensor
         return d[key]
 
     def _accs(self, name, params, init=0.0):
@@ -219,10 +292,21 @@ class Optimizer:
                 if p.grad is not None and p.requires_grad]
 
     # ---- main API ----
+    def _sync_lr_for_step(self):
+        """The rate write of a step: now when eager; under capture,
+        registered with the traced function to run before each replay
+        (and before the capture)."""
+        rec = _trace.recording()
+        if rec is not None:
+            rec.add_pre_replay(self._sync_lr)
+        if not capturing():
+            self._sync_lr()
+
     @torch.no_grad()
     def step(self):
         """Run the pre-step hooks, clip the gradients, add the L1 term,
         apply the update, count the step."""
+        self._sync_lr_for_step()
         params = self._params_with_grad()
         if not params:
             return
@@ -246,7 +330,7 @@ class Optimizer:
                                                        alpha=l1)):
                 p.grad = g
         self._apply(params)
-        self._step_count += 1
+        self._advance()
 
     #: whether the L2 coefficient is added to the gradients ahead of the
     #: update (AdamW decays in the update, Adamax not at all)
@@ -258,19 +342,23 @@ class Optimizer:
         False takes no coupled decay."""
         return None
 
-    def _scalars(self):
-        """The step's scalar factors, computed once a step and passed to
-        `_update`: the learning rate here."""
-        return self._current_lr()
+    def _scalars(self, device):
+        """The step's scalar factors on ``device``, computed once a step
+        and a device and passed to `_update`: the rate tensor here."""
+        return self._device_state(device)[0]
 
     def _apply(self, params):
         """Walk ``params`` by `chunks`: f32 views of a chunk's parameters
         and gradients, the coupled decay ``g + wd*p`` added to the
         gradients, `_update` on the f32 values in place, then `store`."""
-        s = self._scalars()
+        scalars = {}
         wd = self._decay_coeff() if self._coupled_decay else 0.0
         for flag, idx in chunks(params, self._flags(params)):
             ps = [params[i] for i in idx]
+            dev = ps[0].device
+            if dev not in scalars:
+                scalars[dev] = self._scalars(dev)
+            s = scalars[dev]
             pf = as_f32(ps)
             gf = as_f32([p.grad for p in ps])
             if wd and flag is not False:
@@ -330,8 +418,7 @@ class Optimizer:
                 out[f"{pname}_{acc_name}"] = t
         if isinstance(self._learning_rate, LRScheduler):
             out["LR_Scheduler"] = self._learning_rate.state_dict()
-        out["global_step"] = torch.tensor(self._step_count,
-                                          dtype=torch.int64)
+        out["global_step"] = self._step_count.detach().clone()
         out["__param_names__"] = [self._name(p)
                                   for p in self._parameter_list
                                   if p.requires_grad]
@@ -373,11 +460,14 @@ class Optimizer:
         if "LR_Scheduler" in state_dict and isinstance(
                 self._learning_rate, LRScheduler):
             self._learning_rate.set_state_dict(state_dict["LR_Scheduler"])
+        if "LR_Scheduler" in state_dict or "global_step" in state_dict:
+            self._sync_lr()
         if "global_step" in state_dict:
-            self._step_count = int(np.asarray(
-                state_dict["global_step"].cpu()
-                if isinstance(state_dict["global_step"], torch.Tensor)
-                else state_dict["global_step"]))
+            src = state_dict["global_step"]
+            src = src if isinstance(src, torch.Tensor) \
+                else torch.as_tensor(np.array(src))
+            for _, step in self._dev_state.values():
+                step.copy_(src.reshape(()).to(torch.int64))
 
     set_dict = set_state_dict
 
@@ -406,7 +496,7 @@ class SGD(Optimizer):
                          name)
 
     def _update(self, ps, pf, gf, flag, lr):
-        torch._foreach_add_(pf, gf, alpha=-lr)
+        torch._foreach_sub_(pf, torch._foreach_mul(gf, lr))
 
 
 class Momentum(Optimizer):
@@ -428,17 +518,24 @@ class Momentum(Optimizer):
         torch._foreach_add_(vs, gf)
         upd = torch._foreach_add(gf, vs, alpha=mu) if self._nesterov \
             else vs
-        torch._foreach_add_(pf, upd, alpha=-lr)
+        torch._foreach_sub_(pf, torch._foreach_mul(upd, lr))
 
 
 def beta(b):
-    """A beta: a float, or a callable returning one (a schedule)."""
-    return float(b()) if callable(b) else float(b)
+    """A beta: a float, or a callable returning one (a schedule, read on
+    the host: refused under capture, where it would be frozen)."""
+    if callable(b):
+        if capturing():
+            raise NotImplementedError(
+                "a callable (scheduled) beta under jit.to_static's capture "
+                "is not ported yet: it is read on the host at each step, "
+                "and a CUDA graph would replay the capture's value")
+        return float(b())
+    return float(b)
 
 
 class _AdamBase(Optimizer):
-    """The Adam family's update, the reference's op for op
-    (optimizer.py:518-568):
+    """The Adam family's update (optimizer.py:518-568):
 
         g = g + wd*p                         (Adam: coupled decay)
         m = b1*m + (1-b1)*g,  v = b2*v + (1-b2)*g*g,
@@ -447,8 +544,17 @@ class _AdamBase(Optimizer):
         p = p - lr*upd
 
     with ``t`` the number of steps applied so far plus one and the betas
-    read once a step (a callable beta is a schedule).  A parameter decays
-    unless ``apply_decay_param_fun(name)`` is false or it carries
+    read once a step (a callable beta is a schedule).  The device rate is
+    folded into the first bias correction, ``(lr / (1 - b1^t)) * m``, and
+    AdamW's decay term into one product, ``upd + (lr*wd)*p``, then ``p =
+    p - upd``: the same formula with the rate on the device and no more
+    passes over memory than a host rate takes (a separate ``lr*upd``
+    would add one over every moment-sized list).  The decay stays inside
+    the rounded sum, as in the reference's order, whose rounding this
+    differs from by an ulp of the update (a factor ``1 - lr*wd`` on ``p``
+    would round to the f32 values next to 1 and quantise the decay).  A
+    parameter decays unless
+    ``apply_decay_param_fun(name)`` is false or it carries
     ``no_weight_decay = True`` (:522-526)."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
@@ -471,30 +577,31 @@ class _AdamBase(Optimizer):
                      and getattr(p, "no_weight_decay", False) is False)
                 for p in params]
 
-    def _scalars(self):
+    def _scalars(self, device):
         b1, b2 = beta(self._beta1), beta(self._beta2)
-        t = f32(self._step_count + 1)
-        return (self._current_lr(), b1, b2,
-                float(f32(1.0) - f32(b1) ** t),
-                float(f32(1.0) - f32(b2) ** t), self._decay_coeff())
+        lr, step = self._device_state(device)
+        t = steps_f32(step)
+        wd = self._decay_coeff() if self._decoupled else 0.0
+        return (lr / bias_correction(b1, t), b1, b2,
+                bias_correction(b2, t), lr * wd if wd else None)
 
     def _update(self, ps, pf, gf, decays, s):
-        lr, b1, b2, bc1, bc2, wd = s
+        lr_bc1, b1, b2, bc2, lr_wd = s
         ms = self._accs("moment1", ps)
         vs = self._accs("moment2", ps)
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, gf, alpha=1 - b1)
         torch._foreach_mul_(vs, b2)
         torch._foreach_addcmul_(vs, gf, gf, value=1 - b2)
-        upd = torch._foreach_div(ms, bc1)
+        upd = torch._foreach_mul(ms, lr_bc1)
         den = torch._foreach_div(vs, bc2)
         torch._foreach_sqrt_(den)
         torch._foreach_add_(den, float(self._epsilon))
         torch._foreach_div_(upd, den)
         del den
-        if self._decoupled and decays and wd != 0.0:
-            torch._foreach_add_(upd, pf, alpha=wd)
-        torch._foreach_add_(pf, upd, alpha=-lr)
+        if lr_wd is not None and decays:
+            torch._foreach_addcmul_(upd, pf, [lr_wd] * len(pf))
+        torch._foreach_sub_(pf, upd)
 
 
 class Adam(_AdamBase):
@@ -532,9 +639,9 @@ class Adamax(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
 
-    def _scalars(self):
-        return self._current_lr(), float(
-            f32(1.0) - f32(float(self._beta1)) ** f32(self._step_count + 1))
+    def _scalars(self, device):
+        lr, step = self._device_state(device)
+        return lr, bias_correction(float(self._beta1), steps_f32(step))
 
     def _update(self, ps, pf, gf, flag, s):
         lr, bc1 = s
@@ -547,7 +654,8 @@ class Adamax(Optimizer):
         torch._foreach_maximum_(us, torch._foreach_abs(gf))
         upd = torch._foreach_div(ms, bc1)
         torch._foreach_div_(upd, torch._foreach_add(us, float(self._epsilon)))
-        torch._foreach_add_(pf, upd, alpha=-lr)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(pf, upd)
 
 
 class Adagrad(Optimizer):
@@ -595,7 +703,8 @@ class Adadelta(Optimizer):
         torch._foreach_mul_(upd, gf)
         torch._foreach_mul_(ups, rho)
         torch._foreach_addcmul_(ups, upd, upd, value=1 - rho)
-        torch._foreach_add_(pf, upd, alpha=-lr)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(pf, upd)
 
 
 class RMSProp(Optimizer):
@@ -652,11 +761,11 @@ class Lamb(Optimizer):
         return [not (self._exclude_fn and self._exclude_fn(p))
                 for p in params]
 
-    def _scalars(self):
-        t = f32(self._step_count + 1)
-        return (self._current_lr(),
-                float(f32(1.0) - f32(float(self._beta1)) ** t),
-                float(f32(1.0) - f32(float(self._beta2)) ** t))
+    def _scalars(self, device):
+        lr, step = self._device_state(device)
+        t = steps_f32(step)
+        return (lr, bias_correction(float(self._beta1), t),
+                bias_correction(float(self._beta2), t))
 
     def _update(self, ps, pf, gf, decays, s):
         lr, bc1, bc2 = s

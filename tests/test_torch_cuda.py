@@ -90,7 +90,14 @@ cross-entropy rows also at the vision drives' logits ([64, 10] and [32,
 1000]), and one ResNet-18 Momentum step on the card against the CPU;
 the vision ops of ``chip_smoke.py`` phase 34 (transposed convolutions,
 norms, pooling masks and unpooling, the detection ops) and 3 Momentum
-steps of SqueezeNet 1.1 and AlexNet, card against CPU.
+steps of SqueezeNet 1.1 and AlexNet, card against CPU.  ``jit.to_static``
+on CUDA graphs: a replay of rows 2 and 3 bit-identical to eager calls,
+launch counters after replays equal to eager calls', dropout masks that
+follow the generator's seed and differ between replays, a host read
+raising at capture (and the card usable after it), ``GradScaler`` and a
+callable beta refused under capture, scheduled AdamW steps replayed bit
+for bit with ``global_step``, a closure captured, and the engine's
+captured tokens equal to its eager tokens.
 """
 import numpy as np
 import pytest
@@ -1808,3 +1815,300 @@ def test_matmul_epilogue_bwd_repeats(gen, dtype):
     for _ in range(100):
         dz2, db2 = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
         assert torch.equal(dz2, dz) and torch.equal(db2, db)
+
+
+# -- jit.to_static on CUDA graphs ---------------------------------------
+def _ln_epilogue_step(x, gamma, beta, w, b):
+    """Rows 2 and 3: layer norm, then the GELU matmul epilogue."""
+    return ops.linear_act(ops.layer_norm(x, gamma, beta), w, b, "gelu_tanh")
+
+
+def _ln_epilogue_inputs(gen, dtype=torch.bfloat16, M=368, K=2048, N=8192):
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen).to(dtype)
+    return r(M, K), r(K), r(K), r(K, N) * 0.02, r(N)
+
+
+def test_to_static_replay_equals_eager_bit_for_bit(gen):
+    from paddle_tpu_torch import jit
+    args = _ln_epilogue_inputs(gen)
+    fn = jit.to_static(_ln_epilogue_step)
+    for i in range(4):
+        x = torch.randn(args[0].shape, device="cuda", generator=gen).to(
+            args[0].dtype)
+        got = fn(x, *args[1:])
+        want = _ln_epilogue_step(x, *args[1:])
+        assert torch.equal(got, want), i
+    assert fn.captures == 1 and fn.replays == 3 and fn.eager_calls == 1
+    assert len(fn._cache) == 1
+
+
+def test_to_static_counts_replayed_launches(gen):
+    from paddle_tpu_torch import jit
+    args = _ln_epilogue_inputs(gen)
+    fns = (ops.fused_layer_norm, ops.fused_linear_act)
+
+    def counts():
+        return [(f.launches, getattr(f, "vector_launches", None),
+                 getattr(f, "tma_launches", None)) for f in fns]
+
+    start = counts()
+    for _ in range(5):
+        _ln_epilogue_step(*args)
+    per_eager = [tuple(b - a if a is not None else None
+                       for a, b in zip(s, e))
+                 for s, e in zip(start, counts())]
+    fn = jit.to_static(_ln_epilogue_step)
+    start = counts()
+    for _ in range(5):
+        fn(*args)
+    torch.cuda.synchronize()
+    per_traced = [tuple(b - a if a is not None else None
+                        for a, b in zip(s, e))
+                  for s, e in zip(start, counts())]
+    assert per_traced == per_eager and per_eager[0][0] == 5
+    assert fn.replays == 4
+
+
+def test_to_static_dropout_masks_follow_the_generator():
+    from paddle_tpu_torch import jit
+    import paddle_tpu_torch.nn.functional as F
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    x = torch.ones(4096, device="cuda")
+
+    def draws(traced, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+
+        def f(v):
+            return F.dropout(v, 0.5, training=True, generator=g)
+        fn = jit.to_static(f) if traced else f
+        return [fn(x) for _ in range(5)], fn
+
+    eager, _ = draws(False, 3)
+    traced, fn = draws(True, 3)
+    assert fn.replays == 4
+    for a, b in zip(eager, traced):
+        assert torch.equal(a, b)
+    assert not torch.equal(traced[3], traced[4])
+    # the default generator too (the reference's rng-threading case)
+    torch.manual_seed(5)
+    f = jit.to_static(lambda v: F.dropout(v, 0.5, training=True))
+    outs = [f(x) for _ in range(4)]
+    assert not torch.equal(outs[2], outs[3]) and f.replays == 3
+
+
+def test_to_static_host_read_raises_at_capture(gen):
+    from paddle_tpu_torch import jit
+    x = torch.randn(64, device="cuda", generator=gen)
+
+    def host_read(v):
+        return v * float(v.sum().item())
+
+    fn = jit.to_static(host_read)
+    stream = torch.cuda.current_stream()
+    fn(x)                                   # eager discovery
+    with pytest.raises(RuntimeError, match=r"host_read.*item\(\)") as info:
+        fn(x)
+    assert info.value.__cause__ is not None
+    torch.cuda.synchronize()
+    assert fn.replays == 0
+    # the failed capture is undone: the current stream, the default
+    # generator's draws, and a later capture all work
+    assert torch.cuda.current_stream() == stream
+    torch.rand(8, device="cuda")
+    torch.testing.assert_close(x * 2, x + x)
+    ok = jit.to_static(lambda v: v * 3)
+    outs = [ok(x) for _ in range(3)]
+    assert ok.replays == 2 and torch.equal(outs[2], x * 3)
+
+
+def test_grad_scaler_under_capture_raises(gen):
+    import paddle_tpu_torch as pt
+    lin = pt.nn.Linear(8, 8, device="cuda")
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=lin.parameters())
+    scaler = pt.amp.GradScaler()
+    x = torch.randn(4, 8, device="cuda", generator=gen)
+
+    def step(v):
+        loss = lin(v).square().mean()
+        scaler.minimize(opt, scaler.scale(loss))
+        opt.clear_grad()
+        return loss.detach()
+
+    fn = pt.jit.to_static(step)
+    fn(x)
+    with pytest.raises(RuntimeError, match="GradScaler"):
+        fn(x)
+
+
+def _scheduled_adamw(pt, seed, beta1=0.9):
+    torch.manual_seed(seed)
+    model = pt.nn.Sequential(pt.nn.Linear(16, 32, device="cuda"),
+                             pt.nn.ReLU(),
+                             pt.nn.Linear(32, 4, device="cuda"))
+    lr = pt.optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-2, T_max=4,
+                                                    eta_min=1e-3),
+                            warmup_steps=2, start_lr=1e-3, end_lr=1e-2)
+    opt = pt.optimizer.AdamW(learning_rate=sched, beta1=beta1,
+                             parameters=model.parameters(),
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+    def step(x, y):
+        loss = (model(x) - y).square().mean()
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+    return model, opt, sched, step
+
+
+def test_to_static_scheduled_adamw_equals_eager_bit_for_bit(gen):
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 16, device="cuda", generator=gen)
+    y = torch.randn(8, 4, device="cuda", generator=gen)
+    runs = []
+    for traced in (False, True):
+        model, opt, sched, step = _scheduled_adamw(pt, 1)
+        fn = pt.jit.to_static(step) if traced else step
+        losses = []
+        for _ in range(6):
+            losses.append(fn(x, y))
+            sched.step()
+        runs.append((torch.stack(losses), [p.detach().clone() for p in
+                                           model.parameters()],
+                     opt.state_dict()["global_step"]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    assert int(runs[0][2]) == int(runs[1][2]) == 6
+    assert fn.replays == 5
+
+
+def test_to_static_callable_beta_under_capture_raises(gen):
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 16, device="cuda", generator=gen)
+    y = torch.randn(8, 4, device="cuda", generator=gen)
+    _, _, _, step = _scheduled_adamw(pt, 2, beta1=lambda: 0.9)
+    fn = pt.jit.to_static(step)
+    fn(x, y)
+    with pytest.raises(RuntimeError) as info:
+        fn(x, y)
+    assert isinstance(info.value.__cause__, NotImplementedError)
+    assert "callable (scheduled) beta" in str(info.value.__cause__)
+
+
+def test_to_static_closure_is_captured_on_the_card(gen):
+    """The closure rule: no tensor argument, the discovery run returned a
+    CUDA tensor, so the closure is captured."""
+    import paddle_tpu_torch as pt
+    lin = pt.nn.Linear(8, 8, device="cuda")
+    x = torch.randn(2, 8, device="cuda", generator=gen)
+    fn = pt.jit.to_static(lambda: lin(x))
+    outs = [fn() for _ in range(3)]
+    assert fn.captures == 1 and fn.replays == 2
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    with torch.no_grad():
+        lin.weight.zero_()
+    torch.testing.assert_close(fn(), lin.bias.expand(2, 8))
+
+
+def test_engine_captured_tokens_equal_eager_tokens():
+    import paddle_tpu_torch as pt
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = pt.GPTConfig(vocab_size=512, hidden_size=256, num_hidden_layers=2,
+                       num_attention_heads=4, max_position_embeddings=256)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [list(rng.integers(1, 512, size=n)) for n in (40, 7, 90, 23)]
+    outs = []
+    for captured in (False, True):
+        eng = pt.GenerationEngine(model, max_batch=3, prefill_chunk=32,
+                                  max_model_len=256, num_blocks=64)
+        traced = eng._step_fn
+        if not captured:
+            eng._step_fn = traced._orig_fn
+            traced._cache.clear()
+        outs.append(eng.generate(prompts, max_new_tokens=12, do_sample=True,
+                                 top_k=20, top_p=0.9, temperature=0.8,
+                                 seed=4))
+        if captured:
+            assert traced.captures == 1 and traced.replays > 10
+            assert eng.stats()["step_compiles"] == 1
+    assert outs[0] == outs[1]
+
+
+def _mlp_and_step(pt, seed, opt_cls=None, **opt_kw):
+    torch.manual_seed(seed)
+    model = pt.nn.Sequential(pt.nn.Linear(16, 32, device="cuda"),
+                             pt.nn.ReLU(),
+                             pt.nn.Linear(32, 4, device="cuda"))
+    opt = (opt_cls or pt.optimizer.AdamW)(
+        parameters=model.parameters(), **opt_kw)
+    return model, opt
+
+
+def test_to_static_gradients_reach_an_optimizer_outside(gen):
+    """Backward inside the captured step, ``opt.step(); opt.clear_grad()``
+    outside it: each replay hands the parameters that call's gradients
+    again, so the optimizer steps on them, bit for bit as eagerly."""
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 16, device="cuda", generator=gen)
+    y = torch.randn(8, 4, device="cuda", generator=gen)
+    runs = []
+    for traced in (False, True):
+        model, opt = _mlp_and_step(pt, 3, learning_rate=1e-2)
+
+        def step(a, b):
+            loss = (model(a) - b).square().mean()
+            loss.backward()
+            return loss.detach()
+
+        fn = pt.jit.to_static(step) if traced else step
+        losses, grads = [], []
+        for _ in range(4):
+            losses.append(fn(x, y))
+            grads.append([p.grad.clone() for p in model.parameters()])
+            opt.step()
+            opt.clear_grad()
+        assert all(p.grad is None for p in model.parameters())
+        runs.append((torch.stack(losses), grads,
+                     [p.detach().clone() for p in model.parameters()]))
+    assert fn.replays == 3
+    assert torch.equal(runs[0][0], runs[1][0])
+    for ga, gb in zip(runs[0][1], runs[1][1]):
+        assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][2], runs[1][2]))
+    assert not torch.equal(runs[1][0][0], runs[1][0][-1])
+
+
+def test_to_static_grad_scaler_scale_follows_update(gen):
+    """``scaler.scale(loss).backward()`` captured, ``scaler.step(opt);
+    scaler.update()`` outside, the scale doubling after every step: each
+    replay scales by the current scale (its device tensor), so the steps
+    equal the eager ones bit for bit."""
+    import paddle_tpu_torch as pt
+    x = torch.randn(8, 16, device="cuda", generator=gen)
+    y = torch.randn(8, 4, device="cuda", generator=gen)
+    runs = []
+    for traced in (False, True):
+        model, opt = _mlp_and_step(pt, 4, pt.optimizer.SGD,
+                                   learning_rate=0.1)
+        scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 4,
+                                   incr_every_n_steps=1)
+
+        def step(a, b):
+            loss = (model(a) - b).square().mean()
+            scaler.scale(loss).backward()
+            return loss.detach()
+
+        fn = pt.jit.to_static(step) if traced else step
+        for _ in range(5):
+            fn(x, y)
+            scaler.step(opt)
+            opt.clear_grad()
+        assert scaler._scale == 2.0 ** 9
+        runs.append([p.detach().clone() for p in model.parameters()])
+    assert fn.replays == 4
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
