@@ -331,7 +331,25 @@ phase fails.  Phases:
 40. captured ResNet-50 training (`phase_captured_resnet50_training`):
     phase 32's recipe at B=32 in the same four turns, the batch norms'
     statistics in the checksum (bit-identical where the eager turns
-    are, else within 2x their distance).
+    are, else within 2x their distance);
+41. fp16 parity (`phase_fp16_parity`): ``__graft_entry__.entry()``'s GPT
+    at its width, 2 layers, under ``amp.auto_cast()`` and
+    ``amp.GradScaler()`` with their defaults (f16 O1), 3 AdamW steps on
+    the card against the CPU's plain run: losses, step-1 unscaled
+    gradients and updates within ``FP16_PARITY_TOL``, which the control
+    (fc1's bias dropped) fails, and the scaler's decisions equal;
+42. fp16 at full depth (`phase_fp16_drives`): GPT_1P3B in f16 served on
+    phase 4's trace, ms/step beside phase 4's, greedy tokens equal to the
+    plain f16 run's (`plain_serving`); phase 6's recipe under
+    ``auto_cast()`` and ``GradScaler()``, ms/step beside phases 6 and 8;
+43. nn breadth (`phase_nn_breadth`): every activation and loss of
+    ``nn.functional`` and every activation and loss layer, forward and
+    input gradients, f32 and bf16 (CTC in f32), card against CPU within
+    ``NN_TOL``; the random ones' draws by structure and range;
+    ``softmax_with_cross_entropy`` launching rows 8a/8b.
+Phase 2 holds every row in float16 too (``TOL["float16"]``), on its
+f16 route (the vector routes; the f32 CUDA-core templates where bf16
+runs on the tensor cores).
 Every captured turn reports ms/step, its rate (tokens/s, MFU or
 imgs/s), the idle share of a profiled burst or step, the capture's
 seconds and the graph pool's GiB, and fails unless every timed step
@@ -344,13 +362,14 @@ training, generate, the three LLaMA, the int8 serving, the two BERT, the
 ERNIE, the four MoE, the four LoRA, the paged decode, the bf16 parity,
 the optimizer, the O2 training and the O2 parity summaries, the grouped
 f32 repetitions, the vision parity, LeNet and ResNet-50 training
-summaries, phases 33-40's, the wgmma self-check and the kernels'
+summaries, phases 33-43's, the wgmma self-check and the kernels'
 resources) and
 the card's ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -363,19 +382,22 @@ SEED = 0
 
 #: published peaks of one H100 SXM (NVIDIA data sheet, dense)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 
 #: max |kernel - plain| allowed, as atol + rtol * |plain|.  bf16: about
 #: two bf16 ulps at unit scale (the plain attention also rounds its
-#: probabilities to bf16, the kernel keeps f32).  f32: sums taken in
-#: another order.
-TOL = {"bfloat16": (2e-2, 2e-2), "float32": (1e-4, 1e-4)}
+#: probabilities to bf16, the kernel keeps f32).  f16: about five f16
+#: ulps at unit scale (both round f32 results to f16).  f32: sums taken
+#: in another order.
+TOL = {"bfloat16": (2e-2, 2e-2), "float16": (5e-3, 5e-3),
+       "float32": (1e-4, 1e-4)}
 
 #: column sums (dgamma, dbeta, db) over thousands of rows, taken in
 #: another order: atol = SUM_TOL * the largest column's sum of |terms|
 #: (f32: 1e-5 of it, ~80 f32 ulps, the rounding a few-thousand-term sum
-#: may gather; bf16: 2^-8 of it, one bf16 rounding), rtol as in TOL.
-SUM_TOL = {"bfloat16": 2.0 ** -8, "float32": 1e-5}
+#: may gather; bf16: 2^-8 of it, one bf16 rounding; f16: 2^-10, one f16
+#: rounding), rtol as in TOL.
+SUM_TOL = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -10, "float32": 1e-5}
 
 #: the training drive's shapes (B=4, S=1024, GPT_1P3B): 4096 token rows,
 #: hidden 2048, fc1 width 8192, 4092 = 4 x 1023 logit rows after the
@@ -698,10 +720,18 @@ RAGGED_CASES = {
 }
 
 
+#: the routes a launch is counted under, in `ragged_route_counts` and
+#: `lora_route_counts`' order, and the one each dtype must take on the
+#: drives' aligned shapes
+ROUTES = ("mma", "f32", "f16", "elementwise")
+WANT_ROUTE = {"bfloat16": "mma", "float32": "f32", "float16": "f16"}
+
+
 def ragged_route_counts(ops, int8):
     fn = ops.ragged_paged_attention_int8 if int8 \
         else ops.ragged_paged_attention
-    return fn.mma_launches, fn.f32_launches, fn.elementwise_launches
+    return (fn.mma_launches, fn.f32_launches, fn.f16_launches,
+            fn.elementwise_launches)
 
 
 def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False,
@@ -740,11 +770,11 @@ def check_ragged(ops, block_q, dtype, dtype_name, gen, int8=False,
         return ops.ragged_paged_attention(*args, **kw)
     n0 = ragged_route_counts(ops, int8)
     out = kernel()
-    moved = [name for name, a, b in zip(("mma", "f32", "elementwise"), n0,
+    moved = [name for name, a, b in zip(ROUTES, n0,
                                         ragged_route_counts(ops, int8))
              if b != a]
     route = moved[0] if len(moved) == 1 else f"counts moved: {moved}"
-    want_route = "mma" if dtype == torch.bfloat16 else "f32"
+    want_route = WANT_ROUTE[dtype_name]
     ref = ops.ragged_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     err, rel, ok = compare(out, ref, dtype_name)
@@ -1181,6 +1211,12 @@ LN_KERNEL_NAMES = ("ln_fwd_vec_kernel", "ln_bwd_vec_kernel",
 #: the sliced column sum (row 6's second pass; phase 1: no spills)
 VEC_KERNEL_NAMES = ("paged_attn_vec_kernel", "me_bwd_vec_kernel",
                     "column_sum_sliced_kernel")
+#: the CUDA-core kernels that serve f16 where bf16 runs on the tensor
+#: cores (rows 1, 3, 10, 11 and 15; the flash and grouped ones are in the
+#: lists above), and the softmax cross-entropy (8a/8b): phase 1 prints
+#: their registers and spills
+SIMT_KERNEL_NAMES = ("me_fwd_fma", "ragged_attn_kernel", "lora_sgmv_kernel",
+                     "xent_fwd_kernel", "xent_bwd_kernel")
 
 
 def kernel_resources(cuda_lib, lib_path, names):
@@ -1243,14 +1279,15 @@ def check_ragged_mma_kernels(resources):
 
 def check_vec_kernels(resources):
     """Phase 1's gate on the vector routes of rows 7 and 9 and the sliced
-    column sum: each is in the library (13 paged attention instantiations:
-    lanes a key row 1-32 in both types, two vectors a lane for f32 rows
-    past 128; the epilogue backward at 5 activations in both types; the
-    column sum in both) and none uses stack or local memory."""
+    column sum: each is in the library (19 paged attention instantiations:
+    lanes a key row 1-32 in the three types, two vectors a lane for f32
+    rows past 128; the epilogue backward at 5 activations in the three
+    types; the column sum in the three) and none uses stack or local
+    memory."""
     if resources is None:
         fail("phase 1: no cuobjdump to check the vector kernels with")
-    want = {"paged_attn_vec_kernel": 13, "me_bwd_vec_kernel": 10,
-            "column_sum_sliced_kernel": 2}
+    want = {"paged_attn_vec_kernel": 19, "me_bwd_vec_kernel": 15,
+            "column_sum_sliced_kernel": 3}
     for name, n in want.items():
         found = {k: r for k, r in resources.items() if name in k}
         spills = [k for k, r in found.items() if r["stack"] or r["local"]]
@@ -1344,7 +1381,7 @@ def _flash_library(q, k, v, g, causal, dtype):
     # sees every key) is the same function, and runs without the mask
     lib_causal = causal and q.shape[1] == k.shape[1]
     aten = torch.ops.aten
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         def fwd():
             return aten._scaled_dot_product_flash_attention(
                 qt, kt, vt, 0.0, lib_causal, False, scale=scale)
@@ -1771,11 +1808,10 @@ def lora_block_ids(nb, slots):
 
 def lora_route(ops, n0):
     """The route of the SGMV launch made since the counts ``n0`` (a tuple
-    of `lora_route_counts`): "mma", "f32" or "elementwise"."""
+    of `lora_route_counts`): one of `ROUTES`."""
     fn = ops.fused_lora_segment_epilogue
     now = lora_route_counts(ops)
-    moved = [name for name, a, b in zip(("mma", "f32", "elementwise"),
-                                        n0, now) if b != a]
+    moved = [name for name, a, b in zip(ROUTES, n0, now) if b != a]
     if len(moved) != 1:
         fail(f"lora_sgmv: route counts {n0} -> {now} after one launch "
              f"({fn.launches} launches)")
@@ -1784,7 +1820,8 @@ def lora_route(ops, n0):
 
 def lora_route_counts(ops):
     fn = ops.fused_lora_segment_epilogue
-    return fn.mma_launches, fn.f32_launches, fn.elementwise_launches
+    return (fn.mma_launches, fn.f32_launches, fn.f16_launches,
+            fn.elementwise_launches)
 
 
 def check_lora(ops, case, dtype, dtype_name, gen, rows):
@@ -1840,7 +1877,7 @@ def check_lora(ops, case, dtype, dtype_name, gen, rows):
     null = (gid == slots).repeat_interleave(bm)
     null_same = bool(torch.equal(s[null], z[null]))
     same = repeat_equal(kernel, first)
-    want_route = "mma" if dtype == torch.bfloat16 else "f32"
+    want_route = WANT_ROUTE[dtype_name]
     ok = ok and s_ok and null_same and same and route == want_route
     spans = cuda_lib.library().ptt_lora_sgmv_spans(nb, N, x.device.index) \
         if route == "mma" else None
@@ -2380,7 +2417,8 @@ def phase_kernels(ops, budgets):
     gen_pg = torch.Generator(device="cuda").manual_seed(SEED + 15)
     gen_xv = torch.Generator(device="cuda").manual_seed(SEED + 30)
     for dtype, dtype_name in ((torch.bfloat16, "bfloat16"),
-                              (torch.float32, "float32")):
+                              (torch.float32, "float32"),
+                              (torch.float16, "float16")):
         block_q = ops.ragged_q_block(dtype)
         for name, check in serve.items():
             arg = block_q if name == "ragged_attention" \
@@ -2564,6 +2602,7 @@ def reset_routes(ops):
     for fn in (ops.fused_lora_segment_epilogue, ops.ragged_paged_attention,
                ops.ragged_paged_attention_int8):
         fn.mma_launches = fn.f32_launches = fn.elementwise_launches = 0
+        fn.f16_launches = 0
     for fn in (ops.paged_attention, ops.fused_linear_act_bwd):
         fn.vector_launches = fn.elementwise_launches = 0
 
@@ -2594,8 +2633,8 @@ def check_routes(phase, ops):
         + ", ".join(f"{n} {c}" for n, c in epilogue.items())
         + "; norms (vector, scalar) "
         + ", ".join(f"{n} {c}" for n, c in norm.items())
-        + f"; lora_sgmv (mma, f32, element-wise) {lora}; ragged "
-        "attention (mma, f32, element-wise) "
+        + f"; lora_sgmv (mma, f32, f16, element-wise) {lora}; ragged "
+        "attention (mma, f32, f16, element-wise) "
         + ", ".join(f"{n} {c}" for n, c in ragged.items())
         + "; (vector, element-wise) "
         + ", ".join(f"{n} {c}" for n, c in vector.items()))
@@ -2605,10 +2644,10 @@ def check_routes(phase, ops):
     if any(c[1] for c in norm.values()):
         fail(f"{phase}: a model-shape norm launch took the scalar route: "
              f"{norm}")
-    if lora[2]:
+    if lora[-1]:
         fail(f"{phase}: a model-shape LoRA SGMV launch took the "
              f"element-wise route: {lora}")
-    if any(c[2] for c in ragged.values()):
+    if any(c[-1] for c in ragged.values()):
         fail(f"{phase}: a model-shape bf16 ragged attention launch took "
              f"the element-wise route: {ragged}")
     if any(c[1] for c in vector.values()):
@@ -2757,25 +2796,31 @@ def serve_trace(cfg):
     return prompts, warm
 
 
-def phase_serving(pt, ops, int8=False, base=None, moe=False):
+def phase_serving(pt, ops, int8=False, base=None, moe=False, dtype=None,
+                  keep=None):
     """GPT_1P3B in bf16 served by the engine (phase 4).  With ``int8``
     (phase 13) the same weights and trace with int8 weights and an int8
     KV pool, held against ``base``, phase 4's summary.  With ``moe``
     (phase 18) MoE-GPT at GPT_1P3B's width (E = 4, top 2) on the same
     trace, with each step's per-expert counts and their imbalance, beside
-    ``base``.  Returns (launch counts, summary, the generated tokens of
-    each request)."""
+    ``base``.  ``dtype`` serves another element type (phase 42: f16),
+    and ``keep`` (a dict) receives the model's weights on the CPU.
+    Returns (launch counts, summary, the generated tokens of each
+    request)."""
     import numpy as np
     import torch
+    dtype = torch.bfloat16 if dtype is None else dtype
     phase = "moe serving" if moe else "int8 serving" if int8 else "serving"
     drive = "serve_moe" if moe else "serve_int8" if int8 else "serve"
     torch.cuda.reset_peak_memory_stats()
     if moe:
         cfg = moe_serve_cfg(pt)
-        model = pt.MoEGPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+        model = pt.MoEGPTForCausalLM(cfg, dtype=dtype, seed=SEED)
     else:
         cfg = pt.GPTConfig(**pt.GPT_1P3B)
-        model = pt.GPTForCausalLM(cfg, dtype=torch.bfloat16, seed=SEED)
+        model = pt.GPTForCausalLM(cfg, dtype=dtype, seed=SEED)
+    if keep is not None:
+        keep.update({k: v.cpu() for k, v in model.state_dict().items()})
     prompts, warm = serve_trace(cfg)
     summary = dict(weight_gib_bf16=state_gib(model))
     kw = {}
@@ -6269,6 +6314,542 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# phases 41-43: float16 (auto_cast's default) and nn breadth
+# ---------------------------------------------------------------------
+#: GPT O1 float16 parity (phase 41): `BF16_PARITY_TOL`'s readings for a
+#: run under ``auto_cast()`` and ``GradScaler()`` with their defaults (f16
+#: white-list ops, the f32 black list, the loss scaled by 2^15), each gate
+#: between the card run's reading and the control's (fc1's bias dropped,
+#: as phase 26), which must fail it.
+FP16_PARITY_TOL = dict(loss=6e-5, grad=9e-3, update=1.8e-2)
+
+
+def fp16_parity_run(pt, ops, cfg, params, ids, labels, device):
+    """3 AdamW steps (phase 26's optimizer and clip) of GPT ``cfg`` from
+    ``params`` on ``device`` under ``amp.auto_cast()`` and
+    ``amp.GradScaler()`` with their defaults: the losses, the step-1
+    gradients unscaled (each divided by the scale in f32), the final
+    parameters, the launch counts, and the scaler's (found inf, scale)
+    after each step."""
+    import torch
+    model = pt.GPTForCausalLM(cfg, device=device)
+    pt.load_reference_state(model, params)
+    opt = pt.optimizer.AdamW(
+        learning_rate=PARITY_LR, weight_decay=0.01,
+        parameters=model.parameters(),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    scaler = pt.amp.GradScaler()
+    crit = pt.GPTPretrainingCriterion()
+    x, y = (torch.from_numpy(a).to(device) for a in (ids, labels))
+    reset_launches(ops)
+    losses, grads, decisions = [], None, []
+    for _ in range(3):
+        with pt.amp.auto_cast():
+            loss = crit(model(x), y)
+        scaler.scale(loss).backward()
+        if grads is None:
+            grads = {n: (p.grad.float() / scaler._scale).cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+        scaler.step(opt)
+        decisions.append((bool(scaler._found_inf), scaler._scale))
+        opt.clear_grad()
+        losses.append(float(loss.detach()))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    counts = launches(ops)
+    final = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    return losses, grads, final, counts, decisions
+
+
+def phase_fp16_parity(pt, ops):
+    """Phase 41: ``__graft_entry__.entry()``'s GPT at its full width
+    (hidden 512, 8 heads, vocab 4096; `OPT_PARITY_CFG`), 2 layers, as
+    phase 26 runs GPT_1P3B's (f16 takes no flash kernel in the
+    reference's routing, so attention is the composite), under
+    ``amp.auto_cast()`` and ``amp.GradScaler()`` with their defaults on
+    the card against the port's CPU plain run from the same numpy weights
+    and inputs: the losses of 3 steps, the step-1 unscaled gradients and
+    the 3 AdamW updates held to `FP16_PARITY_TOL` with the control (fc1's
+    bias dropped) failing each gate, and the scaler's found-inf decisions
+    and scale after each step equal to the CPU's.  The f16 fc1 epilogue
+    (rows 3 and 7) runs on the card.  (At GPT_1P3B's width the CPU leg
+    took ~15 minutes: the card's host multiplies f16 at ~1 GFLOP/s.)"""
+    import numpy as np
+    import torch
+    phase = "fp16 parity"
+    cfg = pt.GPTConfig(**OPT_PARITY_CFG)
+    rng = np.random.default_rng(SEED + 3)
+    ids = rng.integers(0, cfg.vocab_size, (2, 128))
+    labels = ids.copy()
+    labels[0, :3] = -100
+    params = numpy_weights(pt.GPTForCausalLM(cfg, device="cpu"), SEED + 2)
+    no_bias = {n: np.zeros_like(a) if n.endswith("mlp.fc1.bias") else a
+               for n, a in params.items()}
+    runs = {}
+    for name, device, start in (("control", "cuda", no_bias),
+                                ("card", "cuda", params),
+                                ("cpu", "cpu", params)):
+        runs[name] = fp16_parity_run(pt, ops, cfg, start, ids, labels,
+                                     device)
+        torch.cuda.empty_cache()
+    got, ctl = hold_bf16_gates(phase, runs, params, no_bias,
+                               FP16_PARITY_TOL, "fc1's bias dropped")
+    decisions = {k: runs[k][4] for k in runs}
+    say(f"  scaler (found inf, scale) after each step: card "
+        f"{decisions['card']}, CPU {decisions['cpu']}")
+    if decisions["card"] != decisions["cpu"]:
+        fail(f"{phase}: the scaler decided otherwise on the card: "
+             f"{decisions['card']} against {decisions['cpu']}")
+    counts = runs["card"][3]
+    if not counts["matmul_epilogue"]:
+        fail(f"{phase}: the f16 fc1 epilogue never launched")
+    check_counts(phase, ops, counts, 3, cfg.num_hidden_layers, "train")
+    return dict(losses_cuda=runs["card"][0], losses_cpu=runs["cpu"][0],
+                losses_control=runs["control"][0], readings=got,
+                control=ctl, tolerance=FP16_PARITY_TOL,
+                scaler=decisions["card"])
+
+
+@contextlib.contextmanager
+def plain_serving(pt):
+    """The serving path's kernel entry points (ragged attention, layer
+    norm, the fc1 epilogue) swapped for their plain versions, which run
+    on CUDA tensors as on the CPU: the plain run of a model on the card."""
+    from paddle_tpu_torch.inference.serving import attention
+    from paddle_tpu_torch.ops import ragged
+    ops = pt.ops
+
+    def ragged_plain(q, k_pool, v_pool, *ints, block_q=None, scale=None,
+                     k_scales=None, v_scales=None):
+        block_q, _, scale = ragged._geometry(q, ints[2], block_q, scale)
+        return ops.ragged_attention_ref(q, k_pool, v_pool, *ints, block_q,
+                                        scale, k_scales, v_scales)
+    saved = (attention.ragged_paged_attention, ops.layer_norm,
+             ops.linear_act)
+    attention.ragged_paged_attention = ragged_plain
+    ops.layer_norm = lambda x, w, b, eps=1e-5: ops.layer_norm_ref(
+        x, w, b, eps)[0]
+    ops.linear_act = lambda x, w, b, act="none": ops.linear_act_ref(
+        x, w, b, act)
+    try:
+        yield
+    finally:
+        (attention.ragged_paged_attention, ops.layer_norm,
+         ops.linear_act) = saved
+
+
+def phase_fp16_drives(pt, ops, serving, training, training_flash):
+    """Phase 42: float16 at full depth.  The engine serves phase 4's
+    trace with GPT_1P3B in f16 (the ragged attention, layer norm and
+    epilogue f16 routes), its ms/step beside phase 4's bf16; every
+    request's 64 greedy tokens equal the plain f16 run's, the same engine
+    and weights with the plain versions (`plain_serving`) on the card (the
+    host's CPU multiplies f16 at ~1 GFLOP/s, so a CPU leg of 1.3B
+    parameters would take hours).  Then phase 6's recipe (B=4, S=1024,
+    composite attention, AdamW, clip 1.0) under ``auto_cast()`` and
+    ``GradScaler()`` with their defaults, its ms/step beside phases 6
+    and 8 (bf16 O1).  Returns (serving counts, serving summary, training
+    counts, training summary)."""
+    import numpy as np
+    import torch
+    phase = "fp16 serving"
+    keep = {}
+    serve_counts, summary, generated = phase_serving(
+        pt, ops, dtype=torch.float16, keep=keep)
+    free_device_memory()
+    cfg = pt.GPTConfig(**pt.GPT_1P3B)
+    prompts, _ = serve_trace(cfg)
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float16)
+    model.load_state_dict(keep)
+    del keep
+    with plain_serving(pt):
+        eng = pt.GenerationEngine(model, max_batch=8, prefill_chunk=256,
+                                  max_model_len=cfg.max_position_embeddings)
+        reset_launches(ops)
+        t0 = time.perf_counter()
+        plain = eng.generate(prompts, max_new_tokens=64)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_counts = launches(ops)
+    del eng, model
+    if any(plain_counts.values()):
+        fail(f"{phase}: the plain run launched kernels: {plain_counts}")
+    plain_new = [c[len(p):] for c, p in zip(plain, prompts)]
+    same = sum(int(a == b) for x, y in zip(generated, plain_new)
+               for a, b in zip(x, y))
+    total = sum(len(g) for g in generated)
+    say(f"  f16 {summary['ms_per_step']:.2f} ms/step against phase 4's "
+        f"bf16 {serving['ms_per_step']:.2f} (this call); greedy tokens: "
+        f"{same} of {total} equal to the plain f16 run's ({plain_s:.1f} s, "
+        f"no kernel launched)")
+    if same != total or any(len(c) != 64 for c in plain_new):
+        fail(f"{phase}: {total - same} of {total} greedy tokens differ "
+             f"from the plain run's")
+    summary.update(greedy_equal=same, greedy_total=total,
+                   bf16_ms_per_step=serving["ms_per_step"])
+
+    B = TRAIN_B[False]
+    cfg = pt.GPTConfig(**dict(pt.GPT_1P3B, use_flash_attention=False,
+                              use_recompute=False))
+    L, H = cfg.num_hidden_layers, cfg.hidden_size
+    model = pt.GPTForCausalLM(cfg, dtype=torch.float32, seed=SEED)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.AdamW(
+        learning_rate=1e-4, weight_decay=0.01, parameters=model.parameters(),
+        grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+    scaler = pt.amp.GradScaler()
+    crit = pt.GPTPretrainingCriterion()
+    rng = np.random.default_rng(SEED)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                        (B, TRAIN_S))).cuda()
+
+    def step():
+        with pt.amp.auto_cast():
+            loss = crit(model(ids), ids)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        opt.clear_grad()
+        return loss.detach()
+
+    train_counts, train = drive_training(ops, step, n_params, B, L, H,
+                                         "fp16 training", "train")
+    train.update(scale=scaler._scale,
+                 bf16_step_ms={"phase 6": training["step_ms"],
+                               "phase 8": training_flash["step_ms"]})
+    say(f"  f16 {train['step_ms']:.2f} ms/step against bf16 O1: phase 6 "
+        f"{training['step_ms']:.2f}, phase 8 "
+        f"{training_flash['step_ms']:.2f} (this call); loss scale "
+        f"{scaler._scale:g}")
+    return serve_counts, summary, train_counts, train
+
+
+#: phase 43's cases held in f32 alone: CTC's 50-step forward recursion in
+#: bf16 rounds its log-alphas (~-100, an ulp of 0.5) at every step, and
+#: the card's and the CPU's bf16 runs parted by 0.13 of the largest
+#: magnitude on an H100 80GB HBM3 at 700 W: bf16 is no precision for it.
+F32_ONLY = ("ctc_loss", "CTCLoss")
+
+#: phase 43's tolerances: the largest |card - CPU| over the largest CPU
+#: magnitude of each output and input gradient.  f32: 1e-5 (transcendentals
+#: and sums taken in another order); bf16: 2^-6 (four bf16 ulps at the
+#: largest magnitude: elementwise ops round each result once, sums and the
+#: CTC recursion in bf16 a few times more).  The cases' thresholds and
+#: margins are exact in bf16: with 0.3, PyTorch's CPU and CUDA kernels
+#: decided a bf16 input lying on the margin (a kink) differently.
+NN_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+
+def nn_cases(rng):
+    """Phase 43's cases: name -> (fn on tensors, numpy inputs, indices of
+    the inputs that take a gradient).  Every activation and loss of
+    ``nn.functional`` and every activation and loss layer, at a serving
+    row block's size (256 x 1024 activations; 256 rows of 1000 classes).
+    CTC (`F32_ONLY`) runs in f32 alone."""
+    import numpy as np
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def u(*shape, lo=0.05, hi=0.95):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    def i(*shape, hi, lo=0):
+        return rng.integers(lo, hi, shape).astype(np.int64)
+
+    def sign(*shape):
+        return np.where(rng.standard_normal(shape) >= 0, 1.0,
+                        -1.0).astype(np.float32)
+
+    x = f(256, 1024, scale=2.0)
+    acts = {
+        "relu": lambda F, t: F.relu(t), "relu6": lambda F, t: F.relu6(t * 4),
+        "gelu": lambda F, t: F.gelu(t),
+        "gelu_tanh": lambda F, t: F.gelu(t, True),
+        "sigmoid": lambda F, t: F.sigmoid(t), "silu": lambda F, t: F.silu(t),
+        "swish": lambda F, t: F.swish(t), "mish": lambda F, t: F.mish(t),
+        "hardswish": lambda F, t: F.hardswish(t),
+        "hardsigmoid": lambda F, t: F.hardsigmoid(t),
+        "hardtanh": lambda F, t: F.hardtanh(t, -0.5, 1.5),
+        "leaky_relu": lambda F, t: F.leaky_relu(t, 0.1),
+        "elu": lambda F, t: F.elu(t, 0.5), "selu": lambda F, t: F.selu(t),
+        "celu": lambda F, t: F.celu(t, 2.0),
+        "rrelu_eval": lambda F, t: F.rrelu(t),
+        "softplus": lambda F, t: F.softplus(t, 2.0, 3.0),
+        "softshrink": lambda F, t: F.softshrink(t, 0.25),
+        "hardshrink": lambda F, t: F.hardshrink(t, 0.25),
+        "softsign": lambda F, t: F.softsign(t),
+        "tanhshrink": lambda F, t: F.tanhshrink(t),
+        "tanh": lambda F, t: F.tanh(t),
+        "log_sigmoid": lambda F, t: F.log_sigmoid(t),
+        "log_softmax": lambda F, t: F.log_softmax(t),
+        "softmax": lambda F, t: F.softmax(t),
+        "softmin": lambda F, t: F.softmin(t, axis=0),
+        "glu": lambda F, t: F.glu(t), "maxout": lambda F, t: F.maxout(
+            t.reshape(256, 64, 16), 4),
+        "thresholded_relu": lambda F, t: F.thresholded_relu(t, 0.5, 0.1)}
+    cases = {n: (fn, [x], (0,)) for n, fn in acts.items()}
+    cases["prelu"] = (lambda F, t, w: F.prelu(t.reshape(16, 64, 256), w),
+                      [x, u(64)], (0, 1))
+    logits, lab = f(256, 1000), i(256, hi=1000)
+    lab[::17] = -100
+    logp = (logits - np.log(np.exp(logits).sum(1, keepdims=True))) \
+        .astype(np.float32)
+    a, b = f(256, 64), f(256, 64)
+    p01, y01 = u(256, 64), u(256, 64, lo=0.0, hi=1.0)
+    losses = {
+        "cross_entropy": (lambda F, t, y, r: F.cross_entropy(t, y,
+                                                             reduction=r),
+                          [logits, lab]),
+        "cross_entropy_smoothed": (
+            lambda F, t, y, r: F.cross_entropy(t, y, label_smoothing=0.1,
+                                               reduction=r), [logits, lab]),
+        "nll_loss": (lambda F, t, y, r: F.nll_loss(t, y, reduction=r),
+                     [logp, lab]),
+        "mse_loss": (lambda F, t, y, r: F.mse_loss(t, y, r), [a, b]),
+        "l1_loss": (lambda F, t, y, r: F.l1_loss(t, y, r), [a, b]),
+        "binary_cross_entropy": (
+            lambda F, t, y, r: F.binary_cross_entropy(t, y, reduction=r),
+            [p01, y01]),
+        "binary_cross_entropy_with_logits": (
+            lambda F, t, y, r: F.binary_cross_entropy_with_logits(
+                t, y, reduction=r), [a, y01]),
+        "smooth_l1_loss": (lambda F, t, y, r: F.smooth_l1_loss(
+            t, y, r, delta=0.5), [a, b]),
+        "huber_loss": (lambda F, t, y, r: F.huber_loss(t, y, 0.75, r),
+                       [a, b]),
+        "kl_div": (lambda F, t, y, r: F.kl_div(t, y, r),
+                   [logp, u(256, 1000)]),
+        "margin_ranking_loss": (lambda F, t, o, y, r: F.margin_ranking_loss(
+            t, o, y, 0.25, r), [f(4096), f(4096), sign(4096)]),
+        "hinge_embedding_loss": (lambda F, t, y, r: F.hinge_embedding_loss(
+            t, y, 1.25, r), [a, sign(256, 64)]),
+        "cosine_embedding_loss": (
+            lambda F, t, o, y, r: F.cosine_embedding_loss(t, o, y, 0.25, r),
+            [a, b, sign(256)]),
+        "triplet_margin_loss": (
+            lambda F, t, p, n, r: F.triplet_margin_loss(t, p, n,
+                                                        reduction=r),
+            [a, b, f(256, 64)]),
+        "poisson_nll_loss": (lambda F, t, y, r: F.poisson_nll_loss(
+            t, y, reduction=r), [a, u(256, 64, lo=0.0, hi=4.0)]),
+        "gaussian_nll_loss": (lambda F, t, y, v, r: F.gaussian_nll_loss(
+            t, y, v, True, reduction=r), [a, b, u(256, 64, lo=0.1, hi=2.0)]),
+        "multi_label_soft_margin_loss": (
+            lambda F, t, y, r: F.multi_label_soft_margin_loss(
+                t, y, reduction=r), [a, y01]),
+        "soft_margin_loss": (lambda F, t, y, r: F.soft_margin_loss(t, y, r),
+                             [a, sign(256, 64)]),
+        "sigmoid_focal_loss": (lambda F, t, y, r: F.sigmoid_focal_loss(
+            t, y, reduction=r), [a, y01]),
+        "multi_margin_loss": (lambda F, t, y, r: F.multi_margin_loss(
+            t, y, reduction=r), [f(256, 10), i(256, hi=10)]),
+        "ctc_loss": (lambda F, t, y, il, ll, r: F.ctc_loss(
+            t, y, il, ll, reduction=r),
+            [f(50, 16, 20), i(16, 10, hi=20, lo=1),
+             rng.integers(30, 51, 16).astype(np.int64),
+             rng.integers(1, 11, 16).astype(np.int64)]),
+        "triplet_margin_with_distance_loss": (
+            lambda F, t, p, n, r: F.triplet_margin_with_distance_loss(
+                t, p, n, reduction=r), [a, b, f(256, 64)]),
+    }
+    for n, (fn, arrays) in losses.items():
+        for r in ("mean", "sum", "none"):
+            cases[f"{n}_{r}"] = (
+                lambda F, *t, fn=fn, r=r: fn(F, *t, r), arrays,
+                tuple(k for k, arr in enumerate(arrays)
+                      if arr.dtype.kind == "f" and k == 0))
+    cases["kl_div_batchmean"] = (
+        lambda F, t, y: F.kl_div(t, y, "batchmean"), [logp, u(256, 1000)],
+        (0,))
+    cases["softmax_with_cross_entropy"] = (
+        lambda F, t, y: F.softmax_with_cross_entropy(t, y[:, None]),
+        [logits, lab], (0,))
+    cases["square_error_cost"] = (lambda F, t, y: F.square_error_cost(t, y),
+                                  [a, b], (0,))
+    cases["log_loss"] = (lambda F, t, y: F.log_loss(t, y),
+                         [u(256, 1), u(256, 1, lo=0.0, hi=1.0)], (0,))
+    cases["dice_loss"] = (lambda F, t, y: F.dice_loss(t, y),
+                          [u(16, 64, 10), i(16, 64, 1, hi=10)], (0,))
+    cases["npair_loss"] = (lambda F, t, p, y: F.npair_loss(t, p, y),
+                           [a, b, i(256, hi=20)], (0, 1))
+    cases["hsigmoid_loss"] = (lambda F, t, y, w, bb: F.hsigmoid_loss(
+        t, y, 1000, w, bb), [a, i(256, hi=1000), f(999, 64, scale=0.2),
+                             f(999, 1)], (0, 2))
+    return cases
+
+
+def nn_layer_cases(pt, rng):
+    """Every activation and loss layer, built alike on both sides (the
+    layers with parameters from the CPU layer's state): name -> (layer
+    factory taking a device, numpy inputs, gradient indices)."""
+    import numpy as np
+    import torch
+    x = (2 * rng.standard_normal((256, 1024))).astype(np.float32)
+    nn = pt.nn
+    acts = ["ReLU", "ReLU6", "GELU", "Sigmoid", "Silu", "Swish", "Mish",
+            "Hardswish", "Hardsigmoid", "Hardtanh", "LeakyReLU", "ELU",
+            "SELU", "CELU", "Softplus", "Softshrink", "Hardshrink",
+            "Softsign", "Tanhshrink", "LogSigmoid", "LogSoftmax", "Softmax",
+            "Tanh", "GLU", "ThresholdedReLU"]
+    cases = {n: (lambda dev, n=n: getattr(nn, n)(), [x], (0,)) for n in acts}
+    cases["Maxout"] = (lambda dev: nn.Maxout(4),
+                       [x.reshape(256, 64, 16)], (0,))
+    cases["RReLU"] = (lambda dev: nn.RReLU().eval(), [x], (0,))
+    cases["Softmax2D"] = (lambda dev: nn.Softmax2D(),
+                          [x.reshape(4, 16, 64, 64)], (0,))
+    logits = rng.standard_normal((256, 1000)).astype(np.float32)
+    lab = rng.integers(0, 1000, 256).astype(np.int64)
+    a, b = (rng.standard_normal((256, 64)).astype(np.float32)
+            for _ in range(2))
+    y01 = rng.uniform(0, 1, (256, 64)).astype(np.float32)
+    pos = rng.uniform(0.05, 0.95, (256, 64)).astype(np.float32)
+    sgn = np.sign(rng.standard_normal((256, 64))).astype(np.float32)
+    pairs = {"MSELoss": [a, b], "L1Loss": [a, b], "SmoothL1Loss": [a, b],
+             "HuberLoss": [a, b], "SoftMarginLoss": [a, sgn],
+             "BCELoss": [pos, y01], "BCEWithLogitsLoss": [a, y01],
+             "MultiLabelSoftMarginLoss": [a, y01],
+             "PoissonNLLLoss": [a, np.abs(b)],
+             "HingeEmbeddingLoss": [a, sgn],
+             "KLDivLoss": [np.log(pos), y01],
+             "CrossEntropyLoss": [logits, lab],
+             "NLLLoss": [logits - np.log(np.exp(logits).sum(1,
+                                                            keepdims=True)),
+                         lab],
+             "MultiMarginLoss": [logits[:, :10], lab % 10]}
+    for n, arrays in pairs.items():
+        cases[n] = (lambda dev, n=n: getattr(nn, n)(),
+                    [np.asarray(v, v.dtype) for v in arrays], (0,))
+    cases["MarginRankingLoss"] = (lambda dev: nn.MarginRankingLoss(0.25),
+                                  [a[:, 0], b[:, 0], sgn[:, 0]], (0, 1))
+    cases["CosineEmbeddingLoss"] = (lambda dev: nn.CosineEmbeddingLoss(0.25),
+                                    [a, b, sgn[:, 0]], (0, 1))
+    cases["TripletMarginLoss"] = (lambda dev: nn.TripletMarginLoss(),
+                                  [a, b, a[::-1].copy()], (0, 1, 2))
+    cases["TripletMarginWithDistanceLoss"] = (
+        lambda dev: nn.TripletMarginWithDistanceLoss(),
+        [a, b, a[::-1].copy()], (0,))
+    cases["GaussianNLLLoss"] = (lambda dev: nn.GaussianNLLLoss(),
+                                [a, b, pos], (0, 2))
+    cases["CTCLoss"] = (lambda dev: nn.CTCLoss(), [
+        rng.standard_normal((50, 16, 20)).astype(np.float32),
+        rng.integers(1, 20, (16, 10)).astype(np.int64),
+        rng.integers(30, 51, 16).astype(np.int64),
+        rng.integers(1, 11, 16).astype(np.int64)], (0,))
+    hs = nn.HSigmoidLoss(64, 1000, device="cpu")
+    state = {k: v.clone() for k, v in hs.state_dict().items()}
+
+    def hsigmoid(dev):
+        layer = nn.HSigmoidLoss(64, 1000, device=dev)
+        layer.load_state_dict(state)
+        return layer
+    cases["HSigmoidLoss"] = (hsigmoid, [a, lab], (0,))
+    prelu_state = {"weight": torch.from_numpy(
+        rng.uniform(0.05, 0.5, 64).astype(np.float32))}
+
+    def prelu(dev):
+        layer = nn.PReLU(64, device=dev)
+        layer.load_state_dict(prelu_state)
+        return layer
+    cases["PReLU"] = (prelu, [x.reshape(16, 64, 256)], (0,))
+    return cases
+
+
+def nn_card_vs_cpu(what, fn, arrays, grad, dtype_name):
+    """``fn`` on the CPU and on the card from the same numpy ``arrays``,
+    the floating ones in ``dtype_name``, those indexed by ``grad`` with
+    gradients under one upstream gradient: every output and gradient
+    within `NN_TOL` of its largest CPU magnitude.  Returns the reading."""
+    import numpy as np
+    import torch
+    dtype = getattr(torch, dtype_name)
+    res = {}
+    for device in ("cpu", "cuda"):
+        ts = []
+        for k, a in enumerate(arrays):
+            t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            if t.is_floating_point():
+                t = t.to(dtype)
+            ts.append(t.requires_grad_() if k in grad else t)
+        out = fn(device, *ts)
+        up = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
+            tuple(out.shape)).astype(np.float32)).to(device)
+        (out.float() * up).sum().backward()
+        res[device] = [out.detach().cpu()] + [ts[k].grad.cpu() for k in grad]
+    worst = 0.0
+    for got, want in zip(res["cuda"], res["cpu"]):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"nn breadth: {what} {dtype_name}: {got.dtype} "
+                 f"{tuple(got.shape)} on the card, {want.dtype} "
+                 f"{tuple(want.shape)} on the CPU")
+        g, w = got.double(), want.double()
+        err = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        worst = max(worst, err)
+    return worst
+
+
+def phase_nn_breadth(pt, ops):
+    """Phase 43: every activation and loss of ``nn.functional`` and every
+    activation and loss layer on the card against the CPU, forward and
+    input gradients, in f32 and bf16 (`NN_TOL`); the random ones' draws
+    (``rrelu`` in training, ``gumbel_softmax``) by their structure and
+    range on the card; ``softmax_with_cross_entropy`` launching the
+    softmax cross-entropy kernels (rows 8a/8b) on the card."""
+    import numpy as np
+    import torch
+    F = pt.nn.functional
+    rng = np.random.default_rng(SEED + 43)
+    worst = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for name, (fn, arrays, grad) in nn_cases(rng).items():
+            if dtype_name == "float32" or not name.startswith(F32_ONLY):
+                worst[f"{name} {dtype_name}"] = nn_card_vs_cpu(
+                    name, lambda dev, *t, fn=fn: fn(F, *t), arrays, grad,
+                    dtype_name)
+        for name, (make, arrays, grad) in nn_layer_cases(pt, rng).items():
+            if dtype_name == "float32" or not name.startswith(F32_ONLY):
+                worst[f"{name} {dtype_name}"] = nn_card_vs_cpu(
+                    name, lambda dev, *t, make=make: make(dev).to(
+                        getattr(torch, dtype_name))(*t), arrays, grad,
+                    dtype_name)
+    over = {k: v for k, v in worst.items()
+            if not v <= NN_TOL[k.rsplit(" ", 1)[1]]}
+    if over:
+        fail(f"nn breadth: past {NN_TOL} of the largest magnitude: "
+             + ", ".join(f"{k} {v:.3e}" for k, v in over.items()))
+    x = torch.randn(256, 1024, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    r = F.rrelu(x, 0.1, 0.3, training=True, generator=gen)
+    slope = (r[x < 0] / x[x < 0])
+    y = F.gumbel_softmax(x, 0.5, hard=True, generator=gen)
+    if not (bool(torch.equal(r[x >= 0], x[x >= 0]))
+            and 0.1 - 1e-6 <= float(slope.min())
+            and float(slope.max()) < 0.3 + 1e-6
+            and bool(torch.equal(y.sum(-1), torch.ones(256, device="cuda")))
+            and set(torch.unique(y).tolist()) <= {0.0, 1.0}):
+        fail("nn breadth: rrelu's or gumbel_softmax's draws on the card")
+    logits = torch.randn(4096, 1000, device="cuda", requires_grad=True)
+    lab = torch.randint(0, 1000, (4096, 1), device="cuda")
+    reset_launches(ops)
+    F.softmax_with_cross_entropy(logits, lab).sum().backward()
+    torch.cuda.synchronize()
+    xent = {k: ops.KERNELS[k].launches for k in ("softmax_xent_fwd",
+                                                  "softmax_xent_bwd")}
+    if xent != {"softmax_xent_fwd": 1, "softmax_xent_bwd": 1}:
+        fail(f"nn breadth: softmax_with_cross_entropy launched {xent}, "
+             f"want one forward and one backward kernel")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    say(f"  {len(worst)} cases (functions, each reduction, layers; f32 and "
+        f"bf16) card vs CPU within {NN_TOL}; largest readings: " +
+        ", ".join(f"{k} {v:.2e}" for k, v in top) +
+        f"; rrelu/gumbel draws in range; softmax_with_cross_entropy "
+        f"launches {xent}")
+    return dict(cases=len(worst), worst=dict(top), tolerance=NN_TOL,
+                softmax_with_cross_entropy_launches=xent)
+
+
 def kernel_entry(r):
     entry = dict(max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
                  bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -6342,7 +6923,9 @@ def kernels_line(results, counts):
     flash drive's for flash attention, the LLaMA training drive's for RMS
     norm, the BERT training drive's for the fused residual layer norm),
     the other
-    dtype, the forward kernels at the training drive's shapes too, flash
+    dtype and float16 (``float16``: auto_cast's default, its route in
+    ``route_taken`` where the kernel has several), the forward kernels at
+    the training drive's shapes too (``train_float16`` beside), flash
     attention at its decode and head_dim-64 shapes and RMS norm at
     LLaMA-2 7B's prefill and decode shapes.  ``launches`` counts the main
     path's run (the serving drive, the composite training drive, or the
@@ -6398,15 +6981,20 @@ def kernels_line(results, counts):
             entry[f"launches_per_step_{d}"] = \
                 counts[d][name] // VISION_II_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
+        entry["float16"] = kernel_entry(
+            results[(key[0], "float16") + key[1:]])
         if name in TRAIN_DTYPE:
             entry["train"] = dict(
                 dtype=TRAIN_DTYPE[name],
                 **kernel_entry(results[(name, TRAIN_DTYPE[name], "train")]))
+            if (name, "float16", "train") in results:
+                entry["train_float16"] = kernel_entry(
+                    results[(name, "float16", "train")])
         for shape_key in shapes:
             if shape_key != "train":
                 entry[shape_key] = {
                     dt: kernel_entry(results[(name, dt, shape_key)])
-                    for dt in ("bfloat16", "float32")}
+                    for dt in ("bfloat16", "float32", "float16")}
         out.append(entry)
     return out
 
@@ -6439,7 +7027,8 @@ def main():
     resources = kernel_resources(
         cuda_lib, path,
         FLASH_KERNEL_NAMES + GROUPED_KERNEL_NAMES + WGMMA_KERNEL_NAMES
-        + LN_KERNEL_NAMES + RAGGED_MMA_KERNEL_NAMES + VEC_KERNEL_NAMES)
+        + LN_KERNEL_NAMES + RAGGED_MMA_KERNEL_NAMES + VEC_KERNEL_NAMES
+        + SIMT_KERNEL_NAMES)
     check_wgmma_kernels(cuda_lib, path, resources)
     check_ragged_mma_kernels(resources)
     check_vec_kernels(resources)
@@ -6447,7 +7036,8 @@ def main():
 
     say("[2] kernels vs plain versions at the main path's shapes")
     # the serving drive's token budget: chunk 256 + 7 rows of block_q
-    budgets = {"bfloat16": 256 + 7 * 16, "float32": 256 + 7 * 8}
+    budgets = {"bfloat16": 256 + 7 * 16, "float32": 256 + 7 * 8,
+               "float16": 256 + 7 * 16}
     results = phase_kernels(ops, budgets)
 
     say("[3] parity: full width, 2 layers, f32, CUDA vs CPU; float, then "
@@ -6650,6 +7240,24 @@ def main():
         f"B={RESNET50_BATCHES[0]}, 10 steps a turn, turns eager, captured, "
         f"captured, eager")
     captured_resnet50 = phase_captured_resnet50_training(pt, ops)
+    free_device_memory()
+
+    say("[41] fp16 parity: full width, 2 layers, auto_cast() and "
+        "GradScaler() with their defaults (f16 O1), 3 AdamW steps, CUDA vs "
+        "CPU; the scaler's decisions")
+    fp16_parity = phase_fp16_parity(pt, ops)
+    free_device_memory()
+
+    say("[42] fp16 at full depth: GPT_1P3B f16 served on phase 4's trace "
+        "(greedy tokens vs the plain f16 run); phase 6's recipe under "
+        "auto_cast() and GradScaler()")
+    fp16_serve_counts, fp16_serving, fp16_train_counts, fp16_training = \
+        phase_fp16_drives(pt, ops, serving, training, training_flash)
+    free_device_memory()
+
+    say("[43] nn breadth: every activation and loss, functions and layers, "
+        "forward and input gradients, f32 and bf16, CUDA vs CPU")
+    nn_breadth = phase_nn_breadth(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -6661,7 +7269,8 @@ def main():
                   paged_decode=paged_counts, train_o2=o2_counts,
                   lenet_train=lenet_counts, resnet50_train=resnet50_counts,
                   googlenet_train=googlenet_counts,
-                  densenet_train=densenet_counts)
+                  densenet_train=densenet_counts,
+                  serve_f16=fp16_serve_counts, train_f16=fp16_train_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -6696,6 +7305,10 @@ def main():
                     "captured_serving": captured_serving,
                     "captured_gpt_training": captured_gpt,
                     "captured_resnet50_training": captured_resnet50,
+                    "fp16_parity": fp16_parity,
+                    "fp16_serving": fp16_serving,
+                    "fp16_training": fp16_training,
+                    "nn_breadth": nn_breadth,
                     "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))

@@ -36,8 +36,9 @@ step), ``step`` skips the update on a non-finite gradient and then calls
 steps and shrinks it (to at least 1) after ``decr_every_n_nan_or_inf``
 bad ones.  As in the reference,
 ``unscale_`` does not mark the optimizer, so ``step`` unscales again, and
-``step`` runs ``update`` itself.  The port's kernels have no fp16 route:
-loss scaling runs with f32 and bf16 gradients.
+``step`` runs ``update`` itself.  ``auto_cast()``'s default dtype is
+float16, as the reference's: every kernel has an f16 route, and the
+scaler guards f16 steps (``chip_smoke.py`` phases 41-42).
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel takes its element type as a template parameter and is
-// instantiated for float (dtype code 0) and __nv_bfloat16 (dtype code 1);
-// arithmetic is always in float.  The int8 serving kernels also read
+// instantiated for float (dtype code 0), __nv_bfloat16 (dtype code 1) and
+// __half (dtype code 2); arithmetic is always in float.  The int8 serving kernels also read
 // int8_t codes (weights, KV pools), widened to float exactly.  Each C
 // entry point returns cudaGetLastError() right after its launch so the
 // Python wrapper can raise on a refused launch (too many threads, too
@@ -10,18 +10,23 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #define PTT_DTYPE_F32 0
 #define PTT_DTYPE_BF16 1
+#define PTT_DTYPE_F16 2
 
 namespace ptt {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_float(__half v) {
+  return __half2float(v);
 }
 __device__ __forceinline__ float to_float(int8_t v) {
   return static_cast<float>(v);
@@ -34,6 +39,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch casts
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);  // round to nearest even, as torch casts
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -1245,7 +1245,8 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
 
 // Pick the element type and the padded head width (64, 128 or 256); bf16
 // takes the tensor-core kernels (`VEC` says whether they may stage with
-// 16-byte copies).
+// 16-byte copies), f16 the f32 CUDA-core kernels on f16 loads and stores
+// (scores, probabilities and dS stay f32 in shared memory).
 #define PTT_FLASH_WIDTH(T, FN, ...)                                       \
   (D <= 64 ? FN<T, 64>(__VA_ARGS__)                                       \
            : D <= 128 ? FN<T, 128>(__VA_ARGS__) : FN<T, 256>(__VA_ARGS__))
@@ -1257,6 +1258,8 @@ int bwd_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
     if (D < 1 || D > 256) return static_cast<int>(cudaErrorInvalidValue);   \
     if (dtype == PTT_DTYPE_F32)                                             \
       return PTT_FLASH_WIDTH(float, FN, __VA_ARGS__);                       \
+    if (dtype == PTT_DTYPE_F16)                                             \
+      return PTT_FLASH_WIDTH(__half, FN, __VA_ARGS__);                      \
     if (dtype == PTT_DTYPE_BF16)                                            \
       return (VEC) ? PTT_FLASH_WIDTH_TC(true, FN##_tc, __VA_ARGS__)         \
                    : PTT_FLASH_WIDTH_TC(false, FN##_tc, __VA_ARGS__);       \

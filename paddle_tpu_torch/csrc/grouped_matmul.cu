@@ -402,12 +402,12 @@ __device__ __forceinline__ void store_out(float acc, const T* be, T* out,
   out[idx] = ptt::from_float<T>(ptt::apply_act(zf, act));
 }
 
-template <int TM, bool kTrans>
+template <typename T, int TM, bool kTrans>
 __global__ void __launch_bounds__(256)
-    gmm_fwd_fma(const float* __restrict__ x, const float* __restrict__ w,
-                const float* __restrict__ b, const int* __restrict__ gid,
-                float* __restrict__ out, float* __restrict__ z, int K, int N,
-                int E, int bm, int act) {
+    gmm_fwd_fma(const T* __restrict__ x, const T* __restrict__ w,
+                const T* __restrict__ b, const int* __restrict__ gid,
+                T* __restrict__ out, T* __restrict__ z, int K, int N, int E,
+                int bm, int act) {
   constexpr int kTY = TM < 16 ? TM : 16;  // thread rows (blockDim 16 kTY)
   constexpr int kMR = TM / kTY;           // output rows of a thread
   __shared__ float Xs[kFK][TM + 4];       // Xs[k][m]
@@ -421,8 +421,8 @@ __global__ void __launch_bounds__(256)
     zero_tile(out, z, m0, TM, n0, N);
     return;
   }
-  const float* we = w + static_cast<size_t>(e) * K * N;
-  const float* be = b != nullptr ? b + static_cast<size_t>(e) * N : nullptr;
+  const T* we = w + static_cast<size_t>(e) * K * N;
+  const T* be = b != nullptr ? b + static_cast<size_t>(e) * N : nullptr;
   float acc[kMR][4];
 #pragma unroll
   for (int i = 0; i < kMR; ++i)
@@ -433,7 +433,9 @@ __global__ void __launch_bounds__(256)
     for (int idx = threadIdx.x; idx < TM * kFK; idx += blockDim.x) {
       const int r = idx / kFK, c = idx % kFK;  // x: row r, depth c
       const int gk = k0 + c;
-      Xs[c][r] = gk < K ? x[static_cast<size_t>(m0 + r) * K + gk] : 0.f;
+      Xs[c][r] =
+          gk < K ? ptt::to_float(x[static_cast<size_t>(m0 + r) * K + gk])
+                 : 0.f;
     }
     for (int idx = threadIdx.x; idx < kFK * kGN; idx += blockDim.x) {
       // neighbouring threads read neighbouring addresses of w as stored
@@ -442,8 +444,8 @@ __global__ void __launch_bounds__(256)
       const int gk = k0 + kr, gn = n0 + nc;
       float v = 0.f;
       if (gk < K && gn < N)
-        v = kTrans ? we[static_cast<size_t>(gn) * K + gk]
-                   : we[static_cast<size_t>(gk) * N + gn];
+        v = ptt::to_float(kTrans ? we[static_cast<size_t>(gn) * K + gk]
+                                 : we[static_cast<size_t>(gk) * N + gn]);
       Ws[kr][nc] = v;
     }
     __syncthreads();
@@ -472,36 +474,38 @@ __global__ void __launch_bounds__(256)
     }
 }
 
-template <int TM, bool kTrans>
+template <typename T, int TM, bool kTrans>
 cudaError_t launch_fwd_fma(const void* x, const void* w, const void* b,
                            const int* gid, void* out, void* z, int R, int K,
                            int N, int E, int bm, int act, cudaStream_t s) {
   const dim3 grid((N + kGN - 1) / kGN, R / TM);
   constexpr int threads = 16 * (TM < 16 ? TM : 16);
-  gmm_fwd_fma<TM, kTrans><<<grid, threads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(b), gid, static_cast<float*>(out),
-      static_cast<float*>(z), K, N, E, bm, act);
+  gmm_fwd_fma<T, TM, kTrans><<<grid, threads, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w),
+      static_cast<const T*>(b), gid, static_cast<T*>(out),
+      static_cast<T*>(z), K, N, E, bm, act);
   return cudaGetLastError();
 }
 
-template <bool kTrans>
-cudaError_t fwd_f32(int tm, const void* x, const void* w, const void* b,
-                    const int* gid, void* out, void* z, int R, int K, int N,
-                    int E, int bm, int act, cudaStream_t s) {
+// f32 and f16: the CUDA-core tiles (f16 loaded and stored as such, f32
+// products and sums; the tensor-core route is bf16's alone).
+template <typename T, bool kTrans>
+cudaError_t fwd_simt(int tm, const void* x, const void* w, const void* b,
+                     const int* gid, void* out, void* z, int R, int K, int N,
+                     int E, int bm, int act, cudaStream_t s) {
   switch (tm) {
     case 64:
-      return launch_fwd_fma<64, kTrans>(x, w, b, gid, out, z, R, K, N, E, bm,
-                                        act, s);
+      return launch_fwd_fma<T, 64, kTrans>(x, w, b, gid, out, z, R, K, N, E,
+                                           bm, act, s);
     case 32:
-      return launch_fwd_fma<32, kTrans>(x, w, b, gid, out, z, R, K, N, E, bm,
-                                        act, s);
+      return launch_fwd_fma<T, 32, kTrans>(x, w, b, gid, out, z, R, K, N, E,
+                                           bm, act, s);
     case 16:
-      return launch_fwd_fma<16, kTrans>(x, w, b, gid, out, z, R, K, N, E, bm,
-                                        act, s);
+      return launch_fwd_fma<T, 16, kTrans>(x, w, b, gid, out, z, R, K, N, E,
+                                           bm, act, s);
     default:
-      return launch_fwd_fma<8, kTrans>(x, w, b, gid, out, z, R, K, N, E, bm,
-                                       act, s);
+      return launch_fwd_fma<T, 8, kTrans>(x, w, b, gid, out, z, R, K, N, E,
+                                          bm, act, s);
   }
 }
 
@@ -732,9 +736,10 @@ __global__ void __launch_bounds__(C::kThreads)
 
 constexpr int kDT = 64;  // K and N extent of an f32 dw tile
 
+template <typename T>
 __global__ void __launch_bounds__(256)
-    gmm_dw_fma(const float* __restrict__ x, const float* __restrict__ dz,
-               const int* __restrict__ gid, float* __restrict__ dw,
+    gmm_dw_fma(const T* __restrict__ x, const T* __restrict__ dz,
+               const int* __restrict__ gid, T* __restrict__ dw,
                float* __restrict__ part, int nb, int bm, int K, int N, int E,
                int S) {
   __shared__ float Xs[kFK][kDT + 4];  // Xs[r][k]
@@ -757,10 +762,11 @@ __global__ void __launch_bounds__(256)
       const int r = idx / kDT, c = idx % kDT;
       const int gr = r0 + r;
       const int gk = k0 + c, gn = n0 + c;
-      Xs[r][c] = (gr < r_end && gk < K) ? x[static_cast<size_t>(gr) * K + gk]
-                                        : 0.f;
+      Xs[r][c] = (gr < r_end && gk < K)
+                     ? ptt::to_float(x[static_cast<size_t>(gr) * K + gk])
+                     : 0.f;
       Ds[r][c] = (gr < r_end && gn < N)
-                     ? dz[static_cast<size_t>(gr) * N + gn]
+                     ? ptt::to_float(dz[static_cast<size_t>(gr) * N + gn])
                      : 0.f;
     }
     __syncthreads();
@@ -779,14 +785,20 @@ __global__ void __launch_bounds__(256)
     __syncthreads();
   }
 
-  // S == 1: dw[e]; else this slice's partial (the same layout)
-  float* dst = (S == 1 ? dw : part) + static_cast<size_t>(sl * E + e) * K * N;
+  // S == 1: dw[e] in T; else this slice's f32 partial (the same layout)
+  const size_t base = static_cast<size_t>(sl * E + e) * K * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int gk = k0 + ty * 4 + i, gn = n0 + tx * 4 + j;
-      if (gk < K && gn < N) dst[static_cast<size_t>(gk) * N + gn] = acc[i][j];
+      if (gk < K && gn < N) {
+        const size_t o = base + static_cast<size_t>(gk) * N + gn;
+        if (S == 1)
+          dw[o] = ptt::from_float<T>(acc[i][j]);
+        else
+          part[o] = acc[i][j];
+      }
     }
 }
 
@@ -858,7 +870,7 @@ extern "C" int ptt_grouped_matmul_fwd(const void* x, const void* w,
   const bool bf = dtype == PTT_DTYPE_BF16;
   const int tm = row_tile(bm);
   if (act < ptt::kActNone || act > ptt::kActSilu || bm < 1 || R % bm != 0 ||
-      (!bf && dtype != PTT_DTYPE_F32) ||
+      (!bf && dtype != PTT_DTYPE_F32 && dtype != PTT_DTYPE_F16) ||
       (bf && (bm % 16 != 0 || (N + 63) / 64 > 65535)) ||
       (!bf && (tm == 0 || R / tm > 65535)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -870,10 +882,16 @@ extern "C" int ptt_grouped_matmul_fwd(const void* x, const void* w,
                                device, s)
               : fwd_bf16<false>(x, w, b, g, out, z, R, K, N, E, bm, act,
                                 device, s);
+  else if (dtype == PTT_DTYPE_F16)
+    e = trans ? fwd_simt<__half, true>(tm, x, w, b, g, out, z, R, K, N, E,
+                                       bm, act, s)
+              : fwd_simt<__half, false>(tm, x, w, b, g, out, z, R, K, N, E,
+                                        bm, act, s);
   else
-    e = trans ? fwd_f32<true>(tm, x, w, b, g, out, z, R, K, N, E, bm, act, s)
-              : fwd_f32<false>(tm, x, w, b, g, out, z, R, K, N, E, bm, act,
-                               s);
+    e = trans ? fwd_simt<float, true>(tm, x, w, b, g, out, z, R, K, N, E, bm,
+                                      act, s)
+              : fwd_simt<float, false>(tm, x, w, b, g, out, z, R, K, N, E,
+                                       bm, act, s);
   return static_cast<int>(e);
 }
 
@@ -900,7 +918,8 @@ extern "C" int ptt_grouped_matmul_dw(const void* x, const void* dz,
   const bool bf = dtype == PTT_DTYPE_BF16;
   if (bm < 1 || R % bm != 0 || E < 1 || S < 1 ||
       static_cast<long long>(E) * S > 65535 || (S > 1 && part == nullptr) ||
-      (K + 15) / 16 > 65535 || (!bf && dtype != PTT_DTYPE_F32))
+      (K + 15) / 16 > 65535 ||
+      (!bf && dtype != PTT_DTYPE_F32 && dtype != PTT_DTYPE_F16))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = R / bm;
@@ -914,9 +933,15 @@ extern "C" int ptt_grouped_matmul_dw(const void* x, const void* dz,
       err = launch_dw_mma<DwNarrowN>(x, dz, g, dw, p, nb, bm, K, N, E, S, s);
     else
       err = launch_dw_mma<DwWide>(x, dz, g, dw, p, nb, bm, K, N, E, S, s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    const dim3 grid((N + kDT - 1) / kDT, (K + kDT - 1) / kDT, E * S);
+    gmm_dw_fma<__half><<<grid, 256, 0, s>>>(
+        static_cast<const __half*>(x), static_cast<const __half*>(dz), g,
+        static_cast<__half*>(dw), p, nb, bm, K, N, E, S);
+    err = cudaGetLastError();
   } else {
     const dim3 grid((N + kDT - 1) / kDT, (K + kDT - 1) / kDT, E * S);
-    gmm_dw_fma<<<grid, 256, 0, s>>>(
+    gmm_dw_fma<float><<<grid, 256, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(dz), g,
         static_cast<float*>(dw), p, nb, bm, K, N, E, S);
     err = cudaGetLastError();
@@ -926,6 +951,9 @@ extern "C" int ptt_grouped_matmul_dw(const void* x, const void* dz,
   if (bf)
     ptt::column_sum_kernel<bf16><<<(n + 255) / 256, 256, 0, s>>>(
         p, static_cast<bf16*>(dw), S, n);
+  else if (dtype == PTT_DTYPE_F16)
+    ptt::column_sum_kernel<__half><<<(n + 255) / 256, 256, 0, s>>>(
+        p, static_cast<__half*>(dw), S, n);
   else
     ptt::column_sum_kernel<float><<<(n + 255) / 256, 256, 0, s>>>(
         p, static_cast<float*>(dw), S, n);

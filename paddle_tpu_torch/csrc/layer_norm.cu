@@ -849,6 +849,9 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* gamma,
   } else if (dtype == PTT_DTYPE_BF16) {
     e = layer_norm_fwd<__nv_bfloat16>(x, gamma, beta, out, mu, rstd, rows, n,
                                       eps, device, s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = layer_norm_fwd<__half>(x, gamma, beta, out, mu, rstd, rows, n, eps,
+                               device, s);
   } else {
     e = cudaErrorInvalidValue;
   }
@@ -875,6 +878,9 @@ extern "C" int ptt_layer_norm_residual_fwd(const void* x, const void* r,
     e = layer_norm_residual_fwd<__nv_bfloat16>(x, r, gamma, beta, out, s,
                                                mu, rstd, rows, n, eps, device,
                                                st);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = layer_norm_residual_fwd<__half>(x, r, gamma, beta, out, s, mu, rstd,
+                                        rows, n, eps, device, st);
   } else {
     e = cudaErrorInvalidValue;
   }
@@ -904,6 +910,9 @@ extern "C" int ptt_layer_norm_bwd(const void* x, const void* gamma,
     e = layer_norm_bwd<__nv_bfloat16>(x, gamma, mu, rstd, dout, dx, dgamma,
                                       dbeta, partial, rows, n, nblk, device,
                                       s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = layer_norm_bwd<__half>(x, gamma, mu, rstd, dout, dx, dgamma, dbeta,
+                               partial, rows, n, nblk, device, s);
   } else {
     e = cudaErrorInvalidValue;
   }

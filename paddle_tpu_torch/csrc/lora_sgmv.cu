@@ -565,6 +565,9 @@ extern "C" int ptt_lora_sgmv_fwd(const void* z, const void* x, const void* a,
     return launch<float>(z, x, a, b, ids, out, s, R, K, N, r, L, bm, act, st);
   if (dtype == PTT_DTYPE_BF16)
     return launch<bf16>(z, x, a, b, ids, out, s, R, K, N, r, L, bm, act, st);
+  if (dtype == PTT_DTYPE_F16)   // f32's CUDA-core kernel on f16 rows
+    return launch<__half>(z, x, a, b, ids, out, s, R, K, N, r, L, bm, act,
+                          st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -956,7 +956,8 @@ int bwd_parts(const void* z, const void* g, const void* dz, int M, int N,
   if (M < 1 || N < 1) return 1;
   const int isz = dtype == PTT_DTYPE_F32 ? 4 : 2;
   if (!bwd_vec_route(z, g, dz, N, isz)) return std::min(M, kBwdChunks);
-  return dtype == PTT_DTYPE_F32 ? bwd_vec_slices<float>(M, N, device)
+  if (dtype == PTT_DTYPE_F32) return bwd_vec_slices<float>(M, N, device);
+  return dtype == PTT_DTYPE_F16 ? bwd_vec_slices<__half>(M, N, device)
                                 : bwd_vec_slices<bf16>(M, N, device);
 }
 
@@ -973,7 +974,8 @@ extern "C" int ptt_matmul_epilogue_bwd(const void* z, const void* g, void* dz,
   const cudaError_t dev_err = cudaSetDevice(device);
   if (dev_err != cudaSuccess) return static_cast<int>(dev_err);
   if (act < kActNone || act > kActSilu || M < 1 || N < 1 ||
-      (dtype != PTT_DTYPE_BF16 && dtype != PTT_DTYPE_F32) ||
+      (dtype != PTT_DTYPE_BF16 && dtype != PTT_DTYPE_F32 &&
+       dtype != PTT_DTYPE_F16) ||
       nparts != bwd_parts(z, g, dz, M, N, dtype, device))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -982,15 +984,20 @@ extern "C" int ptt_matmul_epilogue_bwd(const void* z, const void* g, void* dz,
   if (bwd_vec_route(z, g, dz, N, dtype == PTT_DTYPE_F32 ? 4 : 2)) {
     int* tix = static_cast<int*>(tickets);
     if (tix == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    e = dtype == PTT_DTYPE_BF16
-            ? me_bwd_vec_act<bf16>(z, g, dz, db, part, tix, M, N, nparts, act,
-                                   s)
-            : me_bwd_vec_act<float>(z, g, dz, db, part, tix, M, N, nparts,
-                                    act, s);
+    if (dtype == PTT_DTYPE_BF16)
+      e = me_bwd_vec_act<bf16>(z, g, dz, db, part, tix, M, N, nparts, act, s);
+    else if (dtype == PTT_DTYPE_F16)
+      e = me_bwd_vec_act<__half>(z, g, dz, db, part, tix, M, N, nparts, act,
+                                 s);
+    else
+      e = me_bwd_vec_act<float>(z, g, dz, db, part, tix, M, N, nparts, act,
+                                s);
+  } else if (dtype == PTT_DTYPE_BF16) {
+    e = me_bwd<bf16>(z, g, dz, db, part, M, N, nparts, act, s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = me_bwd<__half>(z, g, dz, db, part, M, N, nparts, act, s);
   } else {
-    e = dtype == PTT_DTYPE_BF16
-            ? me_bwd<bf16>(z, g, dz, db, part, M, N, nparts, act, s)
-            : me_bwd<float>(z, g, dz, db, part, M, N, nparts, act, s);
+    e = me_bwd<float>(z, g, dz, db, part, M, N, nparts, act, s);
   }
   return static_cast<int>(e);
 }
@@ -1078,11 +1085,14 @@ cudaError_t me_fwd_bf16(const void* x, const void* w, const float* scale,
 // into chunks of whole 32-deep slices, and the same second pass.
 constexpr int kF32Slice = 32;
 
-template <typename TW, typename TB>
-cudaError_t me_fwd_f32(const void* x, const void* w, const float* scale,
-                       const void* b, void* out, void* z, void* partial,
-                       int splits, int M, int K, int N, int act,
-                       cudaStream_t s) {
+// f32 and f16 x: the CUDA-core tiles (`me_fwd_fma`), f16 loaded and
+// stored as such with f32 products and sums (the tensor-core route is
+// bf16's alone).
+template <typename T, typename TW, typename TB>
+cudaError_t me_fwd_simt(const void* x, const void* w, const float* scale,
+                        const void* b, void* out, void* z, void* partial,
+                        int splits, int M, int K, int N, int act,
+                        cudaStream_t s) {
   const int kchunk =
       splits > 1
           ? ((K + splits - 1) / splits + kF32Slice - 1) / kF32Slice * kF32Slice
@@ -1090,16 +1100,16 @@ cudaError_t me_fwd_f32(const void* x, const void* w, const float* scale,
   const int chunks = splits > 1 ? (K + kchunk - 1) / kchunk : 1;
   float* part = splits > 1 ? static_cast<float*>(partial) : nullptr;
   const TB* bt = static_cast<const TB*>(b);
-  float* o = static_cast<float*>(out);
-  float* zt = static_cast<float*>(z);
+  T* o = static_cast<T*>(out);
+  T* zt = static_cast<T*>(z);
   const dim3 grid((N + kFN - 1) / kFN, (M + kFM - 1) / kFM, chunks);
-  me_fwd_fma<float, TW, TB><<<grid, 256, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const TW*>(w), scale, bt, o,
-      zt, part, M, K, N, kchunk, act);
+  me_fwd_fma<T, TW, TB><<<grid, 256, 0, s>>>(
+      static_cast<const T*>(x), static_cast<const TW*>(w), scale, bt, o, zt,
+      part, M, K, N, kchunk, act);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || part == nullptr) return e;
   const size_t total = static_cast<size_t>(M) * N;
-  splitk_epilogue_kernel<float, TB><<<(total + 255) / 256, 256, 0, s>>>(
+  splitk_epilogue_kernel<T, TB><<<(total + 255) / 256, 256, 0, s>>>(
       part, chunks, scale, bt, o, zt, M, N, act);
   return cudaGetLastError();
 }
@@ -1127,8 +1137,11 @@ extern "C" int ptt_matmul_epilogue_fwd(const void* x, const void* w,
     e = me_fwd_bf16<bf16, bf16>(x, w, nullptr, b, out, z, partial, splits, M,
                                 K, N, act, device, s);
   else if (dtype == PTT_DTYPE_F32)
-    e = me_fwd_f32<float, float>(x, w, nullptr, b, out, z, partial, splits,
-                                 M, K, N, act, s);
+    e = me_fwd_simt<float, float, float>(x, w, nullptr, b, out, z, partial,
+                                         splits, M, K, N, act, s);
+  else if (dtype == PTT_DTYPE_F16)
+    e = me_fwd_simt<__half, __half, __half>(x, w, nullptr, b, out, z,
+                                            partial, splits, M, K, N, act, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -1149,24 +1162,34 @@ extern "C" int ptt_matmul_epilogue_int8_fwd(const void* x, const void* w_q,
   if (act < kActNone || act > kActSilu || bad_split(splits, partial))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* sc = static_cast<const float*>(scale);
-  const bool b_f32 = bias_dtype == PTT_DTYPE_F32;
-  if (!b_f32 && bias_dtype != PTT_DTYPE_BF16)
+  if (bias_dtype != PTT_DTYPE_F32 && bias_dtype != PTT_DTYPE_BF16 &&
+      bias_dtype != PTT_DTYPE_F16)
     return static_cast<int>(cudaErrorInvalidValue);
+  // the launch for x of type T with the bias of each type
+  auto simt = [&](auto tag) {
+    using T = decltype(tag);
+    if (bias_dtype == PTT_DTYPE_F32)
+      return me_fwd_simt<T, int8_t, float>(x, w_q, sc, b, out, nullptr,
+                                           partial, splits, M, K, N, act, s);
+    if (bias_dtype == PTT_DTYPE_F16)
+      return me_fwd_simt<T, int8_t, __half>(x, w_q, sc, b, out, nullptr,
+                                            partial, splits, M, K, N, act, s);
+    return me_fwd_simt<T, int8_t, bf16>(x, w_q, sc, b, out, nullptr, partial,
+                                        splits, M, K, N, act, s);
+  };
   cudaError_t e;
-  if (dtype == PTT_DTYPE_BF16)
-    e = b_f32 ? me_fwd_bf16<int8_t, float>(x, w_q, sc, b, out, nullptr,
-                                           partial, splits, M, K, N, act,
-                                           device, s)
-              : me_fwd_bf16<int8_t, bf16>(x, w_q, sc, b, out, nullptr,
-                                          partial, splits, M, K, N, act,
-                                          device, s);
+  if (dtype == PTT_DTYPE_BF16 && bias_dtype == PTT_DTYPE_F32)
+    e = me_fwd_bf16<int8_t, float>(x, w_q, sc, b, out, nullptr, partial,
+                                   splits, M, K, N, act, device, s);
+  else if (dtype == PTT_DTYPE_BF16 && bias_dtype == PTT_DTYPE_BF16)
+    e = me_fwd_bf16<int8_t, bf16>(x, w_q, sc, b, out, nullptr, partial,
+                                  splits, M, K, N, act, device, s);
   else if (dtype == PTT_DTYPE_F32)
-    e = b_f32 ? me_fwd_f32<int8_t, float>(x, w_q, sc, b, out, nullptr,
-                                          partial, splits, M, K, N, act, s)
-              : me_fwd_f32<int8_t, bf16>(x, w_q, sc, b, out, nullptr,
-                                         partial, splits, M, K, N, act, s);
+    e = simt(float{});
+  else if (dtype == PTT_DTYPE_F16)
+    e = simt(__half{});
   else
-    e = cudaErrorInvalidValue;
+    e = cudaErrorInvalidValue;   // bf16 x with an f16 bias
   return static_cast<int>(e);
 }
 

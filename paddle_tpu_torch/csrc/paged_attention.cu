@@ -623,7 +623,8 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* bt = static_cast<const int*>(block_tables);
   const int* cl = static_cast<const int*>(context_lens);
-  if (dtype != PTT_DTYPE_F32 && dtype != PTT_DTYPE_BF16)
+  if (dtype != PTT_DTYPE_F32 && dtype != PTT_DTYPE_BF16 &&
+      dtype != PTT_DTYPE_F16)
     return static_cast<int>(cudaErrorInvalidValue);
   const int isz = dtype == PTT_DTYPE_F32 ? 4 : 2;
   if (vec_route(q, k_pool, v_pool, out, D, isz)) {
@@ -635,12 +636,18 @@ extern "C" int ptt_paged_attention_fwd(const void* q, const void* k_pool,
     if (dtype == PTT_DTYPE_F32)
       return vec_launch<float>(q, k_pool, v_pool, bt, cl, out, part, tix, B,
                                H, D, bs, W, splits, scale, s);
+    if (dtype == PTT_DTYPE_F16)
+      return vec_launch<__half>(q, k_pool, v_pool, bt, cl, out, part, tix, B,
+                                H, D, bs, W, splits, scale, s);
     return vec_launch<bf16>(q, k_pool, v_pool, bt, cl, out, part, tix, B, H,
                             D, bs, W, splits, scale, s);
   }
   if (dtype == PTT_DTYPE_F32)
     return launch<float>(q, k_pool, v_pool, bt, cl, out, B, H, D, bs, W,
                          scale, s);
+  if (dtype == PTT_DTYPE_F16)
+    return launch<__half>(q, k_pool, v_pool, bt, cl, out, B, H, D, bs, W,
+                          scale, s);
   return launch<bf16>(q, k_pool, v_pool, bt, cl, out, B, H, D, bs, W, scale,
                       s);
 }
@@ -660,6 +667,8 @@ extern "C" int ptt_paged_attention_vector_route(const void* q,
 extern "C" int ptt_paged_attention_splits(int B, int H, int D, int bs,
                                           int W, int dtype, int device) {
   if (D <= 0 || D > kMaxD || bs <= 0) return 1;
-  return dtype == PTT_DTYPE_F32 ? vec_splits_any<float>(B, H, D, bs, W, device)
+  if (dtype == PTT_DTYPE_F32)
+    return vec_splits_any<float>(B, H, D, bs, W, device);
+  return dtype == PTT_DTYPE_F16 ? vec_splits_any<__half>(B, H, D, bs, W, device)
                                 : vec_splits_any<bf16>(B, H, D, bs, W, device);
 }

@@ -753,6 +753,10 @@ extern "C" int ptt_ragged_attention_fwd(
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, k_pool, v_pool, nullptr, nullptr, bt, cl, sid, qs, qv, out,
         num_q_blocks, num_seqs, H, D, bs, W, block_q, scale, s);
+  if (dtype == PTT_DTYPE_F16)   // f32's CUDA-core kernel on f16 rows
+    return launch<__half, __half>(q, k_pool, v_pool, nullptr, nullptr, bt,
+                                  cl, sid, qs, qv, out, num_q_blocks,
+                                  num_seqs, H, D, bs, W, block_q, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -790,6 +794,10 @@ extern "C" int ptt_ragged_attention_int8_fwd(
                                          sid, qs, qv, out, num_q_blocks,
                                          num_seqs, H, D, bs, W, block_q,
                                          scale, s);
+  if (dtype == PTT_DTYPE_F16)
+    return launch<__half, int8_t>(q, k_pool, v_pool, ksc, vsc, bt, cl, sid,
+                                  qs, qv, out, num_q_blocks, num_seqs, H, D,
+                                  bs, W, block_q, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

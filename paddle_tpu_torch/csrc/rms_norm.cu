@@ -512,6 +512,8 @@ extern "C" int ptt_rms_norm_fwd(const void* x, const void* gamma, void* out,
     e = rms_fwd_any<float>(x, gamma, out, rstd, rows, n, eps, s);
   } else if (dtype == PTT_DTYPE_BF16) {
     e = rms_fwd_any<__nv_bfloat16>(x, gamma, out, rstd, rows, n, eps, s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = rms_fwd_any<__half>(x, gamma, out, rstd, rows, n, eps, s);
   } else {
     e = cudaErrorInvalidValue;
   }
@@ -539,6 +541,9 @@ extern "C" int ptt_rms_norm_bwd(const void* x, const void* gamma,
   } else if (dtype == PTT_DTYPE_BF16) {
     e = rms_bwd_any<__nv_bfloat16>(x, gamma, rstd, dout, dx, dgamma, partial,
                                    rows, n, nblk, device, s);
+  } else if (dtype == PTT_DTYPE_F16) {
+    e = rms_bwd_any<__half>(x, gamma, rstd, dout, dx, dgamma, partial, rows,
+                            n, nblk, device, s);
   } else {
     e = cudaErrorInvalidValue;
   }

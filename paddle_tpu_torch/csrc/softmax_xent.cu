@@ -129,6 +129,10 @@ extern "C" int ptt_softmax_xent_fwd(const void* x, const void* labels,
     xent_fwd_kernel<__nv_bfloat16><<<rows, 256, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), lbl, static_cast<float*>(loss),
         static_cast<float*>(lse), V);
+  } else if (dtype == PTT_DTYPE_F16) {
+    xent_fwd_kernel<__half><<<rows, 256, 0, s>>>(
+        static_cast<const __half*>(x), lbl, static_cast<float*>(loss),
+        static_cast<float*>(lse), V);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -152,6 +156,10 @@ extern "C" int ptt_softmax_xent_bwd(const void* x, const void* labels,
         static_cast<const __nv_bfloat16*>(x), lbl,
         static_cast<const float*>(lse), static_cast<const float*>(g),
         static_cast<__nv_bfloat16*>(dx), V);
+  } else if (dtype == PTT_DTYPE_F16) {
+    xent_bwd_kernel<__half><<<rows, 256, 0, s>>>(
+        static_cast<const __half*>(x), lbl, static_cast<const float*>(lse),
+        static_cast<const float*>(g), static_cast<__half*>(dx), V);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,15 +1,14 @@
 """The functionals GPT, LLaMA, BERT and ERNIE serving and training call,
 on ``torch.Tensor``, and (re-exported from this package's ``conv``,
-``pooling``, ``norm`` and ``activation`` modules) those of the vision
-models.
+``pooling``, ``norm``, ``activation`` and ``loss`` modules) those of the
+vision models, every activation and every loss.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
 ``linear_act`` :54, ``linear_act_int8`` :130, ``lora_segment_act`` :80, ``embedding`` :523,
 ``dropout``),
 ``nn/functional/norm.py`` (``layer_norm`` :22,
 ``fused_residual_layer_norm`` :58, ``rms_norm`` :103),
-``nn/functional/loss.py`` (``cross_entropy`` :38, its fused hard-label
-path and its composite), ``nn/functional/flash_attention.py``
+``nn/functional/flash_attention.py``
 (``scaled_dot_product_attention`` :85 with its routing, the composite
 ``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
@@ -35,7 +34,10 @@ import torch
 from ... import amp
 from ... import ops
 from ...ops.tiles import NEG_INF, min_rows
-from .activation import relu, relu6, relu_, silu, tanh
+from . import activation as _activation
+from . import loss as _loss
+from .activation import *  # noqa: F401,F403  (its __all__)
+from .loss import *  # noqa: F401,F403  (its __all__)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
 from .norm import (batch_norm, group_norm, instance_norm,
@@ -49,9 +51,9 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 __all__ = ["linear", "linear_act", "linear_act_int8", "lora_segment_act",
            "matmul",
            "embedding", "layer_norm", "fused_residual_layer_norm",
-           "rms_norm", "silu", "tanh", "dropout",
+           "rms_norm", "dropout",
            "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
-           "cross_entropy", "relu", "relu_", "relu6", "conv1d", "conv2d",
+           *_activation.__all__, *_loss.__all__, "conv1d", "conv2d",
            "conv3d", "conv1d_transpose", "conv2d_transpose",
            "conv3d_transpose", "batch_norm", "instance_norm", "group_norm",
            "local_response_norm", "normalize", "spectral_norm",
@@ -352,92 +354,3 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     out = scaled_dot_product_attention(query, key, value, None, dropout,
                                        causal, training)
     return out, None
-
-
-def _cross_entropy_composite(logits, label, weight, ignore_index, reduction,
-                             soft_label, axis, use_softmax, smooth):
-    """The reference's composite (loss.py:74-120): log-softmax in f32 for
-    bf16/f16 logits (or the log of probabilities, ``use_softmax=False``),
-    soft labels (smoothed towards uniform) or hard labels (the smoothed
-    loss mixing in the mean negative log-probability, class weights, the
-    ignore index zeroing a row), and the reduction: ``"mean"`` divides by
-    the number (or the weight sum) of valid labels, at least 1."""
-    if use_softmax:
-        x = logits.float() if logits.dtype in (torch.bfloat16,
-                                               torch.float16) else logits
-        logp = torch.log_softmax(x, dim=axis)
-    else:
-        logp = torch.log(torch.clamp_min(logits, 1e-30))
-    n_classes = logits.shape[axis]
-    valid = None
-    if soft_label:
-        lab = label
-        if smooth > 0:
-            lab = lab * (1 - smooth) + smooth / n_classes
-        loss = -(lab * logp).sum(dim=axis)
-    else:
-        lab = label
-        if lab.dim() == logits.dim() and lab.shape[axis] == 1:
-            lab = lab.squeeze(axis)
-        valid = lab != ignore_index
-        safe = torch.where(valid, lab, 0)
-        loss = -torch.take_along_dim(logp, safe.unsqueeze(axis),
-                                     dim=axis).squeeze(axis)
-        if smooth > 0:
-            loss = (1 - smooth) * loss + smooth * -logp.mean(dim=axis)
-        if weight is not None:
-            loss = loss * weight[safe]
-        loss = torch.where(valid, loss, 0.0)
-    if reduction == "mean":
-        if valid is None:
-            return loss.mean()
-        if weight is not None:
-            denom = torch.where(valid, weight[safe], 0.0).sum()
-        else:
-            denom = valid.sum().to(loss.dtype)
-        return loss.sum() / denom.clamp_min(1.0)
-    if reduction == "sum":
-        return loss.sum()
-    return loss
-
-
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0):
-    """Softmax cross-entropy, routed as the reference routes it
-    (loss.py:38-121): hard labels over the last dim of f32, bf16 or f16
-    logits (at most 128K classes) without class weights or smoothing go
-    through the softmax cross-entropy kernels, as the reference's fused
-    path does (the kernels have no f16 route yet, so f16 logits on the
-    card raise there, as every kernel wrapper does for f16): labels equal to ``ignore_index`` are relabelled to -1 (zero
-    loss and gradient), and ``"mean"`` divides the sum by the number of
-    valid labels (at least 1).  Soft labels, class weights, label
-    smoothing, ``use_softmax=False`` and other axes take the reference's
-    composite."""
-    if reduction not in ("mean", "sum", "none"):
-        raise ValueError(f"reduction must be mean, sum or none, got "
-                         f"{reduction!r}")
-    input, label, weight = amp.cast_inputs("cross_entropy", input, label,
-                                           weight)
-    axis = int(axis)
-    fused = (not soft_label and weight is None and label_smoothing == 0.0
-             and use_softmax and axis in (-1, input.dim() - 1)
-             and input.shape[-1] <= 128 * 1024
-             and input.dtype in (torch.float32, torch.bfloat16,
-                                 torch.float16))
-    if not fused:
-        return _cross_entropy_composite(
-            input, label, weight, int(ignore_index), reduction,
-            bool(soft_label), axis, bool(use_softmax),
-            float(label_smoothing))
-    lab = label
-    if lab.dim() == input.dim() and lab.shape[-1] == 1:
-        lab = lab.squeeze(-1)
-    valid = lab != ignore_index
-    loss = ops.fused_softmax_cross_entropy(
-        input, torch.where(valid, lab, -1).to(torch.int64))
-    if reduction == "mean":
-        return loss.sum() / valid.sum().to(loss.dtype).clamp_min(1.0)
-    if reduction == "sum":
-        return loss.sum()
-    return loss

@@ -206,11 +206,12 @@ def check(code, kernel):
 
 
 def dtype_code(dtype):
-    """The C entry points' dtype code: 0 float32, 1 bfloat16."""
+    """The C entry points' dtype code: 0 float32, 1 bfloat16, 2 float16."""
     import torch
-    codes = {torch.float32: 0, torch.bfloat16: 1}
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
     if dtype not in codes:
-        raise TypeError(f"CUDA kernels take float32 or bfloat16, got {dtype}")
+        raise TypeError(f"CUDA kernels take float32, bfloat16 or float16, "
+                        f"got {dtype}")
     return codes[dtype]
 
 

@@ -28,10 +28,11 @@ each group's run of blocks by binary search, so ids must be
 nondecreasing).  Adapters that own no block get exact zeros.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises.  The kernel has three routes (`mma_route`): bf16 with 16-byte
-rows on the tensor cores, f32, and bf16 rows off 16 bytes element by
-element; the wrapper counts its launches by route (``mma_launches``,
-``f32_launches``, ``elementwise_launches``).  With ``act="none"`` out
+or raises.  The kernel has four routes (`mma_route`): bf16 with 16-byte
+rows on the tensor cores, f32, f16 (f32's CUDA-core kernel on f16 rows),
+and bf16 rows off 16 bytes element by element; the wrapper counts its
+launches by route (``mma_launches``, ``f32_launches``, ``f16_launches``,
+``elementwise_launches``).  With ``act="none"`` out
 equals s bit for bit, so the kernel writes s alone and the wrapper
 returns it as both (on the CPU too).
 """
@@ -192,6 +193,8 @@ def fused_lora_segment_epilogue(z, x, a_stack, b_stack, block_adapter,
             wrapper.mma_launches += 1
         elif x.dtype == torch.float32:
             wrapper.f32_launches += 1
+        elif x.dtype == torch.float16:
+            wrapper.f16_launches += 1
         else:
             wrapper.elementwise_launches += 1
     return out, s
@@ -266,4 +269,5 @@ def lora_segment_epilogue(z, x, a_stack, b_stack, *, block_adapter,
 fused_lora_segment_epilogue.launches = 0
 fused_lora_segment_epilogue.mma_launches = 0
 fused_lora_segment_epilogue.f32_launches = 0
+fused_lora_segment_epilogue.f16_launches = 0
 fused_lora_segment_epilogue.elementwise_launches = 0

@@ -32,9 +32,10 @@ its launches apart from the float kernel's.
 The kernel has three routes (`mma_route`): bf16 queries with heads of 64
 or 128, 16-row q-blocks, pages a multiple of 16 slots and 16-byte aligned
 bases on the tensor cores (row 1, and row 10 over int8 pools); f32
-queries on the CUDA cores; other bf16 layouts element by element on the
-CUDA cores.  Both wrappers count their launches by route
-(``mma_launches``, ``f32_launches``, ``elementwise_launches``).
+queries on the CUDA cores; f16 queries on the same CUDA-core kernel;
+other bf16 layouts element by element on the CUDA cores.  Both wrappers
+count their launches by route (``mma_launches``, ``f32_launches``,
+``f16_launches``, ``elementwise_launches``).
 """
 from __future__ import annotations
 
@@ -64,8 +65,9 @@ def mma_route(q, k_pool, v_pool, out, block_q, k_scales=None,
     """Whether the kernel on these tensors takes the tensor-core route:
     the kernel's rule (``ptt_ragged_attention_mma_route``), bf16 queries
     with D in `_MMA_HEAD_DIMS`, ``block_q`` 16, pages of a multiple of 16
-    slots and every base 16-byte aligned; else the f32 route or the
-    element-wise route."""
+    slots and every base 16-byte aligned; else the CUDA-core kernel: the
+    f32 route, the f16 route (the same kernel on f16 rows) or, for other
+    bf16 layouts, the element-wise route."""
     bs = k_pool.shape[2]
     return (q.dtype == torch.bfloat16 and q.shape[2] in _MMA_HEAD_DIMS
             and bs > 0 and bs % _MMA_ROWS == 0 and block_q == _MMA_ROWS
@@ -81,6 +83,8 @@ def _count(wrapper, route, dtype):
         wrapper.mma_launches += 1
     elif dtype == torch.float32:
         wrapper.f32_launches += 1
+    elif dtype == torch.float16:
+        wrapper.f16_launches += 1
     else:
         wrapper.elementwise_launches += 1
 
@@ -318,8 +322,10 @@ def ragged_paged_attention_int8(q, k_pool, v_pool, k_scales, v_scales,
 ragged_paged_attention.launches = 0
 ragged_paged_attention.mma_launches = 0
 ragged_paged_attention.f32_launches = 0
+ragged_paged_attention.f16_launches = 0
 ragged_paged_attention.elementwise_launches = 0
 ragged_paged_attention_int8.launches = 0
 ragged_paged_attention_int8.mma_launches = 0
 ragged_paged_attention_int8.f32_launches = 0
+ragged_paged_attention_int8.f16_launches = 0
 ragged_paged_attention_int8.elementwise_launches = 0

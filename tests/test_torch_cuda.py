@@ -108,7 +108,9 @@ from paddle_tpu_torch.ops.matmul_epilogue import act_f32
 
 pytestmark = pytest.mark.cuda
 
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: f16: 5e-3 abs + rel, about five f16 ulps at unit scale (the kernel and
+#: the plain version each round one f32 result, summed in other orders)
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 _DTYPES = [torch.float32, torch.bfloat16]
 
 
@@ -300,9 +302,9 @@ def test_ragged_attention_kernel(gen, dtype, qlens, ctxs, pad):
 
 def _sum_tol(dtype, rows):
     """Tolerance of a column sum over ``rows`` rows taken in another
-    order: f32 1e-4 per sqrt(rows) of accumulated rounding; bf16 one
-    rounding of the result (2e-2)."""
-    return 1e-4 * rows ** 0.5 if dtype == torch.float32 else 2e-2
+    order: f32 1e-4 per sqrt(rows) of accumulated rounding; bf16 and f16
+    one rounding of the result (their `_TOL`)."""
+    return 1e-4 * rows ** 0.5 if dtype == torch.float32 else _TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -516,12 +518,16 @@ def test_resnet18_step_on_the_card_matches_the_cpu(gen):
 
 
 def _chip_smoke():
+    """``chip_smoke`` with the launch counts by route zeroed, as its phase
+    2 leaves them: its phases' `check_routes` then sees only their own
+    launches, not those of the route tests run before in this process."""
     import sys
     from pathlib import Path
     root = str(Path(__file__).resolve().parent.parent)
     if root not in sys.path:
         sys.path.insert(0, root)
     import chip_smoke
+    chip_smoke.reset_routes(ops)
     return chip_smoke
 
 
@@ -566,9 +572,9 @@ def test_small_net_steps_on_the_card_match_the_cpu(gen, no_tf32, name):
 
 def test_wrappers_refuse_bad_inputs(gen):
     x = torch.randn(4, 8, device="cuda", generator=gen)
-    with pytest.raises(TypeError):
-        ops.fused_layer_norm(x.half(), torch.ones(8, device="cuda").half(),
-                             torch.zeros(8, device="cuda").half())
+    with pytest.raises(TypeError):      # f32, bf16 and f16 only
+        ops.fused_layer_norm(x.double(), torch.ones(8, device="cuda").double(),
+                             torch.zeros(8, device="cuda").double())
     with pytest.raises(ValueError):
         ops.fused_layer_norm(x, torch.ones(8), torch.zeros(8))  # on the CPU
     with pytest.raises(ValueError):
@@ -714,8 +720,9 @@ def test_dense_flash_attention_raises_on_the_card(gen):
     wide = torch.randn(1, 8, 2, 257, device="cuda", generator=gen)
     with pytest.raises(ValueError, match="head_dim"):
         ops.fused_flash_attention_fwd(wide, wide, wide, True)
-    with pytest.raises(TypeError):
-        ops.fused_flash_attention_fwd(q.half(), q.half(), q.half(), True)
+    with pytest.raises(TypeError):      # f32, bf16 and f16 only
+        ops.fused_flash_attention_fwd(q.double(), q.double(), q.double(),
+                                      True)
     assert ops.fused_flash_attention_fwd.launches == n0 + 2
 
 
@@ -1592,8 +1599,8 @@ def test_lora_wrapper_refuses_bad_inputs(gen):
         ops.fused_lora_segment_epilogue(z, x, a, b, gid.long())
     with pytest.raises(ValueError, match="is torch.bfloat16"):
         ops.fused_lora_segment_epilogue(z, x, a.bfloat16(), b, gid)
-    h = _lora_case(gen, torch.float16, 32, 40, 16, [0, 4], 16)
-    with pytest.raises(TypeError):
+    h = _lora_case(gen, torch.float64, 32, 40, 16, [0, 4], 16)
+    with pytest.raises(TypeError):      # f32, bf16 and f16 only
         ops.fused_lora_segment_epilogue(*h)
     with pytest.raises(ValueError, match="on cpu"):
         ops.fused_lora_segment_epilogue(z, x, a.cpu(), b, gid)
@@ -1669,8 +1676,8 @@ def test_paged_attention_refuses_outside_its_domain(gen):
         q2, k2, v2, t2, c2 = _paged_case(gen, torch.float32, 2, 2, 64, 12,
                                          [20, 3], 3)
         ops.paged_attention(q2, k2, v2, t2, c2)
-    with pytest.raises(TypeError):
-        ops.paged_attention(q.half(), k.half(), v.half(), tables, ctx)
+    with pytest.raises(TypeError):      # f32, bf16 and f16 only
+        ops.paged_attention(q.double(), k.double(), v.double(), tables, ctx)
     with pytest.raises(ValueError, match="on cpu"):
         ops.paged_attention(q, k, v, tables.cpu(), ctx)
     with pytest.raises(ValueError, match="int32"):
@@ -2112,3 +2119,183 @@ def test_to_static_grad_scaler_scale_follows_update(gen):
         runs.append([p.detach().clone() for p in model.parameters()])
     assert fn.replays == 4
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# ---------------------------------------------------------------------
+# float16: every row's route on the card (auto_cast's default dtype)
+# ---------------------------------------------------------------------
+_F16 = torch.float16
+
+
+def _f16(gen, *shape, scale=1.0):
+    return (scale * torch.randn(*shape, device="cuda",
+                                generator=gen)).to(_F16)
+
+
+def _f16_norms(gen, n):
+    rows = 37
+    x = (2 * torch.randn(rows, n, device="cuda", generator=gen) + 1).to(_F16)
+    gamma = (1 + 0.1 * torch.randn(n, device="cuda", generator=gen)).to(_F16)
+    beta, dout = _f16(gen, n), _f16(gen, rows, n)
+    r = _f16(gen, rows, n)
+    got = ops.fused_layer_norm(x, gamma, beta)
+    want = ops.layer_norm_ref(x, gamma, beta)
+    yield got[0], want[0], _TOL[_F16]
+    for a, b in zip(got[1:], want[1:]):
+        yield a, b, 1e-4
+    mu, rstd = want[1], want[2]
+    for a, b in zip(ops.fused_layer_norm_bwd(x, gamma, mu, rstd, dout),
+                    ops.layer_norm_bwd_ref(x, gamma, mu, rstd, dout)):
+        yield a, b, _sum_tol(_F16, rows)
+    for a, b in zip(ops.fused_layer_norm_residual(x, r, gamma, beta),
+                    ops.layer_norm_residual_ref(x, r, gamma, beta)):
+        yield a, b, _TOL[_F16] if a.dtype == _F16 else 1e-4
+    got = ops.fused_rms_norm(x, gamma)
+    want = ops.rms_norm_ref(x, gamma)
+    yield got[0], want[0], _TOL[_F16]
+    yield got[1], want[1], 1e-4
+    for a, b in zip(ops.fused_rms_norm_bwd(x, gamma, want[1], dout),
+                    ops.rms_norm_bwd_ref(x, gamma, want[1], dout)):
+        yield a, b, _sum_tol(_F16, rows)
+
+
+def _f16_epilogue(gen, n):
+    M, K = 70, 136
+    x, w, b = _f16(gen, M, K), _f16(gen, K, n, scale=K ** -0.5), \
+        _f16(gen, n)
+    for act in ops.ACTIVATIONS:
+        got = ops.fused_linear_act(x, w, b, act, return_z=True)
+        want = ops.linear_act_ref(x, w, b, act, return_z=True)
+        for a, c in zip(got, want):
+            yield a, c, _TOL[_F16]
+        g = _f16(gen, M, n)
+        for a, c in zip(ops.fused_linear_act_bwd(got[1], g, act),
+                        ops.linear_act_bwd_ref(got[1], g, act)):
+            yield a, c, _sum_tol(_F16, M)
+    w_q = torch.randint(-127, 128, (K, n), device="cuda", generator=gen,
+                        dtype=torch.int64).to(torch.int8)
+    scale = (0.01 + 0.01 * torch.rand(n, device="cuda", generator=gen))
+    for bias in (b, b.float()):
+        yield (ops.fused_linear_act_int8(x, w_q, scale, bias, "gelu_tanh"),
+               ops.linear_act_int8_ref(x, w_q, scale, bias, "gelu_tanh"),
+               _TOL[_F16])
+
+
+def _f16_xent(gen, n):
+    rows = 33
+    x = _f16(gen, rows, n, scale=3.0)
+    labels = torch.randint(0, n, (rows,), device="cuda", generator=gen)
+    labels[3] = -100
+    got = ops.softmax_xent_fwd(x, labels)
+    want = ops.softmax_xent_fwd_ref(x, labels)
+    for a, c in zip(got, want):
+        yield a, c, 1e-4
+    g = torch.rand(rows, device="cuda", generator=gen)
+    yield (ops.softmax_xent_bwd(x, labels, want[1], g),
+           ops.softmax_xent_bwd_ref(x, labels, want[1], g), _TOL[_F16])
+
+
+def _f16_flash(gen, n):
+    for Sq, Sk, causal in ((70, 70, True), (1, 93, False)):
+        q, k, v = (_f16(gen, 2, s, 2, n) for s in (Sq, Sk, Sk))
+        out, lse = ops.fused_flash_attention_fwd(q, k, v, causal)
+        w_out, w_lse = ops.flash_attention_ref(q, k, v, causal)
+        yield out, w_out, _TOL[_F16]
+        yield lse, w_lse, 1e-4
+        do = _f16(gen, 2, Sq, 2, n)
+        lse_b, delta = ops.flash_bwd_stats(w_out, do, w_lse)
+        want = ops.flash_attention_bwd_ref(q, k, v, do, lse_b, delta, causal)
+        yield (ops.fused_flash_attention_bwd_dq(q, k, v, do, lse_b, delta,
+                                                causal), want[0], _TOL[_F16])
+        for a, c in zip(ops.fused_flash_attention_bwd_dkv(
+                q, k, v, do, lse_b, delta, causal), want[1:]):
+            yield a, c, _TOL[_F16]
+
+
+def _f16_attention(gen, n):
+    bs, H, S = 16, 2, 3
+    qlens, ctxs = [5, 1, 1], [40, 17, 1]
+    block_q = ops.ragged_q_block(_F16)
+    sid, qs, qv, _, _ = ops.ragged_segments(qlens, ctxs, block_q)
+    nb = 1 + S * 3
+    tables = torch.arange(1, nb, dtype=torch.int32,
+                          device="cuda").view(S, 3)
+    ints = [tables, torch.tensor(ctxs, dtype=torch.int32, device="cuda"),
+            *(torch.as_tensor(a, device="cuda") for a in (sid, qs, qv))]
+    q = _f16(gen, len(sid) * block_q, H, n)
+    kp, vp = _f16(gen, nb, H, bs, n), _f16(gen, nb, H, bs, n)
+    before = ops.ragged_paged_attention.f16_launches
+    yield (ops.ragged_paged_attention(q, kp, vp, *ints),
+           ops.ragged_attention_ref(q, kp, vp, *ints), _TOL[_F16])
+    assert ops.ragged_paged_attention.f16_launches == before + 1
+    ks = 0.01 + torch.rand(nb, bs, 1, device="cuda", generator=gen)
+    vs = 0.01 + torch.rand(nb, bs, 1, device="cuda", generator=gen)
+    k8 = torch.randint(-127, 128, kp.shape, device="cuda", generator=gen,
+                       dtype=torch.int64).to(torch.int8)
+    v8 = torch.randint(-127, 128, vp.shape, device="cuda", generator=gen,
+                       dtype=torch.int64).to(torch.int8)
+    yield (ops.ragged_paged_attention_int8(q, k8, v8, ks, vs, *ints),
+           ops.ragged_attention_ref(q, k8, v8, *ints, k_scales=ks,
+                                    v_scales=vs), _TOL[_F16])
+    qd = _f16(gen, S, 1, H, n)
+    yield (ops.paged_attention(qd, kp, vp, tables, ints[1]),
+           ops.paged_attention_ref(qd, kp, vp, tables, ints[1]), _TOL[_F16])
+
+
+def _f16_grouped(gen, n):
+    E, K, bm = 3, 40, 16
+    bg = torch.tensor([0, 0, 2, 3, 1], dtype=torch.int32, device="cuda")
+    x = _f16(gen, len(bg) * bm, K)
+    w, b = _f16(gen, E, K, n, scale=K ** -0.5), _f16(gen, E, n)
+    for a, c in zip(
+            ops.fused_grouped_linear_act(x, w, b, bg, "gelu",
+                                         return_z=True),
+            ops.grouped.fused_grouped_linear_act(x.cpu(), w.cpu(), b.cpu(),
+                                                 bg.cpu(), "gelu",
+                                                 return_z=True)):
+        yield a, c, _TOL[_F16]
+    bs = torch.sort(bg.clamp(max=E)).values
+    dz = _f16(gen, len(bg) * bm, n)
+    yield (ops.fused_grouped_dw(x, dz, bs, E),
+           ops.grouped_dw_ref(x, dz, bs, E), _sum_tol(_F16, len(bg) * bm))
+    L, r = 2, 8
+    a_st = _f16(gen, L, K, r, scale=0.2)
+    b_st = _f16(gen, L, r, n, scale=0.2)
+    z = _f16(gen, len(bg) * bm, n)
+    aid = torch.tensor([0, 2, 1, 1, 0], dtype=torch.int32, device="cuda")
+    before = ops.fused_lora_segment_epilogue.f16_launches
+    got = ops.fused_lora_segment_epilogue(z, x, a_st, b_st, aid, "silu")
+    want = ops.lora.fused_lora_segment_epilogue(
+        *(t.cpu() for t in (z, x, a_st, b_st, aid)), "silu")
+    assert ops.fused_lora_segment_epilogue.f16_launches == before + 1
+    for a, c in zip(got, want):
+        yield a, c, _TOL[_F16]
+
+
+_F16_ROWS = {"norms": _f16_norms, "epilogue": _f16_epilogue,
+             "xent": _f16_xent, "flash": _f16_flash,
+             "attention": _f16_attention, "grouped": _f16_grouped}
+
+
+@pytest.mark.parametrize("n", [64, 72])
+@pytest.mark.parametrize("rows", list(_F16_ROWS))
+def test_float16_routes(gen, rows, n):
+    """Every row's float16 route (rows 2, 6, 12, 13; 3, 7, 11; 8a/8b;
+    4-5; 1, 9, 10; 14a/14b, 15) against its plain version on the same
+    f16 inputs at `_TOL` [float16] (5e-3 abs + rel; column sums at
+    `_sum_tol`; the f32 statistics at 1e-4), at a width of whole 16-byte
+    vectors (64) and one off them on the vector routes' rule (72 is whole
+    too for 2-byte types, so the ragged widths come from the row counts
+    and the lengths); each call run twice, bit-identical."""
+    cases = list(_F16_ROWS[rows](gen, n))
+    assert cases
+    for got, want, tol in cases:
+        assert got.dtype == want.dtype
+        torch.testing.assert_close(got.float().cpu(), want.float().cpu(),
+                                   atol=tol, rtol=tol)
+    again = list(_F16_ROWS[rows](
+        torch.Generator(device="cuda").manual_seed(0), n))
+    first = list(_F16_ROWS[rows](
+        torch.Generator(device="cuda").manual_seed(0), n))
+    for (a, _, _), (b, _, _) in zip(again, first):
+        assert torch.equal(a, b)

@@ -22,7 +22,6 @@ counters of the last block's sum are 0 again after each.  Copies of the
 source with a row slice of each group left out of db, or one warp's rows
 left out of a block's partial row, fail these checks.
 """
-import ctypes
 
 import pytest
 import torch
@@ -30,9 +29,9 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.matmul_epilogue import bwd_vector_route
-from test_torch_matmul_epilogue_emulated import build_emulated
+from cuda_emu_build import build_emulated
 
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 
 
 def _source():
@@ -41,10 +40,8 @@ def _source():
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    lib = build_emulated(tmp_path_factory.mktemp("cuda_emu_epilogue_bwd"),
-                         {"matmul_epilogue.cu": _source()})
-    lib.emu_set_block_order.argtypes = [ctypes.c_uint]
-    return lib
+    return build_emulated(tmp_path_factory, "epilogue_bwd",
+                          {"matmul_epilogue.cu": _source()})
 
 
 def _inputs(M, N, dtype, seed=0, shift=0):
@@ -99,7 +96,8 @@ def _check(lib, z, g, act, device=0, shift=0):
     dt = z.dtype
     torch.testing.assert_close(dz.float(), dz_r.float(), atol=_TOL[dt],
                                rtol=_TOL[dt])
-    sum_tol = 1e-4 * z.shape[0] ** 0.5 if dt == torch.float32 else 2e-2
+    sum_tol = 1e-4 * z.shape[0] ** 0.5 if dt == torch.float32 \
+        else _TOL[dt]
     torch.testing.assert_close(db.float(), db_r.float(), atol=sum_tol,
                                rtol=_TOL[dt])
     dz2, db2, _ = _bwd(lib, z, g, act, order=777, device=device, shift=shift)
@@ -152,6 +150,18 @@ def test_epilogue_bwd_elementwise_route_emulated(lib, N, shift, dtype):
     assert _check(lib, z, g, "silu", shift=shift) == 64
 
 
+@pytest.mark.parametrize("M,N,act,route", [(131, 768, "gelu_tanh", True),
+                                           (100, 130, "silu", False)],
+                         ids=["vector", "elementwise"])
+def test_epilogue_bwd_f16_emulated(lib, M, N, act, route):
+    """f16 on both routes: bf16's instantiations with f16 loads and
+    stores."""
+    z, g = _inputs(M, N, torch.float16, seed=M + N)
+    assert bwd_vector_route(z, g, torch.empty_like(z)) == route
+    nparts = _check(lib, z, g, act)
+    assert nparts > 1 if route else nparts == 64
+
+
 def test_epilogue_bwd_route_rule_emulated(lib):
     """The wrapper's Python copy of the route rule (`bwd_vector_route`)
     answers as ``ptt_matmul_epilogue_bwd_vector_route``."""
@@ -169,6 +179,7 @@ def test_epilogue_bwd_route_rule_emulated(lib):
     assert not both(130) and not both(4) and not both(6, torch.float32)
     assert not both(64, zs=1) and not both(64, gs=2) and not both(64, ds=4)
     assert both(64, torch.float32, zs=4, gs=4, ds=4)
+    assert both(8, torch.float16) and not both(130, torch.float16)
 
 
 #: (what, text in the source, its replacement): copies of the source that
@@ -185,14 +196,14 @@ _MUTATIONS = [
 
 @pytest.mark.parametrize("what,old,new", _MUTATIONS,
                          ids=[m[0] for m in _MUTATIONS])
-def test_epilogue_bwd_mutations_fail_emulated(tmp_path, what, old, new):
+def test_epilogue_bwd_mutations_fail_emulated(tmp_path_factory, what, old,
+                                              new):
     """A copy of the source with ``what`` fails the checks above at
     [131, 768] gelu_tanh, f32 and bf16."""
     src = _source()
     assert src.count(old) == 1, f"the kernel no longer has: {old!r}"
-    broken = build_emulated(tmp_path, {"matmul_epilogue.cu":
-                                       src.replace(old, new)})
-    broken.emu_set_block_order.argtypes = [ctypes.c_uint]
+    broken = build_emulated(tmp_path_factory, "epilogue_bwd",
+                            {"matmul_epilogue.cu": src.replace(old, new)})
     failed = 0
     for dtype in (torch.float32, torch.bfloat16):
         try:

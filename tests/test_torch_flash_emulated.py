@@ -19,79 +19,23 @@ layouts, masks and arithmetic, not the asynchronous schedule or speed;
 the card tests and ``chip_smoke.py`` do that.
 """
 import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
 _SOURCES = ("flash_attention.cu", "mma_check.cu")
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-
-
-def _emulated_header(text):
-    """mma.cuh with each inline PTX statement replaced by its stand-in."""
-    def sub(m):
-        asm = m.group(0)
-        if "ldmatrix" in asm:
-            return f"emu_ldmatrix(r, p, {str('.trans' in asm).lower()});\n"
-        if "mma.sync" in asm:
-            return "emu_mma(d, a, b0, b1);\n"
-        if "cp.async.cg" in asm:
-            return "emu_cp_async(dst, src, src_bytes, 16);\n"
-        if "cp.async.ca" in asm:
-            return "emu_cp_async(dst, src, src_bytes, 4);\n"
-        return ";\n"   # commit / wait: the stand-in copies synchronously
-    out, n = re.subn(r"asm volatile\(.*?\);\n", sub, text, flags=re.S)
-    assert n == 7, f"mma.cuh has {n} asm statements, the stand-in knows 7"
-    return out
-
-
-def _emulated_source(text):
-    """A .cu file with dynamic shared memory on the stand-in's buffer,
-    static shared memory static, and launches through `emu_launch`."""
-    text = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
-                  r"\1* \2 = reinterpret_cast<\1*>(emu.dyn);", text)
-    text = text.replace("__shared__", "static")
-    return re.sub(r"([\w:]+(?:<[^;<>]*>)?)<<<(.*?)>>>\((.*?)\);",
-                  r"emu_launch(\2, [&] { \1(\3); });", text, flags=re.S)
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    out = tmp_path_factory.mktemp("cuda_emu")
-    for header in cuda_lib.SRC_DIR.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mma.cuh":
-            text = _emulated_header(text)
-        (out / header.name).write_text(text)
-    cpps = []
-    for name in _SOURCES:
-        cpp = out / (Path(name).stem + ".cpp")
-        cpp.write_text(_emulated_source((cuda_lib.SRC_DIR / name).read_text()))
-        cpps.append(str(cpp))
-    so = out / "libemu.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), *cpps,
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
+    return build_emulated(
+        tmp_path_factory, "flash",
+        {name: (cuda_lib.SRC_DIR / name).read_text() for name in _SOURCES})
 
 
 def _strides(*tensors):
@@ -113,12 +57,16 @@ _CASES = [(1, 100, 100, 2, 64, True, False), (1, 100, 100, 1, 64, False, False),
           (1, 20, 60, 1, 128, False, False)]
 _F32_CASES = [(1, 100, 100, 1, 64, True, False),
               (1, 40, 60, 1, 160, False, False)]
+#: f16 takes the f32 kernels: a head of 64 and one padded to 64
+_F16_CASES = [(1, 70, 30, 1, 64, True, False),
+              (1, 40, 60, 1, 40, False, False)]
 
 
 @pytest.mark.parametrize(
     "dtype,B,Sq,Sk,H,D,causal,view",
     [(torch.bfloat16, *c) for c in _CASES]
-    + [(torch.float32, *c) for c in _F32_CASES])
+    + [(torch.float32, *c) for c in _F32_CASES]
+    + [(torch.float16, *c) for c in _F16_CASES])
 def test_flash_kernels_emulated(lib, dtype, B, Sq, Sk, H, D, causal, view):
     g = torch.Generator().manual_seed(Sq * 1000 + D)
     if view:

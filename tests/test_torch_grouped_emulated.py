@@ -23,50 +23,22 @@ would show as a run that differs.  The stand-in copies synchronously: it
 checks layouts, masks, passes and sums, not the asynchronous schedule or
 speed; the card tests and ``chip_smoke.py`` do that.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
 
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
-from test_torch_flash_emulated import _emulated_header, _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 _ACTS = ops.ACTIVATIONS
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    out = tmp_path_factory.mktemp("cuda_emu_grouped")
-    for header in cuda_lib.SRC_DIR.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mma.cuh":
-            text = _emulated_header(text)
-        (out / header.name).write_text(text)
-    cpp = out / "grouped_matmul.cpp"
-    cpp.write_text(_emulated_source(
-        (cuda_lib.SRC_DIR / "grouped_matmul.cu").read_text()))
-    so = out / "libemu_grouped.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), str(cpp),
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
+    return build_emulated(tmp_path_factory, "grouped", {
+        "grouped_matmul.cu": (cuda_lib.SRC_DIR / "grouped_matmul.cu").read_text()})
 
 
 def _ptr(t):
@@ -188,6 +160,25 @@ def test_grouped_forward_f32_emulated(lib, trans):
     _close(z, ops.grouped_linear_act_ref(x, wk, b, block_group=gid), 1e-4)
 
 
+@pytest.mark.parametrize("K,N,trans", [(70, 130, True), (64, 64, False)],
+                         ids=["ragged", "aligned"])
+def test_grouped_f16_emulated(lib, K, N, trans):
+    """f16 takes the f32 CUDA-core kernels (f16 loads and stores, f32
+    sums): the forward with unsorted ids and null blocks, and the dw with
+    and without row slices, at widths off and on 16 bytes."""
+    ids, bm, E = [2, 0, 4, 1, 0, 2, 4], 16, 4
+    x, w, b, gid = _inputs(ids, bm, K, N, E, torch.float16, trans, seed=K)
+    out, z = _fwd(lib, x, w, b, gid, "gelu_tanh", trans)
+    wk = w.transpose(1, 2) if trans else w
+    tol = _TOL[torch.float16]
+    _close(out, ops.grouped_linear_act_ref(x, wk, b, block_group=gid,
+                                           act="gelu_tanh"), tol)
+    _close(z, ops.grouped_linear_act_ref(x, wk, b, block_group=gid), tol)
+    for S in (1, 3):
+        test_grouped_dw_emulated(lib, torch.float16, [40, 16, 30, 0], bm, K,
+                                 N, S)
+
+
 def test_grouped_f32_forward_repeats_emulated(lib):
     """The card test's f32 layout (counts [37, 0, 80, 11], blocks of 32, K
     96, N 160, gelu_tanh) 8 times: every run equal to the first bit for
@@ -240,7 +231,8 @@ def test_grouped_dw_emulated(lib, dtype, counts, bm, K, N, S):
     x, dz = x.to(dtype), dz.to(dtype)
     dw = _dw(lib, x, dz, gid, E, S)
     want = ops.grouped_dw_ref(x, dz, gid, E)
-    tol = 1e-4 * max(counts) ** 0.5 if dtype == torch.float32 else 2e-2
+    tol = 1e-4 * max(counts) ** 0.5 if dtype == torch.float32 \
+        else _TOL[dtype]
     torch.testing.assert_close(dw.float(), want.float(), atol=tol,
                                rtol=_TOL[dtype])
     for e, c in enumerate(counts):

@@ -26,10 +26,6 @@ The stand-in runs a block's threads concurrently and its blocks one after
 another: it checks indexing, masks, barriers and the fixed summation
 order, not speed; the card tests and ``chip_smoke.py`` do that.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
@@ -38,35 +34,15 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.layer_norm import _BWD_BLOCKS_PER_SM, vector_route
 from test_torch_cuda import _TOL, _sum_tol
-from test_torch_flash_emulated import _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
 _DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    out = tmp_path_factory.mktemp("cuda_emu_layer_norm")
-    shutil.copy(cuda_lib.SRC_DIR / "common.cuh", out / "common.cuh")
-    cpp = out / "layer_norm.cpp"
-    cpp.write_text(_emulated_source(
-        (cuda_lib.SRC_DIR / "layer_norm.cu").read_text()))
-    so = out / "libemu_layer_norm.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), str(cpp),
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
+    return build_emulated(tmp_path_factory, "layer_norm", {
+        "layer_norm.cu": (cuda_lib.SRC_DIR / "layer_norm.cu").read_text()})
 
 
 def _sms(device):
@@ -173,6 +149,21 @@ def test_layer_norm_bwd_emulated(lib, dtype, rows, n, device, misaligned,
                                    rtol=_TOL[dtype])
     again = _bwd(lib, x, gamma, mu, rstd, dout, device)
     assert all(torch.equal(a, b) for a, b in zip(again[:3], (dx, dg, db)))
+
+
+@pytest.mark.parametrize("rows,n,device,misaligned,v32,v16",
+                         [_CASES[0], _CASES[2]], ids=["n7", "n768"])
+def test_layer_norm_f16_emulated(lib, rows, n, device, misaligned, v32,
+                                 v16):
+    """f16 forward, backward and residual forward, a width off 16 bytes
+    (the scalar routes) and BERT's (the vector routes): bf16's
+    instantiations with f16 loads and stores."""
+    test_layer_norm_fwd_emulated(lib, torch.float16, rows, n, device,
+                                 misaligned, v32, v16)
+    test_layer_norm_bwd_emulated(lib, torch.float16, rows, n, device,
+                                 misaligned, v32, v16)
+    test_layer_norm_residual_fwd_emulated(lib, torch.float16, rows, n,
+                                          device, misaligned, v32, v16, None)
 
 
 def test_layer_norm_bwd_refuses_bad_arguments(lib):

@@ -23,10 +23,6 @@ fail these checks.  The stand-in copies synchronously: it checks
 layouts, masks, barriers and the fixed summation order, not speed; the
 card tests and ``chip_smoke.py`` do that.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
@@ -35,40 +31,16 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.lora import _sgmv_ref, mma_route
 from paddle_tpu_torch.ops.matmul_epilogue import act_f32
-from test_torch_flash_emulated import _emulated_header, _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 _ACTS = ops.ACTIVATIONS
 _L = 4   # adapter slots: id 4 is a null block
 
 
-def _build(out, source):
-    """Compile ``source`` (the text of lora_sgmv.cu) for the stand-in into
-    ``out`` and load it with the entry points' signatures."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    for header in cuda_lib.SRC_DIR.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mma.cuh":
-            text = _emulated_header(text)
-        (out / header.name).write_text(text)
-    cpp = out / "lora_sgmv.cpp"
-    cpp.write_text(_emulated_source(source))
-    so = out / "libemu_lora.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), str(cpp),
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
+def _build(tmp_path_factory, source):
+    """The stand-in library of ``source`` (the text of lora_sgmv.cu)."""
+    return build_emulated(tmp_path_factory, "lora", {"lora_sgmv.cu": source})
 
 
 def _source():
@@ -77,7 +49,7 @@ def _source():
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("cuda_emu_lora"), _source())
+    return _build(tmp_path_factory, _source())
 
 
 def _inputs(ids, bm, K, N, r, dtype, seed):
@@ -157,6 +129,9 @@ _CASES = [
     # f32 (the CUDA cores)
     (_MIXED, 8, 70, 130, 8, torch.float32, False),
     (_MIXED, 8, 64, 72, 32, torch.float32, False),
+    # f16 (f32's CUDA-core kernel on f16 rows): 16-byte rows, and rows off
+    (_MIXED, 16, 64, 72, 16, torch.float16, False),
+    (_MIXED, 16, 70, 130, 8, torch.float16, False),
 ]
 
 
@@ -249,6 +224,7 @@ def test_lora_sgmv_route_rule_emulated(lib):
     assert not both(64, 60, 16, torch.bfloat16)
     assert not both(64, 64, 16, torch.bfloat16, shift=1)
     assert not both(64, 64, 16, torch.float32)
+    assert not both(64, 64, 16, torch.float16)
 
 
 def test_lora_sgmv_refuses_bad_layouts_emulated(lib):
@@ -278,12 +254,12 @@ _MUTATIONS = [
 
 @pytest.mark.parametrize("what,old,new", _MUTATIONS,
                          ids=[m[0] for m in _MUTATIONS])
-def test_lora_sgmv_mutations_fail_emulated(tmp_path, what, old, new):
+def test_lora_sgmv_mutations_fail_emulated(tmp_path_factory, what, old, new):
     """A copy of the source with ``what`` fails the checks above on the
     tensor-core cases (a wrong value, or two runs that differ)."""
     src = _source()
     assert src.count(old) == 1, f"the kernel no longer has: {old!r}"
-    broken = _build(tmp_path, src.replace(old, new))
+    broken = _build(tmp_path_factory, src.replace(old, new))
     failed = 0
     for ids, bm, K, N, r, dtype, mma in _CASES[:6]:
         try:

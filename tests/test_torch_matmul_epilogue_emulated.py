@@ -31,11 +31,6 @@ checks layouts, masks, barrier counts and phases, passes and sums, not
 the asynchronous schedule, nor which descriptor offset the hardware
 reads for which step (the card's ``wgmma_check`` does that).
 """
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
 
 import pytest
 import torch
@@ -43,90 +38,16 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.matmul_epilogue import act_f32
-from test_torch_flash_emulated import _emulated_header, _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
 _SOURCES = ("matmul_epilogue.cu", "wgmma_check.cu")
 _TOL = 2e-2
 _ACTS = ops.ACTIVATIONS
-_BF16 = cuda_lib.dtype_code(torch.bfloat16)
-
-#: wgmma.cuh's inline PTX statements (first match) and their stand-ins
-_STANDINS = (
-    ("fence.mbarrier_init", ";"),
-    ("mbarrier.init", "emu_mbar_init(bar, count);"),
-    ("mbarrier.arrive.expect_tx", "emu_mbar_arrive(bar, bytes);"),
-    ("mbarrier.arrive", "emu_mbar_arrive(bar, 0);"),
-    ("mbarrier.try_wait", "ok = emu_mbar_wait(bar, parity);"),
-    ("tensor.2d.shared::cluster", "emu_tma_load_2d(dst, map, bar, c0, c1);"),
-    ("tensor.2d.global.shared", "emu_tma_store_2d(map, src, c0, c1);"),
-    ("cp.async.bulk.commit_group", ";"),
-    ("cp.async.bulk.wait_group", ";"),
-    ("fence.proxy.async", ";"),
-    ("wgmma.mma_async", None),
-    ("wgmma.fence", ";"),
-    ("wgmma.commit_group", ";"),
-    ("wgmma.wait_group", ";"),
-    ('asm volatile("" :', ";"),
-    ("bar.sync", "emu_named_barrier(id, count);"),
-)
-
-
-def _emulated_wgmma_header(text):
-    """wgmma.cuh with each inline PTX statement replaced by its stand-in."""
-    def sub(m):
-        asm = m.group(0)
-        for key, standin in _STANDINS:
-            if key in asm:
-                if standin is None:
-                    n = re.search(r"\.m64n(\d+)k16\.", asm).group(1)
-                    standin = f"emu_wgmma<{n}>(d, desc_a, desc_b, scale_d);"
-                return standin + "\n"
-        raise AssertionError(f"no stand-in for {asm[:80]!r}")
-    out, n = re.subn(r"asm volatile\(.*?\);\n", sub, text, flags=re.S)
-    assert n == 17, f"wgmma.cuh has {n} asm statements, the stand-in knows 17"
-    return out.replace("#include <cstdint>\n",
-                       '#include <cstdint>\n\n#include "wgmma_emu.h"\n', 1)
-
-
-def build_emulated(out, sources):
-    """Compile ``sources`` ({file name: text}, .cu files of csrc, edited or
-    not) with the headers for the stand-in into ``out`` and load the
-    library with the entry points' signatures."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    for header in cuda_lib.SRC_DIR.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mma.cuh":
-            text = _emulated_header(text)
-        elif header.name == "wgmma.cuh":
-            text = _emulated_wgmma_header(text)
-        (out / header.name).write_text(text)
-    cpps = []
-    for name, text in sources.items():
-        cpp = out / (Path(name).stem + ".cpp")
-        cpp.write_text(_emulated_source(text))
-        cpps.append(str(cpp))
-    so = out / "libemu_epilogue.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), *cpps,
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
-
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
     return build_emulated(
-        tmp_path_factory.mktemp("cuda_emu_epilogue"),
+        tmp_path_factory, "epilogue",
         {name: (cuda_lib.SRC_DIR / name).read_text() for name in _SOURCES})
 
 
@@ -141,7 +62,7 @@ def _route(lib, x, w):
 
 
 def _fwd(lib, x, w, b, act, splits, want_z=True, device=0):
-    """The bf16 forward entry point on CPU tensors, NaN-filled outputs
+    """The forward entry point on CPU tensors, NaN-filled outputs
     (a missed element shows), `splits` K chunks; on the stand-in's
     ``device`` (0: 132 SMs, d > 0: d SMs: the persistent grid's size)."""
     M, K = x.shape
@@ -151,7 +72,7 @@ def _fwd(lib, x, w, b, act, splits, want_z=True, device=0):
     part = torch.full((splits, M, N), float("nan")) if splits > 1 else None
     rc = lib.ptt_matmul_epilogue_fwd(
         _ptr(x), _ptr(w), _ptr(b), _ptr(out), _ptr(z), _ptr(part), M, K, N,
-        splits, _ACTS.index(act), _BF16, device, None)
+        splits, _ACTS.index(act), cuda_lib.dtype_code(x.dtype), device, None)
     assert rc == 0
     return out, z
 
@@ -163,15 +84,19 @@ def _fwd_int8(lib, x, w_q, scale, b, act, splits, device=0):
     part = torch.full((splits, M, N), float("nan")) if splits > 1 else None
     rc = lib.ptt_matmul_epilogue_int8_fwd(
         _ptr(x), _ptr(w_q), _ptr(scale), _ptr(b), _ptr(out), _ptr(part), M,
-        K, N, splits, _ACTS.index(act), _BF16, cuda_lib.dtype_code(b.dtype),
-        device, None)
+        K, N, splits, _ACTS.index(act), cuda_lib.dtype_code(x.dtype),
+        cuda_lib.dtype_code(b.dtype), device, None)
     assert rc == 0
     return out
 
 
-def _close(got, want):
-    torch.testing.assert_close(got.float(), want.float(), atol=_TOL,
-                               rtol=_TOL)
+def _close(got, want, tol=_TOL):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol)
+
+
+#: f16 against its plain version: about five f16 ulps at unit scale
+_F16_TOL = 5e-3
 
 
 def _inputs(M, K, N, seed):
@@ -297,6 +222,30 @@ def test_matmul_epilogue_int8_emulated(lib, M, K, N, act, splits, route,
     _close(out, ops.linear_act_int8_ref(x, w_q, scale, b, act))
     _close(out[:, 0], act_f32(b[0].float().expand(M), act))
     assert torch.equal(_fwd_int8(lib, x, w_q, scale, b, act, splits), out)
+
+
+@pytest.mark.parametrize("M,K,N,splits", [(64, 128, 64, 1),
+                                           (70, 200, 130, 3)],
+                         ids=["aligned", "ragged"])
+def test_matmul_epilogue_f16_emulated(lib, M, K, N, splits):
+    """f16 takes the f32 CUDA-core tiles (f16 loads and stores, f32
+    sums), with and without split-K; int8 codes with an f16 and an f32
+    bias."""
+    from paddle_tpu_torch.quantization import quantize_weight_int8
+    g = torch.Generator().manual_seed(M + K)
+    x = torch.randn(M, K, generator=g).to(torch.float16)
+    wf = torch.randn(K, N, generator=g) / K ** 0.5
+    b = torch.randn(N, generator=g).to(torch.float16)
+    out, z = _fwd(lib, x, wf.to(torch.float16), b, "gelu_tanh", splits)
+    want, want_z = ops.linear_act_ref(x, wf.to(torch.float16), b,
+                                      "gelu_tanh", return_z=True)
+    _close(out, want, _F16_TOL)
+    _close(z, want_z, _F16_TOL)
+    w_q, scale = quantize_weight_int8(wf, axis=1)
+    for bias in (b, b.float()):
+        got = _fwd_int8(lib, x, w_q, scale, bias, "silu", splits)
+        _close(got, ops.linear_act_int8_ref(x, w_q, scale, bias, "silu"),
+               _F16_TOL)
 
 
 def test_tma_route_rule_emulated(lib):

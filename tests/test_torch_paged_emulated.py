@@ -31,10 +31,6 @@ The stand-in runs blocks one at a time and loads synchronously: it
 checks indexing, masks, the split walk and the merges, not speed; the
 card tests and ``chip_smoke.py`` do that.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -44,38 +40,16 @@ from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops import paged
 from paddle_tpu_torch.ops.paged import split_count, vector_route
-from test_torch_flash_emulated import _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 _F32P_TOL = (2.0 ** -8, 2.0 ** -7)   # (x RMS, relative)
 _H = 2
 
 
-def _build(out, source):
-    """Compile ``source`` (the text of paged_attention.cu) for the
-    stand-in into ``out`` and load it with the entry points' signatures."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    (out / "common.cuh").write_text(
-        (cuda_lib.SRC_DIR / "common.cuh").read_text())
-    cpp = out / "paged_attention.cpp"
-    cpp.write_text(_emulated_source(source))
-    so = out / "libemu_paged.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), str(cpp),
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    lib.emu_set_block_order.argtypes = [ctypes.c_uint]
-    return lib
+def _build(tmp_path_factory, source):
+    """The stand-in library of ``source`` (the text of paged_attention.cu)."""
+    return build_emulated(tmp_path_factory, "paged", {"paged_attention.cu": source})
 
 
 def _source():
@@ -84,7 +58,7 @@ def _source():
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("cuda_emu_paged"), _source())
+    return _build(tmp_path_factory, _source())
 
 
 def _inputs(ctxs, bs, D, dtype, seed=0, extra_pages=2):
@@ -201,6 +175,13 @@ def test_paged_forced_splits_emulated(lib, splits, dtype):
     assert _check(lib, args, clean, splits=splits) == splits
 
 
+@pytest.mark.parametrize("ctxs,D", [("short", 40), ("short", 128)])
+def test_paged_vector_route_f16_emulated(lib, ctxs, D):
+    """f16 on the vector route (80- and 256-byte rows): bf16's
+    instantiations, f16 loads."""
+    test_paged_vector_route_emulated(lib, ctxs, 16, D, torch.float16)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_paged_wide_table_emulated(lib, dtype):
@@ -254,8 +235,9 @@ def test_paged_split_cache_emulated(lib):
 
 
 @pytest.mark.parametrize("dtype,D,shift", [(torch.bfloat16, 36, 0),
-                                           (torch.float32, 64, 1)],
-                         ids=["bf16_d36", "misaligned"])
+                                           (torch.float32, 64, 1),
+                                           (torch.float16, 36, 0)],
+                         ids=["bf16_d36", "misaligned", "f16_d36"])
 def test_paged_elementwise_route_emulated(lib, dtype, D, shift):
     """bf16 heads of 36 (72-byte rows) and a q view one element off 16
     bytes take the element-wise route through the same entry point."""
@@ -287,6 +269,8 @@ def test_paged_route_rule_emulated(lib):
     assert both(D=4, dtype=torch.float32) and both(D=256, dtype=torch.float32)
     assert not both(D=36) and not both(D=2, dtype=torch.float32)
     assert not both(shift=1) and not both(pool_shift=2)
+    assert both(dtype=torch.float16) and both(D=8, dtype=torch.float16)
+    assert not both(D=36, dtype=torch.float16)
 
 
 #: (what, text in the source, its replacement): copies of the source that
@@ -303,12 +287,12 @@ _MUTATIONS = [
 
 @pytest.mark.parametrize("what,old,new", _MUTATIONS,
                          ids=[m[0] for m in _MUTATIONS])
-def test_paged_mutations_fail_emulated(tmp_path, what, old, new):
+def test_paged_mutations_fail_emulated(tmp_path_factory, what, old, new):
     """A copy of the source with ``what`` fails the checks above on the
     long contexts, bf16 and f32, heads of 64 and 128."""
     src = _source()
     assert src.count(old) == 1, f"the kernel no longer has: {old!r}"
-    broken = _build(tmp_path, src.replace(old, new))
+    broken = _build(tmp_path_factory, src.replace(old, new))
     failed = 0
     for dtype in (torch.float32, torch.bfloat16):
         for D in (64, 128):

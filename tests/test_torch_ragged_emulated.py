@@ -27,10 +27,6 @@ of yet, fail these checks.  The stand-in copies synchronously: it checks
 layouts, masks, the split walk and the merge, not speed; the card tests
 and ``chip_smoke.py`` do that.
 """
-import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -39,39 +35,15 @@ import torch
 from paddle_tpu_torch import ops
 from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.ragged import mma_route
-from test_torch_flash_emulated import _emulated_header, _emulated_source
+from cuda_emu_build import build_emulated
 
-_EMU = Path(__file__).resolve().parent / "cuda_emu"
-_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 _F32P_TOL = (2.0 ** -8, 2.0 ** -7)   # (x RMS, relative)
 
 
-def _build(out, source):
-    """Compile ``source`` (the text of ragged_attention.cu) for the
-    stand-in into ``out`` and load it with the entry points' signatures."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernels for the CPU stand-in")
-    for header in cuda_lib.SRC_DIR.glob("*.cuh"):
-        text = header.read_text()
-        if header.name == "mma.cuh":
-            text = _emulated_header(text)
-        (out / header.name).write_text(text)
-    cpp = out / "ragged_attention.cpp"
-    cpp.write_text(_emulated_source(source))
-    so = out / "libemu_ragged.so"
-    build = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-         "-Wno-unknown-pragmas", "-I", str(_EMU), "-I", str(out), str(cpp),
-         str(_EMU / "emu.cpp"), "-o", str(so)],
-        capture_output=True, text=True, timeout=600)
-    assert build.returncode == 0, build.stderr[-4000:]
-    lib = ctypes.CDLL(str(so))
-    for name, (argtypes, restype) in cuda_lib._SIGNATURES.items():
-        fn = getattr(lib, name, None)
-        if fn is not None:
-            fn.argtypes, fn.restype = list(argtypes), restype
-    return lib
+def _build(tmp_path_factory, source):
+    """The stand-in library of ``source`` (the text of ragged_attention.cu)."""
+    return build_emulated(tmp_path_factory, "ragged", {"ragged_attention.cu": source})
 
 
 def _source():
@@ -80,7 +52,7 @@ def _source():
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    return _build(tmp_path_factory.mktemp("cuda_emu_ragged"), _source())
+    return _build(tmp_path_factory, _source())
 
 
 def _quantize(pool):
@@ -220,11 +192,13 @@ def test_ragged_mma_emulated(lib, name, qlens, ctxs, pad, bs, ctx0, int8,
 
 
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 64),
-                                     (torch.bfloat16, 40)])
+                                     (torch.bfloat16, 40),
+                                     (torch.float16, 64),
+                                     (torch.float16, 40)])
 @pytest.mark.parametrize("int8", [False, True], ids=["float", "int8"])
 def test_ragged_cuda_core_routes_emulated(lib, dtype, D, int8):
-    """f32 queries, and bf16 at D = 40, take the CUDA-core kernel through
-    the same entry points."""
+    """f32 and f16 queries, and bf16 at D = 40, take the CUDA-core kernel
+    through the same entry points."""
     q, pools, ints, kw = _inputs([1, 12], [40, 30], 1, D, dtype, int8,
                                  ctx0=True, seed=3)
     assert not _check(lib, q, pools, ints, kw)
@@ -252,6 +226,8 @@ def test_ragged_route_rule_emulated(lib):
     assert not both(D=96) and not both(D=40) and not both(D=256)
     assert not both(bs=8) and not both(bs=24)
     assert not both(dtype=torch.float32, block_q=8)
+    assert not both(dtype=torch.float16) and not both(dtype=torch.float16,
+                                                      D=64)
     assert not both(block_q=32)
     assert not both(shift=1)
     assert not both(scales=True, scale_shift=1)
@@ -272,13 +248,13 @@ _MUTATIONS = [
 
 @pytest.mark.parametrize("what,old,new", _MUTATIONS,
                          ids=[m[0] for m in _MUTATIONS])
-def test_ragged_mutations_fail_emulated(tmp_path, what, old, new):
+def test_ragged_mutations_fail_emulated(tmp_path_factory, what, old, new):
     """A copy of the source with ``what`` fails the checks above on the
     tensor-core cases at D = 64 (a wrong value, or a padding row that is
     not zero)."""
     src = _source()
     assert src.count(old) == 1, f"the kernel no longer has: {old!r}"
-    broken = _build(tmp_path, src.replace(old, new))
+    broken = _build(tmp_path_factory, src.replace(old, new))
     failed = 0
     for _, qlens, ctxs, pad, bs, ctx0 in _CASES:
         for int8 in (False, True):
