@@ -43,12 +43,18 @@ phase fails.  Phases:
    at the flash drive's 8192 rows and the BERT drive's [8192, 768], each
    run twice and held bit-identical; the matmul epilogue (row 3) at the
    serving step's fc1 (368 x 2048 @ 2048 x 8192, gelu_tanh), a decode
-   step's 4 rows and the training drive's 4096 rows with z saved, each
-   run twice and held bit-identical; its backward (row 7) at the training
-   drive's [4096, 8192] and at the fc1 shapes of phases 8 ([8192, 8192]),
-   24 ([8192, 4096]) and 15 ([8192, 3072] and the MLM head's [8192, 768]),
-   each run twice and held bit-identical on the vector route, beside
-   ``aten.gelu_backward`` (dz alone); the int8 serving kernels at the
+   step's 4 rows, the training drive's 4096 rows with z saved and phase
+   45's Transformer-base linear1 (4096 x 512 @ 512 x 2048, relu, z
+   saved), each run twice and held bit-identical; its backward (row 7)
+   at the training drive's [4096, 8192], at the fc1 shapes of phases 8
+   ([8192, 8192]), 24 ([8192, 4096]) and 15 ([8192, 3072] and the MLM
+   head's [8192, 768]) and at phase 45's [4096, 2048] with relu, each
+   run twice and held bit-identical on the vector route, beside
+   ``aten.gelu_backward`` (``threshold_backward`` for relu; dz alone);
+   the fused residual layer norm (row 13) also at phase 45's [4096,
+   512]; flash attention also at phase 45's training (B=32, 128 x 128,
+   8 heads of 64, full) and cached decoding (B=8, one query row against
+   128 keys) shapes; the int8 serving kernels at the
    serving drive's shapes too (the int8 matmul epilogue at GPT_1P3B's
    qkv, out, fc1 and fc2 on 368 rows, each run twice and held
    bit-identical, beside ``torch._weight_int8pack_mm`` and the float
@@ -346,7 +352,19 @@ phase fails.  Phases:
     ``nn.functional`` and every activation and loss layer, forward and
     input gradients, f32 and bf16 (CTC in f32), card against CPU within
     ``NN_TOL``; the random ones' draws by structure and range;
-    ``softmax_with_cross_entropy`` launching rows 8a/8b.
+    ``softmax_with_cross_entropy`` launching rows 8a/8b;
+44. nn breadth II (`phase_nn_common`): every function of
+    ``nn/functional/common.py`` and layer of ``nn/layer/common.py``,
+    ``flash_attn_unpadded`` and ``nn.utils``, card against CPU as phase
+    43 holds its cases;
+45. Transformer-base (`phase_transformer`): 6 + 6 post-norm relu layers,
+    B=32 pairs of 128 tokens, bf16 O1, AdamW, the launches per step of
+    rows 3-7 and 13; its 2 + 2 parity in f32, relu, against the CPU
+    with the CPU's relu kinks held (`ReluKinks.epilogue`); cached greedy
+    decoding equal to the full recompute and to the CPU;
+46. recurrent nets (`phase_recurrent`): the PTB "medium" LSTM trained
+    with SGD and its parity, GRU/SimpleRNN/RNN/BiRNN and beam search
+    card against CPU.
 Phase 2 holds every row in float16 too (``TOL["float16"]``), on its
 f16 route (the vector routes; the f32 CUDA-core templates where bf16
 runs on the tensor cores).
@@ -573,20 +591,26 @@ def repeat_equal(fn, first):
 ME_DECODE_ROWS = 4
 
 
-def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen, with_z=False):
-    """Row 3 at fc1's shape (K 2048, N 8192, gelu_tanh) for ``rows`` rows,
-    with z written where ``with_z`` (training); run twice, bit-identical."""
+#: row 3 at phase 45's Transformer-base linear1 (training, z written):
+#: (rows, K, N, activation), B=32 x 128 tokens, 512 -> 2048, relu
+ME_TRANSFORMER = (32 * 128, 512, 2048, "relu")
+
+
+def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen, with_z=False,
+                          K=HIDDEN, N=FFN, act="gelu_tanh"):
+    """Row 3 at fc1's shape (K 2048, N 8192, gelu_tanh; or ``K``, ``N``,
+    ``act``) for ``rows`` rows, with z written where ``with_z``
+    (training); run twice, bit-identical."""
     import torch
-    K, N = HIDDEN, FFN
     x = torch.randn(rows, K, device="cuda", generator=gen).to(dtype)
     w = (torch.randn(K, N, device="cuda", generator=gen)
          / K ** 0.5).to(dtype)
     b = (0.1 * torch.randn(N, device="cuda", generator=gen)).to(dtype)
 
     def kernel():
-        return ops.fused_linear_act(x, w, b, "gelu_tanh", return_z=with_z)
+        return ops.fused_linear_act(x, w, b, act, return_z=with_z)
     got = kernel()
-    ref = ops.linear_act_ref(x, w, b, "gelu_tanh", return_z=with_z)
+    ref = ops.linear_act_ref(x, w, b, act, return_z=with_z)
     torch.cuda.synchronize()
     if with_z:
         (err, rel, ok), z_err = compare(got[0], ref[0], dtype_name), \
@@ -595,23 +619,26 @@ def check_matmul_epilogue(ops, rows, dtype, dtype_name, gen, with_z=False):
     else:
         err, rel, ok = compare(got, ref, dtype_name)
     same = repeat_equal(kernel, got)
-    # the library call: one cuBLASLt GEMM with a bias + tanh-GELU epilogue
-    # (its CUDA fallback also applies gelu(approximate="tanh")); timed and
-    # compared here only, the port never calls it
+    # the library call: one cuBLASLt GEMM with a bias + tanh-GELU (or
+    # relu) epilogue (its CUDA fallback also applies gelu(approximate=
+    # "tanh")); timed and compared here only, the port never calls it
     def library():
-        return torch._addmm_activation(b, x, w, use_gelu=True)
+        return torch._addmm_activation(b, x, w, use_gelu=act == "gelu_tanh")
     lib_err = compare(library(), ref[0] if with_z else ref, dtype_name)[0]
     isz = x.element_size()
     nbytes = (rows * K + K * N + N + (2 if with_z else 1) * rows * N) * isz
-    bms, by = bound(nbytes, 2 * rows * K * N + 12 * rows * N, dtype_name)
+    act_ops = 12 if act == "gelu_tanh" else 2
+    bms, by = bound(nbytes, 2 * rows * K * N + act_ops * rows * N,
+                    dtype_name)
     return dict(
         err=err, rel=rel, ok=ok and same, repeat_identical=same,
-        shape=f"x[{rows},{K}] w[{K},{N}]" + (" z" if with_z else ""),
+        shape=f"x[{rows},{K}] w[{K},{N}]" + (" z" if with_z else "")
+        + ("" if act == "gelu_tanh" else f" {act}"),
         note=f"library vs plain max abs err {lib_err:.3e}; second run "
              f"bit-identical {same}",
         ms=time_ms(kernel),
         plain_ms=time_ms(lambda: ops.linear_act_ref(
-            x, w, b, "gelu_tanh", return_z=with_z)),
+            x, w, b, act, return_z=with_z)),
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
@@ -881,14 +908,18 @@ BERT_ROWS, BERT_HIDDEN = 8192, 768
 LN_CASES = {"train8192": (8192, HIDDEN), "bert": (BERT_ROWS, BERT_HIDDEN)}
 
 
-def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
+#: row 13 at phase 45's Transformer-base post-norm sublayers: (rows, n)
+LN_RES_CASES = {"transformer": ME_TRANSFORMER[:2]}
+
+
+def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen,
+                              n=BERT_HIDDEN):
     """The fused residual add + layer norm forward at the BERT drive's
-    [8192, 768], run twice: each run held to the plain version (out, s, mu,
-    rstd), the second bit-identical to the first, on the vector route; and
-    its backward, the layer-norm backward kernel on the saved sum (held
-    and timed in the note)."""
+    [8192, 768] (or [``rows``, ``n``]), run twice: each run held to the
+    plain version (out, s, mu, rstd), the second bit-identical to the
+    first, on the vector route; and its backward, the layer-norm backward
+    kernel on the saved sum (held and timed in the note)."""
     import torch
-    n = BERT_HIDDEN
     x = (2 * torch.randn(rows, n, device="cuda", generator=gen)
          + 0.5).to(dtype)
     r = torch.randn(rows, n, device="cuda", generator=gen).to(dtype)
@@ -947,14 +978,17 @@ def check_layer_norm_residual(ops, rows, dtype, dtype_name, gen):
         library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
-#: row 7 at the other drives' fc1 shapes (rows, N), all tanh-GELU: phase
+#: row 7 at the other drives' fc1 shapes (rows, N, activation): phase
 #: 8's GPT_1P3B at B=8 S=1024, phase 24's multi-LoRA GPT (hidden 1024) at
 #: B=8 S=1024, phase 15's BERT-base fc1 and its MLM head transform at
-#: B=64 S=128; the serving-width training drive's [4096, 8192] is the
+#: B=64 S=128, all tanh-GELU, and phase 45's Transformer-base linear1
+#: (relu); the serving-width training drive's [4096, 8192] is the
 #: "train" row
-ME_BWD_CASES = {"flash": (8192, FFN), "lora_train": (8192, 4 * 1024),
-                "bert_fc1": (BERT_ROWS, 4 * BERT_HIDDEN),
-                "bert_head": (BERT_ROWS, BERT_HIDDEN)}
+ME_BWD_CASES = {"flash": (8192, FFN, "gelu_tanh"),
+                "lora_train": (8192, 4 * 1024, "gelu_tanh"),
+                "bert_fc1": (BERT_ROWS, 4 * BERT_HIDDEN, "gelu_tanh"),
+                "bert_head": (BERT_ROWS, BERT_HIDDEN, "gelu_tanh"),
+                "transformer": (ME_TRANSFORMER[0], *ME_TRANSFORMER[2:])}
 
 
 def epilogue_bwd_routes(ops):
@@ -962,43 +996,48 @@ def epilogue_bwd_routes(ops):
     return fn.vector_launches, fn.elementwise_launches
 
 
-def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen, n=FFN):
-    """The fc1 epilogue backward, gelu_tanh, z and g [rows, n] (the
-    training drive's [4096, 8192] by default); run twice, bit-identical;
-    it must take the vector route."""
+def check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name, gen, n=FFN,
+                              act="gelu_tanh"):
+    """The fc1 epilogue backward, ``act`` (gelu_tanh by default), z and g
+    [rows, n] (the training drive's [4096, 8192] by default); run twice,
+    bit-identical; it must take the vector route."""
     import torch
     N = n
     z = torch.randn(rows, N, device="cuda", generator=gen).to(dtype)
     g = (0.1 * torch.randn(rows, N, device="cuda", generator=gen)).to(dtype)
     n0 = epilogue_bwd_routes(ops)
-    first = ops.fused_linear_act_bwd(z, g, "gelu_tanh")
+    first = ops.fused_linear_act_bwd(z, g, act)
     moved = [name for name, a, b in zip(("vector", "elementwise"), n0,
                                         epilogue_bwd_routes(ops)) if b != a]
     route = moved[0] if len(moved) == 1 else f"counts moved: {moved}"
     dz, db = first
-    dz_r, db_r = ops.linear_act_bwd_ref(z, g, "gelu_tanh")
+    dz_r, db_r = ops.linear_act_bwd_ref(z, g, act)
     torch.cuda.synchronize()
     err, rel, ok = compare(dz, dz_r, dtype_name)
     db_err, db_ok, db_tol = compare_sum(db, db_r, dz_r.float().abs().sum(0),
                                         dtype_name)
     del dz_r, db_r
-    same = repeat_equal(lambda: ops.fused_linear_act_bwd(z, g, "gelu_tanh"),
-                        first)
+    same = repeat_equal(lambda: ops.fused_linear_act_bwd(z, g, act), first)
     isz = z.element_size()
     nbytes = 3 * rows * N * isz + N * isz
-    bms, by = bound(nbytes, 20 * rows * N, dtype_name)
+    bms, by = bound(nbytes, (20 if act == "gelu_tanh" else 2) * rows * N,
+                    dtype_name)
+    if act == "gelu_tanh":
+        def library():
+            return torch.ops.aten.gelu_backward(g, z, approximate="tanh")
+    else:
+        def library():
+            return torch.ops.aten.threshold_backward(g, z, 0)
     return dict(
         err=max(err, db_err), rel=rel,
         ok=ok and db_ok and same and route == "vector", route=route,
-        shape=f"z[{rows},{N}] gelu_tanh",
+        shape=f"z[{rows},{N}] {act}",
         note=(f"dz max abs err {err:.3e}; db {db_err:.3e} (atol "
               f"{db_tol:.3e}); route {route} (want vector); second run "
               f"bit-identical: {same}; the library call computes dz only"),
-        ms=time_ms(lambda: ops.fused_linear_act_bwd(z, g, "gelu_tanh")),
-        plain_ms=time_ms(lambda: ops.linear_act_bwd_ref(z, g, "gelu_tanh")),
-        library_ms=time_ms(lambda: torch.ops.aten.gelu_backward(
-            g, z, approximate="tanh")),
-        bound_ms=bms, bound_by=by)
+        ms=time_ms(lambda: ops.fused_linear_act_bwd(z, g, act)),
+        plain_ms=time_ms(lambda: ops.linear_act_bwd_ref(z, g, act)),
+        library_ms=time_ms(library), bound_ms=bms, bound_by=by)
 
 
 def _xent_inputs(rows, dtype, gen, vocab=VOCAB):
@@ -1195,7 +1234,9 @@ FLASH_SHAPES = {"train": (8, 1024, 1024, 16, 128, True),
                 "train_d64": (8, 1024, 1024, 16, 64, True),
                 "bert": (64, 128, 128, 12, 64, False),
                 "d256_causal": (2, 1024, 1024, 8, 256, True),
-                "d256_full": (2, 1024, 1024, 8, 256, False)}
+                "d256_full": (2, 1024, 1024, 8, 256, False),
+                "transformer": (32, 128, 128, 8, 64, False),
+                "transformer_decode": (8, 1, 128, 8, 64, False)}
 
 
 #: the flash kernels' names (the bf16 tensor-core kernels add "_mma")
@@ -2156,22 +2197,29 @@ KERNEL_INFO = {
         serve_int8=(2, 1), bert_train=(0, 2), bert_parity=(0, 2),
         ernie_eval=(0, 1), serve_moe=(2, 1), moe_train=(2, 1),
         serve_lora=(2, 1), lora_train=(2, 1), paged_decode=(2, 1)),
+    # Transformer-base, post-norm: per encoder + decoder layer pair, the
+    # two feed-forward epilogues, flash for encoder self-attention and
+    # cross-attention (the decoder's causal self-attention takes the
+    # composite), and 2 + 3 residual layer norms
     "matmul_epilogue": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:266",
         serve=(1, 0), train=(1, 0), train_flash=(2, 0), generate=(1, 0),
         bert_train=(1, 1), bert_parity=(1, 1), ernie_eval=(1, 0),
-        lora_train=(1, 0), paged_decode=(1, 0)),
+        lora_train=(1, 0), paged_decode=(1, 0), transformer_train=(2, 0),
+        transformer_parity=(2, 0)),
     "layer_norm_bwd": dict(
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:536",
         train=(2, 1), train_flash=(2, 1), bert_train=(2, 2),
-        bert_parity=(2, 2), moe_train=(2, 1), lora_train=(2, 0)),
+        bert_parity=(2, 2), moe_train=(2, 1), lora_train=(2, 0),
+        transformer_train=(5, 0), transformer_parity=(5, 0)),
     "matmul_epilogue_bwd": dict(
         source="paddle_tpu_torch/csrc/matmul_epilogue.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:278",
         train=(1, 0), train_flash=(1, 0), bert_train=(1, 1),
-        bert_parity=(1, 1), lora_train=(1, 0)),
+        bert_parity=(1, 1), lora_train=(1, 0), transformer_train=(2, 0),
+        transformer_parity=(2, 0)),
     "softmax_xent_fwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:759",
@@ -2179,7 +2227,7 @@ KERNEL_INFO = {
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
         lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
         resnet50_train=(0, 1), googlenet_parity=(0, 3),
-        googlenet_train=(0, 3), densenet_train=(0, 1)),
+        googlenet_train=(0, 3), densenet_train=(0, 1), ptb_train=(0, 1)),
     "softmax_xent_bwd": dict(
         source="paddle_tpu_torch/csrc/softmax_xent.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:802",
@@ -2187,7 +2235,7 @@ KERNEL_INFO = {
         bert_train=(0, 1), bert_parity=(0, 1), moe_train=(0, 1),
         lora_train=(0, 1), vision_parity=(0, 1), lenet_train=(0, 1),
         resnet50_train=(0, 1), googlenet_parity=(0, 3),
-        googlenet_train=(0, 3), densenet_train=(0, 1)),
+        googlenet_train=(0, 3), densenet_train=(0, 1), ptb_train=(0, 1)),
     # train_flash recomputes every block's forward inside the backward,
     # so each forward kernel of a block launches twice per step
     "flash_attention_fwd": dict(
@@ -2195,17 +2243,20 @@ KERNEL_INFO = {
         replaces="paddle_tpu/ops/pallas_kernels.py:78",
         main="train_flash", train_flash=(2, 0), generate=(1, 0),
         llama_train=(2, 0), llama_gen=(1, 0), bert_parity=(1, 0),
-        ernie_eval=(1, 0), lora_train=(1, 0)),
+        ernie_eval=(1, 0), lora_train=(1, 0), transformer_train=(2, 0),
+        transformer_parity=(2, 0)),
     "flash_attention_bwd_dq": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:128",
         main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
-        bert_parity=(1, 0), lora_train=(1, 0)),
+        bert_parity=(1, 0), lora_train=(1, 0), transformer_train=(2, 0),
+        transformer_parity=(2, 0)),
     "flash_attention_bwd_dkv": dict(
         source="paddle_tpu_torch/csrc/flash_attention.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:170",
         main="train_flash", train_flash=(1, 0), llama_train=(1, 0),
-        bert_parity=(1, 0), lora_train=(1, 0)),
+        bert_parity=(1, 0), lora_train=(1, 0), transformer_train=(2, 0),
+        transformer_parity=(2, 0)),
     "rms_norm": dict(
         source="paddle_tpu_torch/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas_kernels.py:648",
@@ -2226,7 +2277,8 @@ KERNEL_INFO = {
         source="paddle_tpu_torch/csrc/layer_norm.cu",
         replaces="paddle_tpu/ops/pallas_fused.py:101",
         main="bert_train", bert_train=(2, 0), bert_parity=(2, 0),
-        ernie_eval=(2, 0)),
+        ernie_eval=(2, 0), transformer_train=(5, 0),
+        transformer_parity=(5, 0)),
     "grouped_matmul": dict(
         source="paddle_tpu_torch/csrc/grouped_matmul.cu",
         replaces="paddle_tpu/ops/pallas_grouped.py:85",
@@ -2253,7 +2305,9 @@ def per_step(drive, layers):
     "llama_train", "bert_train", "bert_parity", "moe_train", "lora_train",
     "paged_decode", "vision_parity", "lenet_train", "resnet50_train",
     "googlenet_parity", "googlenet_train" (the main head's and the two
-    aux heads' losses: rows 8a/8b 3 a step), "densenet_train", or
+    aux heads' losses: rows 8a/8b 3 a step), "densenet_train",
+    "transformer_train", "transformer_parity" (``layers``: encoder and
+    decoder layer pairs), "ptb_train", or
     "generate", "llama_gen" and "ernie_eval", whose step is one
     forward)."""
     return {name: info[drive][0] * layers + info[drive][1]
@@ -2436,6 +2490,16 @@ def phase_kernels(ops, budgets):
                                   gen_me)
         report("matmul_epilogue", dtype_name, r)
         results[("matmul_epilogue", dtype_name, "decode")] = r
+        rows, K, N, act = ME_TRANSFORMER
+        r = check_matmul_epilogue(ops, rows, dtype, dtype_name, gen_me,
+                                  with_z=True, K=K, N=N, act=act)
+        report("matmul_epilogue", dtype_name, r)
+        results[("matmul_epilogue", dtype_name, "transformer")] = r
+        for case, (rows, n) in LN_RES_CASES.items():
+            r = check_layer_norm_residual(ops, rows, dtype, dtype_name,
+                                          gen_me, n=n)
+            report("layer_norm_residual", dtype_name, r)
+            results[("layer_norm_residual", dtype_name, case)] = r
         for name, (check, rows) in train.items():
             r = check(ops, rows, dtype, dtype_name, gen)
             report(name, dtype_name, r)
@@ -2536,9 +2600,9 @@ def phase_kernels(ops, budgets):
                 r = check_paged(ops, dtype, dtype_name, gen_pg, case)
                 report("paged_attention", dtype_name, r)
                 results[("paged_attention", dtype_name, case)] = r
-        for case, (rows, n) in ME_BWD_CASES.items():
+        for case, (rows, n, act) in ME_BWD_CASES.items():
             r = check_matmul_epilogue_bwd(ops, rows, dtype, dtype_name,
-                                          gen_pg, n=n)
+                                          gen_pg, n=n, act=act)
             report("matmul_epilogue_bwd", dtype_name, r)
             results[("matmul_epilogue_bwd", dtype_name, case)] = r
             torch.cuda.empty_cache()
@@ -3343,11 +3407,13 @@ def phase_training(pt, ops, flash=False):
                           "train_flash" if flash else "train")
 
 
-def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
+def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S,
+                   steps=TRAIN_STEPS, flops=None):
     """`TRAIN_WARMUP` untimed calls of ``step`` (one training step that
-    returns its loss), then `TRAIN_STEPS` timed ones at batch ``B`` of
-    ``S`` tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token
-    against the bf16 peak; none when ``n_params`` is None), peak memory;
+    returns its loss), then ``steps`` timed ones at batch ``B`` of ``S``
+    tokens: ms/step, tokens/s, MFU (6N + 12LSH flops per token against the
+    bf16 peak, or ``flops``, a (flop per step, formula) pair; none when
+    ``n_params`` is None), peak memory;
     the losses must be finite and fall, each kernel's launches must equal
     ``drive``'s per step; one profiled step.  Returns (launch counts,
     summary)."""
@@ -3360,15 +3426,20 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     torch.cuda.reset_peak_memory_stats()
     reset_launches(ops)
     t0 = time.perf_counter()
-    losses += [step() for _ in range(TRAIN_STEPS)]
+    losses += [step() for _ in range(steps)]
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     counts = launches(ops)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
-    step_ms = elapsed / TRAIN_STEPS * 1e3
-    tokens_per_s = B * S * TRAIN_STEPS / elapsed
-    if n_params is None:
+    step_ms = elapsed / steps * 1e3
+    tokens_per_s = B * S * steps / elapsed
+    if flops is not None:
+        mfu = flops[0] * steps / elapsed / PEAK_BF16
+        mfu_note = (f"{n_params / 1e6:.1f}M params, MFU {mfu:.4f} "
+                    f"({flops[1]} = {flops[0]:.4e} flop/step vs "
+                    f"{PEAK_BF16:.3g} flop/s)")
+    elif n_params is None:
         mfu, mfu_note = None, "no MFU"
     else:
         flops_per_token = 6 * n_params + 12 * L * S * H
@@ -3377,7 +3448,7 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
                     f"12LSH = {flops_per_token:.4e} flop/token vs "
                     f"{PEAK_BF16:.3g} flop/s)")
     say(f"  B={B} S={S}: warm-up {TRAIN_WARMUP} steps {warm_s:.2f} s; "
-        f"{TRAIN_STEPS} steps in {elapsed:.3f} s: {step_ms:.2f} ms/step, "
+        f"{steps} steps in {elapsed:.3f} s: {step_ms:.2f} ms/step, "
         f"{tokens_per_s:.1f} tokens/s, {mfu_note}, peak memory "
         f"{peak_gib:.2f} GiB; losses {losses}")
     if not all(np.isfinite(losses)):
@@ -3385,9 +3456,9 @@ def drive_training(ops, step, n_params, B, L, H, phase, drive, S=TRAIN_S):
     if not losses[-1] < losses[0]:
         fail(f"{phase}: the loss did not fall on a repeated batch: "
              f"{losses}")
-    check_counts(phase, ops, counts, TRAIN_STEPS, L, drive)
+    check_counts(phase, ops, counts, steps, L, drive)
     summary = dict(n_params=n_params, batch=B, seq=S,
-                   steps=TRAIN_STEPS, step_ms=step_ms,
+                   steps=steps, step_ms=step_ms,
                    tokens_per_s=tokens_per_s, mfu=mfu,
                    peak_memory_gib=peak_gib, losses=losses)
     summary["profile"] = split_profile(profile_device(step), 1,
@@ -5019,6 +5090,33 @@ class ReluKinks:
                 return self.hold(inputs[0], out)
         return [m.register_forward_hook(hook) for m in model.modules()
                 if isinstance(m, relu_cls)]
+
+    @contextlib.contextmanager
+    def epilogue(self, pt, record):
+        """The same for the relus that run inside row 3's epilogue
+        (``F.linear_act(..., act="relu")``, no layer to hook): while the
+        context is open, each such call also forms its pre-activation
+        ``x @ w + b`` in plain torch, records it (``record``) or holds the
+        kernel's output at the recorded indices through it (`hold`: the
+        values stay the kernel's, the derivative there is the recorded
+        run's, and the kernel's backward sees a zero gradient there)."""
+        F = pt.nn.functional
+        real = F.linear_act
+
+        def linear_act(x, weight, bias, act="none"):
+            out = real(x, weight, bias, act)
+            if act != "relu":
+                return out
+            z = x @ weight + bias
+            if record:
+                self.record(z)
+                return out
+            return self.hold(z, out)
+        F.linear_act = linear_act
+        try:
+            yield
+        finally:
+            F.linear_act = real
 
 
 #: Momentum's learning rate in the parity runs.  At the recipe's 0.1 a
@@ -6758,9 +6856,10 @@ def nn_layer_cases(pt, rng):
 
 def nn_card_vs_cpu(what, fn, arrays, grad, dtype_name):
     """``fn`` on the CPU and on the card from the same numpy ``arrays``,
-    the floating ones in ``dtype_name``, those indexed by ``grad`` with
-    gradients under one upstream gradient: every output and gradient
-    within `NN_TOL` of its largest CPU magnitude.  Returns the reading."""
+    the floating ones in ``dtype_name``, those indexed by ``grad`` (if
+    any) with gradients under one upstream gradient: the largest error of
+    every output and gradient over its largest CPU magnitude (`NN_TOL`
+    holds it).  Returns the reading."""
     import numpy as np
     import torch
     dtype = getattr(torch, dtype_name)
@@ -6773,9 +6872,11 @@ def nn_card_vs_cpu(what, fn, arrays, grad, dtype_name):
                 t = t.to(dtype)
             ts.append(t.requires_grad_() if k in grad else t)
         out = fn(device, *ts)
-        up = torch.from_numpy(np.random.default_rng(SEED + 43).standard_normal(
-            tuple(out.shape)).astype(np.float32)).to(device)
-        (out.float() * up).sum().backward()
+        if grad:
+            up = torch.from_numpy(np.random.default_rng(
+                SEED + 43).standard_normal(tuple(out.shape)).astype(
+                    np.float32)).to(device)
+            (out.float() * up).sum().backward()
         res[device] = [out.detach().cpu()] + [ts[k].grad.cpu() for k in grad]
     worst = 0.0
     for got, want in zip(res["cuda"], res["cpu"]):
@@ -6848,6 +6949,859 @@ def phase_nn_breadth(pt, ops):
         f"launches {xent}")
     return dict(cases=len(worst), worst=dict(top), tolerance=NN_TOL,
                 softmax_with_cross_entropy_launches=xent)
+
+
+# ---------------------------------------------------------------------
+# phase 44: nn breadth II (common functionals and layers, nn.utils)
+# ---------------------------------------------------------------------
+def nn_common_cases(rng):
+    """Phase 44's cases: name -> (fn on (functional module, *tensors),
+    numpy inputs, gradient indices).  Every function of ``nn.functional``
+    's ``common`` module and ``flash_attn_unpadded`` at a vision or
+    serving block's size: feature maps 8 x 16 x 32 x 32, volumes 2 x 8 x 8
+    x 16 x 16, 256 rows of 1024, 1000 packed tokens of 8 heads."""
+    import numpy as np
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    img, vol, seq = f(8, 16, 32, 32), f(2, 8, 8, 16, 16), f(8, 16, 64)
+    rows, rows2 = f(256, 1024), f(256, 1024)
+    theta = (np.tile(np.eye(2, 3, dtype=np.float32), (8, 1, 1))
+             + f(8, 2, 3, scale=0.2))
+    grid = rng.uniform(-1.2, 1.2, (8, 24, 24, 2)).astype(np.float32)
+    cu = np.array([0, 100, 350, 600, 1000], np.int32)
+    qkv = [f(1000, 8, 64) for _ in range(3)]
+    lab = rng.integers(0, 1000, (64, 128)).astype(np.int64)
+    soft = rng.uniform(0, 1, (256, 1000)).astype(np.float32)
+
+    def interp(**kw):
+        return lambda F, t: F.interpolate(t, **kw)
+
+    cases = {
+        "interpolate nearest up": (interp(scale_factor=2), [img], (0,)),
+        "interpolate nearest down": (interp(size=[20, 13]), [img], (0,)),
+        "interpolate bilinear up": (interp(size=[45, 50], mode="bilinear"),
+                                    [img], (0,)),
+        "interpolate bilinear down": (interp(size=[20, 13], mode="bilinear"),
+                                      [img], (0,)),
+        "interpolate bicubic up": (interp(size=[45, 50], mode="bicubic"),
+                                   [img], (0,)),
+        "interpolate bicubic down": (interp(size=[20, 13], mode="bicubic"),
+                                     [img], (0,)),
+        "interpolate area down": (interp(size=[20, 13], mode="area"), [img],
+                                  (0,)),
+        "interpolate linear down": (interp(size=[40], mode="linear",
+                                           data_format="NCW"), [seq], (0,)),
+        "interpolate trilinear down": (interp(size=[5, 9, 11],
+                                              mode="trilinear",
+                                              data_format="NCDHW"),
+                                       [vol], (0,)),
+        "interpolate trilinear up": (interp(size=[12, 20, 24],
+                                            mode="trilinear",
+                                            data_format="NCDHW"), [vol],
+                                     (0,)),
+        "interpolate align_corners": (interp(size=[45, 50], mode="bilinear",
+                                             align_corners=True), [img],
+                                      (0,)),
+        "interpolate align_mode 1": (interp(size=[20, 13], mode="bilinear",
+                                            align_mode=1), [img], (0,)),
+        "interpolate NHWC": (interp(size=[20, 45], mode="bilinear",
+                                    data_format="NHWC"),
+                             [img.transpose(0, 2, 3, 1).copy()], (0,)),
+        "pad full form reflect": (lambda F, t: F.pad(
+            t, [0, 1, 1, 0, 2, 2, 1, 1], mode="reflect"), [img], (0,)),
+        "zeropad2d": (lambda F, t: F.zeropad2d(t, [1, 2, 0, 3]), [img], (0,)),
+        "cosine_similarity": (lambda F, a, b: F.cosine_similarity(a, b),
+                              [rows, rows2], (0, 1)),
+        "pixel_shuffle": (lambda F, t: F.pixel_shuffle(t, 2), [img], (0,)),
+        "pixel_unshuffle": (lambda F, t: F.pixel_unshuffle(t, 2), [img],
+                            (0,)),
+        "unfold": (lambda F, t: F.unfold(t, 3, strides=2,
+                                         paddings=[1, 0, 2, 1],
+                                         dilations=[1, 2]), [img], (0,)),
+        "fold": (lambda F, t: F.fold(t, [32, 32], 3, paddings=1),
+                 [f(8, 144, 1024)], (0,)),
+        "one_hot": (lambda F, t: F.one_hot(t, 1000), [lab], ()),
+        "embedding padding_idx": (lambda F, i, w: F.embedding(
+            i, w, padding_idx=0), [lab, f(1000, 256)], (1,)),
+        "label_smooth": (lambda F, t: F.label_smooth(t, epsilon=0.1), [soft],
+                         (0,)),
+        "label_smooth prior": (lambda F, t, p: F.label_smooth(
+            t, p, epsilon=0.2), [soft, soft[:1] / soft[:1].sum()], (0, 1)),
+        "bilinear": (lambda F, a, b, w, c: F.bilinear(a, b, w, c),
+                     [f(256, 64), f(256, 48), f(32, 64, 48, scale=0.1),
+                      f(1, 32)], (0, 1, 2, 3)),
+        "channel_shuffle": (lambda F, t: F.channel_shuffle(t, 4), [img],
+                            (0,)),
+        "pairwise_distance": (lambda F, a, b: F.pairwise_distance(a, b),
+                              [rows, rows2], (0, 1)),
+        "affine_grid": (lambda F, t: F.affine_grid(t, [8, 16, 32, 32]),
+                        [theta], (0,)),
+        "temporal_shift": (lambda F, t: F.temporal_shift(t, 4),
+                           [f(16, 16, 8, 8)], (0,)),
+        "flash_attn_unpadded": (lambda F, q, k, v, c: F.flash_attn_unpadded(
+            q, k, v, c, c, 400, 400, 0.125)[0], qkv + [cu], (0, 1, 2)),
+        "flash_attn_unpadded causal": (
+            lambda F, q, k, v, c: F.flash_attn_unpadded(
+                q, k, v, c, c, 400, 400, 0.125, causal=True)[0],
+            qkv + [cu], (0, 1, 2)),
+    }
+    for mode in ("constant", "reflect", "replicate", "circular"):
+        cases[f"pad {mode}"] = (
+            lambda F, t, m=mode: F.pad(t, [1, 2, 3, 4], mode=m, value=0.5),
+            [img], (0,))
+    # the grid's gradient where a sample's cell is fixed: bilinear with
+    # zero or border padding (reflection and nearest hold the image's:
+    # a position rounded across a pixel edge moves the grid's gradient)
+    for mode, pad, g in (("bilinear", "zeros", (0, 1)),
+                         ("bilinear", "border", (0, 1)),
+                         ("bilinear", "reflection", (0,)),
+                         ("nearest", "zeros", (0,))):
+        for align in (True, False):
+            cases[f"grid_sample {mode} {pad} {int(align)}"] = (
+                lambda F, x, gr, m=mode, p=pad, a=align: F.grid_sample(
+                    x, gr, mode=m, padding_mode=p, align_corners=a),
+                [img, grid], g)
+    return cases
+
+
+def nn_common_layer_cases(pt, rng):
+    """Every layer of ``nn/layer/common.py`` (the random ones in eval),
+    ``Bilinear`` from the CPU layer's state: name -> (layer factory taking
+    a device, numpy inputs, gradient indices)."""
+    import numpy as np
+    nn = pt.nn
+    img = rng.standard_normal((8, 16, 32, 32)).astype(np.float32)
+    a, b = (rng.standard_normal((256, 64)).astype(np.float32)
+            for _ in range(2))
+    bil = nn.Bilinear(64, 64, 32, device="cpu")
+    state = {k: v.clone() for k, v in bil.state_dict().items()}
+
+    def bilinear(dev):
+        layer = nn.Bilinear(64, 64, 32, device=dev)
+        layer.load_state_dict(state)
+        return layer
+
+    return {
+        "Identity": (lambda dev: nn.Identity(), [img], (0,)),
+        "Dropout2D eval": (lambda dev: nn.Dropout2D(0.5).eval(), [img],
+                           (0,)),
+        "Dropout3D eval": (lambda dev: nn.Dropout3D(0.5).eval(),
+                           [img.reshape(8, 16, 4, 8, 32)], (0,)),
+        "AlphaDropout eval": (lambda dev: nn.AlphaDropout(0.5).eval(), [a],
+                              (0,)),
+        "Upsample": (lambda dev: nn.Upsample(size=[20, 13], mode="bicubic"),
+                     [img], (0,)),
+        "UpsamplingNearest2D": (lambda dev: nn.UpsamplingNearest2D(
+            scale_factor=2), [img], (0,)),
+        "UpsamplingBilinear2D": (lambda dev: nn.UpsamplingBilinear2D(
+            size=[45, 50]), [img], (0,)),
+        "Pad1D": (lambda dev: nn.Pad1D([2, 3], mode="reflect"),
+                  [img.reshape(8, 16, 1024)], (0,)),
+        "Pad2D": (lambda dev: nn.Pad2D([1, 2, 0, 1], mode="replicate"),
+                  [img], (0,)),
+        "Pad3D": (lambda dev: nn.Pad3D([1, 0, 1, 1, 2, 0], mode="circular"),
+                  [img.reshape(8, 16, 4, 8, 32)], (0,)),
+        "ZeroPad2D": (lambda dev: nn.ZeroPad2D([1, 1, 2, 0]), [img], (0,)),
+        "CosineSimilarity": (lambda dev: nn.CosineSimilarity(axis=1),
+                             [a, b], (0, 1)),
+        "Bilinear": (bilinear, [a, b], (0, 1)),
+        "Unfold": (lambda dev: nn.Unfold(2, strides=2), [img], (0,)),
+        "Fold": (lambda dev: nn.Fold([32, 32], 2, strides=2),
+                 [img.reshape(8, 64, 256)], (0,)),
+        "PixelShuffle": (lambda dev: nn.PixelShuffle(2), [img], (0,)),
+        "PixelUnshuffle": (lambda dev: nn.PixelUnshuffle(2), [img], (0,)),
+        "Unflatten": (lambda dev: nn.Unflatten(1, [4, 4]), [img], (0,)),
+        "PairwiseDistance": (lambda dev: nn.PairwiseDistance(1.5), [a, b],
+                             (0, 1)),
+        "ChannelShuffle": (lambda dev: nn.ChannelShuffle(4), [img], (0,)),
+    }
+
+
+def nn_utils_card_vs_cpu(pt, dtype_name):
+    """``nn.utils`` on the card against the CPU: ``clip_grad_norm_`` (2 and
+    inf), ``clip_grad_value_``, ``parameters_to_vector`` /
+    ``vector_to_parameters``, and ``weight_norm`` / ``spectral_norm`` on a
+    ``Linear`` and a ``Conv2D`` (forward, the input's and every
+    parameter's gradient).  Returns name -> reading (`nn_card_vs_cpu`'s)."""
+    import numpy as np
+    import torch
+    dtype = getattr(torch, dtype_name)
+    rng = np.random.default_rng(SEED + 44)
+    worst = {}
+
+    def reading(got, want):
+        g, w = got.detach().cpu().double(), want.detach().cpu().double()
+        return float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+
+    shapes = ((1024, 1024), (4096,), (64, 3, 7, 7))
+    ws = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    gs = [3 * rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+    def params(dev):
+        # copies: the functions write the parameters and gradients in place
+        ps = [torch.nn.Parameter(torch.tensor(w, dtype=dtype, device=dev))
+              for w in ws]
+        for p, g in zip(ps, gs):
+            p.grad = torch.tensor(g, dtype=dtype, device=dev)
+        return ps
+
+    for norm in (2.0, float("inf")):
+        res = {}
+        for dev in ("cpu", "cuda"):
+            ps = params(dev)
+            total = pt.nn.clip_grad_norm_(ps, 5.0, norm)
+            res[dev] = [total] + [p.grad for p in ps]
+        worst[f"clip_grad_norm_ {norm}"] = max(
+            reading(g, w) for g, w in zip(res["cuda"], res["cpu"]))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        ps = params(dev)
+        pt.nn.clip_grad_value_(ps, 1.5)
+        vec = pt.nn.utils.parameters_to_vector(ps)
+        pt.nn.utils.vector_to_parameters(vec * 0.5, ps)
+        res[dev] = [p.grad for p in ps] + [vec] + ps
+    worst["clip_grad_value_, parameter vectors"] = max(
+        reading(g, w) for g, w in zip(res["cuda"], res["cpu"]))
+    x_lin = rng.standard_normal((256, 512)).astype(np.float32)
+    x_conv = rng.standard_normal((8, 16, 32, 32)).astype(np.float32)
+    for reparam in ("weight_norm", "spectral_norm"):
+        for kind, x in (("Linear", x_lin), ("Conv2D", x_conv)):
+            cpu_layer = (pt.nn.Linear(512, 256, device="cpu")
+                         if kind == "Linear"
+                         else pt.nn.Conv2D(16, 32, 3, device="cpu"))
+            getattr(pt.nn.utils, reparam)(cpu_layer)
+            state = {k: v.clone() for k, v in cpu_layer.state_dict().items()}
+            res = {}
+            for dev in ("cpu", "cuda"):
+                layer = (pt.nn.Linear(512, 256, device=dev)
+                         if kind == "Linear"
+                         else pt.nn.Conv2D(16, 32, 3, device=dev))
+                getattr(pt.nn.utils, reparam)(layer)
+                layer.load_state_dict(state)
+                layer.to(dtype)
+                t = torch.from_numpy(x).to(dev, dtype).requires_grad_()
+                out = layer(t)
+                up = torch.from_numpy(np.random.default_rng(
+                    SEED + 45).standard_normal(tuple(out.shape)).astype(
+                        np.float32)).to(dev)
+                (out.float() * up).sum().backward()
+                res[dev] = [out, t.grad] + [p.grad for p in
+                                            layer.parameters()]
+            worst[f"{reparam} {kind}"] = max(
+                reading(g, w) for g, w in zip(res["cuda"], res["cpu"]))
+    return {f"{k} {dtype_name}": v for k, v in worst.items()}
+
+
+def phase_nn_common(pt):
+    """Phase 44: every function of ``nn.functional``'s ``common`` module,
+    ``flash_attn_unpadded`` (causal and not), every layer of
+    ``nn/layer/common.py`` and the ``nn.utils`` functions on the card
+    against the CPU, forward and input gradients, in f32 and bf16
+    (`NN_TOL`); ``class_center_sample`` equal on both; the random ones'
+    draws by their structure on the card: whole channels kept or dropped
+    by ``dropout2d``/``dropout3d`` (kept ones scaled by 1/(1-p)), one
+    draw along ``axis``, ``downscale_in_infer`` unscaled in training, the
+    mean and variance ``alpha_dropout`` keeps, ``feature_alpha_dropout``
+    constant over each feature map."""
+    import numpy as np
+    import torch
+    F = pt.nn.functional
+    rng = np.random.default_rng(SEED + 44)
+    worst = {}
+    for dtype_name in ("float32", "bfloat16"):
+        for name, (fn, arrays, grad) in nn_common_cases(rng).items():
+            worst[f"{name} {dtype_name}"] = nn_card_vs_cpu(
+                name, lambda dev, *t, fn=fn: fn(F, *t), arrays, grad,
+                dtype_name)
+        for name, (make, arrays, grad) in nn_common_layer_cases(
+                pt, rng).items():
+            worst[f"{name} {dtype_name}"] = nn_card_vs_cpu(
+                name, lambda dev, *t, make=make: make(dev).to(
+                    getattr(torch, dtype_name))(*t), arrays, grad,
+                dtype_name)
+        worst.update(nn_utils_card_vs_cpu(pt, dtype_name))
+    over = {k: v for k, v in worst.items()
+            if not v <= NN_TOL[k.rsplit(" ", 1)[1]]}
+    if over:
+        fail(f"nn breadth II: past {NN_TOL} of the largest magnitude: "
+             + ", ".join(f"{k} {v:.3e}" for k, v in over.items()))
+    lab = rng.integers(0, 5000, 4096)
+    sampled = [F.class_center_sample(torch.from_numpy(lab).to(dev), 5000,
+                                     3000) for dev in ("cpu", "cuda")]
+    if not all(torch.equal(a, b.cpu()) for a, b in zip(*sampled)):
+        fail("nn breadth II: class_center_sample differs on the card")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ones = torch.ones(64, 32, 16, 16, device="cuda")
+    d2 = F.dropout2d(ones, 0.4, generator=gen).reshape(64, 32, -1)
+    d3 = F.dropout3d(ones.reshape(64, 32, 4, 4, 16), 0.4,
+                     generator=gen).reshape(64, 32, -1)
+    ax = F.dropout(ones, 0.5, axis=[0, 2], generator=gen)
+    down = F.dropout(ones, 0.5, mode="downscale_in_infer", generator=gen)
+    normal = torch.randn(1 << 20, device="cuda", generator=gen)
+    ad = F.alpha_dropout(normal, 0.5, generator=gen)
+    fa = F.feature_alpha_dropout(ones, 0.5, generator=gen).reshape(64, 32, -1)
+    kept = float((d2[..., 0] != 0).float().mean())
+    checks = {
+        "dropout2d whole channels": bool(torch.equal(d2.amin(-1),
+                                                     d2.amax(-1))),
+        "dropout3d whole channels": bool(torch.equal(d3.amin(-1),
+                                                     d3.amax(-1))),
+        "dropout2d values": set(torch.unique(d2).tolist())
+        <= {0.0, float(torch.tensor(1 / 0.6))},
+        "dropout2d keep share": abs(kept - 0.6) < 0.05,
+        "dropout axis": bool(torch.equal(ax.amin((1, 3)), ax.amax((1, 3)))),
+        "downscale_in_infer": set(torch.unique(down).tolist()) <= {0.0, 1.0},
+        "alpha_dropout mean": abs(float(ad.mean())) < 0.01,
+        "alpha_dropout variance": abs(float(ad.var()) - 1.0) < 0.02,
+        "feature_alpha_dropout maps": bool(torch.equal(fa.amin(-1),
+                                                       fa.amax(-1))),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"nn breadth II: draws on the card: {bad}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:6]
+    say(f"  {len(worst)} cases (functions, layers, nn.utils; f32 and bf16) "
+        f"card vs CPU within {NN_TOL}; largest readings: " +
+        ", ".join(f"{k} {v:.2e}" for k, v in top) +
+        f"; class_center_sample equal; draws by structure: {len(checks)} "
+        f"checks (dropout2d keeps {kept:.3f}, alpha_dropout mean "
+        f"{float(ad.mean()):.4f} var {float(ad.var()):.4f})")
+    return dict(cases=len(worst), worst=dict(top), tolerance=NN_TOL,
+                draw_checks=len(checks), dropout2d_keep_share=kept)
+
+
+# ---------------------------------------------------------------------
+# phase 45: Transformer-base (Vaswani et al. 2017, Table 3 "base")
+# ---------------------------------------------------------------------
+#: the paper's shared WMT14 en-de BPE vocabulary, about 37000 tokens
+TRANSFORMER_VOCAB = 37000
+TRANSFORMER_D, TRANSFORMER_FF, TRANSFORMER_HEADS = 512, 2048, 8
+TRANSFORMER_LAYERS = 6
+#: 32 pairs of 128 source and 128 target tokens: 4096 tokens a side
+TRANSFORMER_B, TRANSFORMER_S = 32, 128
+TRANSFORMER_STEPS = 10
+DECODE_B, DECODE_STEPS, DECODE_BOS = 8, 32, 1
+
+
+def seq2seq(pt, device, layers=TRANSFORMER_LAYERS, dropout=0.1, seed=SEED):
+    """Transformer-base as a translation model: ``nn.Transformer``
+    (post-norm, relu, dropout on the sublayer outputs only) with one
+    ``[vocab, 512]`` embedding shared by source, target and the
+    pre-softmax projection (N(0, 512^-0.5)), scaled by sqrt(512) and
+    added to sinusoidal positional encodings, dropout on the sums."""
+    import numpy as np
+    import torch
+    d = TRANSFORMER_D
+
+    class Seq2Seq(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            self.embedding = pt.nn.Embedding(TRANSFORMER_VOCAB, d,
+                                             device=device, generator=gen)
+            pt.nn.initializer.Normal(0.0, d ** -0.5)(self.embedding.weight,
+                                                     gen)
+            self.transformer = pt.nn.Transformer(
+                d, TRANSFORMER_HEADS, layers, layers, TRANSFORMER_FF,
+                dropout=dropout, activation="relu", attn_dropout=0.0,
+                act_dropout=0.0, device=device, generator=gen)
+            self.dropout = pt.nn.Dropout(dropout, generator=gen)
+            pos = np.arange(1024)[:, None]
+            freq = 10000.0 ** (-np.arange(0, d, 2) / d)
+            pe = np.zeros((1024, d))
+            pe[:, 0::2], pe[:, 1::2] = np.sin(pos * freq), np.cos(pos * freq)
+            self.register_buffer("pe", torch.tensor(
+                pe, dtype=torch.float32, device=device), persistent=False)
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * d ** 0.5
+            return self.dropout(x + self.pe[start:start + ids.shape[1]])
+
+        def logits(self, h):
+            return pt.nn.functional.matmul(h, self.embedding.weight,
+                                           transpose_y=True)
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1], device=src.device)
+            return self.logits(self.transformer(
+                self.embed(src), self.embed(tgt), tgt_mask=mask))
+
+    return Seq2Seq()
+
+
+def smoothed_loss(pt, logits, labels):
+    """PaddleNLP's criterion for this model: cross-entropy against the
+    one-hot labels smoothed by 0.1, as soft labels."""
+    F = pt.nn.functional
+    soft = F.label_smooth(F.one_hot(labels, logits.shape[-1]), epsilon=0.1)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def transformer_flops(B, S, T, layers=TRANSFORMER_LAYERS):
+    """Training flop per step: 6 N per token for the matmul parameters
+    (the encoder's over the source tokens; the decoder's and the tied
+    projection's over the target tokens) plus 12 d per query-key pair for
+    the attention products (QK^T and PV, forward and backward) of encoder
+    self-attention (S x S), decoder self-attention (T x T, the full
+    matrix the masked composite computes) and cross-attention (T x S)."""
+    d, ff, v = TRANSFORMER_D, TRANSFORMER_FF, TRANSFORMER_VOCAB
+    n_enc = layers * (4 * d * d + 2 * d * ff)
+    n_dec = layers * (8 * d * d + 2 * d * ff) + d * v
+    attn = 12 * d * B * layers * (S * S + T * T + T * S)
+    return 6 * (n_enc * B * S + n_dec * B * T) + attn
+
+
+def seq2seq_batch(rng, B, S):
+    """Synthetic pairs: source ids and a target of ``S + 1`` ids split
+    into the decoder's input and its labels (ids from 4 up: 0-3 are the
+    special tokens)."""
+    src = rng.integers(4, TRANSFORMER_VOCAB, (B, S))
+    tgt = rng.integers(4, TRANSFORMER_VOCAB, (B, S + 1))
+    tgt[:, 0] = DECODE_BOS
+    return src, tgt[:, :-1], tgt[:, 1:]
+
+
+def greedy_decode(model, src, steps, cached):
+    """``steps`` greedy tokens from ``DECODE_BOS`` for each source row:
+    with ``cached`` the decoder runs one new position a step over the
+    ``gen_cache`` caches (Cache for self-attention, StaticCache of the
+    projected memory); otherwise it runs again over the whole prefix
+    under the causal mask.  Returns the tokens [B, steps] and the gap
+    between the two largest logits of each step [steps, B]."""
+    import torch
+    dec = model.transformer.decoder
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed(src))
+        toks = torch.full((src.shape[0], 1), DECODE_BOS, dtype=torch.long,
+                          device=src.device)
+        caches = dec.gen_cache(memory) if cached else None
+        gaps = []
+        for t in range(steps):
+            if cached:
+                h, caches = dec(model.embed(toks[:, -1:], start=t), memory,
+                                cache=caches)
+            else:
+                mask = model.transformer.generate_square_subsequent_mask(
+                    t + 1, device=src.device)
+                h = dec(model.embed(toks), memory, tgt_mask=mask)
+            logits = model.logits(h[:, -1])
+            top2 = logits.topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).cpu())
+            toks = torch.cat([toks, logits.argmax(-1, keepdim=True)], 1)
+    return toks[:, 1:].cpu(), torch.stack(gaps)
+
+
+def tokens_gate(phase, what, got, want, gaps):
+    """``got`` must equal ``want``; else the first differing step and row
+    and the logit gap there are reported and the phase fails."""
+    import torch
+    if torch.equal(got, want):
+        return
+    rows, cols = (got != want).nonzero(as_tuple=True)
+    t = int(cols.min())
+    b = int(rows[cols == t][0])
+    fail(f"{phase}: {what}: tokens part at step {t}, row {b} "
+         f"({int(got[b, t])} vs {int(want[b, t])}); the top-2 logit gap "
+         f"there {float(gaps[t, b]):.3e}")
+
+
+def phase_transformer(pt, ops):
+    """Phase 45: Transformer-base (d_model 512, 8 heads, FFN 2048, 6 + 6
+    post-norm layers, relu; the shared [37000, 512] embedding).
+    (a) Training: B=32 pairs of 128 + 128 tokens, dropout 0.1 on the
+    sublayer outputs and embeddings only (attention and activation
+    dropout 0, so attention can take flash), bf16 O1, AdamW(7e-4, 0.9,
+    0.98, 1e-9), the label-smoothed loss: 2 warm-up and 10 timed steps;
+    ms/step, target tokens/s, MFU, peak memory, the idle share, and the
+    launches per step of rows 3-7 and 13 (`KERNEL_INFO`'s
+    ``transformer_train``).  (b) Parity: the same widths at 2 + 2 layers,
+    f32, dropout 0, relu, 3 AdamW steps, card vs CPU, held as phase 5
+    holds GPT.  Where a relu's input lies within rounding of 0 the two
+    devices take its two sides, and AdamW turns the parted gradient of
+    that unit's weights into steps of +-lr: the CPU runs first and
+    records the feed-forward pre-activations within `KINK_BAND` of 0,
+    and the card's relus take the CPU's derivative there
+    (`ReluKinks.epilogue`; the relu runs inside row 3's epilogue).  The
+    key projections' biases have a zero gradient in exact arithmetic:
+    theirs is held against the largest gradient (``zero_grads``).
+    (c) Incremental decoding on the 6 + 6 model in f32: B=8 sources of
+    128 tokens, 32 greedy steps with ``gen_cache`` (flash with one query
+    row a step), against the full recompute under the causal mask on the
+    card (the composite) and the cached steps on the CPU: tokens equal."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 45)
+    B, S = TRANSFORMER_B, TRANSFORMER_S
+    model = seq2seq(pt, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = pt.optimizer.AdamW(learning_rate=7e-4, beta1=0.9, beta2=0.98,
+                             epsilon=1e-9, parameters=model.parameters())
+    src, tgt_in, labels = (torch.from_numpy(a).cuda()
+                           for a in seq2seq_batch(rng, B, S))
+
+    def step():
+        with pt.amp.auto_cast(dtype="bfloat16", level="O1"):
+            loss = smoothed_loss(pt, model(src, tgt_in), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    flops = transformer_flops(B, S, S)
+    counts, training = drive_training(
+        ops, step, n_params, B, TRANSFORMER_LAYERS, TRANSFORMER_D,
+        "transformer training", "transformer_train", S=S,
+        steps=TRANSFORMER_STEPS,
+        flops=(flops, "6 N_enc B S + 6 (N_dec + N_proj) B T + 12 d B L "
+                      "(S^2 + T^2 + T S)"))
+    training["flop_per_step"] = flops
+    training["launches_per_step"] = {k: v // TRANSFORMER_STEPS
+                                     for k, v in counts.items() if v}
+    del model, opt
+    free_device_memory()
+
+    # (b) parity at 2 + 2 layers
+    layers = 2
+    src2, tin2, lab2 = seq2seq_batch(rng, 2, S)
+    ids = np.concatenate([src2, tin2], 1)
+    params = {k: v.numpy() for k, v in seq2seq(
+        pt, "cpu", layers, 0.0).state_dict().items()}
+
+    def loss_of(m, x, y):
+        return smoothed_loss(pt, m(x[:, :S], x[:, S:]), y)
+
+    runs, kinks = {}, ReluKinks()
+    for device in ("cpu", "cuda"):
+        kinks.rewind()
+        with kinks.epilogue(pt, record=device == "cpu"):
+            runs[device] = train_parity_run(
+                pt, ops, lambda dev: seq2seq(pt, dev, layers, 0.0), loss_of,
+                params, ids, lab2, device, track_small=device == "cpu")
+    if kinks.calls != len(kinks.sides):
+        fail(f"transformer training parity: the card ran {kinks.calls} "
+             f"relu epilogues, the CPU {len(kinks.sides)}")
+    say(f"  {kinks.held} relu inputs within {KINK_BAND:g} of 0 in "
+        f"{kinks.calls} epilogue calls took the CPU run's derivative")
+    parity = hold_parity("transformer training parity", params, runs,
+                         sign_free=True,
+                         zero_grads=lambda n: n.endswith("k_proj.bias"))
+    parity["relu_inputs_held"] = kinks.held
+    check_counts("transformer training parity", ops, runs["cuda"][3], 3,
+                 layers, "transformer_parity")
+    free_device_memory()
+
+    # (c) incremental decoding, f32, 6 + 6 layers
+    card = seq2seq(pt, "cuda", dropout=0.0).eval()
+    cpu = seq2seq(pt, "cpu", dropout=0.0).eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    dsrc = rng.integers(4, TRANSFORMER_VOCAB, (DECODE_B, S))
+    reset_launches(ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached, gaps = greedy_decode(card, torch.from_numpy(dsrc).cuda(),
+                                 DECODE_STEPS, True)
+    torch.cuda.synchronize()
+    cached_s = time.perf_counter() - t0
+    flash = ops.KERNELS["flash_attention_fwd"].launches
+    want_flash = TRANSFORMER_LAYERS + 2 * TRANSFORMER_LAYERS * DECODE_STEPS
+    if flash != want_flash:
+        fail(f"transformer decoding: flash forward launched {flash} times, "
+             f"want {want_flash} (the encoder's 6, then self- and "
+             f"cross-attention of each layer each step)")
+    t0 = time.perf_counter()
+    full, _ = greedy_decode(card, torch.from_numpy(dsrc).cuda(),
+                            DECODE_STEPS, False)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    on_cpu, cpu_gaps = greedy_decode(cpu, torch.from_numpy(dsrc),
+                                     DECODE_STEPS, True)
+    tokens_gate("transformer decoding", "cached vs full recompute on the "
+                "card", cached, full, gaps)
+    tokens_gate("transformer decoding", "card vs CPU", cached, on_cpu,
+                cpu_gaps)
+    decoding = dict(batch=DECODE_B, steps=DECODE_STEPS,
+                    ms_per_step_cached=cached_s / DECODE_STEPS * 1e3,
+                    ms_per_step_recompute=full_s / DECODE_STEPS * 1e3,
+                    flash_launches=flash,
+                    min_top2_logit_gap=float(gaps.min()),
+                    tokens_equal=True)
+    say(f"  decoding B={DECODE_B}, {DECODE_STEPS} greedy steps (f32): cached "
+        f"{decoding['ms_per_step_cached']:.2f} ms/step ({flash} flash "
+        f"launches), full recompute "
+        f"{decoding['ms_per_step_recompute']:.2f} ms/step; tokens equal "
+        f"(cached = recompute = CPU); smallest top-2 logit gap "
+        f"{decoding['min_top2_logit_gap']:.3e}")
+    del card, cpu
+    free_device_memory()
+    return counts, dict(training=training, parity=parity, decoding=decoding)
+
+
+# ---------------------------------------------------------------------
+# phase 46: recurrent nets (Zaremba et al. 2014 "medium" PTB LSTM)
+# ---------------------------------------------------------------------
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 650, 2
+PTB_B, PTB_T, PTB_STEPS, PTB_LR, PTB_CLIP = 20, 35, 20, 1.0, 5.0
+
+
+def ptb_model(pt, device, dropout, seed=SEED):
+    """The "medium" PTB language model: a 650-wide embedding, a 2-layer
+    ``LSTM`` of 650 units and a projection to the 10000 words, weights
+    uniform in [-0.05, 0.05], dropout ``dropout`` on the embedding and
+    the LSTM's output (the LSTM's own ``dropout`` between layers is not
+    applied, as in the reference)."""
+    import torch
+
+    class PTBModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            gen = torch.Generator(device=device).manual_seed(seed)
+            kw = dict(device=device, generator=gen)
+            self.embedding = pt.nn.Embedding(PTB_VOCAB, PTB_HIDDEN, **kw)
+            self.lstm = pt.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                                   dropout=dropout, **kw)
+            self.fc = pt.nn.Linear(PTB_HIDDEN, PTB_VOCAB, **kw)
+            self.dropout = pt.nn.Dropout(dropout, generator=gen)
+            for p in self.parameters():
+                pt.nn.initializer.Uniform(-0.05, 0.05)(p, gen)
+
+        def forward(self, x, state=None):
+            y, state = self.lstm(self.dropout(self.embedding(x)), state)
+            return self.fc(self.dropout(y)), state
+
+    return PTBModel()
+
+
+def ptb_loss(pt, logits, y):
+    return pt.nn.functional.cross_entropy(logits.reshape(-1, PTB_VOCAB),
+                                          y.reshape(-1))
+
+
+def ptb_stream(rng, steps):
+    """A Zipf-distributed token stream (a=1.2, folded into the
+    vocabulary) cut into ``PTB_B`` rows, ``steps`` windows of ``PTB_T``
+    inputs and their next-word labels."""
+    import numpy as np
+    n = PTB_T * steps + 1
+    stream = (rng.zipf(1.2, PTB_B * n) - 1) % PTB_VOCAB
+    rows = stream.reshape(PTB_B, n).astype(np.int64)
+    return [(rows[:, i * PTB_T:(i + 1) * PTB_T],
+             rows[:, i * PTB_T + 1:(i + 1) * PTB_T + 1])
+            for i in range(steps)]
+
+
+def ptb_parity(pt, ops):
+    """Card vs CPU, f32, dropout 0: 3 SGD(1.0) steps with
+    ``nn.utils.clip_grad_norm_`` at 5 on consecutive windows with the
+    state carried: losses, step-1 gradients, parameters (`hold_parity`)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 46)
+    windows = ptb_stream(rng, 3)
+    params = {k: v.numpy() for k, v in
+              ptb_model(pt, "cpu", 0.0).state_dict().items()}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = ptb_model(pt, device, 0.0)
+        pt.load_reference_state(model, params)
+        opt = pt.optimizer.SGD(learning_rate=PTB_LR,
+                               parameters=model.parameters())
+        reset_launches(ops)
+        losses, grads, state = [], None, None
+        for x, y in windows:
+            x, y = (torch.from_numpy(a).to(device) for a in (x, y))
+            logits, state = model(x, state)
+            state = tuple(s.detach() for s in state)
+            loss = ptb_loss(pt, logits, y)
+            loss.backward()
+            if grads is None:
+                grads = {n: p.grad.detach().cpu().clone()
+                         for n, p in model.named_parameters()}
+            pt.nn.clip_grad_norm_(model.parameters(), PTB_CLIP)
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+        final = {n: p.detach().cpu().clone()
+                 for n, p in model.named_parameters()}
+        runs[device] = (losses, grads, final, launches(ops), {}, 3)
+    out = hold_parity("ptb parity", params, runs, step_bound=PTB_LR)
+    check_counts("ptb parity", ops, runs["cuda"][3], 3, PTB_LAYERS,
+                 "ptb_train", routes=False)
+    return out
+
+
+def rnn_cases(pt, rng):
+    """Phase 46's held layers: name -> (layer factory on a device, numpy
+    inputs, gradient indices); each layer's state from its CPU twin."""
+    import numpy as np
+    import torch
+    nn = pt.nn
+
+    def twin(make):
+        state = {k: v.clone() for k, v in make("cpu").state_dict().items()}
+
+        def build(dev):
+            layer = make(dev)
+            layer.load_state_dict(state)
+            return layer
+        return build
+
+    x = rng.standard_normal((16, 50, 128)).astype(np.float32)
+    lens = rng.integers(10, 51, 16).astype(np.int64)
+    lens[0] = 50
+    small = rng.standard_normal((8, 20, 64)).astype(np.float32)
+    slens = rng.integers(5, 21, 8).astype(np.int64)
+    gru = twin(lambda d: nn.GRU(128, 256, 2, direction="bidirect", device=d))
+    relu = twin(lambda d: nn.SimpleRNN(128, 256, activation="relu",
+                                       time_major=True, device=d))
+    cell = twin(lambda d: nn.RNN(nn.LSTMCell(64, 128, device=d)))
+    bi = twin(lambda d: nn.BiRNN(nn.GRUCell(64, 128, device=d),
+                                 nn.GRUCell(64, 128, device=d)))
+
+    def first(out):
+        return out[0]
+    return {
+        "GRU bidirect 2 layers, lengths": (
+            lambda d, t, n: first(gru(d)(t, sequence_length=n)), [x, lens],
+            (0,)),
+        "SimpleRNN relu time_major": (
+            lambda d, t: first(relu(d)(t)), [x.transpose(1, 0, 2).copy()],
+            (0,)),
+        "RNN(LSTMCell) lengths": (
+            lambda d, t, n: first(cell(d)(t, sequence_length=n)),
+            [small, slens], (0,)),
+        "BiRNN(GRUCell) lengths": (
+            lambda d, t, n: first(bi(d)(t, sequence_length=n)),
+            [small, slens], (0,)),
+    }
+
+
+def beam_search_card_vs_cpu(pt):
+    """``BeamSearchDecoder`` over an ``LSTMCell`` (embedding 256, 1000
+    words), beam 4, 32 steps, B=4, from the same weights and states:
+    token ids and lengths equal on the card and the CPU."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 47)
+    h0 = (0.5 * rng.standard_normal((4, 256))).astype(np.float32)
+    c0 = (0.5 * rng.standard_normal((4, 256))).astype(np.float32)
+    parts = {}
+    for dev in ("cpu", "cuda"):
+        gen = torch.Generator().manual_seed(SEED)
+        emb = pt.nn.Embedding(1000, 256, device="cpu", generator=gen)
+        cell = pt.nn.LSTMCell(256, 256, device="cpu", generator=gen)
+        proj = pt.nn.Linear(256, 1000, device="cpu", generator=gen)
+        emb, cell, proj = (m.to(dev) for m in (emb, cell, proj))
+        dec = pt.nn.BeamSearchDecoder(cell, 0, 999, 4, embedding_fn=emb,
+                                      output_fn=proj)
+        with torch.no_grad():
+            parts[dev] = pt.nn.dynamic_decode(
+                dec, inits=(torch.from_numpy(h0).to(dev),
+                            torch.from_numpy(c0).to(dev)), max_step_num=32)
+    seq, lens = (t.cpu() for t in parts["cuda"])
+    if not (torch.equal(seq, parts["cpu"][0])
+            and torch.equal(lens, parts["cpu"][1])):
+        fail("recurrent nets: beam search tokens or lengths differ on the "
+             "card")
+    return dict(shape=list(seq.shape), lengths=lens.tolist())
+
+
+def phase_recurrent(pt, ops):
+    """Phase 46: (a) the PTB "medium" LSTM trained on the card, f32, SGD
+    at lr 1.0 with ``clip_grad_norm_`` at 5, dropout 0.5, B=20 windows of
+    35 words of a Zipf stream with the state carried: 2 warm-up and 20
+    timed steps, ms/step, words/s, the loss falls, the softmax
+    cross-entropy kernels once a step, the LSTM's weights still one flat
+    buffer after the steps; (b) its parity card vs CPU; (c)
+    card vs CPU in f32 (`NN_TOL`): a bidirectional 2-layer GRU with
+    ``sequence_length``, ``SimpleRNN`` relu ``time_major``, ``RNN
+    (LSTMCell)`` and ``BiRNN(GRUCell)`` with lengths, forward and input
+    gradient; beam search tokens and lengths exactly equal; (d) the
+    whole-sequence op under O2 bf16 on the card (cuDNN's bf16 route)
+    against the CPU within 2^-5."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED + 46)
+    model = ptb_model(pt, "cuda", 0.5)
+    opt = pt.optimizer.SGD(learning_rate=PTB_LR,
+                           parameters=model.parameters())
+    windows = [tuple(torch.from_numpy(a).cuda() for a in w)
+               for w in ptb_stream(rng, PTB_STEPS + 2)]
+    carry = {"state": None, "i": 0}
+
+    def step():
+        x, y = windows[carry["i"] % len(windows)]
+        carry["i"] += 1
+        logits, state = model(x, carry["state"])
+        carry["state"] = tuple(s.detach() for s in state)
+        loss = ptb_loss(pt, logits, y)
+        loss.backward()
+        pt.nn.clip_grad_norm_(model.parameters(), PTB_CLIP)
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [float(step()) for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    reset_launches(ops)
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(PTB_STEPS)]
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    counts = launches(ops)
+    losses = [float(v) for v in losses]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"ptb training: the loss did not fall: {losses}")
+    check_counts("ptb training", ops, counts, PTB_STEPS, PTB_LAYERS,
+                 "ptb_train", routes=False)
+    storages = {p.untyped_storage().data_ptr()
+                for p in model.lstm.parameters()}
+    if len(storages) != 1:
+        fail(f"ptb training: the LSTM's weights lie in {len(storages)} "
+             f"buffers, not one (cuDNN would copy them on every call)")
+    training = dict(batch=PTB_B, unroll=PTB_T, steps=PTB_STEPS,
+                    step_ms=elapsed / PTB_STEPS * 1e3,
+                    words_per_s=PTB_B * PTB_T * PTB_STEPS / elapsed,
+                    losses=losses,
+                    n_params=sum(p.numel() for p in model.parameters()))
+    say(f"  PTB medium LSTM: {PTB_STEPS} steps in {elapsed:.3f} s: "
+        f"{training['step_ms']:.2f} ms/step, {training['words_per_s']:.1f} "
+        f"words/s; losses {losses[0]:.3f} -> {losses[-1]:.3f}")
+    training["profile"] = split_profile(profile_device(step), 1, "PTB step")
+    del model, opt
+    free_device_memory()
+    parity = ptb_parity(pt, ops)
+    worst = {}
+    for name, (fn, arrays, grad) in rnn_cases(pt, rng).items():
+        worst[name] = nn_card_vs_cpu(name, fn, arrays, grad, "float32")
+    over = {k: v for k, v in worst.items() if not v <= NN_TOL["float32"]}
+    if over:
+        fail(f"recurrent nets: past {NN_TOL['float32']} of the largest "
+             f"magnitude: {over}")
+    beam = beam_search_card_vs_cpu(pt)
+    x = np.random.default_rng(SEED + 48).standard_normal(
+        (16, 50, 128)).astype(np.float32)
+    lstm = pt.nn.LSTM(128, 256, 2, direction="bidirect", device="cpu")
+    state = {k: v.clone() for k, v in lstm.state_dict().items()}
+
+    def o2_lstm(dev, t):
+        layer = pt.nn.LSTM(128, 256, 2, direction="bidirect", device=dev)
+        layer.load_state_dict(state)
+        with pt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            return layer(t)[0]
+    bf16 = nn_card_vs_cpu("LSTM under O2 bf16", o2_lstm, [x], (0,),
+                          "float32")
+    if not bf16 <= 2.0 ** -5:
+        fail(f"recurrent nets: the O2 bf16 LSTM parts from the CPU's by "
+             f"{bf16:.3e} of the largest magnitude")
+    say(f"  card vs CPU (f32, {NN_TOL['float32']}): " + ", ".join(
+        f"{k} {v:.2e}" for k, v in worst.items())
+        + f"; beam search {beam['shape']} tokens and lengths equal; O2 bf16 "
+        f"LSTM {bf16:.2e}")
+    return counts, dict(training=training, parity=parity, held=worst,
+                        beam_search=beam, o2_bf16_lstm=bf16)
 
 
 def kernel_entry(r):
@@ -6948,7 +7902,9 @@ def kernels_line(results, counts):
             else dict(LORA_DW_CASES) if name == "grouped_matmul_dw" \
             else dict.fromkeys(c for c in RAGGED_CASES if c != "mixed") \
             if name.startswith("ragged_attention") \
-            else {"decode": None} if name == "matmul_epilogue" \
+            else {"decode": None, "transformer": None} \
+            if name == "matmul_epilogue" \
+            else LN_RES_CASES if name == "layer_norm_residual" \
             else dict(ME_BWD_CASES) if name == "matmul_epilogue_bwd" \
             else {c: None for c in PAGED_CASES if c != "decode"} \
             if name == "paged_attention" \
@@ -6980,6 +7936,10 @@ def kernels_line(results, counts):
         for d in ("googlenet_train", "densenet_train"):
             entry[f"launches_per_step_{d}"] = \
                 counts[d][name] // VISION_II_STEPS
+        entry["launches_per_step_transformer_train"] = \
+            counts["transformer_train"][name] // TRANSFORMER_STEPS
+        entry["launches_per_step_ptb_train"] = \
+            counts["ptb_train"][name] // PTB_STEPS
         entry[other] = kernel_entry(results[(key[0], other) + key[1:]])
         entry["float16"] = kernel_entry(
             results[(key[0], "float16") + key[1:]])
@@ -7258,6 +8218,25 @@ def main():
     say("[43] nn breadth: every activation and loss, functions and layers, "
         "forward and input gradients, f32 and bf16, CUDA vs CPU")
     nn_breadth = phase_nn_breadth(pt, ops)
+    free_device_memory()
+
+    say("[44] nn breadth II: every common functional and layer, "
+        "flash_attn_unpadded and nn.utils, forward and input gradients, "
+        "f32 and bf16, CUDA vs CPU; the random ones by structure")
+    nn_common = phase_nn_common(pt)
+    free_device_memory()
+
+    say("[45] Transformer-base: 6 + 6 layers, d_model 512, shared [37000, "
+        "512] embedding; training bf16 O1, AdamW, B=32 x 128 + 128 tokens; "
+        "parity at 2 + 2 layers, f32; incremental decoding, f32, B=8, 32 "
+        "greedy steps")
+    transformer_counts, transformer = phase_transformer(pt, ops)
+    free_device_memory()
+
+    say("[46] recurrent nets: PTB medium LSTM (2 x 650, vocab 10000, 35 "
+        "steps, B=20), SGD 1.0 + clip 5; parity; GRU, SimpleRNN, RNN, BiRNN "
+        "and beam search CUDA vs CPU")
+    ptb_counts, recurrent = phase_recurrent(pt, ops)
 
     counts = dict(serve=serve_counts, train=train_counts,
                   train_flash=flash_counts, generate=gen_counts,
@@ -7270,7 +8249,8 @@ def main():
                   lenet_train=lenet_counts, resnet50_train=resnet50_counts,
                   googlenet_train=googlenet_counts,
                   densenet_train=densenet_counts,
-                  serve_f16=fp16_serve_counts, train_f16=fp16_train_counts)
+                  serve_f16=fp16_serve_counts, train_f16=fp16_train_counts,
+                  transformer_train=transformer_counts, ptb_train=ptb_counts)
     say(json.dumps({"kernels": kernels_line(results, counts),
                     "serving": serving, "training_parity": parity,
                     "training": training,
@@ -7309,6 +8289,8 @@ def main():
                     "fp16_serving": fp16_serving,
                     "fp16_training": fp16_training,
                     "nn_breadth": nn_breadth,
+                    "nn_breadth_ii": nn_common,
+                    "transformer": transformer, "recurrent": recurrent,
                     "wgmma_check": wgmma_check,
                     "grouped_repeats": results["grouped_repeats"],
                     "resources": resources}))

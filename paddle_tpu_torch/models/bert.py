@@ -18,7 +18,9 @@ configuration's default, 0.1, in training) the reference's composite,
 in eval or at dropout 0 the flash-attention kernels without causality.
 A model starts in training mode, as the reference's ``Layer`` does; its
 dropout masks, hidden and attention alike, come from the model's own
-``torch.Generator``.
+``torch.Generator``.  ``use_scan_layers=True`` is accepted: the
+reference's scan is a compile-time lever whose value is the unrolled
+stack's, and the port runs the same loop over the layers either way.
 """
 from __future__ import annotations
 
@@ -125,8 +127,6 @@ class BertLayer(nn.Module):
 class BertModel(nn.Module):
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
-        if cfg.use_scan_layers:
-            raise NotImplementedError("use_scan_layers is not ported yet")
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.config = cfg
         self.embeddings = BertEmbeddings(cfg, **kw)

@@ -21,7 +21,10 @@ inside ``sdp_kernel(enable_flash=use_flash_attention)``, as in the
 reference: with ``True`` (the default) the flash-attention kernels,
 with ``False`` the composite ``_sdpa_ref``.  ``use_recompute=True``
 wraps each block in ``distributed.fleet.recompute`` when there is no
-cache.  ``GPTPretrainingCriterion`` is the shifted next-token loss
+cache.  ``use_scan_layers=True`` is accepted: the reference's scan is a
+compile-time lever whose value is the unrolled stack's, and the port runs
+the same loop over the blocks either way (recompute as set).
+``GPTPretrainingCriterion`` is the shifted next-token loss
 through the softmax cross-entropy kernels.
 
 ``fc1`` runs through the matmul-epilogue kernels with ``gelu_tanh``, the
@@ -171,8 +174,6 @@ class GPTModel(nn.Module):
 
     def __init__(self, cfg, *, device, dtype, generator):
         super().__init__()
-        if cfg.use_scan_layers:
-            raise NotImplementedError("use_scan_layers is not ported yet")
         self.config = cfg
         kw = dict(device=device, dtype=dtype, generator=generator)
         self.wte = pnn.Embedding(cfg.vocab_size, cfg.hidden_size, **kw)

@@ -1,16 +1,18 @@
 """The functionals GPT, LLaMA, BERT and ERNIE serving and training call,
 on ``torch.Tensor``, and (re-exported from this package's ``conv``,
 ``pooling``, ``norm``, ``activation`` and ``loss`` modules) those of the
-vision models, every activation and every loss.
+vision models, every activation and every loss, and (from ``common``)
+dropout, padding, resizing, lookups and the other common functionals.
 
 Port of ``paddle_tpu/nn/functional/common.py`` (``linear`` :31,
-``linear_act`` :54, ``linear_act_int8`` :130, ``lora_segment_act`` :80, ``embedding`` :523,
-``dropout``),
+``linear_act`` :54, ``linear_act_int8`` :130, ``lora_segment_act`` :80;
+the rest in this package's ``common``),
 ``nn/functional/norm.py`` (``layer_norm`` :22,
 ``fused_residual_layer_norm`` :58, ``rms_norm`` :103),
 ``nn/functional/flash_attention.py``
 (``scaled_dot_product_attention`` :85 with its routing, the composite
-``_sdpa_ref`` :27-54, ``flash_attention`` :124 and ``sdp_kernel`` :216)
+``_sdpa_ref`` :27-54, ``flash_attention`` :124, the composite
+``flash_attn_unpadded`` :134 and ``sdp_kernel`` :216)
 and ``ops/_generated.py`` (``matmul`` :305).  Weights keep Paddle's
 ``[in, out]`` layout.  The reference routes ``layer_norm``,
 ``fused_residual_layer_norm``, ``linear_act``, ``linear_act_int8``,
@@ -35,8 +37,10 @@ from ... import amp
 from ... import ops
 from ...ops.tiles import NEG_INF, min_rows
 from . import activation as _activation
+from . import common as _common
 from . import loss as _loss
 from .activation import *  # noqa: F401,F403  (its __all__)
+from .common import *  # noqa: F401,F403  (its __all__)
 from .loss import *  # noqa: F401,F403  (its __all__)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
@@ -50,9 +54,9 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
 
 __all__ = ["linear", "linear_act", "linear_act_int8", "lora_segment_act",
            "matmul",
-           "embedding", "layer_norm", "fused_residual_layer_norm",
-           "rms_norm", "dropout",
-           "scaled_dot_product_attention", "flash_attention", "sdp_kernel",
+           "layer_norm", "fused_residual_layer_norm", "rms_norm",
+           "scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "sdp_kernel", *_common.__all__,
            *_activation.__all__, *_loss.__all__, "conv1d", "conv2d",
            "conv3d", "conv1d_transpose", "conv2d_transpose",
            "conv3d_transpose", "batch_norm", "instance_norm", "group_norm",
@@ -142,12 +146,6 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     return torch.matmul(x, y)
 
 
-def embedding(x, weight):
-    """Row lookup: ``weight[x]``."""
-    (weight,) = amp.cast_inputs("embedding", weight)
-    return torch.nn.functional.embedding(x, weight)
-
-
 def _norm_axes(x, normalized_shape):
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
@@ -217,19 +215,6 @@ def rms_norm(x, weight=None, epsilon=1e-6):
         return (xf * torch.rsqrt(ms + epsilon)).to(x.dtype)
     x, weight = amp.cast_inputs("rms_norm", x, weight)
     return ops.rms_norm(x.contiguous(), weight, epsilon)
-
-
-def dropout(x, p=0.5, training=True, generator=None):
-    """Inverted dropout (Paddle's ``upscale_in_train``): zero each value
-    with probability ``p`` and scale the rest by ``1/(1-p)``.  The mask
-    is drawn from ``generator`` (the model's own), not the global RNG."""
-    if not training or p == 0.0:
-        return x
-    (x,) = amp.cast_inputs("dropout", x)
-    if p == 1.0:
-        return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return x * keep.to(x.dtype) / (1.0 - p)
 
 
 def _sdpa_composite(q, k, v, is_causal, bias=None, dropout_p=0.0,
@@ -353,4 +338,55 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     ``(out, None)`` (no softmax is returned, as in the reference)."""
     out = scaled_dot_product_attention(query, key, value, None, dropout,
                                        causal, training)
+    return out, None
+
+
+def _varlen_attention(q, k, v, cu_q, cu_k, causal, scale, dropout_p,
+                      generator):
+    """The reference's ``_varlen_attention`` (flash_attention.py:163-196):
+    block-diagonal f32 scores over the packed tokens (each token sees the
+    keys of its own sequence, and with ``causal`` only those at or before
+    its own offset), masked scores -1e30, an f32 softmax, rows with no
+    visible key zeroed, the probabilities in the input's type, optional
+    dropout, the PV product accumulated in f32 and cast."""
+    tq, tk = q.shape[0], k.shape[0]
+    pos_q = torch.arange(tq, device=q.device)
+    pos_k = torch.arange(tk, device=q.device)
+    seg_q = torch.searchsorted(cu_q, pos_q, right=True) - 1
+    seg_k = torch.searchsorted(cu_k, pos_k, right=True) - 1
+    same = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        off_q = pos_q - cu_q[seg_q]
+        off_k = pos_k - cu_k[seg_k]
+        same = same & (off_k[None, :] <= off_q[:, None])
+    qt, kt, vt = (t.transpose(0, 1) for t in (q, k, v))   # [h, t, d]
+    scores = torch.matmul(qt.float(), kt.float().transpose(-1, -2)) * scale
+    scores = scores.masked_fill(~same, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(same.any(dim=-1)[:, None], probs, 0.0).to(q.dtype)
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, generator=generator,
+                          device=probs.device) >= dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    out = torch.matmul(probs.float(), vt.float())
+    return out.transpose(0, 1).to(q.dtype)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False, training=True,
+                        name=None, generator=None):
+    """Attention over packed sequences (flash_attention.py:134-160):
+    ``query``/``key``/``value`` ``[total_tokens, heads, head_dim]`` with
+    the sequences concatenated, ``cu_seqlens_*`` their int32 prefix sums
+    ``[batch + 1]``.  A composite in the reference, and here: the scores
+    are ``[heads, total_q, total_k]``.  With ``dropout`` > 0 in training
+    (op ``flash_attn_unpadded_drop``) the keep mask is drawn from
+    ``generator``.  Returns ``(out, None)``."""
+    drop = float(dropout) if training else 0.0
+    op = "flash_attn_unpadded_drop" if drop > 0.0 else "flash_attn_unpadded"
+    query, key, value = amp.cast_inputs(op, query, key, value)
+    out = _varlen_attention(query, key, value, cu_seqlens_q.long(),
+                            cu_seqlens_k.long(), bool(causal), float(scale),
+                            drop, generator)
     return out, None

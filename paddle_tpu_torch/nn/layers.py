@@ -66,15 +66,24 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, *, device,
-                 dtype=torch.float32, generator=None):
+    """Row lookup in a ``[num_embeddings, embedding_dim]`` N(0, 1) table.
+    With ``padding_idx`` that row starts at zeros and its lookups give
+    zeros (common.py:47-75); ``sparse`` is accepted, and the gradient is
+    dense, as in the reference."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, *, device, dtype=torch.float32,
+                 generator=None):
         super().__init__()
+        self._padding_idx = padding_idx
         self.weight = _param((num_embeddings, embedding_dim), device, dtype)
         with torch.no_grad():
             self.weight.normal_(0.0, 1.0, generator=generator)
+            if padding_idx is not None:
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, self._padding_idx)
 
 
 class LayerNorm(nn.Module):
@@ -120,14 +129,18 @@ class RMSNorm(nn.Module):
 
 class Dropout(nn.Module):
     """Dropout with probability ``p`` in training, its masks drawn from
-    ``generator``; the identity in eval mode, which is how serving
-    runs."""
+    ``generator`` (one draw along ``axis`` where given); in eval mode the
+    identity (``upscale_in_train``, which is how serving runs) or times
+    ``1 - p`` (``downscale_in_infer``)."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 *, generator=None):
         super().__init__()
         self.p = p
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        return F.dropout(x, self.p, training=self.training,
-                         generator=self.generator)
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode, generator=self.generator)

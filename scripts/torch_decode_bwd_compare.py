@@ -71,10 +71,10 @@ def worker(root, label, out_path):
             if name == "paged_attention":
                 r = here.check_paged(ops, dtype, dtype_name, gen, case)
             else:
-                rows_n = here.ME_BWD_CASES.get(case, (here.TRAIN_ROWS,
-                                                      here.FFN))
+                n_rows, n, act = here.ME_BWD_CASES.get(
+                    case, (here.TRAIN_ROWS, here.FFN, "gelu_tanh"))
                 r = here.check_matmul_epilogue_bwd(
-                    ops, rows_n[0], dtype, dtype_name, gen, n=rows_n[1])
+                    ops, n_rows, dtype, dtype_name, gen, n=n, act=act)
             key = f"{name}/{case}/{dtype_name}"
             res["kernels"][key] = {k: r[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "err", "route",

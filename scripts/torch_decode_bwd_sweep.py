@@ -159,10 +159,10 @@ def main():
                                          bound_ms=r["bound_ms"]))
                 else:
                     for case in BWD_CASES:
-                        n_rows, n = cs.ME_BWD_CASES.get(
-                            case, (cs.TRAIN_ROWS, cs.FFN))
+                        n_rows, n, act = cs.ME_BWD_CASES.get(
+                            case, (cs.TRAIN_ROWS, cs.FFN, "gelu_tanh"))
                         r = cs.check_matmul_epilogue_bwd(
-                            ops, n_rows, dtype, dname, gen, n=n)
+                            ops, n_rows, dtype, dname, gen, n=n, act=act)
                         rows.append(dict(kernel="matmul_epilogue_bwd",
                                          variant=name, dtype=dname,
                                          case=case, ms=r["ms"], ok=r["ok"],

@@ -216,9 +216,16 @@ def test_bert_state_names_shapes_and_defaults_match_reference():
 
 
 def test_bert_use_scan_layers_raises():
-    with pytest.raises(NotImplementedError, match="use_scan_layers"):
-        pt.BertForMaskedLM(pt.BertConfig(**dict(TINY, use_scan_layers=True)),
-                           device="cpu")
+    """``use_scan_layers`` no longer raises: with the unrolled model's
+    weights the scanned encoder gives its logits exactly (dropout 0)."""
+    cfg = dict(TINY, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    plain = pt.BertForMaskedLM(pt.BertConfig(**cfg), device="cpu")
+    scan = pt.BertForMaskedLM(pt.BertConfig(**dict(cfg, use_scan_layers=True)),
+                              device="cpu")
+    scan.load_state_dict(plain.state_dict())
+    ids = torch.from_numpy(_mlm_batch()[0])
+    assert torch.equal(scan(ids), plain(ids))
 
 
 def test_bert_logits_and_loss_match_reference():

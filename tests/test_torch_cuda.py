@@ -99,6 +99,8 @@ callable beta refused under capture, scheduled AdamW steps replayed bit
 for bit with ``global_step``, a closure captured, and the engine's
 captured tokens equal to its eager tokens.
 """
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -2299,3 +2301,185 @@ def test_float16_routes(gen, rows, n):
         torch.Generator(device="cuda").manual_seed(0), n))
     for (a, _, _), (b, _, _) in zip(again, first):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------
+# the rest of nn (chip_smoke.py phases 44-46 at small sizes)
+# ---------------------------------------------------------------------
+def _twin(make, device):
+    """``make(device)`` with the weights of ``make("cpu")``."""
+    cpu = make("cpu")
+    card = make(device)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card
+
+
+def _kernel_counts():
+    return {k: f.launches for k, f in ops.KERNELS.items()}
+
+
+def _close_to_max(got, want, tol=_TOL[torch.float32]):
+    """Within ``tol`` of ``want``'s largest magnitude (at least 1): a
+    recurrence's or a stack's sums run in other orders on the two
+    devices."""
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    assert got.shape == want.shape
+    err = float((got - want).abs().max())
+    assert err <= tol * max(float(want.abs().max()), 1.0), err
+
+
+def _leaf(t, dev):
+    return t.detach().to(dev).clone().requires_grad_()
+
+
+def test_transformer_routes_on_the_card(gen):
+    """A post-norm Transformer (64 wide, 4 heads, 2 + 2 layers) under the
+    causal ``tgt_mask``: output and input gradients within f32's `_TOL`
+    of the CPU twin's largest magnitudes, and one forward and backward
+    launch the flash
+    kernels for the 4 unmasked attentions, the epilogue for the 4
+    feed-forward blocks and the residual layer norm for the 10
+    sublayers, forward and backward."""
+    import paddle_tpu_torch as pt
+    cpu, card = _twin(lambda d: pt.nn.Transformer(
+        64, 4, 2, 2, 128, dropout=0.0, device=d), "cuda")
+    x = torch.randn(2, 20, 64, generator=gen, device="cuda")
+    y = torch.randn(2, 24, 64, generator=gen, device="cuda")
+    outs = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        xs, ys = (_leaf(t, dev) for t in (x, y))
+        mask = model.generate_square_subsequent_mask(24, device=dev)
+        before = _kernel_counts()
+        out = model(xs, ys, tgt_mask=mask)
+        out.square().sum().backward()
+        counts = {k: v - before[k] for k, v in _kernel_counts().items()}
+        outs.append((out, xs.grad, ys.grad, counts))
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        _close_to_max(a, b)
+    want = {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 4,
+            "flash_attention_bwd_dkv": 4, "matmul_epilogue": 4,
+            "matmul_epilogue_bwd": 4, "layer_norm_residual": 10,
+            "layer_norm_bwd": 10}
+    assert {k: v for k, v in outs[0][3].items() if v} == want
+    assert not any(outs[1][3].values()), "a CPU call is not a launch"
+
+
+def test_transformer_cached_decoding_on_the_card(gen):
+    """Cached decoding (flash with one query row a step) gives the
+    tokens of the full recompute under the causal mask and of the CPU."""
+    import paddle_tpu_torch as pt
+    cpu, card = _twin(lambda d: pt.nn.Transformer(
+        64, 4, 2, 2, 128, dropout=0.0, device=d).eval(), "cuda")
+    emb = torch.randn(50, 64, generator=gen, device="cuda")
+    src = torch.randn(3, 10, 64, generator=gen, device="cuda")
+
+    def decode(model, dev, cached):
+        e, s = emb.to(dev), src.to(dev)
+        with torch.no_grad():
+            mem = model.encoder(s)
+            caches = model.decoder.gen_cache(mem) if cached else None
+            toks = torch.zeros(3, 1, dtype=torch.long, device=dev)
+            for t in range(8):
+                if cached:
+                    h, caches = model.decoder(e[toks[:, -1:]], mem,
+                                              cache=caches)
+                else:
+                    mask = model.generate_square_subsequent_mask(t + 1,
+                                                                 device=dev)
+                    h = model.decoder(e[toks], mem, tgt_mask=mask)
+                toks = torch.cat([toks, (h[:, -1] @ e.T).argmax(
+                    -1, keepdim=True)], 1)
+        return toks.cpu()
+
+    before = ops.KERNELS["flash_attention_fwd"].launches
+    got = decode(card, "cuda", True)
+    assert ops.KERNELS["flash_attention_fwd"].launches - before == \
+        2 + 2 * 2 * 8
+    assert torch.equal(got, decode(card, "cuda", False))
+    assert torch.equal(got, decode(cpu, "cpu", True))
+
+
+@pytest.mark.parametrize("cls", ["LSTM", "GRU", "SimpleRNN"])
+def test_rnn_layers_on_the_card(gen, cls, monkeypatch):
+    """The whole-sequence layers (cuDNN, TF32 off as in ``chip_smoke.py``)
+    bidirectional over 2 layers with ``sequence_length``: outputs, final
+    states and the input's gradient within f32's `_TOL` of the CPU twin's
+    largest magnitude; the card's weights are views into one flat buffer
+    (cuDNN reads them in place), built on the card or moved there; under
+    O2 bf16 the LSTM runs in bf16 on the card."""
+    import paddle_tpu_torch as pt
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cpu, card = _twin(lambda d: getattr(pt.nn, cls)(
+        16, 32, 2, direction="bidirect", device=d), "cuda")
+    x = torch.randn(5, 12, 16, generator=gen, device="cuda")
+    lens = torch.tensor([12, 3, 7, 12, 1])
+    res = []
+    for model, dev in ((card, "cuda"), (cpu, "cpu")):
+        xs = _leaf(x, dev)
+        out, state = model(xs, sequence_length=lens.to(dev))
+        out.square().sum().backward()
+        states = state if isinstance(state, tuple) else (state,)
+        res.append([out, *states, xs.grad])
+    for a, b in zip(*res):
+        _close_to_max(a, b)
+    moved = copy.deepcopy(cpu).cuda()
+    moved(x, sequence_length=lens.cuda())
+    for model in (card, moved):
+        assert len({p.untyped_storage().data_ptr()
+                    for p in model.parameters()}) == 1
+    if cls == "LSTM":
+        with pt.amp.auto_cast(level="O2", dtype="bfloat16"):
+            out, _ = card(x)
+        assert out.dtype == torch.bfloat16
+
+
+def test_common_functionals_on_the_card(gen):
+    """Resizes, padding, grid sampling and fold on the card against the
+    CPU in f32 (`_TOL` of the largest magnitude), forward and input
+    gradient."""
+    import paddle_tpu_torch as pt
+    F = pt.nn.functional
+    x = torch.randn(2, 3, 17, 19, generator=gen, device="cuda")
+    grid = torch.rand(2, 5, 6, 2, generator=gen, device="cuda") * 2.4 - 1.2
+    cases = [
+        lambda t: F.interpolate(t, size=[7, 9], mode="bicubic"),
+        lambda t: F.interpolate(t, size=[30, 40], mode="bilinear",
+                                align_corners=True),
+        lambda t: F.interpolate(t[:, :, None].expand(2, 3, 4, 17, 19),
+                                size=[3, 9, 8], mode="trilinear",
+                                data_format="NCDHW"),
+        lambda t: F.pad(t, [1, 0, 0, 1, 2, 3, 1, 1], mode="reflect"),
+        lambda t: F.grid_sample(t, grid.to(t.device),
+                                padding_mode="reflection"),
+        lambda t: F.fold(F.unfold(t, 3, paddings=1), [17, 19], 3,
+                         paddings=1),
+    ]
+    for fn in cases:
+        res = []
+        for dev in ("cuda", "cpu"):
+            xs = _leaf(x, dev)
+            out = fn(xs)
+            out.square().sum().backward()
+            res.append((out, xs.grad))
+        for a, b in zip(*res):
+            _close_to_max(a, b)
+
+
+def test_beam_search_on_the_card(gen):
+    """``dynamic_decode`` over an ``LSTMCell``, beam 4: tokens and
+    lengths equal to the CPU's."""
+    import paddle_tpu_torch as pt
+    res = []
+    for dev in ("cpu", "cuda"):
+        g = torch.Generator().manual_seed(1)
+        emb = pt.nn.Embedding(40, 16, device="cpu", generator=g).to(dev)
+        cell = pt.nn.LSTMCell(16, 16, device="cpu", generator=g).to(dev)
+        proj = pt.nn.Linear(16, 40, device="cpu", generator=g).to(dev)
+        dec = pt.nn.BeamSearchDecoder(cell, 0, 39, 4, embedding_fn=emb,
+                                      output_fn=proj)
+        h0 = torch.linspace(-1, 1, 3 * 16).reshape(3, 16).to(dev)
+        with torch.no_grad():
+            res.append([t.cpu() for t in pt.nn.dynamic_decode(
+                dec, inits=(h0, h0 * 0.5), max_step_num=12)])
+    assert torch.equal(res[0][0], res[1][0])
+    assert torch.equal(res[0][1], res[1][1])

@@ -52,7 +52,10 @@ def test_import_pulls_in_no_jax_and_no_reference():
               "nn.initializer", "nn.layer.conv", "vision.models.resnet",
               "vision.models.mobilenet", "vision.models.small_nets",
               "vision.models.densenet_googlenet", "vision.ops",
-              "nn.layer.norm", "nn.layer.activation_pool"):
+              "nn.layer.norm", "nn.layer.activation_pool",
+              "nn.functional.common", "nn.layer.common",
+              "nn.layer.transformer", "nn.layer.rnn", "nn.layer.scanned",
+              "nn.utils"):
         assert f"paddle_tpu_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -99,6 +102,25 @@ def test_entry_points_default_to_cuda_and_refuse_without_it():
         pt.GPTForCausalLM(TINY, device="cuda:0")
     with pytest.raises(RuntimeError, match="unsupported device"):
         pt.GenerationEngine(model, num_blocks=8, device="meta")
+    # the layers of nn that hold parameters and default their device
+    nn = pt.nn
+    for make in (lambda **kw: nn.Transformer(16, 2, 1, 1, 32, **kw),
+                 lambda **kw: nn.TransformerEncoderLayer(16, 2, 32, **kw),
+                 lambda **kw: nn.TransformerDecoderLayer(16, 2, 32, **kw),
+                 lambda **kw: nn.MultiHeadAttention(16, 2, **kw),
+                 lambda **kw: nn.LSTM(4, 8, **kw),
+                 lambda **kw: nn.GRU(4, 8, **kw),
+                 lambda **kw: nn.SimpleRNN(4, 8, **kw),
+                 lambda **kw: nn.LSTMCell(4, 8, **kw),
+                 lambda **kw: nn.GRUCell(4, 8, **kw),
+                 lambda **kw: nn.SimpleRNNCell(4, 8, **kw),
+                 lambda **kw: nn.Bilinear(3, 4, 5, **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        layer = make(device="cpu")
+        assert all(p.device.type == "cpu" for p in layer.parameters())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nn.Transformer.generate_square_subsequent_mask(4)
 
 
 def test_llama_defaults_to_cuda_and_refuses_without_it():

@@ -239,9 +239,10 @@ def test_clip_by_global_norm_is_paddles_rule():
 
 
 def test_training_options_not_ported_raise():
-    """What the training path still refuses: ``use_scan_layers``,
-    ``minimize`` on a static graph and the operator-stats functions of
-    ``amp.debugging`` (the dispatch registry is not ported)."""
+    """What the training path still refuses: ``minimize`` on a static
+    graph and the operator-stats functions of ``amp.debugging`` (the
+    dispatch registry is not ported).  ``use_scan_layers`` is ported and
+    builds."""
     _, port = _pair()
     opt = pt.optimizer.AdamW(learning_rate=1e-3,
                              parameters=port.parameters())
@@ -254,9 +255,8 @@ def test_training_options_not_ported_raise():
                pt.amp.debugging.collect_operator_stats):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             fn()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_scan_layers=True)),
-                          device="cpu")
+    pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_scan_layers=True)),
+                      device="cpu")
     pt.GPTForCausalLM(pt.GPTConfig(**dict(TINY, use_recompute=True)),
                       device="cpu")
     assert port.training, "a model starts in training mode"
